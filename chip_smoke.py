@@ -1,0 +1,291 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA GPU, nvcc and
+PyTorch built for CUDA. Phases, each of which fails the run on any error:
+
+1. print the card's name and power limit; build every kernel of
+   ``daft_tpu_torch/csrc`` (one nvcc per source, started together);
+2. hold each kernel against its plain PyTorch version on the card, at the
+   stated tolerance, and time kernel, plain version and the PyTorch library
+   call for the same function (CUDA events, after a warm-up) beside the least
+   time the card could take;
+3. drive the main path through the engine's entry points — 512 random uint8
+   224x224 images, ``embed_image(provider="cuda_random", model="ViT-L/14",
+   batch_size=128)``, ``iter_partitions`` — with every kernel's launch count set
+   to 0 just before and read just after; check the row count, finite unit-norm
+   embeddings, launches = 24 per forward chunk, that one chunk equals a direct
+   forward of the tower, and that the tower with the kernel agrees with the
+   tower on the CPU (plain attention) on two images;
+4. print one JSON line of per-kernel numbers, then, last, the device line.
+
+Exits non-zero, printing no result, when no CUDA device is visible.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16
+# tensor-core / f32 CUDA-core operations/s.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+NUM_IMAGES = 512
+BATCH = 128
+IMAGE = 224
+VIT_L_LAYERS = 24
+BF16_TOL = 3e-2   # bf16 inputs and output (tests/test_pallas.py's tolerance)
+F32_TOL = 2e-5    # f32 throughout, TF32 off
+CHUNK_TOL = 1e-5  # same weights, same kernels, same batch: only run-to-run noise
+CPU_COSINE_MIN = 0.99  # GPU tower vs CPU tower in bf16: rounding differs per layer
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_bound_ms(B: int, T: int, H: int, D: int, dtype_name: str, itemsize: int):
+    """The least time for one attention: q, k, v read once and o written
+    once over the HBM rate, or 4*B*H*T^2*D operations over the peak rate."""
+    bytes_moved = 4 * B * T * H * D * itemsize
+    ops = 4 * B * H * T * T * D
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tower_flops(cfg) -> float:
+    """Operations of one image through the CLIP image tower: the patchify,
+    per layer the qkv/out/MLP products (2 * T * 12 * w^2 at mlp ratio 4) and
+    attention (4 * T^2 * w), and ``proj``. Normalisation and elementwise work
+    are left out."""
+    w, p = cfg.vision_width, cfg.patch_size
+    patches = (cfg.image_size // p) ** 2
+    T, hidden = patches + 1, round(w * cfg.vision_mlp_ratio)
+    per_layer = 2 * T * (4 * w * w + 2 * w * hidden) + 4 * T * T * w
+    return 2 * patches * p * p * 3 * w + cfg.vision_layers * per_layer + 2 * w * cfg.embed_dim
+
+
+def kernel_name(ptxas_line: str) -> str:
+    """``attn_bf16_kernel<64>`` from the mangled name in a ptxas line: the
+    length-prefixed identifier ending in ``_kernel`` and its int template
+    argument."""
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", ptxas_line):
+        start = m.start() + len(m.group(1))
+        ident = ptxas_line[start:start + int(m.group(1))]
+        if ident.endswith("_kernel"):
+            arg = re.match(r"ILi(\d+)E", ptxas_line[start + len(ident):])
+            return f"{ident}<{arg.group(1)}>" if arg else ident
+    return "?"
+
+
+def phase_build() -> None:
+    from daft_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    paths = build.build()
+    print(f"[build] {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s: "
+          f"{sorted(paths)}", flush=True)
+    for name, path in paths.items():
+        # ptxas -v: one "Compiling entry function" line per kernel instance,
+        # then its spills and its registers.
+        fn = "?"
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                fn = kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {fn}: {line.split(':', 1)[-1].strip()}", flush=True)
+
+
+def phase_kernels(card: str) -> dict:
+    """Flash attention against its plain version; returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+
+    from daft_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(B, T, H, D, dtype):
+        # Views into one fused (B, T, 3*H*D) projection, as the model makes them.
+        x = torch.randn((B, T, 3 * H * D), generator=gen, device="cuda").to(dtype)
+        return [t.view(B, T, H, D) for t in x.split(H * D, dim=-1)]
+
+    for T in (5, 257, 300):
+        for D in (32, 64, 128):
+            q, k, v = qkv(2, T, 4, D, torch.float32)
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            err = (out - flash_attention_plain(q, k, v)).abs().max().item()
+            print(f"[kernels] flash_attention f32 B=2 T={T} H=4 D={D}: "
+                  f"max_abs_err {err:.3e} (tol {F32_TOL})", flush=True)
+            check(err <= F32_TOL, f"flash_attention f32 T={T} D={D}: err {err} > {F32_TOL}")
+
+    B, T, H, D = BATCH, (IMAGE // 14) ** 2 + 1, 16, 64  # ViT-L/14 at batch 128
+    q, k, v = qkv(B, T, H, D, torch.bfloat16)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"[kernels] flash_attention bf16 B={B} T={T} H={H} D={D}: "
+          f"max_abs_err {err:.3e} (tol {BF16_TOL})", flush=True)
+    check(bool(torch.isfinite(out).all()), "flash_attention bf16 output is not finite")
+    check(err <= BF16_TOL, f"flash_attention bf16: err {err} > {BF16_TOL}")
+
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    bound_ms, bound_by = attention_bound_ms(B, T, H, D, "bfloat16", 2)
+    print(f"[kernels] flash_attention bf16 B={B} T={T} H={H} D={D}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}) [{card}]", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "daft_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "daft_tpu/ops/pallas_attention.py:72",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_main_path(card: str) -> tuple:
+    """The engine's embed_image path at ViT-L/14 width; returns the launch
+    count of each kernel and the run's wall time in ms."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.models.clip import CLIPImageEncoder, embed
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (NUM_IMAGES, IMAGE * IMAGE * 3), dtype=np.uint8)
+    series = dt.Series.from_numpy(imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))
+    df = dt.from_pydict({"img": series})
+    expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                       batch_size=BATCH)
+    with dt.execution_config_ctx(default_morsel_size=NUM_IMAGES):
+        t0 = time.perf_counter()
+        df.limit(BATCH).with_column("emb", expr).collect()  # weights + first forward
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        parts = list(df.with_column("emb", expr).select("emb").iter_partitions())
+        elapsed = time.perf_counter() - t0
+        launches = flash_attention.launch_count
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The instance the UDF made (weights on the card) and its phase split.
+    inst = expr._expr.udf._get_instance()
+    rows = sum(len(p) for p in parts)
+    chunks = sum(math.ceil(len(p) / BATCH) for p in parts)
+    emb = np.concatenate([np.asarray(p.to_pydict()["emb"], dtype=np.float32) for p in parts])
+    norms = np.linalg.norm(emb, axis=1)
+    print(f"[main] {rows} images in {elapsed:.3f} s = {rows / elapsed:.1f} img/s; "
+          f"set-up {setup_s:.1f} s; phases {inst.last_forward_stats}; peak device memory "
+          f"{peak_gb:.2f} GB [{card}]", flush=True)
+    print(f"[main] flash_attention launches {launches} for {chunks} chunk(s) of <= {BATCH}",
+          flush=True)
+    bound_s = tower_flops(inst.cfg) * rows / PEAK_OPS_PER_S["bfloat16"]
+    print(f"[main] bound: {tower_flops(inst.cfg) / 1e9:.1f} GFLOP per image, {bound_s * 1e3:.1f} ms "
+          f"for {rows} images at the bf16 peak ({rows / bound_s:.0f} img/s); the run took "
+          f"{bound_s / elapsed:.3f} of that rate [{card}]", flush=True)
+    check(rows == NUM_IMAGES, f"expected {NUM_IMAGES} rows, got {rows}")
+    check(emb.shape == (NUM_IMAGES, 768), f"embedding shape {emb.shape}")
+    check(bool(np.isfinite(emb).all()), "non-finite embeddings")
+    check(bool(np.abs(norms - 1).max() < 1e-3), f"norms off 1 by {np.abs(norms - 1).max()}")
+    check(launches == VIT_L_LAYERS * chunks,
+          f"flash_attention launched {launches} times, expected {VIT_L_LAYERS} x {chunks}")
+
+    # One chunk through the tower directly, on the same weights.
+    direct = embed(inst.encoder, torch.from_numpy(
+        imgs[:BATCH].reshape(BATCH, IMAGE, IMAGE, 3)).cuda()).cpu().numpy()
+    chunk_err = float(np.abs(direct - emb[:BATCH]).max())
+    print(f"[main] engine chunk vs direct forward: max_abs_err {chunk_err:.3e} "
+          f"(tol {CHUNK_TOL})", flush=True)
+    check(chunk_err <= CHUNK_TOL, f"engine chunk differs from direct forward by {chunk_err}")
+
+    # The same tower on the CPU, where attention is the plain version.
+    cpu_tower = CLIPImageEncoder(inst.cfg, device="cpu")
+    cpu_tower.load_state_dict(inst.encoder.state_dict())
+    t0 = time.perf_counter()
+    ref = embed(cpu_tower, torch.from_numpy(imgs[:2].reshape(2, IMAGE, IMAGE, 3))).numpy()
+    cos = (ref * emb[:2]).sum(axis=1) / np.linalg.norm(ref, axis=1)
+    print(f"[main] GPU tower vs CPU tower (2 images, {time.perf_counter() - t0:.1f} s): "
+          f"cosine {cos.min():.6f} (min {CPU_COSINE_MIN}), max_abs_err "
+          f"{np.abs(ref - emb[:2]).max():.3e}", flush=True)
+    check(bool(cos.min() >= CPU_COSINE_MIN), f"GPU and CPU towers disagree: cosine {cos}")
+    return {"flash_attention": launches}, elapsed * 1e3
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card, flush=True)
+    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}", flush=True)
+    try:
+        phase_build()
+        records = [phase_kernels(card)]
+        launches, wall_ms = phase_main_path(card)
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+        # Each launch of the main path ran at the timed shape (chunks of BATCH).
+        print(f"[main] {rec['name']}: {rec['launches']} launches x {rec['ms']:.4f} ms = "
+              f"{rec['launches'] * rec['ms']:.1f} ms of the main path's "
+              f"{wall_ms:.1f} ms wall [{card}]", flush=True)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

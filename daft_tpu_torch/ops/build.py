@@ -1,0 +1,110 @@
+"""Builds the port's CUDA kernels at first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (``daft_tpu_torch/_build/lib<name>-<digest>.so``),
+which the op modules load with ``ctypes``. The digest covers the source and the
+flags, so an edited source builds anew and an unchanged one is reused. Nothing
+here runs at import time: a machine without ``nvcc`` imports every module and
+fails only when a kernel is asked for.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+from daft_tpu_torch.errors import DaftError
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+class KernelBuildError(DaftError):
+    """A CUDA kernel could not be compiled or loaded."""
+
+
+def kernel_names() -> list:
+    """Every kernel source in ``csrc/``, by stem."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists(DEFAULT_NVCC):
+        return DEFAULT_NVCC
+    raise KernelBuildError(
+        "nvcc not found: the port's CUDA kernels build on a machine with the "
+        "CUDA toolkit (nvcc on PATH or under /usr/local/cuda)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile the named kernels (default: all of ``csrc/``) that are not
+    built yet, one ``nvcc`` per source, all started together. Returns the
+    library path of each; the compiler's report (registers, shared memory,
+    spills) lands beside it as ``.log``."""
+    names = list(names) if names is not None else kernel_names()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    paths = {}
+    for name in names:
+        out = library_path(name)
+        paths[name] = out
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    failed = []
+    for name, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n{paths[name].with_suffix('.log').read_text()}")
+            continue
+        os.replace(tmp, paths[name])
+    if failed:
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build([name])[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path}: {e}") from e
+            _LIBS[name] = lib
+    return lib
