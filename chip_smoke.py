@@ -8,9 +8,10 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
 1. print the card's name and power limit; build every kernel of
    ``daft_tpu_torch/csrc`` (one nvcc per source, started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   stated tolerance, and time kernel, plain version and the PyTorch library
-   call for the same function (CUDA events, after a warm-up) beside the least
-   time the card could take;
+   stated tolerance and at every head dim it takes (bf16 on fused-qkv views
+   and on separate tensors), and time kernel, plain version and the PyTorch
+   library call for the same function at the main path's shape (CUDA events,
+   after a warm-up) beside the least time the card could take;
 3. drive the main path through the engine's entry points — 512 random uint8
    224x224 images, ``embed_image(provider="cuda_random", model="ViT-L/14",
    batch_size=128)``, ``iter_partitions`` — with every kernel's launch count set
@@ -18,7 +19,11 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    embeddings, launches = 24 per forward chunk, that one chunk equals a direct
    forward of the tower, and that the tower with the kernel agrees with the
    tower on the CPU (plain attention) on two images;
-4. print one JSON line of per-kernel numbers, then, last, the device line.
+4. put ``torch.profiler`` over one more chunk of the same path and print the
+   ten device kernels with the most time, the time by kind (attention,
+   matmul, LayerNorm, GELU, copies and casts, other) and the device's idle share over
+   the window ("not measured" where the profiler records no device activity);
+5. print one JSON line of per-kernel numbers, then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -45,6 +50,7 @@ BF16_TOL = 3e-2   # bf16 inputs and output (tests/test_pallas.py's tolerance)
 F32_TOL = 2e-5    # f32 throughout, TF32 off
 CHUNK_TOL = 1e-5  # same weights, same kernels, same batch: only run-to-run noise
 CPU_COSINE_MIN = 0.99  # GPU tower vs CPU tower in bf16: rounding differs per layer
+BF16_PARITY_T = (5, 64, 257, 300, 1024)  # one short, whole, ragged and long sequences
 
 
 class SmokeFailure(Exception):
@@ -101,16 +107,32 @@ def tower_flops(cfg) -> float:
 
 
 def kernel_name(ptxas_line: str) -> str:
-    """``attn_bf16_kernel<64>`` from the mangled name in a ptxas line: the
-    length-prefixed identifier ending in ``_kernel`` and its int template
-    argument."""
-    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", ptxas_line):
-        start = m.start() + len(m.group(1))
-        ident = ptxas_line[start:start + int(m.group(1))]
-        if ident.endswith("_kernel"):
-            arg = re.match(r"ILi(\d+)E", ptxas_line[start + len(ident):])
-            return f"{ident}<{arg.group(1)}>" if arg else ident
-    return "?"
+    """``attn_bf16_tma_wgmma<64>`` from the mangled name in a ptxas line: the
+    last identifier of the (nested) name and its integer template arguments.
+    A name that is not mangled is returned as it stands."""
+    m = re.search(r"'([^']+)'", ptxas_line)
+    if m is None:
+        return "?"
+    name = m.group(1)
+    if not name.startswith("_Z"):
+        return name
+    nested = name.startswith("_ZN")
+    i, ident = (3 if nested else 2), None
+    while i < len(name) and name[i].isdigit():
+        n = re.match(r"\d+", name[i:]).group(0)
+        i += len(n)
+        ident, i = name[i:i + int(n)], i + int(n)
+        if not nested:
+            break
+    if not ident:
+        return "?"
+    args = []
+    if name.startswith("I", i):
+        i += 1
+        while (arg := re.match(r"L[a-z](n?\d+)E", name[i:])) is not None:
+            args.append(arg.group(1).replace("n", "-"))
+            i += arg.end()
+    return f"{ident}<{', '.join(args)}>" if args else ident
 
 
 def phase_build() -> None:
@@ -142,7 +164,10 @@ def phase_kernels(card: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def qkv(B, T, H, D, dtype):
+    def qkv(B, T, H, D, dtype, fused=True):
+        if not fused:  # three separately allocated contiguous tensors
+            return [torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+                    for _ in range(3)]
         # Views into one fused (B, T, 3*H*D) projection, as the model makes them.
         x = torch.randn((B, T, 3 * H * D), generator=gen, device="cuda").to(dtype)
         return [t.view(B, T, H, D) for t in x.split(H * D, dim=-1)]
@@ -156,6 +181,23 @@ def phase_kernels(card: str) -> dict:
             print(f"[kernels] flash_attention f32 B=2 T={T} H=4 D={D}: "
                   f"max_abs_err {err:.3e} (tol {F32_TOL})", flush=True)
             check(err <= F32_TOL, f"flash_attention f32 T={T} D={D}: err {err} > {F32_TOL}")
+
+    # bf16 at every head dim the kernel takes, across ragged and whole tiles,
+    # on fused-qkv views and on separate contiguous tensors.
+    for T in BF16_PARITY_T:
+        for D in (32, 64, 128):
+            for fused in (True, False):
+                q, k, v = qkv(2, T, 4, D, torch.bfloat16, fused)
+                out = flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                err = (out.float() - flash_attention_plain(q, k, v).float()).abs().max().item()
+                layout = "fused" if fused else "separate"
+                print(f"[kernels] flash_attention bf16 B=2 T={T} H=4 D={D} {layout}: "
+                      f"max_abs_err {err:.3e} (tol {BF16_TOL})", flush=True)
+                check(bool(torch.isfinite(out).all()),
+                      f"flash_attention bf16 T={T} D={D} {layout}: output is not finite")
+                check(err <= BF16_TOL,
+                      f"flash_attention bf16 T={T} D={D} {layout}: err {err} > {BF16_TOL}")
 
     B, T, H, D = BATCH, (IMAGE // 14) ** 2 + 1, 16, 64  # ViT-L/14 at batch 128
     q, k, v = qkv(B, T, H, D, torch.bfloat16)
@@ -175,7 +217,8 @@ def phase_kernels(card: str) -> dict:
     bound_ms, bound_by = attention_bound_ms(B, T, H, D, "bfloat16", 2)
     print(f"[kernels] flash_attention bf16 B={B} T={T} H={H} D={D}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}) [{card}]", flush=True)
+          f"({bound_by}); kernel / sdpa {ms / library_ms:.3f}, kernel / bound "
+          f"{ms / bound_ms:.2f} [{card}]", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "daft_tpu_torch/csrc/flash_attention.cu",
             "replaces": "daft_tpu/ops/pallas_attention.py:72",
@@ -257,6 +300,65 @@ def phase_main_path(card: str) -> tuple:
     return {"flash_attention": launches}, elapsed * 1e3
 
 
+def phase_trace(card: str) -> None:
+    """One chunk of the main path under torch.profiler: device time by kernel
+    and by kind, and the share of the window in which no device work ran."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions.ai import embed_image
+
+    rng = np.random.default_rng(1)
+    imgs = rng.integers(0, 256, (BATCH, IMAGE * IMAGE * 3), dtype=np.uint8)
+    series = dt.Series.from_numpy(imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))
+    df = dt.from_pydict({"img": series})
+    expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                       batch_size=BATCH)
+    df.with_column("emb", expr).collect()  # weights and a warm forward
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            df.with_column("emb", expr).collect()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+    except Exception as e:  # the machine may not allow device tracing
+        print(f"[trace] not measured: the profiler failed ({type(e).__name__}: {e})", flush=True)
+        return
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not device:
+        print("[trace] top kernels: not measured; device idle share: not measured "
+              "(the profiler recorded no device activity)", flush=True)
+        return
+    by_name: dict = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    window_us = max(b for _, b in spans) - min(a for a, _ in spans)
+    total_us = sum(by_name.values())
+    print(f"[trace] one chunk of {BATCH} images: window {window_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / window_us:.4f} [{card}]", flush=True)
+    kinds = (("attention", ("attn_bf16",)), ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
+             ("layernorm", ("layer_norm",)), ("gelu", ("gelu",)),
+             ("copies", ("memcpy", "memset", "copy_kernel")))
+    by_kind: dict = {}
+    for name, us in by_name.items():
+        kind = next((k for k, keys in kinds if any(key in name.lower() for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+    print("[trace] device time by kind: " + ", ".join(
+        f"{k} {us / 1e3:.3f} ms ({us / total_us:.1%})"
+        for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])), flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[trace]   {us / 1e3:9.3f} ms {us / total_us:6.1%}  {name[:120]}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -271,6 +373,7 @@ def main() -> int:
         phase_build()
         records = [phase_kernels(card)]
         launches, wall_ms = phase_main_path(card)
+        phase_trace(card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

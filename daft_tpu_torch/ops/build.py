@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``daft_tpu_torch/_build/lib<name>-<digest>.so``),
-which the op modules load with ``ctypes``. The digest covers the source and the
-flags, so an edited source builds anew and an unchanged one is reused. Nothing
+which the op modules load with ``ctypes``. The digest covers the source, every
+shared header ``csrc/*.cuh`` and the flags, so an edited source or header builds
+anew and an unchanged one is reused. Nothing
 here runs at import time: a machine without ``nvcc`` imports every module and
 fails only when a kernel is asked for.
 """
@@ -56,8 +57,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -4,7 +4,8 @@
 ``(B, T, H, D)`` tensors with scale ``D ** -0.5`` — the function of the Pallas
 TPU kernel ``daft_tpu/ops/pallas_attention.py::flash_attention``. On a CUDA
 tensor it launches the hand-written kernel in ``csrc/flash_attention.cu``
-(tensor cores for bf16, CUDA cores for f32; the source says what bounds it).
+(bf16: TMA-fed K/V ring and wgmma on the tensor cores; f32: CUDA cores; the
+source says what bounds it).
 On a CPU tensor it runs ``flash_attention_plain``, the same blockwise online
 softmax in torch ops. There is no other route: a CUDA tensor the kernel does
 not take raises.
@@ -24,6 +25,12 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Query rows per block of the kernel (csrc/flash_attention.cu): two 64-row
+# tiles in bf16, 16 rows in f32.
+BF16_ROWS_PER_BLOCK = 128
+F32_ROWS_PER_BLOCK = 16
+_TMA_MAX_STRIDE = 1 << 40
 
 _COUNT_LOCK = threading.Lock()
 
@@ -73,9 +80,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise DaftValueError(f"flash_attention supports head_dim {HEAD_DIMS}, got {q.shape[-1]}")
 
 
+def kernel_strides(t: torch.Tensor) -> tuple:
+    """The (B, T, H) element strides the kernel is given. A dimension of size 1
+    is never stepped over, so its stride is replaced by the contiguous one:
+    whatever torch left there cannot upset the tensor map."""
+    B, T, H, D = t.shape
+    contiguous = (T * H * D, H * D, D)
+    return tuple(c if n == 1 else s for n, s, c in zip((B, T, H), t.stride()[:3], contiguous))
+
+
+def tma_layout(t: torch.Tensor) -> tuple:
+    """The bf16 kernel's 4-D tensor map of a (B, T, H, D) tensor: dims
+    (D, H, T, B), innermost first, and the byte strides of H, T and B."""
+    B, T, H, D = t.shape
+    size = t.element_size()
+    return (D, H, T, B), tuple(s * size for s in reversed(kernel_strides(t)))
+
+
+def launch_grid(B: int, T: int, H: int, dtype: torch.dtype) -> tuple:
+    """The kernel's grid (query blocks, H, B): bf16 blocks take 128 query rows
+    of one (b, h), f32 blocks 16."""
+    rows = BF16_ROWS_PER_BLOCK if dtype == torch.bfloat16 else F32_ROWS_PER_BLOCK
+    return (-(-T // rows), H, B)
+
+
 def _check_kernel_layout(t: torch.Tensor, name: str) -> None:
     """The kernel reads rows of D contiguous elements; the bf16 path reads them
-    16 bytes at a time, so every row must start 16-byte aligned."""
+    through TMA, so every row must start 16-byte aligned and every stride of
+    the tensor map must be a positive multiple of 16 bytes below 2**40."""
     if t.stride(3) != 1:
         raise DaftValueError(f"{name} must be contiguous along head_dim, strides {t.stride()}")
     if t.dtype == torch.bfloat16:
@@ -83,6 +115,10 @@ def _check_kernel_layout(t: torch.Tensor, name: str) -> None:
             raise DaftValueError(
                 f"bf16 {name} rows must be 16-byte aligned (data_ptr % 16 == 0 and B, T, H "
                 f"strides multiples of 8); got strides {t.stride()}")
+        if not all(0 < s < _TMA_MAX_STRIDE for s in tma_layout(t)[1]):
+            raise DaftValueError(
+                f"bf16 {name} needs positive strides below 2**40 bytes for its tensor map; "
+                f"got strides {t.stride()}")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -96,7 +132,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lib.daft_cuda_error_string.restype = ctypes.c_char_p
     lib.daft_cuda_error_string.argtypes = [ctypes.c_int]
     B, T, H, D = q.shape
-    if B > 65535 or H > 65535:
+    grid = launch_grid(B, T, H, q.dtype)
+    if grid[1] > 65535 or grid[2] > 65535:
         raise DaftValueError(f"flash_attention kernel grid takes B, H <= 65535; got {B}, {H}")
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
@@ -104,7 +141,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                B, T, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                B, T, H, D, *kernel_strides(q), *kernel_strides(k), *kernel_strides(v),
                 D ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(

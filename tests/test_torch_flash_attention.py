@@ -10,6 +10,7 @@ Tolerances: 2e-5 in f32 (the same arithmetic, summed in another order) and
 3e-2 in bf16 (inputs and output rounded to bf16), as in tests/test_pallas.py.
 """
 
+import shutil
 import subprocess
 import sys
 
@@ -20,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from daft_tpu.ops.pallas_attention import flash_attention as pallas_flash_attention
 from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.ops import build
@@ -62,7 +64,7 @@ def test_plain_matches_pallas_kernel_bf16():
                                atol=BF16_TOL, rtol=BF16_TOL)
 
 
-@pytest.mark.parametrize("block", [(128, 128), (64, 32), (300, 7)])
+@pytest.mark.parametrize("block", [(128, 128), (64, 32), (300, 7), (64, 64), (128, 64), (64, 16)])
 def test_plain_block_sizes_agree(block):
     """The block loop and the bounds masking of the last block give the same
     attention whatever the block sizes."""
@@ -107,17 +109,89 @@ def test_wrapper_rejects_what_it_does_not_take(case):
         fa.flash_attention(q, k, v)
 
 
-@pytest.mark.parametrize("case", ["head_dim_stride", "bf16_row_stride", "bf16_offset"])
+@pytest.mark.parametrize("case", [
+    "head_dim_stride", "bf16_row_stride", "bf16_offset", "bf16_zero_stride"])
 def test_kernel_layout_check(case):
     """What the CUDA kernel cannot read is refused before any launch."""
     if case == "head_dim_stride":
         t = torch.zeros(1, 4, 2, 64).transpose(2, 3)[..., :32]
     elif case == "bf16_row_stride":  # T stride 68: rows not 16-byte aligned
         t = torch.zeros(1, 4, 68, dtype=torch.bfloat16)[..., :64].unflatten(-1, (2, 32))
-    else:  # strides fine, data pointer 2 bytes off
+    elif case == "bf16_offset":  # strides fine, data pointer 2 bytes off
         t = torch.zeros(1, 4, 72, dtype=torch.bfloat16)[..., 1:65].unflatten(-1, (2, 32))
+    else:  # one row repeated over T: a zero stride the tensor map cannot take
+        t = torch.zeros(1, 1, 2, 32, dtype=torch.bfloat16).expand(1, 4, 2, 32)
     with pytest.raises(DaftValueError):
         fa._check_kernel_layout(t, "q")
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_tma_layout_of_fused_qkv_view(D):
+    """q, k and v are views into one (B, T, 3*H*D) projection: the tensor map
+    walks D, then H (D apart), then T (3*H*D apart), then B, in bytes."""
+    B, T, H = 2, 257, 16
+    x = torch.zeros(B, T, 3 * H * D, dtype=torch.bfloat16)
+    for t in (x[..., i * H * D:(i + 1) * H * D].view(B, T, H, D) for i in range(3)):
+        fa._check_kernel_layout(t, "q")
+        dims, byte_strides = fa.tma_layout(t)
+        assert dims == (D, H, T, B)
+        assert byte_strides == (2 * D, 2 * 3 * H * D, 2 * T * 3 * H * D)
+        assert all(s % 16 == 0 for s in byte_strides)
+
+
+def test_tma_layout_of_contiguous_and_size_one_dims():
+    t = torch.zeros(3, 5, 4, 64, dtype=torch.bfloat16)
+    assert fa.tma_layout(t)[1] == (128, 4 * 128, 5 * 4 * 128)
+    # A size-1 dim is never stepped over: its stride is replaced by the contiguous one.
+    one = torch.zeros(1, 4, 7, 64, dtype=torch.bfloat16).transpose(1, 2)[:, :1]
+    assert one.shape == (1, 1, 4, 64)
+    assert fa.kernel_strides(one) == (4 * 64, 4 * 64, 7 * 64)
+    fa._check_kernel_layout(one, "q")
+
+
+@pytest.mark.parametrize("T,blocks", [(257, 3), (5, 1), (64, 1), (128, 1), (129, 2), (1024, 8)])
+def test_launch_grid(T, blocks):
+    """bf16 blocks take two 64-row query tiles of one (b, h): at ViT-L/14's
+    T = 257 that is 3 blocks per head, the third with one row in its first
+    tile and its second tile past T."""
+    assert fa.launch_grid(128, T, 16, torch.bfloat16) == (blocks, 16, 128)
+    assert (blocks - 1) * fa.BF16_ROWS_PER_BLOCK < T <= blocks * fa.BF16_ROWS_PER_BLOCK
+    assert fa.launch_grid(128, T, 16, torch.float32) == (-(-T // 16), 16, 128)
+
+
+def test_bf16_kernel_is_tma_and_wgmma():
+    """The bf16 path loads through TMA into an mbarrier ring and multiplies
+    with wgmma; the mma.sync kernel and its transposed V tile are gone."""
+    src = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    header = (build.CSRC_DIR / "hopper.cuh").read_text()
+    assert "mma.sync" not in src + header and "svt" not in src
+    assert "cp.async.bulk.tensor.4d" in header and "mbarrier.try_wait" in header
+    assert "wgmma.mma_async" in header
+    assert "wgmma_ss<N>" in src and "wgmma_rs<D>" in src
+    assert "kStages = " in src and "#include \"hopper.cuh\"" in src
+
+
+# Mangled as ptxas prints them for sm_90a (the anonymous namespace carries a
+# per-file tag), plus a short form and a name that is not mangled.
+_ANON = "_ZN51_GLOBAL__N__19600c2d_18_flash_attention_cu_609588cb"
+
+
+@pytest.mark.parametrize("mangled,name", [
+    (_ANON + "19attn_bf16_tma_wgmmaILi32EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iif",
+     "attn_bf16_tma_wgmma<32>"),
+    (_ANON + "19attn_bf16_tma_wgmmaILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iif",
+     "attn_bf16_tma_wgmma<64>"),
+    (_ANON + "19attn_bf16_tma_wgmmaILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iif",
+     "attn_bf16_tma_wgmma<128>"),
+    (_ANON + "15attn_f32_kernelILi64EEEvPKfS2_S2_Pfiii7StridesS3_S3_f", "attn_f32_kernel<64>"),
+    ("_ZN12_GLOBAL__N_115attn_f32_kernelILi32EEEvPKfS2_S2_Pfiii7StridesS3_S3_f",
+     "attn_f32_kernel<32>"),
+    ("_Z6kernelILi2ELb1ELin3EEvv", "kernel<2, 1, -3>"),
+    ("daft_plain_c_kernel", "daft_plain_c_kernel"),
+])
+def test_chip_smoke_kernel_name(mangled, name):
+    line = f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'"
+    assert chip_smoke.kernel_name(line) == name
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -131,6 +205,20 @@ def test_kernel_sources_and_library_names():
     assert build.kernel_names() == ["flash_attention"]
     path = build.library_path("flash_attention")
     assert path.parent == build.BUILD_DIR and path.name.startswith("libflash_attention-")
+
+
+@pytest.mark.parametrize("edit", ["hopper.cuh", "flash_attention.cu"])
+def test_library_name_covers_source_and_headers(edit, tmp_path, monkeypatch):
+    """An edited shared header builds anew, like an edited source."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    before = build.library_path("flash_attention")
+    assert build.library_path("flash_attention") == before
+    with open(csrc / edit, "a") as f:
+        f.write("\n// edited\n")
+    after = build.library_path("flash_attention")
+    assert after != before and after.name.startswith("libflash_attention-")
 
 
 def test_module_imports_without_nvcc_or_gpu():
