@@ -319,14 +319,10 @@ def phase_trace(card: str) -> None:
                        batch_size=BATCH)
     df.with_column("emb", expr).collect()  # weights and a warm forward
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            df.with_column("emb", expr).collect()
-            torch.cuda.synchronize()
-        events = list(prof.events())
-    except Exception as e:  # the machine may not allow device tracing
-        print(f"[trace] not measured: the profiler failed ({type(e).__name__}: {e})", flush=True)
-        return
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        df.with_column("emb", expr).collect()
+        torch.cuda.synchronize()
+    events = list(prof.events())
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     if not device:

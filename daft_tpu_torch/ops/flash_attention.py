@@ -25,12 +25,7 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-# Query rows per block of the kernel (csrc/flash_attention.cu): two 64-row
-# tiles in bf16, 16 rows in f32.
-BF16_ROWS_PER_BLOCK = 128
-F32_ROWS_PER_BLOCK = 16
-_TMA_MAX_STRIDE = 1 << 40
+_TMA_MAX_STRIDE = 1 << 40  # bytes
 
 _COUNT_LOCK = threading.Lock()
 
@@ -89,21 +84,6 @@ def kernel_strides(t: torch.Tensor) -> tuple:
     return tuple(c if n == 1 else s for n, s, c in zip((B, T, H), t.stride()[:3], contiguous))
 
 
-def tma_layout(t: torch.Tensor) -> tuple:
-    """The bf16 kernel's 4-D tensor map of a (B, T, H, D) tensor: dims
-    (D, H, T, B), innermost first, and the byte strides of H, T and B."""
-    B, T, H, D = t.shape
-    size = t.element_size()
-    return (D, H, T, B), tuple(s * size for s in reversed(kernel_strides(t)))
-
-
-def launch_grid(B: int, T: int, H: int, dtype: torch.dtype) -> tuple:
-    """The kernel's grid (query blocks, H, B): bf16 blocks take 128 query rows
-    of one (b, h), f32 blocks 16."""
-    rows = BF16_ROWS_PER_BLOCK if dtype == torch.bfloat16 else F32_ROWS_PER_BLOCK
-    return (-(-T // rows), H, B)
-
-
 def _check_kernel_layout(t: torch.Tensor, name: str) -> None:
     """The kernel reads rows of D contiguous elements; the bf16 path reads them
     through TMA, so every row must start 16-byte aligned and every stride of
@@ -115,7 +95,7 @@ def _check_kernel_layout(t: torch.Tensor, name: str) -> None:
             raise DaftValueError(
                 f"bf16 {name} rows must be 16-byte aligned (data_ptr % 16 == 0 and B, T, H "
                 f"strides multiples of 8); got strides {t.stride()}")
-        if not all(0 < s < _TMA_MAX_STRIDE for s in tma_layout(t)[1]):
+        if not all(0 < s * t.element_size() < _TMA_MAX_STRIDE for s in kernel_strides(t)):
             raise DaftValueError(
                 f"bf16 {name} needs positive strides below 2**40 bytes for its tensor map; "
                 f"got strides {t.stride()}")
@@ -132,8 +112,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lib.daft_cuda_error_string.restype = ctypes.c_char_p
     lib.daft_cuda_error_string.argtypes = [ctypes.c_int]
     B, T, H, D = q.shape
-    grid = launch_grid(B, T, H, q.dtype)
-    if grid[1] > 65535 or grid[2] > 65535:
+    if B > 65535 or H > 65535:
         raise DaftValueError(f"flash_attention kernel grid takes B, H <= 65535; got {B}, {H}")
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:

@@ -128,35 +128,24 @@ def test_kernel_layout_check(case):
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_tma_layout_of_fused_qkv_view(D):
     """q, k and v are views into one (B, T, 3*H*D) projection: the tensor map
-    walks D, then H (D apart), then T (3*H*D apart), then B, in bytes."""
+    steps H by D elements, T by 3*H*D and B by T*3*H*D, each a multiple of 16
+    bytes in bf16."""
     B, T, H = 2, 257, 16
     x = torch.zeros(B, T, 3 * H * D, dtype=torch.bfloat16)
     for t in (x[..., i * H * D:(i + 1) * H * D].view(B, T, H, D) for i in range(3)):
         fa._check_kernel_layout(t, "q")
-        dims, byte_strides = fa.tma_layout(t)
-        assert dims == (D, H, T, B)
-        assert byte_strides == (2 * D, 2 * 3 * H * D, 2 * T * 3 * H * D)
-        assert all(s % 16 == 0 for s in byte_strides)
+        assert fa.kernel_strides(t) == (T * 3 * H * D, 3 * H * D, D)
+        assert all(s * t.element_size() % 16 == 0 for s in fa.kernel_strides(t))
 
 
 def test_tma_layout_of_contiguous_and_size_one_dims():
     t = torch.zeros(3, 5, 4, 64, dtype=torch.bfloat16)
-    assert fa.tma_layout(t)[1] == (128, 4 * 128, 5 * 4 * 128)
+    assert fa.kernel_strides(t) == (5 * 4 * 64, 4 * 64, 64)
     # A size-1 dim is never stepped over: its stride is replaced by the contiguous one.
     one = torch.zeros(1, 4, 7, 64, dtype=torch.bfloat16).transpose(1, 2)[:, :1]
     assert one.shape == (1, 1, 4, 64)
     assert fa.kernel_strides(one) == (4 * 64, 4 * 64, 7 * 64)
     fa._check_kernel_layout(one, "q")
-
-
-@pytest.mark.parametrize("T,blocks", [(257, 3), (5, 1), (64, 1), (128, 1), (129, 2), (1024, 8)])
-def test_launch_grid(T, blocks):
-    """bf16 blocks take two 64-row query tiles of one (b, h): at ViT-L/14's
-    T = 257 that is 3 blocks per head, the third with one row in its first
-    tile and its second tile past T."""
-    assert fa.launch_grid(128, T, 16, torch.bfloat16) == (blocks, 16, 128)
-    assert (blocks - 1) * fa.BF16_ROWS_PER_BLOCK < T <= blocks * fa.BF16_ROWS_PER_BLOCK
-    assert fa.launch_grid(128, T, 16, torch.float32) == (-(-T // 16), 16, 128)
 
 
 def test_bf16_kernel_is_tma_and_wgmma():
