@@ -23,7 +23,24 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    ten device kernels with the most time, the time by kind (attention,
    matmul, LayerNorm, GELU, copies and casts, other) and the device's idle share over
    the window ("not measured" where the profiler records no device activity);
-5. print one JSON line of per-kernel numbers, then, last, the device line.
+5. drive the text and zero-shot paths through the engine at full width, on
+   seeded strings of 1-200 words from a fixed word list with a few empty
+   ones: ``embed_text`` with MiniLM-L6 and with the CLIP ViT-L/14 text tower
+   (4096 strings each), ``classify_image`` (ViT-L/14, 256 images, 10 labels)
+   and ``classify_text`` (ViT-L/14, 4096 strings); each with every kernel's
+   launch count set to 0 just before and read just after, rows/s, peak
+   device memory and the phase split. It checks that each tower on the card
+   agrees with the same tower on the CPU (cosine >= 0.99; 48 seeded non-empty
+   strings per text tower), that the card received the token ids the host
+   made, that MiniLM gives exact zero vectors for the empty strings and
+   unit-norm finite rows for the rest, that the text paths launch no flash
+   attention and ``classify_image`` 24 per chunk, and that each engine run
+   equals a direct forward; for ``classify_image`` also that the image
+   embeddings the engine's run made and their similarities to the labels
+   equal a direct forward's, that those similarities agree with the CPU
+   towers', and that reversing the label list names the same label per row;
+6. print one JSON line of per-kernel numbers (with the launches on each
+   path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -50,7 +67,21 @@ BF16_TOL = 3e-2   # bf16 inputs and output (tests/test_pallas.py's tolerance)
 F32_TOL = 2e-5    # f32 throughout, TF32 off
 CHUNK_TOL = 1e-5  # same weights, same kernels, same batch: only run-to-run noise
 CPU_COSINE_MIN = 0.99  # GPU tower vs CPU tower in bf16: rounding differs per layer
+CPU_SIM_TOL = 1e-2    # image-label cosines from the GPU towers vs the CPU towers
+CPU_TEXT_SAMPLE = 48  # non-empty strings per text tower held against its CPU tower
 BF16_PARITY_T = (5, 64, 257, 300, 1024)  # one short, whole, ragged and long sequences
+
+NUM_TEXTS = 4096
+NUM_CLASSIFY_IMAGES = 256
+MAX_WORDS = 200
+EMPTY_EVERY = 1000  # rows 0, 1000, 2000, ... are empty strings
+LABELS = ["cat", "dog", "car", "airplane", "ship", "tree", "house", "flower", "horse", "bird"]
+WORD_LIST = ("the a of and to in is was for on with as by at from it that this be are "
+             "photo picture image small large red blue green black white old new bright "
+             "dark quick slow cat dog car airplane ship tree house flower horse bird "
+             "river mountain city street road field sky water light night day morning "
+             "people person man woman child group walking running sitting standing "
+             "near over under beside behind front inside outside big little").split()
 
 
 class SmokeFailure(Exception):
@@ -104,6 +135,15 @@ def tower_flops(cfg) -> float:
     T, hidden = patches + 1, round(w * cfg.vision_mlp_ratio)
     per_layer = 2 * T * (4 * w * w + 2 * w * hidden) + 4 * T * T * w
     return 2 * patches * p * p * 3 * w + cfg.vision_layers * per_layer + 2 * w * cfg.embed_dim
+
+
+def text_flops(width: int, layers: int, T: int, mlp_ratio: float = 4.0) -> float:
+    """Operations of one text through a text tower at its padded length T
+    (every position is computed): per layer the qkv/out/MLP products and
+    attention (4 * T^2 * w). Embedding, normalisation, pooling and the
+    projection are left out."""
+    hidden = round(width * mlp_ratio)
+    return layers * (2 * T * (4 * width * width + 2 * width * hidden) + 4 * T * T * width)
 
 
 def kernel_name(ptxas_line: str) -> str:
@@ -234,7 +274,7 @@ def phase_main_path(card: str) -> tuple:
 
     import daft_tpu_torch as dt
     from daft_tpu_torch.functions.ai import embed_image
-    from daft_tpu_torch.models.clip import CLIPImageEncoder, embed
+    from daft_tpu_torch.models.clip import embed
     from daft_tpu_torch.ops.flash_attention import flash_attention
 
     rng = np.random.default_rng(0)
@@ -287,26 +327,13 @@ def phase_main_path(card: str) -> tuple:
           f"(tol {CHUNK_TOL})", flush=True)
     check(chunk_err <= CHUNK_TOL, f"engine chunk differs from direct forward by {chunk_err}")
 
-    # The same tower on the CPU, where attention is the plain version.
-    cpu_tower = CLIPImageEncoder(inst.cfg, device="cpu")
-    cpu_tower.load_state_dict(inst.encoder.state_dict())
-    t0 = time.perf_counter()
-    ref = embed(cpu_tower, torch.from_numpy(imgs[:2].reshape(2, IMAGE, IMAGE, 3))).numpy()
-    cos = (ref * emb[:2]).sum(axis=1) / np.linalg.norm(ref, axis=1)
-    print(f"[main] GPU tower vs CPU tower (2 images, {time.perf_counter() - t0:.1f} s): "
-          f"cosine {cos.min():.6f} (min {CPU_COSINE_MIN}), max_abs_err "
-          f"{np.abs(ref - emb[:2]).max():.3e}", flush=True)
-    check(bool(cos.min() >= CPU_COSINE_MIN), f"GPU and CPU towers disagree: cosine {cos}")
+    check_image_tower("main", inst, imgs[:2].reshape(2, IMAGE, IMAGE, 3), emb[:2])
     return {"flash_attention": launches}, elapsed * 1e3
 
 
 def phase_trace(card: str) -> None:
-    """One chunk of the main path under torch.profiler: device time by kernel
-    and by kind, and the share of the window in which no device work ran."""
+    """One chunk of the main path under torch.profiler (``trace_window``)."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import daft_tpu_torch as dt
     from daft_tpu_torch.functions.ai import embed_image
@@ -317,16 +344,28 @@ def phase_trace(card: str) -> None:
     df = dt.from_pydict({"img": series})
     expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
                        batch_size=BATCH)
-    df.with_column("emb", expr).collect()  # weights and a warm forward
+    trace_window(card, "trace", f"one chunk of {BATCH} images",
+                 lambda: df.with_column("emb", expr).collect())
+
+
+def trace_window(card: str, tag: str, what: str, run) -> None:
+    """``run()`` once warm, then once under torch.profiler: device time by
+    kernel and by kind, and the share of the window in which no device work
+    ran ("not measured" where the profiler records no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # weights and a warm forward
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        df.with_column("emb", expr).collect()
+        run()
         torch.cuda.synchronize()
     events = list(prof.events())
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     if not device:
-        print("[trace] top kernels: not measured; device idle share: not measured "
+        print(f"[{tag}] top kernels: not measured; device idle share: not measured "
               "(the profiler recorded no device activity)", flush=True)
         return
     by_name: dict = {}
@@ -339,20 +378,314 @@ def phase_trace(card: str) -> None:
             end = b
     window_us = max(b for _, b in spans) - min(a for a, _ in spans)
     total_us = sum(by_name.values())
-    print(f"[trace] one chunk of {BATCH} images: window {window_us / 1e3:.3f} ms, device busy "
+    print(f"[{tag}] {what}: window {window_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / window_us:.4f} [{card}]", flush=True)
-    kinds = (("attention", ("attn_bf16",)), ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
+    kinds = (("attention", ("attn_bf16",)), ("softmax", ("softmax",)),
+             ("masked_fill", ("masked_fill",)),
+             ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
              ("layernorm", ("layer_norm",)), ("gelu", ("gelu",)),
              ("copies", ("memcpy", "memset", "copy_kernel")))
     by_kind: dict = {}
     for name, us in by_name.items():
         kind = next((k for k, keys in kinds if any(key in name.lower() for key in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
-    print("[trace] device time by kind: " + ", ".join(
+    print(f"[{tag}] device time by kind: " + ", ".join(
         f"{k} {us / 1e3:.3f} ms ({us / total_us:.1%})"
         for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])), flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[trace]   {us / 1e3:9.3f} ms {us / total_us:6.1%}  {name[:120]}", flush=True)
+        print(f"[{tag}]   {us / 1e3:9.3f} ms {us / total_us:6.1%}  {name[:120]}", flush=True)
+
+
+def make_texts(n: int, seed: int) -> list:
+    """``n`` strings of 1..MAX_WORDS words drawn from WORD_LIST; every
+    EMPTY_EVERY-th is empty."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = np.array(WORD_LIST)
+    texts = [" ".join(words[rng.integers(0, len(words), rng.integers(1, MAX_WORDS + 1))])
+             for _ in range(n)]
+    for i in range(0, n, EMPTY_EVERY):
+        texts[i] = ""
+    return texts
+
+
+def engine_run(card: str, name: str, df, rows: int, expr, warm_rows: int) -> tuple:
+    """``expr`` over the ``rows`` rows of ``df`` through the engine: a warm
+    run over the first ``warm_rows`` rows (weights and first forwards), then
+    the timed run with every launch count set to 0 just before and read just
+    after. Prints rows/s, the phase split and the peak device memory, also as
+    the part above what was allocated before the path's weights were made.
+    Returns the result column as a list, the launch counts, the UDF's
+    instance and the timed run's seconds."""
+    import gc
+
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with dt.execution_config_ctx(default_morsel_size=rows):
+        t0 = time.perf_counter()
+        df.limit(warm_rows).with_column("out", expr).collect()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        parts = list(df.with_column("out", expr).select("out").iter_partitions())
+        elapsed = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launch_count}
+    peak = torch.cuda.max_memory_allocated()
+    out = [v for p in parts for v in p.to_pydict()["out"]]
+    inst = expr._expr.udf._get_instance()
+    stats = getattr(inst, "last_forward_stats", None)
+    if stats is None:  # a classifier: the tower that embedded the rows
+        tower = inst.image_embedder if name == "classify_image" else inst.text_embedder
+        stats = tower.last_forward_stats
+    print(f"[{name}] {len(out)} rows in {elapsed:.3f} s = {len(out) / elapsed:.1f} rows/s; "
+          f"set-up {setup_s:.1f} s; phases of the last morsel {stats}; peak device memory "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above what was allocated before "
+          f"the path); launches {launches} [{card}]", flush=True)
+    check(len(out) == rows, f"{name}: expected {rows} rows, got {len(out)}")
+    return out, launches, inst, elapsed
+
+
+def check_staged_tokens(name: str, inst, texts: list) -> None:
+    """The token ids the card received equal the ids the host made: the
+    instance's stager is wrapped for one call over ``texts``."""
+    import numpy as np
+    import torch
+
+    stage, staged = inst._stage, []
+
+    def record(chunk, rows):
+        dev = stage(chunk, rows)
+        staged.append((chunk, dev))
+        return dev
+
+    inst._stage = record
+    try:
+        inst.embed_text(texts)
+    finally:
+        inst._stage = stage
+    host_max = 0
+    for chunk, dev in staged:
+        check(dev.dtype == torch.int32, f"{name}: tokens staged as {dev.dtype}, not int32")
+        got = dev.cpu().numpy()
+        check(np.array_equal(got[:len(chunk)], chunk) and not got[len(chunk):].any(),
+              f"{name}: the card received other token ids than the host made")
+        host_max = max(host_max, int(chunk.max()))
+    check(host_max > 255, f"{name}: ids never pass 255, the check would not see a uint8 buffer")
+    print(f"[{name}] staged token ids equal the host's: {len(staged)} chunk(s), int32, "
+          f"largest id {host_max}", flush=True)
+
+
+def on_cpu(inst):
+    """A shallow copy of an embedder whose tower is the same tower, same
+    weights, on the CPU (where attention is the plain version)."""
+    import copy
+
+    import torch
+
+    cpu = copy.copy(inst)
+    cpu.device = torch.device("cpu")
+    cpu.encoder = type(inst.encoder)(inst.cfg, device="cpu")
+    cpu.encoder.load_state_dict(inst.encoder.state_dict())
+    return cpu
+
+
+def cosines(a, b):
+    import numpy as np
+
+    return (a * b).sum(axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def check_image_tower(name: str, inst, imgs, emb):
+    """The image tower on the card against the same tower on the CPU, on
+    ``imgs`` (B, H, W, 3) uint8 whose card embeddings are ``emb``; returns
+    the CPU embeddings."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    ref = on_cpu(inst).forward(torch.from_numpy(imgs)).numpy()
+    cos = cosines(ref, emb)
+    print(f"[{name}] GPU tower vs CPU tower ({len(imgs)} images, {time.perf_counter() - t0:.1f} "
+          f"s): cosine {cos.min():.6f} (min {CPU_COSINE_MIN}), max_abs_err "
+          f"{np.abs(ref - emb).max():.3e}", flush=True)
+    check(bool(cos.min() >= CPU_COSINE_MIN), f"{name}: GPU and CPU towers disagree: cosine {cos}")
+    return ref
+
+
+def check_text_tower(name: str, inst, texts: list, emb, sample: int = CPU_TEXT_SAMPLE):
+    """The text tower on the card against the same tower on the CPU, on up
+    to ``sample`` seeded non-empty strings of ``texts`` and the first empty
+    one (whose rows must agree too: both zero in MiniLM); ``emb`` holds the
+    card's embeddings of ``texts``. Returns the CPU embeddings of the
+    sample, in ``texts``' order, and its indices."""
+    import numpy as np
+    import torch
+
+    full = [i for i, t in enumerate(texts) if t]
+    idx = sorted(np.random.default_rng(4).choice(full, min(sample, len(full)), replace=False))
+    idx += [i for i, t in enumerate(texts) if not t][:1]
+    tokens, lengths = inst.tokenizer.encode_batch([texts[i] for i in idx])
+    t0 = time.perf_counter()
+    ref = on_cpu(inst).forward(torch.from_numpy(tokens)).numpy()
+    got = emb[idx]
+    cos = cosines(ref[lengths > 0], got[lengths > 0])
+    print(f"[{name}] GPU tower vs CPU tower ({int((lengths > 0).sum())} non-empty strings "
+          f"and {int((lengths == 0).sum())} empty, {time.perf_counter() - t0:.1f} s): cosine "
+          f"{cos.min():.6f} (min {CPU_COSINE_MIN}), max_abs_err {np.abs(ref - got).max():.3e}",
+          flush=True)
+    check(bool(cos.min() >= CPU_COSINE_MIN), f"{name}: GPU and CPU towers disagree: cosine {cos}")
+    check(np.allclose(ref[lengths == 0], got[lengths == 0], atol=1e-2),
+          f"{name}: the empty string's rows differ between the GPU and CPU towers")
+    return ref, idx
+
+
+def check_classify_image(inst, idf, imgs, labels_out: list) -> None:
+    """``classify_image``'s engine run against direct forwards. The engine
+    runs again, untimed, on the same instance ``inst``, with its image
+    tower's ``embed_image`` recorded:
+    its embeddings and their similarities to the label prompts must equal a
+    direct forward's, its labels the argmax of those similarities. The
+    similarities must agree with the CPU towers' on a few images, and the
+    label list reversed must name the same label for every row (random
+    weights may give every row one label, which a wrong index would then
+    hide)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions.ai import classify_image
+
+    tower = inst.image_embedder
+    embed_image, made = tower.embed_image, []
+    tower.embed_image = lambda images: made.append(embed_image(images)) or made[-1]
+    try:
+        with dt.execution_config_ctx(default_morsel_size=len(imgs)):
+            runs = {}
+            for order in (LABELS, LABELS[::-1]):
+                made.clear()
+                expr = classify_image(dt.col("img"), order, provider="cuda_random",
+                                      model="ViT-L/14")
+                expr._expr.udf._instance = inst
+                labels = idf.with_column("out", expr).to_pydict()["out"]
+                check(bool(made), "classify_image: the engine run embedded no image")
+                runs[tuple(order)] = (labels, np.concatenate(made))
+    finally:
+        tower.embed_image = embed_image
+    out, engine_emb = runs[tuple(LABELS)]
+    check(out == labels_out, "classify_image: a second engine run gave other labels")
+    prompts = [f"a photo of a {l}" for l in LABELS]
+    lab = inst.text_embedder.embed_text(prompts)
+    direct_emb = embed_image(imgs)
+    emb_err = float(np.abs(engine_emb - direct_emb).max())
+    sims = engine_emb @ lab.T
+    sim_err = float(np.abs(sims - direct_emb @ lab.T).max())
+    top = np.sort(sims, axis=1)
+    print(f"[classify_image] engine vs direct forward: embeddings max_abs_err {emb_err:.3e}, "
+          f"similarities max_abs_err {sim_err:.3e} (tol {CHUNK_TOL}); similarities "
+          f"{sims.min():.4f}..{sims.max():.4f}, top-two margin {(top[:, -1] - top[:, -2]).min():.2e}"
+          f"..{(top[:, -1] - top[:, -2]).max():.2e}; {len(set(out))} distinct label(s)", flush=True)
+    check(engine_emb.shape == (len(imgs), inst.image_embedder.dimensions),
+          f"classify_image: the engine embedded {engine_emb.shape}")
+    check(emb_err <= CHUNK_TOL and sim_err <= CHUNK_TOL,
+          "classify_image: the engine's embeddings or similarities differ from a direct forward")
+    check(out == [LABELS[i] for i in sims.argmax(axis=1)],
+          "classify_image: engine labels are not the argmax of the engine's similarities")
+    check(runs[tuple(LABELS[::-1])][0] == out,
+          "classify_image: reversing the label list changed a row's label")
+
+    ref_img = check_image_tower("classify_image", tower, imgs[:4], direct_emb[:4])
+    ref_lab, _ = check_text_tower("classify_image prompts", inst.text_embedder, prompts, lab)
+    cpu_sims = ref_img @ ref_lab.T
+    cpu_err = float(np.abs(cpu_sims - sims[:4]).max())
+    print(f"[classify_image] similarities of 4 images, GPU vs CPU towers: max_abs_err "
+          f"{cpu_err:.3e} (tol {CPU_SIM_TOL}); labels equal a direct forward, and the same "
+          f"with the label list reversed", flush=True)
+    check(cpu_err <= CPU_SIM_TOL, f"classify_image: GPU and CPU similarities differ by {cpu_err}")
+
+
+def phase_text(card: str) -> dict:
+    """The text and zero-shot paths at full width; returns the launch counts
+    of each path by name."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions.ai import classify_image, classify_text, embed_text
+
+    texts = make_texts(NUM_TEXTS, seed=2)
+    empty = np.array([t == "" for t in texts])
+    df = dt.from_pydict({"t": texts})
+    by_path = {}
+    for name, model, dims in (("embed_text MiniLM-L6", "all-MiniLM-L6-v2", 384),
+                              ("embed_text ViT-L/14", "ViT-L/14", 768)):
+        expr = embed_text(dt.col("t"), provider="cuda_random", model=model)
+        out, launches, inst, elapsed = engine_run(card, name, df, NUM_TEXTS, expr, warm_rows=512)
+        cfg = inst.cfg
+        per_text = (text_flops(cfg.hidden, cfg.layers, cfg.max_length) if "MiniLM" in name else
+                    text_flops(cfg.text_width, cfg.text_layers, cfg.context_length,
+                               cfg.text_mlp_ratio))
+        bound_s = per_text * NUM_TEXTS / PEAK_OPS_PER_S["bfloat16"]
+        print(f"[{name}] bound: {per_text / 1e9:.2f} GFLOP per text, {bound_s * 1e3:.1f} ms for "
+              f"{NUM_TEXTS} texts at the bf16 peak; the run took {bound_s / elapsed:.3f} of that "
+              f"rate [{card}]", flush=True)
+        emb = np.asarray(out, dtype=np.float32)
+        norms = np.linalg.norm(emb, axis=1)
+        check(emb.shape == (NUM_TEXTS, dims), f"{name}: embedding shape {emb.shape}")
+        check(bool(np.isfinite(emb).all()), f"{name}: non-finite embeddings")
+        rest = ~empty if "MiniLM" in name else np.ones_like(empty)
+        check(bool(np.abs(norms[rest] - 1).max() < 1e-3),
+              f"{name}: norms off 1 by {np.abs(norms[rest] - 1).max()}")
+        if "MiniLM" in name:
+            check(not emb[empty].any(), f"{name}: empty strings do not give zero vectors")
+            print(f"[{name}] {int(empty.sum())} empty strings: exact zero vectors; "
+                  f"{int((~empty).sum())} others unit-norm", flush=True)
+        check(launches["flash_attention"] == 0,
+              f"{name}: the masked path launched flash_attention {launches['flash_attention']} times")
+        # The engine's last chunk of 512 rows, embedded directly.
+        err = float(np.abs(inst.embed_text(texts[-512:]) - emb[-512:]).max())
+        print(f"[{name}] engine chunk vs direct forward: max_abs_err {err:.3e} "
+              f"(tol {CHUNK_TOL})", flush=True)
+        check(err <= CHUNK_TOL, f"{name}: engine chunk differs from a direct forward by {err}")
+        check_staged_tokens(name, inst, texts[:1024])
+        check_text_tower(name, inst, texts, emb)
+        head = df.limit(512)
+        trace_window(card, f"trace {name}", "one chunk of 512 strings",
+                     lambda: head.with_column("out", expr).collect())
+        by_path[name] = launches
+
+    rng = np.random.default_rng(3)
+    imgs = rng.integers(0, 256, (NUM_CLASSIFY_IMAGES, IMAGE * IMAGE * 3), dtype=np.uint8)
+    idf = dt.from_pydict({"img": dt.Series.from_numpy(
+        imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))})
+    expr = classify_image(dt.col("img"), LABELS, provider="cuda_random", model="ViT-L/14")
+    out, launches, inst, _ = engine_run(card, "classify_image", idf, NUM_CLASSIFY_IMAGES, expr,
+                                        warm_rows=BATCH)
+    chunks = math.ceil(NUM_CLASSIFY_IMAGES / inst.image_embedder.max_batch)
+    check(launches["flash_attention"] == VIT_L_LAYERS * chunks,
+          f"classify_image: flash_attention launched {launches['flash_attention']} times, "
+          f"expected {VIT_L_LAYERS} x {chunks}")
+    check_classify_image(inst, idf, imgs.reshape(-1, IMAGE, IMAGE, 3), out)
+    print(f"[classify_image] flash_attention launches {launches['flash_attention']} for "
+          f"{chunks} chunk(s)", flush=True)
+    by_path["classify_image"] = launches
+
+    expr = classify_text(dt.col("t"), LABELS, provider="cuda_random", model="ViT-L/14")
+    out, launches, inst, _ = engine_run(card, "classify_text", df, NUM_TEXTS, expr, warm_rows=512)
+    sims = inst.text_embedder.embed_text(texts) @ inst.text_embedder.embed_text(LABELS).T
+    check(out == [LABELS[i] for i in sims.argmax(axis=1)],
+          "classify_text: engine labels differ from a direct forward")
+    check(launches["flash_attention"] == 0,
+          f"classify_text: flash_attention launched {launches['flash_attention']} times")
+    print(f"[classify_text] labels equal a direct forward; {len(set(out))} distinct", flush=True)
+    by_path["classify_text"] = launches
+    return by_path
 
 
 def main() -> int:
@@ -370,11 +703,14 @@ def main() -> int:
         records = [phase_kernels(card)]
         launches, wall_ms = phase_main_path(card)
         phase_trace(card)
+        by_path = {"embed_image": launches}
+        by_path.update(phase_text(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}
         # Each launch of the main path ran at the timed shape (chunks of BATCH).
         print(f"[main] {rec['name']}: {rec['launches']} launches x {rec['ms']:.4f} ms = "
               f"{rec['launches'] * rec['ms']:.1f} ms of the main path's "

@@ -2,15 +2,15 @@
 
 Reference: daft/ai/protocols.py:15-60 — each protocol is paired with a
 Descriptor that carries instantiation options and the UDF's batch size. This
-slice ports the image embedder. Not ported yet: the TextEmbedder,
-TextClassifier, ImageClassifier and Prompter protocols and their descriptors,
-and the replica options (concurrency, accelerator ask).
+slice ports the text and image embedders and the text and image classifiers.
+Not ported yet: the Prompter protocol and its descriptor, and the replica
+options (concurrency, accelerator ask).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Protocol, runtime_checkable
+from typing import List, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
@@ -24,14 +24,29 @@ class UDFOptions:
 
 
 @runtime_checkable
+class TextEmbedder(Protocol):
+    def embed_text(self, texts: Sequence[Optional[str]]) -> np.ndarray: ...
+
+
+@runtime_checkable
 class ImageEmbedder(Protocol):
     def embed_image(self, images: np.ndarray) -> np.ndarray: ...
 
 
-class ImageEmbedderDescriptor:
-    """Recipe for instantiating an image embedder inside a UDF."""
+@runtime_checkable
+class TextClassifier(Protocol):
+    def classify_text(self, texts: Sequence[Optional[str]], labels: Sequence[str]) -> List[str]: ...
 
-    protocol = "image_embedder"
+
+@runtime_checkable
+class ImageClassifier(Protocol):
+    def classify_image(self, images: np.ndarray, labels: Sequence[str]) -> List[str]: ...
+
+
+class Descriptor:
+    """Recipe for instantiating a protocol implementation inside a UDF."""
+
+    protocol = "base"
 
     def get_udf_options(self) -> UDFOptions:
         return UDFOptions()
@@ -40,5 +55,21 @@ class ImageEmbedderDescriptor:
         """Embedding dimensionality, when known statically."""
         return None
 
-    def instantiate(self) -> ImageEmbedder:
+    def instantiate(self):
         raise NotImplementedError
+
+
+class TextEmbedderDescriptor(Descriptor):
+    protocol = "text_embedder"
+
+
+class ImageEmbedderDescriptor(Descriptor):
+    protocol = "image_embedder"
+
+
+class TextClassifierDescriptor(Descriptor):
+    protocol = "text_classifier"
+
+
+class ImageClassifierDescriptor(Descriptor):
+    protocol = "image_classifier"

@@ -3,9 +3,9 @@
 A Provider vends protocol descriptors. Built-in: ``cuda`` (the port's models,
 the default) and ``cuda_random`` (same architectures, random weights from a
 seed — for benchmarking and for machines without checkpoints). Third-party
-providers register via ``register_provider``. Not ported yet: the API
-providers (openai, google, lm_studio, vllm) and the transformers text
-provider.
+providers register via ``register_provider``. Not ported yet: the prompter,
+the API providers (openai, google, lm_studio, vllm) and the transformers
+text provider.
 """
 
 from __future__ import annotations
@@ -22,8 +22,17 @@ DEFAULT_PROVIDER = "cuda"
 class Provider:
     name = "base"
 
+    def get_text_embedder(self, model: Optional[str] = None, **options):
+        raise DaftValueError(f"Provider {self.name!r} has no text embedder")
+
     def get_image_embedder(self, model: Optional[str] = None, **options):
         raise DaftValueError(f"Provider {self.name!r} has no image embedder")
+
+    def get_text_classifier(self, model: Optional[str] = None, **options):
+        raise DaftValueError(f"Provider {self.name!r} has no text classifier")
+
+    def get_image_classifier(self, model: Optional[str] = None, **options):
+        raise DaftValueError(f"Provider {self.name!r} has no image classifier")
 
 
 def register_provider(name: str, factory: Callable[..., Provider]) -> None:

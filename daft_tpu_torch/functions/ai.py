@@ -1,21 +1,24 @@
 """AI expression functions (port of ``daft_tpu/functions/ai.py``).
 
-Reference: daft/functions/ai/__init__.py (embed_image:157) — resolve a
-provider, get a protocol descriptor, and wrap it into a stateful batch UDF.
-This slice ports ``embed_image`` over fixed-shape image columns. Not ported yet: ``embed_text``, ``classify_text``,
-``classify_image``, ``prompt``/``llm_generate``, uint8 tensor columns, and
-decoding of variable-shape ``Image`` and encoded-bytes columns.
+Reference: daft/functions/ai/__init__.py (embed_text:72, embed_image:157,
+classify_text:250, classify_image:329) — resolve a provider, get a protocol
+descriptor, and wrap it into a stateful batch UDF. Image columns may be
+fixed-shape images, uint8 tensor / embedding / fixed-size-list columns,
+variable-shape images or encoded bytes; the last two are decoded and resized
+on the host with PIL, as the JAX package does. Not ported yet:
+``prompt``/``llm_generate``.
 """
 
 from __future__ import annotations
 
+import io
 import threading
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
 from daft_tpu_torch.ai.provider import load_provider
-from daft_tpu_torch.datatype import DataType, TypeId
+from daft_tpu_torch.datatype import DataType, ImageMode, TypeId
 from daft_tpu_torch.errors import DaftTypeError
 from daft_tpu_torch.expressions.expression import Expression
 from daft_tpu_torch.series import Series
@@ -54,17 +57,49 @@ class _ProtocolUdf(Udf):
 
 
 def _images_to_numpy(series: Series, size: int) -> np.ndarray:
-    """A dense (B, size, size, 3) uint8 batch from a fixed-shape image Series.
-    Columns of the model's size are zero-copy reshapes; other sizes
-    host-resize (PIL) first, matching the reference's preprocessing step."""
+    """A dense (B, size, size, 3) uint8 batch from an image-bearing Series.
+    Fixed-shape columns of the model's size are zero-copy reshapes; other
+    fixed sizes, variable-shape images and encoded bytes are decoded and
+    resized (PIL, bilinear) on the host, matching the reference's
+    preprocessing step. Null rows of the last two give black images."""
     dt = series.dtype
-    if dt.id != TypeId.FIXED_SHAPE_IMAGE:
-        raise DaftTypeError(f"embed_image takes a fixed-shape image column, got {dt!r}")
-    vals, _ = series.to_numpy_masked()
-    h, w, c = dt.shape
-    if (h, w) != (size, size) or c != 3:
-        vals = _host_resize_batch(vals, size)
-    return np.ascontiguousarray(vals)
+    if dt.id == TypeId.FIXED_SHAPE_IMAGE:
+        vals, _ = series.to_numpy_masked()
+        h, w, c = dt.shape
+        if (h, w) != (size, size) or c != 3:
+            vals = _host_resize_batch(vals, size)
+        return np.ascontiguousarray(vals)
+    if dt.id in (TypeId.FIXED_SHAPE_TENSOR, TypeId.EMBEDDING, TypeId.FIXED_SIZE_LIST):
+        vals, _ = series.to_numpy_masked()
+        if vals.ndim == 2 and vals.shape[1] == size * size * 3:
+            return vals.reshape(-1, size, size, 3).astype(np.uint8)
+        if vals.ndim == 4:
+            return vals.astype(np.uint8)
+        raise DaftTypeError(f"Cannot interpret {dt!r} as {size}x{size}x3 images")
+    if dt.id == TypeId.IMAGE:
+        from PIL import Image as PILImage
+
+        out = np.zeros((len(series), size, size, 3), dtype=np.uint8)
+        for i, row in enumerate(series.to_arrow().to_pylist()):
+            if row is None:
+                continue
+            m = ImageMode(row["mode"])
+            arr = np.frombuffer(row["data"], dtype=m.pixel_dtype.to_numpy()).reshape(
+                row["height"], row["width"], row["channel"])
+            img = PILImage.fromarray(arr.squeeze(-1) if arr.shape[2] == 1 else arr)
+            out[i] = np.asarray(img.convert("RGB").resize((size, size), PILImage.BILINEAR))
+        return out
+    if dt.is_binary():
+        from PIL import Image as PILImage
+
+        out = np.zeros((len(series), size, size, 3), dtype=np.uint8)
+        for i, raw in enumerate(series.to_pylist()):
+            if raw is None:
+                continue
+            img = PILImage.open(io.BytesIO(raw)).convert("RGB")
+            out[i] = np.asarray(img.resize((size, size), PILImage.BILINEAR))
+        return out
+    raise DaftTypeError(f"expected an image column, got {dt!r}")
 
 
 def _host_resize_batch(vals: np.ndarray, size: int) -> np.ndarray:
@@ -76,6 +111,22 @@ def _host_resize_batch(vals: np.ndarray, size: int) -> np.ndarray:
         img = PILImage.fromarray(arr.squeeze(-1) if arr.shape[-1] == 1 else arr[..., :3])
         out[i] = np.asarray(img.convert("RGB").resize((size, size), PILImage.BILINEAR))
     return out
+
+
+def embed_text(text: Expression, *, provider: Union[str, object, None] = None,
+               model: Optional[str] = None, **options) -> Expression:
+    """Embed a string column (reference: daft/functions/ai/__init__.py:72).
+    The default provider is ``cuda`` and the default model
+    ``all-MiniLM-L6-v2``; a model name with "clip" or "vit" in it takes the
+    CLIP text tower. ``device="cpu"`` runs it on the CPU."""
+    p = load_provider(provider)
+    desc = p.get_text_embedder(model, **options)
+    dtype = DataType.embedding(DataType.float32(), desc.get_dimensions() or 384)
+
+    def call(inst, series: Series) -> Series:
+        return Series.from_numpy(inst.embed_text(series.to_pylist()), "embedding", dtype)
+
+    return _ProtocolUdf(desc, call, dtype, "embed_text")(text)
 
 
 def embed_image(image: Expression, *, provider: Union[str, object, None] = None,
@@ -92,3 +143,38 @@ def embed_image(image: Expression, *, provider: Union[str, object, None] = None,
         return Series.from_numpy(inst.embed_image(batch), "embedding", dtype)
 
     return _ProtocolUdf(desc, call, dtype, "embed_image")(image)
+
+
+def classify_text(text: Expression, labels: Sequence[str], *,
+                  provider: Union[str, object, None] = None,
+                  model: Optional[str] = None, **options) -> Expression:
+    """The label of each string, zero-shot through the CLIP text tower
+    (reference: daft/functions/ai/__init__.py:250); default model
+    ``ViT-B/32``."""
+    p = load_provider(provider)
+    desc = p.get_text_classifier(model, **options)
+    labels = list(labels)
+
+    def call(inst, series: Series) -> Series:
+        out = inst.classify_text(series.to_pylist(), labels)
+        return Series.from_pylist(out, "label", DataType.string())
+
+    return _ProtocolUdf(desc, call, DataType.string(), "classify_text")(text)
+
+
+def classify_image(image: Expression, labels: Sequence[str], *,
+                   provider: Union[str, object, None] = None,
+                   model: Optional[str] = None, **options) -> Expression:
+    """The label of each image, zero-shot against "a photo of a {label}"
+    (reference: daft/functions/ai/__init__.py:329); default model
+    ``ViT-B/32``. Takes the image columns ``embed_image`` takes."""
+    p = load_provider(provider)
+    desc = p.get_image_classifier(model, **options)
+    labels = list(labels)
+
+    def call(inst, series: Series) -> Series:
+        batch = _images_to_numpy(series, inst.image_embedder.cfg.image_size)
+        out = inst.classify_image(batch, labels)
+        return Series.from_pylist(out, "label", DataType.string())
+
+    return _ProtocolUdf(desc, call, DataType.string(), "classify_image")(image)

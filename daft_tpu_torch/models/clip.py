@@ -1,4 +1,5 @@
-"""CLIP image tower (port of ``daft_tpu/models/clip.py``).
+"""CLIP image and text towers and the dual encoder (port of
+``daft_tpu/models/clip.py``).
 
 ``CLIPImageEncoder`` is the JAX package's forward step by step: pixels arrive
 NHWC (uint8 or float in [0, 1]) and are normalised on the device, patchified,
@@ -7,30 +8,44 @@ given the class token and positions, ``ln_pre``, ``vision_layers`` pre-norm
 f32. The patchify is a reshape and one matmul with the flax conv kernel (a
 stride-p, kernel-p conv with no padding is exactly that); the JAX package left
 it to XLA's convolution, and a plain product keeps the f32 path off cuDNN's
-TF32 default.
+TF32 default. ``CLIPTextEncoder`` embeds token ids (f32 table, cast to the
+model dtype, then the positions added in that dtype), runs causal pre-norm
+blocks through the masked attention path, ``ln_final`` in f32 over every
+position, pools each row's last non-pad token and projects in f32.
+``CLIPModel`` holds both towers and the contrastive ``logit_scale``.
 
 Parameters live in the dtype the JAX package computes in: the model dtype
 (bf16 by default) for the patch embedding and the blocks, f32 for the
-LayerNorms, ``cls``, ``pos_embed`` and ``proj``. ``init_random_`` fills them
-from an explicit ``torch.Generator`` on the parameters' device;
-``load_flax_params`` copies a flax state dict in.
+LayerNorms, ``cls``, the embeddings, ``proj`` and ``logit_scale``.
+``init_random_`` fills them from an explicit ``torch.Generator`` on the
+parameters' device; ``load_flax_params`` copies a flax state dict in.
 
-Not ported yet: ``CLIPTextEncoder`` and ``CLIPModel`` (the text tower and the
-contrastive head), and HF checkpoint conversion (``models/convert.py``).
+Not ported yet: HF checkpoint conversion (``models/convert.py``) and what
+only converted checkpoints set: a text activation and LayerNorm eps of
+their own, and pooling at an end-of-text id.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from daft_tpu_torch.errors import DaftValueError
-from daft_tpu_torch.models.layers import LayerNorm, TransformerBlock
+from daft_tpu_torch.models.checkpoint import copy_flax_params, load_npz
+from daft_tpu_torch.models.layers import (
+    LayerNorm,
+    TransformerBlock,
+    causal_mask,
+    flax_block_names,
+    init_random_params_,
+)
+
+# flax's initial ``logit_scale`` (log 1/0.07).
+LOGIT_SCALE_INIT = 2.6592
 
 
 @dataclass(frozen=True)
@@ -96,6 +111,9 @@ CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32
 
 
 class CLIPImageEncoder(nn.Module):
+    # The prefixes a flax key may carry above the tower's own names.
+    flax_prefixes = ("params/vision/", "vision/")
+
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
         if cfg.image_size % cfg.patch_size:
@@ -138,103 +156,153 @@ class CLIPImageEncoder(nn.Module):
             x = block(x)
         return self.proj(self.ln_post(x[:, 0]))
 
+    def flax_names(self) -> Dict[str, tuple]:
+        """flax key (relative to the tower) -> (torch name, how it maps)."""
+        names = {
+            "cls": ("cls", "same"),
+            "pos_embed": ("pos_embed", "same"),
+            "patch_embed/kernel": ("patch_embed.weight", "conv"),
+            "proj/kernel": ("proj.weight", "dense"),
+        }
+        for ln in ("ln_pre", "ln_post"):
+            names[f"{ln}/scale"] = (f"{ln}.weight", "same")
+            names[f"{ln}/bias"] = (f"{ln}.bias", "same")
+        for i in range(self.cfg.vision_layers):
+            names.update(flax_block_names(f"block_{i}", f"blocks.{i}"))
+        return names
 
-def embed(encoder: CLIPImageEncoder, pixels: torch.Tensor) -> torch.Tensor:
-    """``encoder``'s embeddings of ``pixels``, L2-normalised with the norm
-    clipped at 1e-6 (``daft_tpu/ai/flax_provider.py``'s forward)."""
+
+class CLIPTextEncoder(nn.Module):
+    flax_prefixes = ("params/text/", "text/")
+
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.text_width
+        self.tok_embed = nn.Embedding(cfg.vocab_size, w, dtype=torch.float32, device=device)
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.context_length, w, device=device))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(w, cfg.text_heads, cfg.text_mlp_ratio, cfg.dtype, cfg.hidden_act,
+                             cfg.ln_eps, device=device)
+            for _ in range(cfg.text_layers))
+        self.ln_final = LayerNorm(w, cfg.ln_eps, device=device)
+        self.proj = nn.Linear(w, cfg.embed_dim, bias=False, dtype=torch.float32, device=device)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, L) int32 or int64, L <= context_length. Returns
+        (B, embed_dim) f32, the projection of each row's last non-pad token."""
+        cfg = self.cfg
+        L = tokens.shape[1]
+        # Cast, then add: the JAX tower adds the positions in the model dtype.
+        x = self.tok_embed(tokens).to(cfg.dtype) + self.pos_embed[:, :L].to(cfg.dtype)
+        mask = causal_mask(L, device=tokens.device)
+        for block in self.blocks:
+            x = block(x, mask)
+        x = self.ln_final(x)
+        pooled = x[torch.arange(x.shape[0], device=x.device), self.pool_positions(tokens)]
+        return self.proj(pooled)
+
+    @staticmethod
+    def pool_positions(tokens: torch.Tensor) -> torch.Tensor:
+        """Each row's last non-pad position (pad = 0, the hashing
+        tokenizer's ids); an all-pad row pools position 0."""
+        return ((tokens != 0).sum(dim=1) - 1).clamp(min=0)
+
+    def flax_names(self) -> Dict[str, tuple]:
+        """flax key (relative to the tower) -> (torch name, how it maps)."""
+        names = {
+            "tok_embed/embedding": ("tok_embed.weight", "same"),
+            "pos_embed": ("pos_embed", "same"),
+            "ln_final/scale": ("ln_final.weight", "same"),
+            "ln_final/bias": ("ln_final.bias", "same"),
+            "proj/kernel": ("proj.weight", "dense"),
+        }
+        for i in range(self.cfg.text_layers):
+            names.update(flax_block_names(f"block_{i}", f"blocks.{i}"))
+        return names
+
+
+def l2_normalize(emb: torch.Tensor) -> torch.Tensor:
+    """``emb`` over its L2 norm, the norm clipped at 1e-6."""
+    return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True).clamp(min=1e-6)
+
+
+class CLIPModel(nn.Module):
+    """Both towers and the contrastive logit scale."""
+
+    flax_prefixes = ("params/",)
+
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.vision = CLIPImageEncoder(cfg, device=device)
+        self.text = CLIPTextEncoder(cfg, device=device)
+        self.logit_scale = nn.Parameter(
+            torch.tensor(LOGIT_SCALE_INIT, dtype=torch.float32, device=device))
+
+    def forward(self, pixels: torch.Tensor, tokens: torch.Tensor):
+        """Returns (logits (B_img, B_txt), img, txt): the L2-normalised
+        embeddings and exp(logit_scale) times their cosine similarities."""
+        img = l2_normalize(self.vision(pixels))
+        txt = l2_normalize(self.text(tokens))
+        logits = torch.exp(self.logit_scale) * img @ txt.T
+        return logits, img, txt
+
+    def flax_names(self) -> Dict[str, tuple]:
+        """flax key (below ``params/``) -> (torch name, how it maps)."""
+        names = {"logit_scale": ("logit_scale", "same")}
+        for tower in ("vision", "text"):
+            names.update({f"{tower}/{k}": (f"{tower}.{t}", how)
+                          for k, (t, how) in getattr(self, tower).flax_names().items()})
+        return names
+
+
+CLIPModule = Union[CLIPImageEncoder, CLIPTextEncoder, CLIPModel]
+
+
+def embed(encoder: Union[CLIPImageEncoder, CLIPTextEncoder], inputs: torch.Tensor) -> torch.Tensor:
+    """``encoder``'s embeddings of ``inputs`` (pixels or token ids),
+    L2-normalised with the norm clipped at 1e-6 (the forwards of
+    ``daft_tpu/ai/flax_provider.py``)."""
     with torch.inference_mode():
-        emb = encoder(pixels)
-        return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True).clamp(min=1e-6)
+        return l2_normalize(encoder(inputs))
+
+
+# The embeddings flax draws from normal(std), by torch name.
+_EMBED_STD = {"vision": {"cls": 0.02, "pos_embed": 0.02},
+              "text": {"tok_embed.weight": 0.02, "pos_embed": 0.01}}
 
 
 @torch.no_grad()
-def init_random_(encoder: CLIPImageEncoder, generator: torch.Generator) -> CLIPImageEncoder:
-    """Random weights from ``generator``, made on the parameters' device:
-    normal(0.02) for ``cls``/``pos_embed`` as in flax, normal with variance
-    1/fan_in for every Linear weight, zero biases, unit LayerNorms. The numbers
-    are not ``jax.random``'s."""
-    for name, param in encoder.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name in ("cls", "pos_embed"):
-            param.copy_(torch.randn(param.shape, generator=generator, device=param.device) * 0.02)
-        elif leaf == "weight" and param.dim() == 2:
-            std = 1.0 / math.sqrt(param.shape[1])
-            param.copy_(torch.randn(param.shape, generator=generator, device=param.device) * std)
-        elif leaf == "bias":
-            param.zero_()
-        elif leaf == "weight":
-            param.fill_(1.0)
-    return encoder
+def init_random_(module: CLIPModule, generator: torch.Generator) -> CLIPModule:
+    """Random weights from ``generator`` (``layers.init_random_params_``):
+    normal(0.02) for ``cls``, the vision ``pos_embed`` and the token table,
+    normal(0.01) for the text ``pos_embed``, as flax draws them; a
+    ``CLIPModel``'s ``logit_scale`` takes flax's 2.6592."""
+    if isinstance(module, CLIPModel):
+        module.logit_scale.fill_(LOGIT_SCALE_INIT)
+        std = {f"{tower}.{k}": v for tower, table in _EMBED_STD.items() for k, v in table.items()}
+    else:
+        std = _EMBED_STD["vision" if isinstance(module, CLIPImageEncoder) else "text"]
+    return init_random_params_(module, generator, std)
 
 
-def _flax_to_torch_names(cfg: CLIPConfig) -> Dict[str, tuple]:
-    """flax state-dict key (relative to the vision tower) -> (torch parameter
-    name, how the array maps onto it)."""
-    names = {
-        "cls": ("cls", "same"),
-        "pos_embed": ("pos_embed", "same"),
-        "patch_embed/kernel": ("patch_embed.weight", "conv"),
-        "proj/kernel": ("proj.weight", "dense"),
-    }
-    for ln in ("ln_pre", "ln_post"):
-        names[f"{ln}/scale"] = (f"{ln}.weight", "same")
-        names[f"{ln}/bias"] = (f"{ln}.bias", "same")
-    for i in range(cfg.vision_layers):
-        for ln in ("ln1", "ln2"):
-            names[f"block_{i}/{ln}/scale"] = (f"blocks.{i}.{ln}.weight", "same")
-            names[f"block_{i}/{ln}/bias"] = (f"blocks.{i}.{ln}.bias", "same")
-        for dense in ("attn/qkv", "attn/out", "mlp/fc1", "mlp/fc2"):
-            tname = f"blocks.{i}.{dense.replace('/', '.')}"
-            names[f"block_{i}/{dense}/kernel"] = (f"{tname}.weight", "dense")
-            names[f"block_{i}/{dense}/bias"] = (f"{tname}.bias", "same")
-    return names
-
-
-_VISION_PREFIXES = ("params/vision/", "vision/")
-
-
-@torch.no_grad()
-def load_flax_params(encoder: CLIPImageEncoder, flat: Dict[str, np.ndarray]) -> list:
+def load_flax_params(module: CLIPModule, flat: Dict[str, np.ndarray]) -> list:
     """Copy a flat flax state dict (``/``-joined keys, as the JAX package's
-    ``.npz`` checkpoints hold them) into ``encoder``. Keys may be relative to
-    the vision tower (``block_0/attn/qkv/kernel``) or carry the full model's
-    prefix (``params/vision/block_0/attn/qkv/kernel``); other towers' keys are
-    ignored, and parameters the dict lacks keep their values, as the JAX
-    loader does. A Dense kernel (in, out) becomes a Linear weight (out, in);
-    the patch conv kernel (p, p, 3, w) becomes the patchify weight
-    (w, p*p*3); LayerNorm scale/bias, ``cls`` and ``pos_embed`` copy as they
-    are. Each array is cast to its parameter's dtype. Returns the torch names
-    loaded; raises if none matched or a shape disagrees."""
-    params = dict(encoder.named_parameters())
-    names = _flax_to_torch_names(encoder.cfg)
-    loaded = []
-    for key, arr in flat.items():
-        for prefix in _VISION_PREFIXES:
-            if key.startswith(prefix):
-                key = key[len(prefix):]
-                break
-        if key not in names:
-            continue
-        tname, how = names[key]
-        a = np.asarray(arr, dtype=np.float32)
-        if how == "dense":
-            a = a.T
-        elif how == "conv":
-            a = a.reshape(-1, a.shape[-1]).T
-        target = params[tname]
-        if tuple(a.shape) != tuple(target.shape):
-            raise DaftValueError(
-                f"checkpoint {key!r} has shape {a.shape} for {tname} {tuple(target.shape)}")
-        target.copy_(torch.tensor(a, dtype=target.dtype))
-        loaded.append(tname)
-    if not loaded:
-        raise DaftValueError("no CLIP vision-tower parameter found in the checkpoint")
-    return loaded
+    ``.npz`` checkpoints hold them) into a tower or a ``CLIPModel``. A tower
+    takes keys relative to itself (``block_0/attn/qkv/kernel``) or under the
+    full model's prefix (``params/vision/block_0/attn/qkv/kernel``) and
+    ignores the other tower's; a ``CLIPModel`` takes ``params/vision/...``,
+    ``params/text/...`` and ``params/logit_scale``. The patch conv kernel
+    (p, p, 3, w) becomes the patchify weight (w, p*p*3), the token table
+    (vocab, width) the ``nn.Embedding`` weight as it is
+    (``checkpoint.copy_flax_params``). Returns the torch names loaded; raises
+    if none matched or a shape disagrees."""
+    return copy_flax_params(module, flat, module.flax_names(), module.flax_prefixes,
+                            type(module).__name__)
 
 
-def load_params(path: str, encoder: CLIPImageEncoder) -> CLIPImageEncoder:
-    """Load a JAX-package ``.npz`` checkpoint into ``encoder``."""
-    from daft_tpu_torch.models.checkpoint import load_npz
-
-    load_flax_params(encoder, load_npz(path))
-    return encoder
+def load_params(path: str, module: CLIPModule) -> CLIPModule:
+    """Load a JAX-package ``.npz`` checkpoint into ``module``."""
+    load_flax_params(module, load_npz(path))
+    return module

@@ -6,22 +6,31 @@ attention accumulates in f32. Module and parameter names follow the flax
 layout (``qkv``, ``out``, ``fc1``, ``fc2``, ``ln1``, ``ln2``) so that
 ``models/clip.py::load_flax_params`` maps a flax checkpoint name for name.
 
-``MultiHeadAttention`` takes the mask-free path only in this slice, and that
-path always goes through ``ops/flash_attention.flash_attention`` (the CUDA
-kernel on a GPU tensor). Not ported yet: the masked path (the text tower's
-causal mask), ``causal_mask`` and ``sinusoidal_positions``.
+``MultiHeadAttention`` has two paths. Without a mask it always goes through
+``ops/flash_attention.flash_attention`` (the CUDA kernel on a GPU tensor).
+With a mask (the text towers' causal and key-padding masks) it runs
+``masked_attention``, plain torch with the arithmetic of the JAX package's
+``jax.nn.dot_product_attention``; the JAX package leaves that path to XLA, so
+no hand-written kernel stands behind it, and it never reaches the mask-free
+kernel or ``scaled_dot_product_attention``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import math
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.ops.flash_attention import flash_attention
+
+# What jax.nn.dot_product_attention writes into a masked logit: a large
+# finite number, not -inf, so a row whose keys are all masked (an empty
+# string, a padded row) softmaxes to a uniform row instead of NaN.
+MASK_FILL = -0.7 * torch.finfo(torch.float32).max
 
 
 def resolve_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -83,14 +92,49 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(dim, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if mask is not None:
-            raise DaftNotImplementedError("masked attention is not ported yet")
+        """x: (B, T, dim). ``mask``: bool, True where a query may attend to a
+        key, of shape (1|B, 1, T, T) (causal) or (B, 1, 1, T) (key padding)."""
         B, T, d = x.shape
         # Views into the fused qkv output in (B, T, H, head_dim): the kernel
         # reads them through their strides, nothing is copied.
         q, k, v = (t.view(B, T, self.num_heads, d // self.num_heads)
                    for t in self.qkv(x).split(d, dim=-1))
-        return self.out(flash_attention(q, k, v).reshape(B, T, d))
+        if mask is None:
+            out = flash_attention(q, k, v)
+        else:
+            out = masked_attention(q, k, v, mask)
+        return self.out(out.reshape(B, T, d))
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Softmax attention over (B, T, H, D) with a bool ``mask`` broadcast to
+    (B, H, T, T), as ``jax.nn.dot_product_attention`` computes it: q·k
+    accumulated in f32 (bf16 products are exact in f32, so this is XLA's
+    BF16_BF16_F32) and scaled by D ** -0.5 in f32 (in the product's
+    epilogue), masked logits set to ``MASK_FILL``, softmax in f32, the
+    probabilities cast to v's dtype for the product with v. The f32 logits
+    take B·H·T² elements; no more than two such f32 tensors are alive at once."""
+    B, T, H, D = q.shape
+    if mask.dtype != torch.bool or mask.dim() != 4:
+        raise DaftValueError(
+            f"attention mask must be a 4-D bool tensor, got {mask.dtype} {tuple(mask.shape)}")
+    # Inverted before it is broadcast, so no (B, H, T, T) bool is written.
+    masked_out = (~mask).expand(B, H if mask.shape[1] == 1 else mask.shape[1], T, T)
+    # The logits are referenced only by softmax's argument, so they are freed
+    # before P is cast.
+    probs = torch.softmax(_scaled_logits(q, k).masked_fill_(masked_out, MASK_FILL), dim=-1)
+    return torch.matmul(probs.to(v.dtype), v.transpose(1, 2)).transpose(1, 2)
+
+
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, T) f32 q·kᵀ · D ** -0.5 from (B, T, H, D) q and k."""
+    B, T, H, D = q.shape
+    qf, kf = (t.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
+              .reshape(B * H, T, D) for t in (q, k))
+    # beta=0 ignores the (broadcast) input; alpha scales in the epilogue.
+    return torch.baddbmm(qf.new_zeros(1, 1, 1), qf, kf.transpose(1, 2),
+                         beta=0.0, alpha=D ** -0.5).view(B, H, T, T)
 
 
 class TransformerBlock(nn.Module):
@@ -106,6 +150,60 @@ class TransformerBlock(nn.Module):
         # round(): converted checkpoints carry the hidden width as a float ratio.
         self.mlp = MLP(dim, round(dim * mlp_ratio), dim, dtype, act, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x).to(self.dtype))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x).to(self.dtype), mask)
         return x + self.mlp(self.ln2(x).to(self.dtype))
+
+
+def causal_mask(seq_len: int, device=None) -> torch.Tensor:
+    """(1, 1, T, T) bool, True on and below the diagonal."""
+    return torch.tril(torch.ones((1, 1, seq_len, seq_len), dtype=torch.bool, device=device))
+
+
+def sinusoidal_positions(length: int, dim: int) -> torch.Tensor:
+    """(length, dim) f32: sin on the even columns, cos on the odd ones."""
+    pos = torch.arange(length, dtype=torch.float32)[:, None]
+    rate = -torch.log(torch.tensor(10000.0)) / dim
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32) * rate)
+    out = torch.zeros((length, dim), dtype=torch.float32)
+    out[:, 0::2] = torch.sin(pos * div)
+    out[:, 1::2] = torch.cos(pos * div)
+    return out
+
+
+def flax_block_names(flax_prefix: str, torch_prefix: str) -> Dict[str, tuple]:
+    """The flax keys of one ``TransformerBlock`` (``block_0/attn/qkv/kernel``)
+    -> (torch parameter name, how the array maps onto it): a Dense kernel
+    (in, out) is transposed onto a Linear weight, the rest copy as they are."""
+    names = {}
+    for ln in ("ln1", "ln2"):
+        names[f"{flax_prefix}/{ln}/scale"] = (f"{torch_prefix}.{ln}.weight", "same")
+        names[f"{flax_prefix}/{ln}/bias"] = (f"{torch_prefix}.{ln}.bias", "same")
+    for dense in ("attn/qkv", "attn/out", "mlp/fc1", "mlp/fc2"):
+        tname = f"{torch_prefix}.{dense.replace('/', '.')}"
+        names[f"{flax_prefix}/{dense}/kernel"] = (f"{tname}.weight", "dense")
+        names[f"{flax_prefix}/{dense}/bias"] = (f"{tname}.bias", "same")
+    return names
+
+
+@torch.no_grad()
+def init_random_params_(module: nn.Module, generator: torch.Generator,
+                        normal_std: Dict[str, float]) -> nn.Module:
+    """Random weights from ``generator``, made on the parameters' device, in
+    the order of ``named_parameters``: normal with the given std for the
+    parameters ``normal_std`` names (embeddings, as in flax), normal with
+    variance 1/fan_in for every other Linear weight, zero biases, unit
+    LayerNorms. The numbers are not ``jax.random``'s."""
+    for name, param in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name in normal_std:
+            param.copy_(torch.randn(param.shape, generator=generator, device=param.device)
+                        * normal_std[name])
+        elif leaf == "weight" and param.dim() == 2:
+            std = 1.0 / math.sqrt(param.shape[1])
+            param.copy_(torch.randn(param.shape, generator=generator, device=param.device) * std)
+        elif leaf == "bias":
+            param.zero_()
+        elif leaf == "weight":
+            param.fill_(1.0)
+    return module

@@ -19,7 +19,7 @@ import torch
 
 from daft_tpu.models import clip as jclip
 from daft_tpu.models import layers as jlayers
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.models import clip as tclip
 from daft_tpu_torch.models import layers as tlayers
 from daft_tpu_torch.models.checkpoint import load_npz
@@ -167,12 +167,6 @@ def test_resolve_act_matches_flax(name):
 def test_resolve_act_rejects_unknown():
     with pytest.raises(DaftValueError):
         tlayers.resolve_act("mish")
-
-
-def test_masked_attention_is_not_ported():
-    attn = tlayers.MultiHeadAttention(64, 2, torch.float32, device="cpu")
-    with pytest.raises(DaftNotImplementedError):
-        attn(torch.zeros(1, 4, 64), mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
 
 
 @pytest.mark.parametrize("name,width,layers,embed", [
