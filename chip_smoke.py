@@ -39,7 +39,23 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    embeddings the engine's run made and their similarities to the labels
    equal a direct forward's, that those similarities agree with the CPU
    towers', and that reversing the label list names the same label per row;
-6. print one JSON line of per-kernel numbers (with the launches on each
+6. drive generation through the engine at full width: ``prompt(provider=
+   "cuda_random")`` with ``default-lm`` (vocab 32000, hidden 2048, 16 layers,
+   16 heads) on 256 seeded strings, every fourth repeating the one before, 32
+   new tokens at temperature 0, after a warm run of 16, with every launch
+   count set to 0 just before and read just after; print prompts/s, tokens/s,
+   the phase split, ms per decode step beside its byte bound and peak device
+   memory beside the weights and KV cache, and trace 16 decode steps of a full
+   8-slot pool with ``torch.profiler``. It checks that every response is at
+   most 32 ids in [1, vocab), that identical prompts are answered alike with
+   at least one prefix hit, that a second direct run on the same instance
+   gives the same responses, that no flash attention is launched, and that
+   the card's LM agrees with a CPU copy of its weights on 2 prompts (prefill
+   logits and 8 teacher-forced decode steps, cosine >= 0.99 per position).
+   Then one wave at the ``8b`` widths (vocab 128256, hidden 4096, 32 layers)
+   straight through ``ContinuousBatcher``: 8 distinct prompts, 16 new tokens,
+   with its peak memory and ms per decode step beside its bound;
+7. print one JSON line of per-kernel numbers (with the launches on each
    path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -70,6 +86,14 @@ CPU_COSINE_MIN = 0.99  # GPU tower vs CPU tower in bf16: rounding differs per la
 CPU_SIM_TOL = 1e-2    # image-label cosines from the GPU towers vs the CPU towers
 CPU_TEXT_SAMPLE = 48  # non-empty strings per text tower held against its CPU tower
 BF16_PARITY_T = (5, 64, 257, 300, 1024)  # one short, whole, ragged and long sequences
+
+NUM_PROMPTS = 256
+WARM_PROMPTS = 16
+MAX_NEW_TOKENS = 32
+CPU_PROMPTS = 2       # prompts of the card's LM held against its CPU copy
+TEACHER_STEPS = 8     # decode steps, fed the card's tokens, after their prefill
+TRACE_STEPS = 16      # decode steps under torch.profiler
+WAVE_8B_NEW_TOKENS = 16
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -348,10 +372,11 @@ def phase_trace(card: str) -> None:
                  lambda: df.with_column("emb", expr).collect())
 
 
-def trace_window(card: str, tag: str, what: str, run) -> None:
+def trace_window(card: str, tag: str, what: str, run):
     """``run()`` once warm, then once under torch.profiler: device time by
     kernel and by kind, and the share of the window in which no device work
-    ran ("not measured" where the profiler records no device activity)."""
+    ran ("not measured" where the profiler records no device activity).
+    Returns the µs in which device work ran, or None where not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -367,7 +392,7 @@ def trace_window(card: str, tag: str, what: str, run) -> None:
     if not device:
         print(f"[{tag}] top kernels: not measured; device idle share: not measured "
               "(the profiler recorded no device activity)", flush=True)
-        return
+        return None
     by_name: dict = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -381,8 +406,8 @@ def trace_window(card: str, tag: str, what: str, run) -> None:
     print(f"[{tag}] {what}: window {window_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / window_us:.4f} [{card}]", flush=True)
     kinds = (("attention", ("attn_bf16",)), ("softmax", ("softmax",)),
-             ("masked_fill", ("masked_fill",)),
-             ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
+             ("masked_fill", ("masked_fill",)), ("cache writes", ("index_put", "indexing")),
+             ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
              ("layernorm", ("layer_norm",)), ("gelu", ("gelu",)),
              ("copies", ("memcpy", "memset", "copy_kernel")))
     by_kind: dict = {}
@@ -394,6 +419,7 @@ def trace_window(card: str, tag: str, what: str, run) -> None:
         for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])), flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms {us / total_us:6.1%}  {name[:120]}", flush=True)
+    return busy_us
 
 
 def make_texts(n: int, seed: int) -> list:
@@ -688,6 +714,225 @@ def phase_text(card: str) -> dict:
     return by_path
 
 
+def decode_step_bound(model, batcher, kv_positions: float) -> tuple:
+    """The least time of one decode step of ``batcher``'s pool that attends
+    to ``kv_positions`` cache positions in all (summed over the slots): every
+    weight read once (of the two embeddings only the B rows gathered), the K/V
+    of those positions read once, the new K/V and the f32 logits written once,
+    over the HBM rate; or its operations (2 per weight and row of the
+    products, 4·hidden per attended position and layer) over the bf16 peak.
+    The port's attention reads the whole cache, B·S positions; the work needs
+    only the live ones. Returns (ms, "bytes" or "operations", bytes)."""
+    cfg, B = model.cfg, batcher.B
+    weights, _ = model_bytes(model, batcher)
+    gathered = (model.tok_embed.weight, model.pos_embed)
+    dense = sum(p.numel() for p in model.parameters() if p.dim() == 2) - model.tok_embed.weight.numel()
+    itemsize = batcher.caches[0][0].element_size()
+    moved = (weights - sum(p.numel() * p.element_size() for p in gathered)
+             + 2 * B * cfg.hidden * 4 + kv_positions * 2 * cfg.layers * cfg.hidden * itemsize
+             + 2 * cfg.layers * B * cfg.hidden * itemsize + B * cfg.vocab_size * 4)
+    ops = 2 * B * dense + 4 * cfg.layers * kv_positions * cfg.hidden
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
+
+
+def model_bytes(model, batcher) -> tuple:
+    """(bytes of the weights, bytes of the batcher's KV cache)."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache = sum(k.numel() * k.element_size() * 2 for k, _ in batcher.caches)
+    return weights, cache
+
+
+def check_lm_on_cpu(card: str, model, tokens, lengths) -> None:
+    """The card's LM against a CPU copy of the same weights on a few prompts:
+    the prefill logits at every real position, then TEACHER_STEPS decode
+    steps that feed both models the card's greedy tokens. Each position's
+    logits must have cosine >= CPU_COSINE_MIN; the share of positions whose
+    argmax agrees is printed (random weights give near-ties)."""
+    import numpy as np
+    import torch
+
+    from daft_tpu_torch.models.lm import DecoderLM, init_caches
+
+    t0 = time.perf_counter()
+    cpu = DecoderLM(model.cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    cpu.eval().requires_grad_(False)
+    B, P = tokens.shape
+    runs = {}
+    for name, m, dev in (("gpu", model, "cuda"), ("cpu", cpu, "cpu")):
+        caches = init_caches(m.cfg, B, P + TEACHER_STEPS, device=dev)
+        with torch.no_grad():
+            logits, _ = m(torch.from_numpy(tokens).to(dev), caches,
+                          torch.arange(P, device=dev).expand(B, P))
+        runs[name] = (caches, [logits.float().cpu()])
+    cos_min, agree, total = 1.0, 0, 0
+    pos = torch.from_numpy(lengths.astype(np.int64))
+    for step in range(TEACHER_STEPS + 1):
+        g, c = runs["gpu"][1][-1], runs["cpu"][1][-1]
+        if step == 0:  # the prefill: every real position of each prompt
+            valid = torch.arange(P)[None, :] < pos[:, None]
+            g, c = g[valid], c[valid]
+            last = runs["gpu"][1][0][torch.arange(B), pos - 1]
+        else:
+            g, c = g[:, 0], c[:, 0]
+            last = g
+        cos = torch.nn.functional.cosine_similarity(g, c, dim=-1)
+        cos_min = min(cos_min, float(cos.min()))
+        agree += int((g.argmax(-1) == c.argmax(-1)).sum())
+        total += len(g)
+        if step == TEACHER_STEPS:
+            break
+        tok = last.argmax(-1).to(torch.int32)[:, None]
+        for name, m, dev in (("gpu", model, "cuda"), ("cpu", cpu, "cpu")):
+            caches, outs = runs[name]
+            with torch.no_grad():
+                logits, _ = m(tok.to(dev), caches, (pos + step)[:, None].to(dev))
+            outs.append(logits.float().cpu())
+    print(f"[prompt] GPU LM vs CPU LM ({B} prompts of {lengths.tolist()} tokens, prefill and "
+          f"{TEACHER_STEPS} teacher-forced decode steps, {time.perf_counter() - t0:.1f} s): "
+          f"cosine {cos_min:.6f} (min {CPU_COSINE_MIN}) over {total} positions; argmax agrees "
+          f"at {agree}/{total} = {agree / total:.3f} [{card}]", flush=True)
+    check(cos_min >= CPU_COSINE_MIN, f"prompt: GPU and CPU LMs disagree: cosine {cos_min}")
+
+
+def report_decode(card: str, tag: str, model, batcher, stats: dict, elapsed: float,
+                  responses: int, tokens: int) -> None:
+    """prompts/s, tokens/s and ms per decode step beside its bound over the
+    positions the run attended to, and beside the bound over the whole cache."""
+    steps = max(stats["decode_steps"], 1)
+    live = stats["kv_positions"] / steps
+    bound_ms, bound_by, moved = decode_step_bound(model, batcher, live)
+    whole_ms, _, whole = decode_step_bound(model, batcher, batcher.B * batcher.S)
+    step_ms = stats["decode_s"] * 1e3 / steps
+    print(f"[{tag}] {responses} prompts, {tokens} generated ids in {elapsed:.3f} s = "
+          f"{responses / elapsed:.2f} prompts/s, {tokens / elapsed:.1f} tokens/s; "
+          f"{stats['decode_steps']} decode steps at {step_ms:.3f} ms each (stream time); bound "
+          f"{bound_ms:.3f} ms ({bound_by}: {moved / 1e9:.3f} GB per step at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {live:.1f} live cache positions per step), "
+          f"step / bound {step_ms / bound_ms:.2f}; over the whole cache ({batcher.B * batcher.S} "
+          f"positions, as the port reads it) {whole_ms:.3f} ms ({whole / 1e9:.3f} GB), step / "
+          f"that {step_ms / whole_ms:.2f}; prefills {stats['prefill_s']:.3f} s [{card}]",
+          flush=True)
+
+
+def phase_generate(card: str) -> dict:
+    """``prompt`` through the engine with ``default-lm`` at full width, then
+    one wave of the ``8b`` widths straight through ``ContinuousBatcher``;
+    returns the launch counts of each path by name."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions.ai import prompt
+    from daft_tpu_torch.models.lm import EOS_ID, DecoderLM, DecoderLMConfig, init_random_
+    from daft_tpu_torch.models.serving import ContinuousBatcher, Request
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.utils.tokenizer import HashingTokenizer
+
+    texts = make_texts(NUM_PROMPTS, seed=5)
+    for i in range(3, NUM_PROMPTS, 4):  # every fourth string repeats the one before
+        texts[i] = texts[i - 1]
+    df = dt.from_pydict({"t": texts})
+    expr = prompt(dt.col("t"), provider="cuda_random", max_new_tokens=MAX_NEW_TOKENS,
+                  temperature=0.0)
+    out, launches, inst, elapsed = engine_run(card, "prompt default-lm", df, NUM_PROMPTS, expr,
+                                              warm_rows=WARM_PROMPTS)
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(inst.last_forward_stats)
+    ids = [[int(t) for t in r.split()] for r in out]
+    report_decode(card, "prompt default-lm", inst.model, inst._batcher, stats, elapsed, len(out),
+                  sum(map(len, ids)))
+    weights, cache = model_bytes(inst.model, inst._batcher)
+    print(f"[prompt default-lm] peak device memory {peak / 1e9:.2f} GB against weights "
+          f"{weights / 1e9:.3f} GB + KV cache {cache / 1e9:.3f} GB = {(weights + cache) / 1e9:.3f} "
+          f"GB [{card}]", flush=True)
+    check(all(len(r) <= MAX_NEW_TOKENS and all(1 <= t < inst.cfg.vocab_size for t in r)
+              for r in ids), f"prompt: a response is not <= {MAX_NEW_TOKENS} ids in [1, vocab)")
+    check(all(out[i] == out[i - 1] for i in range(3, NUM_PROMPTS, 4)),
+          "prompt: identical prompts gave different responses")
+    check(stats["prefix_hits"] >= 1, f"prompt: no prefix hit in {stats}")
+    check(launches["flash_attention"] == 0,
+          f"prompt: flash_attention launched {launches['flash_attention']} times")
+    again = inst.prompt(texts)
+    check(again == out, "prompt: the engine's responses differ from a direct run")
+    print(f"[prompt default-lm] responses equal a direct run; {len(set(out))} distinct of "
+          f"{len(out)}; every repeated prompt answered alike; {stats['prefix_hits']} prefix hits",
+          flush=True)
+    tokens, lengths = inst.tokenizer.encode_batch(texts[1:1 + CPU_PROMPTS])
+    check_lm_on_cpu(card, inst.model, tokens[:, :int(lengths.max())], lengths)
+
+    # TRACE_STEPS decode steps of a full pool, on a batcher of its own.
+    batcher = ContinuousBatcher(inst.model, num_slots=inst.num_slots)
+    for slot in range(batcher.B):
+        row = tokens[slot % len(tokens)]
+        batcher._prefill(Request(tokens=row[row != 0], max_new_tokens=4 * TRACE_STEPS), slot)
+    start = batcher._positions + 1  # every slot active; trace_window runs the steps twice
+    busy_us = trace_window(card, "trace prompt default-lm",
+                           f"{TRACE_STEPS} decode steps of 8 slots",
+                           lambda: [batcher._decode() for _ in range(TRACE_STEPS)])
+    live = float(np.mean([(start + k).sum() for k in range(TRACE_STEPS, 2 * TRACE_STEPS)]))
+    bound_ms, bound_by, _ = decode_step_bound(inst.model, batcher, live)
+    if busy_us is not None:
+        print(f"[trace prompt default-lm] device time {busy_us / 1e3 / TRACE_STEPS:.3f} ms per "
+              f"step against its bound {bound_ms:.3f} ms ({bound_by}, {live:.1f} live cache "
+              f"positions per step): {busy_us / 1e3 / TRACE_STEPS / bound_ms:.2f}x [{card}]",
+              flush=True)
+    by_path = {"prompt": launches}
+    del batcher, inst, expr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One wave at the 8b widths.
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg = DecoderLMConfig.from_name("8b")
+    model = init_random_(DecoderLM(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    model.eval().requires_grad_(False)
+    batcher = ContinuousBatcher(model, num_slots=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tokens, lengths = HashingTokenizer(cfg.vocab_size, 128).encode_batch(
+        make_texts(8, seed=6)[1:] + ["one more distinct prompt for the eighth slot"])
+
+    def wave(new_tokens: int) -> list:
+        return batcher.run([Request(tokens=tokens[i, :max(int(lengths[i]), 1)],
+                                    max_new_tokens=new_tokens) for i in range(len(tokens))])
+
+    wave(2)  # cuBLAS handles and the first forwards
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launch_count = 0
+    t0 = time.perf_counter()
+    rows = wave(WAVE_8B_NEW_TOKENS)
+    elapsed = time.perf_counter() - t0
+    launches_8b = {"flash_attention": flash_attention.launch_count}
+    peak = torch.cuda.max_memory_allocated()
+    stats = batcher.last_run_stats
+    report_decode(card, "prompt_8b", model, batcher, stats, elapsed, len(rows),
+                  sum(map(len, rows)))
+    weights, cache = model_bytes(model, batcher)
+    print(f"[prompt_8b] set-up {setup_s:.1f} s; stats {stats}; peak device memory "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above what was allocated before), "
+          f"weights {weights / 1e9:.3f} GB + KV cache {cache / 1e9:.3f} GB; launches "
+          f"{launches_8b} [{card}]", flush=True)
+    check(all(len(r) == WAVE_8B_NEW_TOKENS or (r and r[-1] == EOS_ID) for r in rows),
+          "prompt_8b: a request stopped early without EOS")
+    check(all(0 <= t < cfg.vocab_size for r in rows for t in r), "prompt_8b: an id out of range")
+    check(stats["prefills"] == len(rows) and stats["prefix_hits"] == 0,
+          f"prompt_8b: expected {len(rows)} prefills of distinct prompts, got {stats}")
+    check(launches_8b["flash_attention"] == 0,
+          f"prompt_8b: flash_attention launched {launches_8b['flash_attention']} times")
+    by_path["prompt_8b"] = launches_8b
+    del batcher, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -705,6 +950,7 @@ def main() -> int:
         phase_trace(card)
         by_path = {"embed_image": launches}
         by_path.update(phase_text(card))
+        by_path.update(phase_generate(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -43,6 +43,11 @@ class ImageClassifier(Protocol):
     def classify_image(self, images: np.ndarray, labels: Sequence[str]) -> List[str]: ...
 
 
+@runtime_checkable
+class Prompter(Protocol):
+    def prompt(self, prompts: Sequence[Optional[str]]) -> List[str]: ...
+
+
 class Descriptor:
     """Recipe for instantiating a protocol implementation inside a UDF."""
 
@@ -73,3 +78,7 @@ class TextClassifierDescriptor(Descriptor):
 
 class ImageClassifierDescriptor(Descriptor):
     protocol = "image_classifier"
+
+
+class PrompterDescriptor(Descriptor):
+    protocol = "prompter"

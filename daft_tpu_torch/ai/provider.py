@@ -3,9 +3,9 @@
 A Provider vends protocol descriptors. Built-in: ``cuda`` (the port's models,
 the default) and ``cuda_random`` (same architectures, random weights from a
 seed — for benchmarking and for machines without checkpoints). Third-party
-providers register via ``register_provider``. Not ported yet: the prompter,
-the API providers (openai, google, lm_studio, vllm) and the transformers
-text provider.
+providers register via ``register_provider``. Not ported yet: the API
+providers (openai, google, lm_studio, vllm) and the transformers text
+provider.
 """
 
 from __future__ import annotations
@@ -33,6 +33,9 @@ class Provider:
 
     def get_image_classifier(self, model: Optional[str] = None, **options):
         raise DaftValueError(f"Provider {self.name!r} has no image classifier")
+
+    def get_prompter(self, model: Optional[str] = None, **options):
+        raise DaftValueError(f"Provider {self.name!r} has no prompter")
 
 
 def register_provider(name: str, factory: Callable[..., Provider]) -> None:

@@ -1,12 +1,11 @@
 """AI expression functions (port of ``daft_tpu/functions/ai.py``).
 
 Reference: daft/functions/ai/__init__.py (embed_text:72, embed_image:157,
-classify_text:250, classify_image:329) — resolve a provider, get a protocol
-descriptor, and wrap it into a stateful batch UDF. Image columns may be
-fixed-shape images, uint8 tensor / embedding / fixed-size-list columns,
-variable-shape images or encoded bytes; the last two are decoded and resized
-on the host with PIL, as the JAX package does. Not ported yet:
-``prompt``/``llm_generate``.
+classify_text:250, classify_image:329, prompt:430) — resolve a provider, get
+a protocol descriptor, and wrap it into a stateful batch UDF. Image columns
+may be fixed-shape images, uint8 tensor / embedding / fixed-size-list
+columns, variable-shape images or encoded bytes; the last two are decoded and
+resized on the host with PIL, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -178,3 +177,25 @@ def classify_image(image: Expression, labels: Sequence[str], *,
         return Series.from_pylist(out, "label", DataType.string())
 
     return _ProtocolUdf(desc, call, DataType.string(), "classify_image")(image)
+
+
+def prompt(text: Expression, *, provider: Union[str, object, None] = None,
+           model: Optional[str] = None, **options) -> Expression:
+    """Generate text per row (reference: daft/functions/ai/__init__.py:430):
+    the decoder LM behind continuous batching; default model ``default-lm``.
+    Options ``max_new_tokens`` (32), ``temperature`` (0: greedy), ``seed``,
+    ``weights_path`` and ``device`` (``"cpu"`` runs it on the CPU)."""
+    p = load_provider(provider)
+    desc = p.get_prompter(model, **options)
+
+    def call(inst, series: Series) -> Series:
+        return Series.from_pylist(inst.prompt(series.to_pylist()), "response", DataType.string())
+
+    return _ProtocolUdf(desc, call, DataType.string(), "prompt")(text)
+
+
+def llm_generate(text: Expression, *, model: Optional[str] = None,
+                 provider: Union[str, object, None] = None, **options) -> Expression:
+    """Batched LLM generation (reference: daft/functions/llm.py llm_generate,
+    which hands rows to vLLM); here ``prompt``'s continuous batcher."""
+    return prompt(text, provider=provider, model=model, **options)

@@ -12,7 +12,7 @@ With a mask (the text towers' causal and key-padding masks) it runs
 ``masked_attention``, plain torch with the arithmetic of the JAX package's
 ``jax.nn.dot_product_attention``; the JAX package leaves that path to XLA, so
 no hand-written kernel stands behind it, and it never reaches the mask-free
-kernel or ``scaled_dot_product_attention``.
+kernel or PyTorch's fused attention (SDPA).
 """
 
 from __future__ import annotations

@@ -178,7 +178,8 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch, daft_tpu_torch.functions.ai, daft_tpu_torch.ai.cuda_provider\n"
         "import daft_tpu_torch.entry, daft_tpu_torch.models.clip, daft_tpu_torch.ops.build\n"
         "import daft_tpu_torch.models.minilm, daft_tpu_torch.utils.tokenizer\n"
-        "import daft_tpu_torch.kernels.hashing\n"
+        "import daft_tpu_torch.kernels.hashing, daft_tpu_torch.models.lm\n"
+        "import daft_tpu_torch.models.serving\n"
         "new = set(sys.modules) - before\n"
         "print(json.dumps(sorted(m for m in new if m.split('.')[0] in\n"
         "                        ('jax', 'jaxlib', 'flax', 'optax', 'daft_tpu'))))\n")
