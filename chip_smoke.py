@@ -55,7 +55,29 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    Then one wave at the ``8b`` widths (vocab 128256, hidden 4096, 32 layers)
    straight through ``ContinuousBatcher``: 8 distinct prompts, 16 new tokens,
    with its peak memory and ms per decode step beside its bound;
-7. print one JSON line of per-kernel numbers (with the launches on each
+7. drive the relational device layer through the engine on the card: TPC-H
+   q06 (validation parameters) over the numeric columns of SF10's lineitem,
+   59,986,052 rows generated from a seed by the TPC-H distributions
+   (``daft_tpu_torch/tools/lineitem.py``), a warm run and a timed one with the
+   counts set to 0 just before; print rows/s, column GB/s, the staging /
+   host→device / device / fetch split (CUDA events), the pinned host→device
+   rate of a 1 GB copy and the q06 bound it implies beside the HBM bound of the
+   scan, the idle share over a ``torch.profiler`` window of four chunks and the
+   peak device memory. It checks the revenue against an f64 numpy reference
+   (rtol 1e-5), that the two runs' revenues are the same bytes, that every row
+   ran in the device chain (none on a host route), that the program cache
+   missed once per distinct padded chunk length, and that no flash attention
+   was launched. On the first 1M rows, the filter→with_columns chain of q01's
+   projection (``l_quantity < 48``; ``disc_price``, ``charge`` with f32
+   literals) and the same projection through device_eval
+   (``compiled_eval_enabled=False``) must equal the host route
+   (``device_eval=False``) bit for bit; with Python literals the host's f64
+   intermediates are one or two f32 roundings away, and the largest gap is
+   printed. Last, ``cosine_distance`` of 1,000,000 x 768 f32 embeddings
+   (CLIP ViT-L/14's width) against a query vector, and a ``where`` on it, on
+   the card and through the port on the CPU: distances within 1e-6, the same
+   rows kept;
+8. print one JSON line of per-kernel numbers (with the launches on each
    path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -94,6 +116,14 @@ CPU_PROMPTS = 2       # prompts of the card's LM held against its CPU copy
 TEACHER_STEPS = 8     # decode steps, fed the card's tokens, after their prefill
 TRACE_STEPS = 16      # decode steps under torch.profiler
 WAVE_8B_NEW_TOKENS = 16
+
+Q06_RTOL = 1e-5          # f32 sums per chunk against an f64 reference
+Q06_TRACE_ROWS = 4 * 2 * 256 * 1024  # four aggregation chunks
+PARITY_ROWS = 1_000_000  # rows of the host-route bit-equality checks
+EMBED_ROWS, EMBED_DIM = 1_000_000, 768
+COSINE_TOL = 1e-6        # card against the CPU, f32 reductions in another order
+COSINE_KEEP = 0.95       # the where's threshold on the cosine distance
+PINNED_PROBE_BYTES = 1 << 30
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -933,6 +963,229 @@ def phase_generate(card: str) -> dict:
     return by_path
 
 
+def phase_relational(card: str) -> dict:
+    """The relational device layer through the engine on the card: q06 over
+    SF10's lineitem, the q01 projection chain and the device_eval route held
+    against the host route, and a cosine-distance scan held against the CPU.
+    Returns the launch counts of the path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution.pipeline import chunk_morsels
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import lineitem
+
+    rows = lineitem.SF10_LINEITEM_ROWS
+    t0 = time.perf_counter()
+    cols = lineitem.lineitem_columns(rows, seed=0)
+    df = dt.from_pydict(cols)
+    gen_s = time.perf_counter() - t0
+    scan_bytes = sum(cols[k].nbytes for k in ("l_shipdate", "l_discount", "l_quantity",
+                                              "l_extendedprice"))
+    ref = lineitem.q06_reference(cols)
+    # The padded lengths q06's chunks take: morsels of default_morsel_size
+    # rows, chunks of more than AGG_CHUNK_ROWS, the fixed bucket ladder.
+    cfg = dt.get_context().execution_config
+    morsel = cfg.default_morsel_size
+    morsels = [range(min(morsel, rows - s)) for s in range(0, rows, morsel)]
+    chunk_rows = [sum(map(len, c)) for c in chunk_morsels(morsels, 256 * 1024)]
+    shapes = {de._bucket(n, cfg.device_batch_buckets) for n in chunk_rows}
+    print(f"[relational] lineitem SF10 numeric columns: {rows} rows generated in {gen_s:.1f} s; "
+          f"q06 reads {scan_bytes / 1e9:.3f} GB in {len(chunk_rows)} chunks, padded lengths "
+          f"{sorted(shapes)}", flush=True)
+
+    de.reset_programs()
+    results, launches = [], None
+    for run in ("warm", "timed"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        de.device_eval_counters.reset()
+        de.phase_timer.reset()
+        de.phase_timer.enabled = run == "timed"
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        out = lineitem.q06(dt, df).to_pydict()
+        elapsed = time.perf_counter() - t0
+        de.phase_timer.enabled = False
+        snap = de.device_eval_counters.snapshot()
+        results.append((out["revenue"][0], elapsed, snap))
+        check(snap["chain_rows"] == {"filter_project_agg": rows} and not snap["host_rows"],
+              f"q06 {run}: not every row ran in the device chain: {snap}")
+        launches = flash_attention.launch_count
+        check(launches == 0, f"q06 {run}: flash_attention launched {launches} times")
+    (warm_rev, warm_s, warm_snap), (rev, elapsed, snap) = results
+    peak = torch.cuda.max_memory_allocated()
+    split = de.phase_timer.totals
+    check(warm_snap["program_misses"] == len(shapes),
+          f"q06: {warm_snap['program_misses']} program-cache misses for {len(shapes)} distinct "
+          f"padded lengths")
+    check(snap["program_misses"] == 0, f"q06 timed run built programs: {snap}")
+    err = abs(rev - ref) / abs(ref)
+    check(err <= Q06_RTOL, f"q06 revenue {rev} vs f64 reference {ref}: rel err {err}")
+    check(np.float32(rev).tobytes() == np.float32(warm_rev).tobytes(),
+          f"q06: two runs gave {warm_rev!r} and {rev!r}")
+
+    # The pinned host -> device rate, measured here with a 1 GB copy.
+    host = torch.empty(PINNED_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(PINNED_PROBE_BYTES, dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    pinned_ms = time_ms(lambda: dev.copy_(host, non_blocking=True), iters=5, warmup=1)
+    pinned_rate = PINNED_PROBE_BYTES / (pinned_ms / 1e3)
+    del host, dev
+    pcie_bound_s = scan_bytes / pinned_rate
+    hbm_bound_s = scan_bytes / HBM_BYTES_PER_S
+    print(f"[relational] q06 over {rows} rows: revenue {rev:.6f} (f64 reference {ref:.6f}, rel err "
+          f"{err:.2e}, tol {Q06_RTOL}); warm run {warm_s:.3f} s, timed run {elapsed:.3f} s = "
+          f"{rows / elapsed:.4e} rows/s, {scan_bytes / elapsed / 1e9:.3f} GB/s of columns [{card}]",
+          flush=True)
+    print(f"[relational] q06 split: staging (host copies into pinned buffers) "
+          f"{split['stage_s']:.3f} s, host->device {split['h2d_ms']:.3f} ms, device "
+          f"{split['device_ms']:.3f} ms, fetch {split['d2h_ms']:.3f} ms (stream time, CUDA "
+          f"events, summed over {snap['chain_morsels']['filter_project_agg']} chunks); "
+          f"program cache: {warm_snap['program_misses']} misses in the warm run, "
+          f"{snap['program_hits']} hits and 0 misses in the timed run [{card}]", flush=True)
+    print(f"[relational] pinned host->device copy of 1 GB: {pinned_ms:.3f} ms = "
+          f"{pinned_rate / 1e9:.2f} GB/s, so q06's {scan_bytes / 1e9:.3f} GB cannot cross in less "
+          f"than {pcie_bound_s * 1e3:.1f} ms ({elapsed / pcie_bound_s:.2f}x that in the timed run); "
+          f"the same bytes read once from HBM at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+          f"{hbm_bound_s * 1e3:.3f} ms; peak device memory {peak / 1e9:.3f} GB [{card}]",
+          flush=True)
+
+    head = dt.from_pydict({k: v[:Q06_TRACE_ROWS] for k, v in cols.items()})
+    trace_window(card, "trace relational", f"q06 over {Q06_TRACE_ROWS} rows (four chunks)",
+                 lambda: lineitem.q06(dt, head).to_pydict())
+
+    check_relational_routes(card, {k: v[:PARITY_ROWS] for k, v in cols.items()})
+    del df, head, cols
+    gc.collect()
+    check_cosine_scan(card)
+    return {"flash_attention": launches}
+
+
+def check_relational_routes(card: str, cols: dict) -> None:
+    """q01's projection under its filter on the card (the compiled chain), the
+    same projection through device_eval (compiled_eval_enabled=False), and
+    the host route (device_eval=False): bit-equal with f32-typed literals; the
+    largest gap in f32 roundings is printed for Python literals."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import device_eval as de
+
+    df = dt.from_pydict(cols)
+    c = dt.col
+
+    def proj(one):
+        price, disc = c("l_extendedprice"), c("l_discount")
+        return {"disc_price": price * (one - disc),
+                "charge": price * (one - disc) * (one + c("l_tax"))}
+
+    def routes(one):
+        out = {}
+        for route, cfg in (("chain", {}), ("device_eval", {"compiled_eval_enabled": False}),
+                           ("host", {"compiled_eval_enabled": False, "device_eval": False})):
+            de.device_eval_counters.reset()
+            with dt.execution_config_ctx(**cfg):
+                out[route] = (
+                    df.where(c("l_quantity") < 48).with_columns(proj(one)).to_pydict(),
+                    df.with_columns(proj(one)).select("disc_price", "charge").to_pydict())
+            out[route] += (de.device_eval_counters.snapshot(),)
+        return out
+
+    f32_one = dt.lit(1.0, dt.DataType.float32())
+    exact = routes(f32_one)
+    n = len(cols["l_quantity"])
+    check(exact["chain"][2]["chain_rows"] == {"filter_project": 2 * n},
+          f"q01 chain: not every row ran in the device chain: {exact['chain'][2]}")
+    kept = len(exact["chain"][0]["disc_price"])
+    check(exact["device_eval"][2]["fused_rows"] == 2 * (kept + n) and
+          not exact["device_eval"][2]["chain_rows"],
+          f"q01 projection: device_eval did not take it: {exact['device_eval'][2]}")
+    for route in ("chain", "device_eval"):
+        for got, want in zip(exact[route][:2], exact["host"][:2]):
+            for k in got:
+                check(np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes(),
+                      f"q01 {route}: column {k} differs from the host route")
+    weak = routes(1)
+    gap = 0
+    for route in ("chain", "device_eval"):
+        for got, want in zip(weak[route][:2], weak["host"][:2]):
+            for k in ("disc_price", "charge"):
+                a = np.asarray(got[k], dtype=np.float32)
+                b = np.asarray(want[k], dtype=np.float32)
+                gap = max(gap, int(np.abs(a.view(np.int32).astype(np.int64)
+                                          - b.view(np.int32).astype(np.int64)).max()))
+    check(gap <= 2, f"q01 with Python literals: the device is {gap} f32 steps from the host")
+    print(f"[relational] q01 projection on {n} rows ({kept} kept by l_quantity < 48): the device "
+          f"chain and device_eval equal the host route bit for bit with f32 literals; with Python "
+          f"literals (f64 intermediates on the host) the largest gap is {gap} f32 step(s) [{card}]",
+          flush=True)
+
+
+def check_cosine_scan(card: str) -> None:
+    """cosine_distance of EMBED_ROWS x EMBED_DIM f32 embeddings against a
+    query vector (a column of the query repeated: a literal vector takes the
+    host route, as in the JAX package), and a where on it: card and CPU."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import device_eval as de
+
+    rng = np.random.default_rng(8)
+    emb = rng.standard_normal((EMBED_ROWS, EMBED_DIM), dtype=np.float32)
+    query = rng.standard_normal(EMBED_DIM, dtype=np.float32)
+    dtype = dt.DataType.embedding(dt.DataType.float32(), EMBED_DIM)
+    df = dt.from_pydict({
+        "id": np.arange(EMBED_ROWS, dtype=np.int64),
+        "e": dt.Series.from_numpy(emb, "e", dtype),
+        "q": dt.Series.from_numpy(np.broadcast_to(query, emb.shape), "q", dtype)})
+    del emb
+    dist = dt.col("e").embedding.cosine_distance(dt.col("q"))
+
+    def run():
+        de.device_eval_counters.reset()
+        t0 = time.perf_counter()
+        d = np.asarray(df.select(dist.alias("d")).to_pydict()["d"])
+        t1 = time.perf_counter()
+        kept = df.with_column("d", dist).where(dt.col("d") < COSINE_KEEP).select("id", "d").to_pydict()
+        return d, kept, t1 - t0, time.perf_counter() - t1, de.device_eval_counters.snapshot()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    d_gpu, kept_gpu, d_s, where_s, snap = run()
+    peak = torch.cuda.max_memory_allocated()
+    # The distance resolves to f64 (computed in f32, cast up after the
+    # fetch), which only device_eval takes: each query's distances run there,
+    # and the where compares the fetched f64 distances on the host, as in
+    # the JAX package.
+    check(snap["fused_rows"] == 2 * EMBED_ROWS and not snap["chain_rows"],
+          f"cosine scan: the distances did not all run on the card: {snap}")
+    with dt.execution_config_ctx(device="cpu"):
+        d_cpu, kept_cpu, cpu_s, _, _ = run()
+    err = float(np.abs(d_gpu - d_cpu).max())
+    ids_gpu, ids_cpu = set(kept_gpu["id"]), set(kept_cpu["id"])
+    edge = set(np.flatnonzero(np.abs(d_cpu - COSINE_KEEP) <= COSINE_TOL).tolist())
+    print(f"[relational] cosine_distance of {EMBED_ROWS} x {EMBED_DIM} f32 embeddings: card "
+          f"{d_s:.3f} s ({EMBED_ROWS * EMBED_DIM * 8 / d_s / 1e9:.2f} GB/s of the two columns), "
+          f"where d < {COSINE_KEEP}: {where_s:.3f} s, {len(ids_gpu)} rows kept; CPU {cpu_s:.3f} s; "
+          f"card vs CPU max_abs_err {err:.3e} (tol {COSINE_TOL}); peak device memory "
+          f"{peak / 1e9:.3f} GB [{card}]", flush=True)
+    check(bool(np.isfinite(d_gpu).all()) and d_gpu.shape == (EMBED_ROWS,),
+          "cosine scan: distances not finite or of the wrong shape")
+    check(err <= COSINE_TOL, f"cosine scan: card and CPU differ by {err}")
+    check(ids_gpu ^ ids_cpu <= edge, f"cosine scan: the where kept other rows on the card "
+          f"({len(ids_gpu ^ ids_cpu)} differ, {len(edge)} within {COSINE_TOL} of the threshold)")
+    got = dict(zip(kept_gpu["id"], kept_gpu["d"]))
+    check(all(abs(got[i] - d_cpu[i]) <= COSINE_TOL for i in ids_gpu & ids_cpu),
+          "cosine scan: a kept row's distance differs from the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -951,6 +1204,7 @@ def main() -> int:
         by_path = {"embed_image": launches}
         by_path.update(phase_text(card))
         by_path.update(phase_generate(card))
+        by_path["relational"] = phase_relational(card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

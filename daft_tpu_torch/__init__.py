@@ -3,11 +3,13 @@
 The JAX package ``daft_tpu`` is the reference; this package mirrors its layout
 module for module, imports ``torch`` (never ``jax`` nor anything of
 ``daft_tpu``), and runs its entry points on the GPU unless the caller passes
-``device="cpu"``. The port goes slice by slice; this one carries the engine's
-main path — ``from_pydict`` → ``with_column(embed_image(...))`` → results —
-with the CLIP image tower's attention in a hand-written CUDA kernel
-(``ops/flash_attention.py``, ``csrc/flash_attention.cu``). ``ROADMAP.md`` lists
-what is still to port.
+``device="cpu"``. The port goes slice by slice; it carries the engine's main
+path — ``from_pydict`` → ``with_column(embed_image(...))`` → results — with the
+CLIP image tower's attention in a hand-written CUDA kernel
+(``ops/flash_attention.py``, ``csrc/flash_attention.cu``), the text, zero-shot
+and generation paths, and the relational device layer (``where``,
+``with_columns``, global ``agg`` through ``ops/device_eval.py`` and
+``ops/compiled_eval.py``). ``ROADMAP.md`` lists what is still to port.
 """
 
 from daft_tpu_torch.context import execution_config_ctx, get_context

@@ -2,11 +2,12 @@
 
 Reference: daft/dataframe/dataframe.py. A DataFrame wraps an immutable
 LogicalPlanBuilder; transformations return new DataFrames; materialisation
-optimizes the plan, translates it and runs it on the local executor. This
-slice ports ``select``, ``with_column``/``with_columns``, ``limit``,
-``collect``, ``iter_partitions`` and ``to_pydict``. Not ported yet: the runner
-layer (native/distributed runners, admission, plan caches, query log,
-profiling), ``where``/``sort``/``groupby``/``agg``/joins/set operations,
+optimizes the plan, translates it and runs it on the local executor. The port
+has ``select``, ``with_column``/``with_columns``, ``where``/``filter``,
+``limit``, the global ``agg`` and ``sum``/``mean``/``min``/``max``/``count``,
+``collect``, ``iter_partitions`` and ``to_pydict``. Not ported yet: the
+runner layer (native/distributed runners, admission, plan caches, query log,
+profiling), SQL predicates, ``sort``/``groupby``/joins/set operations,
 ``explode``/``unpivot``/``pivot``/``sample``, the writers, the preview and
 notebook display, and the pandas/arrow/torch/ray exporters.
 """
@@ -61,8 +62,37 @@ class DataFrame:
         exprs = [_to_expr(e).alias(n)._expr for n, e in columns.items()]
         return DataFrame(self._builder.with_columns(exprs))
 
+    def where(self, predicate: Expression) -> "DataFrame":
+        return DataFrame(self._builder.filter(predicate._expr))
+
+    filter = where
+
     def limit(self, n: int, offset: int = 0) -> "DataFrame":
         return DataFrame(self._builder.limit(n, offset))
+
+    # -- aggregation ----------------------------------------------------
+    def agg(self, *exprs: Expression) -> "DataFrame":
+        """A global aggregation: one row of ``exprs`` over every row."""
+        return DataFrame(self._builder.aggregate([e._expr for e in exprs], []))
+
+    def _agg_all(self, op: str) -> "DataFrame":
+        return self.agg(*[getattr(col(f.name), op)() for f in self.schema
+                          if op in ("min", "max", "count") or f.dtype.is_numeric()])
+
+    def sum(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).sum() for c in cols]) if cols else self._agg_all("sum")
+
+    def mean(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).mean() for c in cols]) if cols else self._agg_all("mean")
+
+    def min(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).min() for c in cols]) if cols else self._agg_all("min")
+
+    def max(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).max() for c in cols]) if cols else self._agg_all("max")
+
+    def count(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).count() for c in cols]) if cols else self._agg_all("count")
 
     # -- materialisation ------------------------------------------------
     def _run_iter(self) -> Iterator[MicroPartition]:

@@ -42,6 +42,12 @@ class LogicalPlanBuilder:
         keep = [ColumnRef(f.name) for f in self.schema if f.name not in new_names]
         return self.project(keep + list(exprs))
 
+    def filter(self, predicate: Expr) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Filter(self._plan, predicate))
+
+    def aggregate(self, agg_exprs: Sequence[Expr], group_by: Sequence[Expr]) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Aggregate(self._plan, agg_exprs, group_by))
+
     def limit(self, n: int, offset: int = 0) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.Limit(self._plan, n, offset))
 

@@ -2,10 +2,11 @@
 
 Reference: the ``LogicalPlan`` enum (src/daft-logical-plan/src/logical_plan.rs:35-66).
 Nodes are immutable; the output schema is resolved at construction so schema
-errors surface at build time. This slice ports ``InMemorySource``, ``Project``,
-``UDFProject`` and ``Limit``. Not ported yet: ``ScanSource``, ``Filter``,
+errors surface at build time. The port has ``InMemorySource``, ``Project``,
+``UDFProject``, ``Filter``, ``Limit`` and ``Aggregate`` (global only: a
+group-by raises ``DaftNotImplementedError``). Not ported yet: ``ScanSource``,
 ``Sample``, ``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``, ``Sort``,
-``TopN``, ``Aggregate``, ``Pivot``, ``Distinct``, ``Window``, ``Concat``,
+``TopN``, ``Pivot``, ``Distinct``, ``Window``, ``Concat``,
 ``Join``, ``AsofJoin``, ``Intersect``/``Except``, ``Repartition``, ``Shard``,
 ``Sink``, and the cardinality estimates (``approx_stats``) that the
 optimizer's join ordering reads.
@@ -15,7 +16,12 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-from daft_tpu_torch.errors import DaftPlanError
+from daft_tpu_torch.errors import (
+    DaftNotImplementedError,
+    DaftPlanError,
+    DaftTypeError,
+    DaftValueError,
+)
 from daft_tpu_torch.expressions.evaluator import resolve_schema
 from daft_tpu_torch.expressions.expr import Expr, UdfCall
 from daft_tpu_torch.schema import Schema
@@ -123,3 +129,36 @@ class Limit(LogicalPlan):
 
     def multiline_display(self):
         return [f"Limit: {self.limit}" + (f" offset {self.offset}" if self.offset else "")]
+
+
+class Filter(LogicalPlan):
+    def __init__(self, input: LogicalPlan, predicate: Expr):
+        pf = predicate.to_field(input.schema)
+        if not pf.dtype.is_boolean() and not pf.dtype.is_null():
+            raise DaftTypeError(f"Filter predicate must be Boolean, got {pf.dtype!r}")
+        self.predicate = predicate
+        super().__init__([input], input.schema)
+
+    def with_children(self, children):
+        return Filter(children[0], self.predicate)
+
+    def multiline_display(self):
+        return [f"Filter: {self.predicate!r}"]
+
+
+class Aggregate(LogicalPlan):
+    def __init__(self, input: LogicalPlan, agg_exprs: Sequence[Expr], group_by: Sequence[Expr]):
+        if group_by:
+            raise DaftNotImplementedError("grouped aggregation is not ported to daft_tpu_torch")
+        self.agg_exprs = list(agg_exprs)
+        self.group_by: List[Expr] = []
+        for e in self.agg_exprs:
+            if not e.has_agg():
+                raise DaftValueError(f"Aggregate expression {e!r} contains no aggregation")
+        super().__init__([input], Schema([e.to_field(input.schema) for e in self.agg_exprs]))
+
+    def with_children(self, children):
+        return Aggregate(children[0], self.agg_exprs, self.group_by)
+
+    def multiline_display(self):
+        return [f"Aggregate: {[e.name() for e in self.agg_exprs]}"]

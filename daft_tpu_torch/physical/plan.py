@@ -1,9 +1,10 @@
 """Local physical plan nodes (port of ``daft_tpu/physical/plan.py``).
 
 Reference: ``LocalPhysicalPlan`` (src/daft-local-plan/src/plan.rs:74-133). Each
-node maps 1:1 onto an operator of ``execution/executor.py``. This slice ports
-``InMemorySource``, ``Project``, ``UDFProject`` and ``Limit``; the other nodes
-wait for their logical counterparts (see ``logical/plan.py``).
+node maps 1:1 onto an operator of ``execution/executor.py``. The port has
+``InMemorySource``, ``Project``, ``UDFProject``, ``Filter``, ``Limit`` and
+``Aggregate`` (global); the other nodes wait for their logical counterparts
+(see ``logical/plan.py``).
 """
 
 from __future__ import annotations
@@ -65,3 +66,19 @@ class Limit(PhysicalPlan):
         super().__init__([child], child.schema)
         self.limit = limit
         self.offset = offset
+
+
+class Filter(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, predicate):
+        super().__init__([child], child.schema)
+        self.predicate = predicate
+
+
+class Aggregate(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, agg_exprs, group_by, schema: Schema):
+        super().__init__([child], schema)
+        self.agg_exprs = agg_exprs
+        self.group_by = group_by
+
+    def describe(self):
+        return f"Aggregate[{len(self.agg_exprs)} aggs]"

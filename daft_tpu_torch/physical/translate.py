@@ -20,6 +20,11 @@ def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.UDFProject):
         return pp.UDFProject(translate(node.children()[0]), node.udf_expr,
                              node.passthrough, node.schema)
+    if isinstance(node, lp.Filter):
+        return pp.Filter(translate(node.children()[0]), node.predicate)
+    if isinstance(node, lp.Aggregate):
+        return pp.Aggregate(translate(node.children()[0]), node.agg_exprs, node.group_by,
+                            node.schema)
     if isinstance(node, lp.Limit):
         return pp.Limit(translate(node.children()[0]), node.limit, node.offset)
     raise DaftPlanError(f"Cannot translate logical node {node.name()}")

@@ -7,9 +7,9 @@ compute where possible (native C++ kernels), to engine kernels otherwise.
 Expression evaluation (`eval_expression_list`, reference lib.rs:1623) runs on
 the host in this port.
 
-Port of ``daft_tpu/recordbatch.py``. Not ported yet: ``hash_rows``,
-``partition_by_hash`` (they need the hashing kernels) and ``agg`` (it needs the
-aggregation evaluator).
+Port of ``daft_tpu/recordbatch.py``. Not ported yet: ``hash_rows`` and
+``partition_by_hash`` (they need the hashing kernels); ``agg`` evaluates global
+aggregations only.
 """
 
 from __future__ import annotations
@@ -525,6 +525,11 @@ class RecordBatch:
     # ------------------------------------------------------------------ #
     # Aggregation                                                         #
     # ------------------------------------------------------------------ #
+    def agg(self, agg_exprs: Sequence, group_by: Sequence = ()) -> "RecordBatch":
+        from daft_tpu_torch.expressions.agg_eval import eval_aggregation
+
+        return eval_aggregation(self, agg_exprs, group_by)
+
     def distinct(self, on: Optional[Sequence[str]] = None) -> "RecordBatch":
         keys = [self.get_column(n) for n in (on or self.column_names())]
         group_ids, uniq_idx = _group_codes(keys)

@@ -179,7 +179,10 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch.entry, daft_tpu_torch.models.clip, daft_tpu_torch.ops.build\n"
         "import daft_tpu_torch.models.minilm, daft_tpu_torch.utils.tokenizer\n"
         "import daft_tpu_torch.kernels.hashing, daft_tpu_torch.models.lm\n"
-        "import daft_tpu_torch.models.serving\n"
+        "import daft_tpu_torch.models.serving, daft_tpu_torch.tools.lineitem\n"
+        "import daft_tpu_torch.ops.device_eval, daft_tpu_torch.ops.compiled_eval\n"
+        "import daft_tpu_torch.execution.executor, daft_tpu_torch.kernels.registry\n"
+        "daft_tpu_torch.kernels.registry.get_kernel('cosine_distance')\n"
         "new = set(sys.modules) - before\n"
         "print(json.dumps(sorted(m for m in new if m.split('.')[0] in\n"
         "                        ('jax', 'jaxlib', 'flax', 'optax', 'daft_tpu'))))\n")
