@@ -21,8 +21,9 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    tower on the CPU (plain attention) on two images;
 4. put ``torch.profiler`` over one more chunk of the same path and print the
    ten device kernels with the most time, the time by kind (attention,
-   matmul, LayerNorm, GELU, copies and casts, other) and the device's idle share over
-   the window ("not measured" where the profiler records no device activity);
+   matmul, LayerNorm, GELU or sigmoid, copies and casts, other) and the
+   device's idle share over the window ("not measured" where the profiler
+   records no device activity);
 5. drive the text and zero-shot paths through the engine at full width, on
    seeded strings of 1-200 words from a fixed word list with a few empty
    ones: ``embed_text`` with MiniLM-L6 and with the CLIP ViT-L/14 text tower
@@ -77,7 +78,30 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    (CLIP ViT-L/14's width) against a query vector, and a ``where`` on it, on
    the card and through the port on the CPU: distances within 1e-6, the same
    rows kept;
-8. print one JSON line of per-kernel numbers (with the launches on each
+   The pinned staging memory the device path holds is printed after q06 and
+   after the scan, held to one buffer per column of the largest chunk, and
+   must fall to 0 after ``reset_programs``; a column of f32 subnormals
+   (3e-39, and 1e-20 squared) through device_eval on the card is printed as
+   kept or flushed;
+8. local HF checkpoints (nothing downloaded): write two checkpoint
+   directories with the published configs' widths, seeded random f32
+   weights under HF's key names saved with ``torch.save`` and synthetic
+   seeded tokenizer files — sentence-transformers all-MiniLM-L6-v2 (BERT,
+   WordPiece ``vocab.txt``) and openai/clip-vit-large-patch14 (CLIP,
+   ``vocab.json`` + ``merges.txt``, end of text the highest id) — then
+   through the engine with ``weights_path``: ``embed_text`` over phase 5's
+   4096 strings with the BERT directory, ``embed_image`` over 512 images and
+   ``classify_text`` over the 4096 strings with the CLIP directory, each
+   with the launch counts set to 0 just before and read just after. It
+   checks that the converted modules' parameters equal the HF tensors
+   (after the layout changes, rounded to the parameter's dtype), finite
+   unit-norm embeddings (exact zero vectors for BERT's empty strings), that
+   the card receives the host's WordPiece / BPE ids, one engine chunk
+   against a direct forward, each converted tower on the card against the
+   same tower on the CPU (cosine >= 0.99), 24 flash-attention launches per
+   image chunk and none on the text paths; one chunk of the BERT and of the
+   image path is traced as in phase 4;
+9. print one JSON line of per-kernel numbers (with the launches on each
    path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -124,6 +148,24 @@ EMBED_ROWS, EMBED_DIM = 1_000_000, 768
 COSINE_TOL = 1e-6        # card against the CPU, f32 reductions in another order
 COSINE_KEEP = 0.95       # the where's threshold on the cosine distance
 PINNED_PROBE_BYTES = 1 << 30
+
+# The published configs of the two local HF checkpoints (config.json, the
+# fields the converters read and the architecture's name).
+HF_MINILM_CONFIG = {  # sentence-transformers/all-MiniLM-L6-v2
+    "architectures": ["BertModel"], "model_type": "bert", "vocab_size": 30522,
+    "hidden_size": 384, "num_hidden_layers": 6, "num_attention_heads": 12,
+    "intermediate_size": 1536, "max_position_embeddings": 512, "type_vocab_size": 2,
+    "layer_norm_eps": 1e-12, "hidden_act": "gelu", "pad_token_id": 0}
+HF_CLIP_CONFIG = {  # openai/clip-vit-large-patch14
+    "architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": 768,
+    "text_config": {"hidden_size": 768, "intermediate_size": 3072, "num_attention_heads": 12,
+                    "num_hidden_layers": 12, "max_position_embeddings": 77, "vocab_size": 49408,
+                    "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5, "bos_token_id": 0,
+                    "eos_token_id": 2, "pad_token_id": 1, "projection_dim": 768},
+    "vision_config": {"hidden_size": 1024, "intermediate_size": 4096, "num_attention_heads": 16,
+                      "num_hidden_layers": 24, "patch_size": 14, "image_size": 224,
+                      "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5,
+                      "projection_dim": 768}}
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -438,7 +480,7 @@ def trace_window(card: str, tag: str, what: str, run):
     kinds = (("attention", ("attn_bf16",)), ("softmax", ("softmax",)),
              ("masked_fill", ("masked_fill",)), ("cache writes", ("index_put", "indexing")),
              ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
-             ("layernorm", ("layer_norm",)), ("gelu", ("gelu",)),
+             ("layernorm", ("layer_norm",)), ("gelu / sigmoid", ("gelu", "sigmoid")),
              ("copies", ("memcpy", "memset", "copy_kernel")))
     by_kind: dict = {}
     for name, us in by_name.items():
@@ -1056,6 +1098,13 @@ def phase_relational(card: str) -> dict:
           f"{hbm_bound_s * 1e3:.3f} ms; peak device memory {peak / 1e9:.3f} GB [{card}]",
           flush=True)
 
+    # Pinned staging: one buffer per staged column, of the largest chunk.
+    pinned_q06 = de.pinned_bytes()
+    q06_bound = 4 * max(shapes) * 4  # four 4-byte columns
+    print(f"[relational] pinned staging held after q06: {pinned_q06 / 1e6:.3f} MB (four columns "
+          f"of the largest chunk: {q06_bound / 1e6:.3f} MB)", flush=True)
+    check(pinned_q06 == q06_bound, f"q06 holds {pinned_q06} pinned bytes, not {q06_bound}")
+
     head = dt.from_pydict({k: v[:Q06_TRACE_ROWS] for k, v in cols.items()})
     trace_window(card, "trace relational", f"q06 over {Q06_TRACE_ROWS} rows (four chunks)",
                  lambda: lineitem.q06(dt, head).to_pydict())
@@ -1064,7 +1113,51 @@ def phase_relational(card: str) -> dict:
     del df, head, cols
     gc.collect()
     check_cosine_scan(card)
+    scan_rows = de._bucket(cfg.default_morsel_size, cfg.device_batch_buckets)
+    # q01 stages l_tax besides q06's four columns; the scan e and q, f32.
+    scan_bound = 5 * max(shapes) * 4 + 2 * scan_rows * EMBED_DIM * 4
+    pinned_scan = de.pinned_bytes()
+    de.reset_programs()
+    pinned_reset = de.pinned_bytes()
+    print(f"[relational] pinned staging held after the cosine scan: {pinned_scan / 1e9:.3f} GB "
+          f"(bound: five 4-byte columns of {max(shapes)} rows and two {EMBED_DIM}-wide f32 "
+          f"columns of {scan_rows} rows, "
+          f"{scan_bound / 1e9:.3f} GB); after reset_programs: {pinned_reset} bytes", flush=True)
+    check(pinned_scan <= scan_bound, f"the scan holds {pinned_scan} pinned bytes > {scan_bound}")
+    check(pinned_reset == 0, f"reset_programs left {pinned_reset} pinned bytes")
+    check_subnormals(card)
     return {"flash_attention": launches}
+
+
+def check_subnormals(card: str) -> None:
+    """f32 subnormals through device_eval on the card: 3e-39 * 2.0,
+    3e-39 > 0.0, 1e-20 * 1e-20 and 3e-39 + 0.0 against numpy's values, which
+    keep them. Prints whether CUDA keeps or flushes them; the route must be
+    the device's."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import device_eval as de
+
+    n = 4096
+    data = {"d": np.full(n, 3e-39, np.float32), "s": np.full(n, 1e-20, np.float32)}
+    exprs = {"d * 2.0": (dt.col("d") * 2.0, np.float32(3e-39) * np.float32(2)),
+             "d > 0.0": (dt.col("d") > 0.0, True),
+             "s * s": (dt.col("s") * dt.col("s"), np.float32(1e-20) * np.float32(1e-20)),
+             "d + 0.0": (dt.col("d") + 0.0, np.float32(3e-39))}
+    rb = dt.RecordBatch.from_pydict({k: dt.Series.from_numpy(v, k) for k, v in data.items()})
+    kept = {}
+    with dt.execution_config_ctx(device_eval_min_rows=1):
+        de.device_eval_counters.reset()
+        for i, (label, (expr, want)) in enumerate(exprs.items()):
+            got = de.try_evaluate_fused(rb, [expr.alias(f"r{i}")._expr])
+            check(got is not None, f"subnormals: {label} did not run on the card")
+            kept[label] = bool((got[0].to_numpy() == want).all())
+    flushed = [k for k, ok in kept.items() if not ok]
+    print(f"[relational] f32 subnormals on the card ({n} rows each): "
+          + ", ".join(f"{k} {'kept' if ok else 'flushed'}" for k, ok in kept.items())
+          + (f"; CUDA flushes on {flushed} (ROADMAP C.22)" if flushed else
+             "; CUDA keeps them, as the JAX package's host path does") + f" [{card}]", flush=True)
 
 
 def check_relational_routes(card: str, cols: dict) -> None:
@@ -1186,6 +1279,356 @@ def check_cosine_scan(card: str) -> None:
           "cosine scan: a kept row's distance differs from the CPU's")
 
 
+def hf_shapes(cfg: dict) -> dict:
+    """HF state-dict key -> shape for the published ``config.json`` ``cfg``
+    (BertModel with its pooler, or CLIPModel)."""
+    shapes: dict = {}
+
+    def linear(name, n_out, n_in):
+        shapes[f"{name}.weight"], shapes[f"{name}.bias"] = (n_out, n_in), (n_out,)
+
+    def norm(name, n):
+        shapes[f"{name}.weight"], shapes[f"{name}.bias"] = (n,), (n,)
+
+    if cfg["model_type"] == "bert":
+        h, f = cfg["hidden_size"], cfg["intermediate_size"]
+        for e, rows in (("word", "vocab_size"), ("position", "max_position_embeddings"),
+                        ("token_type", "type_vocab_size")):
+            shapes[f"embeddings.{e}_embeddings.weight"] = (cfg[rows], h)
+        norm("embeddings.LayerNorm", h)
+        for i in range(cfg["num_hidden_layers"]):
+            p = f"encoder.layer.{i}"
+            for n in ("attention.self.query", "attention.self.key", "attention.self.value",
+                      "attention.output.dense"):
+                linear(f"{p}.{n}", h, h)
+            linear(f"{p}.intermediate.dense", f, h)
+            linear(f"{p}.output.dense", h, f)
+            norm(f"{p}.attention.output.LayerNorm", h)
+            norm(f"{p}.output.LayerNorm", h)
+        linear("pooler.dense", h, h)
+        return shapes
+    tc, vc = cfg["text_config"], cfg["vision_config"]
+    for tower, c in (("text_model", tc), ("vision_model", vc)):
+        h, f = c["hidden_size"], c["intermediate_size"]
+        for i in range(c["num_hidden_layers"]):
+            p = f"{tower}.encoder.layers.{i}"
+            for n in "qkv":
+                linear(f"{p}.self_attn.{n}_proj", h, h)
+            linear(f"{p}.self_attn.out_proj", h, h)
+            linear(f"{p}.mlp.fc1", f, h)
+            linear(f"{p}.mlp.fc2", h, f)
+            norm(f"{p}.layer_norm1", h)
+            norm(f"{p}.layer_norm2", h)
+    shapes["text_model.embeddings.token_embedding.weight"] = (tc["vocab_size"], tc["hidden_size"])
+    shapes["text_model.embeddings.position_embedding.weight"] = (
+        tc["max_position_embeddings"], tc["hidden_size"])
+    norm("text_model.final_layer_norm", tc["hidden_size"])
+    w, p = vc["hidden_size"], vc["patch_size"]
+    shapes["vision_model.embeddings.class_embedding"] = (w,)
+    shapes["vision_model.embeddings.patch_embedding.weight"] = (w, 3, p, p)
+    shapes["vision_model.embeddings.position_embedding.weight"] = (
+        (vc["image_size"] // p) ** 2 + 1, w)
+    norm("vision_model.pre_layrnorm", w)  # the released checkpoints' spelling
+    norm("vision_model.post_layernorm", w)
+    shapes["visual_projection.weight"] = (cfg["projection_dim"], w)
+    shapes["text_projection.weight"] = (cfg["projection_dim"], tc["hidden_size"])
+    shapes["logit_scale"] = ()
+    return shapes
+
+
+def hf_random_state_dict(shapes: dict, seed: int) -> dict:
+    """Seeded random f32 tensors on the host: normal(0.02) for biases and
+    embeddings, 1 + normal(0.02) for LayerNorm weights, variance 1/fan_in
+    for the other weights, log(100) for ``logit_scale``."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    sd = {}
+    for name, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        if name == "logit_scale":
+            x = torch.tensor(math.log(100.0))
+        elif name.endswith(".bias") or ("embedding" in name and "patch" not in name):
+            x = x * 0.02
+        elif len(shape) == 1:
+            x = 1 + 0.02 * x
+        else:
+            x = x / math.sqrt(math.prod(shape[1:]))
+        sd[name] = x.cpu()
+    return sd
+
+
+def write_wordpiece_vocab(path, size: int, seed: int) -> None:
+    """A ``vocab.txt`` of ``size`` entries laid out like BERT's (``[PAD]``,
+    99 unused, ``[UNK] [CLS] [SEP] [MASK]``, then the pieces) that covers
+    WORD_LIST: every other word of more than three letters only as a prefix
+    and a ``##`` continuation, the rest whole; seeded filler pieces."""
+    import numpy as np
+
+    special = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                    "[MASK]"]
+    pieces = []
+    for i, w in enumerate(sorted(set(WORD_LIST))):
+        pieces += [w[:2], "##" + w[2:]] if len(w) > 3 and i % 2 else [w]
+    pieces = list(dict.fromkeys(pieces))
+    body = pieces + [f"piece{i}" for i in range(size - len(special) - len(pieces))]
+    np.random.default_rng(seed).shuffle(body)
+    path.write_text("\n".join(special + body) + "\n")
+
+
+def write_clip_bpe(directory, size: int, seed: int) -> None:
+    """A ``vocab.json`` + ``merges.txt`` of ``size`` entries laid out like
+    CLIP's: the 256 byte characters and each with ``</w>``, the merges'
+    products and seeded filler pieces, then ``<|startoftext|>`` and
+    ``<|endoftext|>`` at ``size`` - 2 and ``size`` - 1. Each word of
+    WORD_LIST is merged left to right."""
+    import numpy as np
+
+    from daft_tpu_torch.utils.tokenizer import _bytes_to_unicode
+
+    chars = list(_bytes_to_unicode().values())
+    merges = []
+    for w in sorted(set(WORD_LIST)):
+        parts = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(parts) > 1:
+            merges.append((parts[0], parts[1]))
+            parts = [parts[0] + parts[1]] + parts[2:]
+    merges = list(dict.fromkeys(merges))
+    body = list(dict.fromkeys(a + b for a, b in merges))
+    body += [f"piece{i}</w>" for i in range(size - 2 - 2 * len(chars) - len(body))]
+    np.random.default_rng(seed).shuffle(body)
+    tokens = chars + [c + "</w>" for c in chars] + body + ["<|startoftext|>", "<|endoftext|>"]
+    (directory / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(tokens)}))
+    (directory / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def write_hf_dir(directory, cfg: dict, seed: int) -> dict:
+    """A local HF checkpoint directory: ``config.json``, the seeded random
+    state dict as ``pytorch_model.bin`` (f32) and the tokenizer files.
+    Returns the state dict."""
+    import torch
+
+    directory.mkdir()
+    (directory / "config.json").write_text(json.dumps(cfg, indent=2))
+    sd = hf_random_state_dict(hf_shapes(cfg), seed)
+    torch.save(sd, directory / "pytorch_model.bin")
+    if cfg["model_type"] == "bert":
+        write_wordpiece_vocab(directory / "vocab.txt", cfg["vocab_size"], seed)
+    else:
+        write_clip_bpe(directory, cfg["text_config"]["vocab_size"], seed)
+    return sd
+
+
+def hf_expected_params(sd: dict, tower: str = "") -> dict:
+    """The port's parameter name -> the tensor an HF state dict gives it,
+    after the layout changes: per CLIP block the q, k, v weights stacked into
+    ``qkv``, the patch conv (w, 3, p, p) as a (w, p*p*3) patchify weight, the
+    class and position embeddings with their leading axes. ``tower`` is ""
+    for BERT, "vision" or "text" for a CLIP tower."""
+    import torch
+
+    if not tower:
+        # Prefixes first (only at the start of a key), then the layer parts.
+        renames = (("embeddings.LayerNorm", "emb_ln"), ("embeddings.", ""),
+                   ("encoder.layer.", "layers."), ("attention.self.query", "q"),
+                   ("attention.self.key", "k"), ("attention.self.value", "v"),
+                   ("attention.output.LayerNorm", "attn_ln"),
+                   ("attention.output.dense", "attn_out"),
+                   ("intermediate.dense", "fc1"), ("output.LayerNorm", "out_ln"),
+                   ("output.dense", "fc2"))
+        out = {}
+        for k, v in sd.items():
+            if k.startswith("pooler."):
+                continue
+            for a, b in renames:
+                k = b + k[len(a):] if k.startswith(a) else k.replace(a, b)
+            out[k] = v
+        return out
+    src = "vision_model" if tower == "vision" else "text_model"
+    out = {}
+    blocks = {k for k in sd if k.startswith(f"{src}.encoder.layers.")}
+    for k in blocks:
+        i, rest = k[len(f"{src}.encoder.layers."):].split(".", 1)
+        rest = (rest.replace("layer_norm1", "ln1").replace("layer_norm2", "ln2")
+                .replace("self_attn.out_proj", "attn.out"))
+        if "_proj" in rest:
+            continue
+        out[f"blocks.{i}.{rest}"] = sd[k]
+    for i in {k.split(".")[3] for k in blocks}:
+        for leaf in ("weight", "bias"):
+            out[f"blocks.{i}.attn.qkv.{leaf}"] = torch.cat(
+                [sd[f"{src}.encoder.layers.{i}.self_attn.{x}_proj.{leaf}"] for x in "qkv"])
+    e = f"{src}.embeddings"
+    if tower == "vision":
+        conv = sd[f"{e}.patch_embedding.weight"]
+        out.update({"cls": sd[f"{e}.class_embedding"][None, None],
+                    "pos_embed": sd[f"{e}.position_embedding.weight"][None],
+                    "patch_embed.weight": conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1),
+                    "proj.weight": sd["visual_projection.weight"]})
+        pairs = (("ln_pre", "pre_layrnorm"), ("ln_post", "post_layernorm"))
+    else:
+        out.update({"tok_embed.weight": sd[f"{e}.token_embedding.weight"],
+                    "pos_embed": sd[f"{e}.position_embedding.weight"][None],
+                    "proj.weight": sd["text_projection.weight"]})
+        pairs = (("ln_final", "final_layer_norm"),)
+    for ours, theirs in pairs:
+        for leaf in ("weight", "bias"):
+            out[f"{ours}.{leaf}"] = sd[f"{src}.{theirs}.{leaf}"]
+    return out
+
+
+def check_hf_params(name: str, module, expected: dict) -> float:
+    """Every parameter of ``module`` equals its HF tensor rounded to the
+    parameter's dtype, and every one has an HF tensor. Returns the seconds
+    the check took."""
+    t0 = time.perf_counter()
+    params = dict(module.named_parameters())
+    check(set(params) == set(expected),
+          f"{name}: parameters without an HF tensor {sorted(set(params) - set(expected))[:4]}, "
+          f"HF tensors without a parameter {sorted(set(expected) - set(params))[:4]}")
+    for k, p in params.items():
+        want = expected[k].to(p.dtype).to(p.device)
+        check(tuple(p.shape) == tuple(want.shape) and bool((p == want).all()),
+              f"{name}: parameter {k} differs from its HF tensor")
+    print(f"[{name}] the {len(params)} converted parameters equal their HF tensors "
+          f"({sum(p.numel() for p in params.values())} values)", flush=True)
+    return time.perf_counter() - t0
+
+
+def phase_hf(card: str) -> dict:
+    """Local HF checkpoints at the published widths through the engine;
+    returns the launch counts of each path by name."""
+    import gc
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions.ai import classify_text, embed_image, embed_text
+    from daft_tpu_torch.models.convert import load_hf_checkpoint
+
+    texts = make_texts(NUM_TEXTS, seed=2)  # phase 5's strings
+    empty = np.array([t == "" for t in texts])
+    df = dt.from_pydict({"t": texts})
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bert_dir, clip_dir = pathlib.Path(tmp) / "all-MiniLM-L6-v2", pathlib.Path(tmp) / "clip"
+        bert_sd = write_hf_dir(bert_dir, HF_MINILM_CONFIG, seed=10)
+        clip_sd = write_hf_dir(clip_dir, HF_CLIP_CONFIG, seed=11)
+        sizes = {d.name: sum(f.stat().st_size for f in d.iterdir()) for d in (bert_dir, clip_dir)}
+        print(f"[hf] wrote two checkpoint directories in {time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()), flush=True)
+
+        # Conversion alone, and the converted parameters against the HF tensors.
+        for name, path, sd, tower in (("hf BERT", bert_dir, bert_sd, ""),
+                                      ("hf CLIP vision", clip_dir, clip_sd, "vision"),
+                                      ("hf CLIP text", clip_dir, clip_sd, "text")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, module = load_hf_checkpoint(str(path), torch.bfloat16, "cuda", tower or None)
+            torch.cuda.synchronize()
+            convert_s = time.perf_counter() - t0
+            print(f"[{name}] load and convert onto the card: {convert_s:.2f} s [{card}]",
+                  flush=True)
+            check_hf_params(name, module, hf_expected_params(sd, tower))
+            del module
+        del bert_sd, clip_sd
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        name = "hf embed_text all-MiniLM-L6-v2"
+        expr = embed_text(dt.col("t"), weights_path=str(bert_dir))
+        out, launches, inst, _ = engine_run(card, name, df, NUM_TEXTS, expr, warm_rows=512)
+        emb = np.asarray(out, dtype=np.float32)
+        norms = np.linalg.norm(emb, axis=1)
+        check(type(inst.encoder).__name__ == "BertEncoder" and
+              type(inst.tokenizer).__name__ == "WordPieceTokenizer",
+              f"{name}: served {type(inst.encoder).__name__} behind "
+              f"{type(inst.tokenizer).__name__}")
+        check(emb.shape == (NUM_TEXTS, 384) and bool(np.isfinite(emb).all()),
+              f"{name}: embeddings {emb.shape}, or not finite")
+        check(bool(np.abs(norms[~empty] - 1).max() < 1e-3) and not emb[empty].any(),
+              f"{name}: rows not unit-norm, or an empty string's row not zero")
+        check(launches["flash_attention"] == 0,
+              f"{name}: flash_attention launched {launches['flash_attention']} times")
+        err = float(np.abs(inst.embed_text(texts[-512:]) - emb[-512:]).max())
+        print(f"[{name}] engine chunk vs direct forward: max_abs_err {err:.3e} (tol "
+              f"{CHUNK_TOL}); {int(empty.sum())} empty strings give zero vectors", flush=True)
+        check(err <= CHUNK_TOL, f"{name}: engine chunk differs from a direct forward by {err}")
+        check_staged_tokens(name, inst, texts[:1024])
+        check_text_tower(name, inst, texts, emb)
+        head = df.limit(512)
+        trace_window(card, f"trace {name}", "one chunk of 512 strings",
+                     lambda: head.with_column("out", expr).collect())
+        by_path[name] = launches
+        del inst, expr, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        name = "hf embed_image ViT-L/14"
+        rng = np.random.default_rng(0)
+        imgs = rng.integers(0, 256, (NUM_IMAGES, IMAGE * IMAGE * 3), dtype=np.uint8)
+        idf = dt.from_pydict({"img": dt.Series.from_numpy(
+            imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))})
+        expr = embed_image(dt.col("img"), weights_path=str(clip_dir), batch_size=BATCH)
+        out, launches, inst, _ = engine_run(card, name, idf, NUM_IMAGES, expr, warm_rows=BATCH)
+        emb = np.asarray(out, dtype=np.float32)
+        chunks = math.ceil(NUM_IMAGES / BATCH)
+        check(inst.cfg.hidden_act == "quick_gelu" and inst.cfg.ln_eps == 1e-5,
+              f"{name}: the converted config has {inst.cfg.hidden_act}, eps {inst.cfg.ln_eps}")
+        check(emb.shape == (NUM_IMAGES, 768) and bool(np.isfinite(emb).all()),
+              f"{name}: embeddings {emb.shape}, or not finite")
+        check(bool(np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3), f"{name}: not unit-norm")
+        check(launches["flash_attention"] == VIT_L_LAYERS * chunks,
+              f"{name}: flash_attention launched {launches['flash_attention']} times, expected "
+              f"{VIT_L_LAYERS} x {chunks}")
+        direct = inst.forward(torch.from_numpy(
+            imgs[:BATCH].reshape(BATCH, IMAGE, IMAGE, 3)).cuda()).cpu().numpy()
+        err = float(np.abs(direct - emb[:BATCH]).max())
+        print(f"[{name}] flash_attention launches {launches['flash_attention']} for {chunks} "
+              f"chunk(s); engine chunk vs direct forward: max_abs_err {err:.3e} (tol "
+              f"{CHUNK_TOL})", flush=True)
+        check(err <= CHUNK_TOL, f"{name}: engine chunk differs from a direct forward by {err}")
+        check_image_tower(name, inst, imgs[:2].reshape(2, IMAGE, IMAGE, 3), emb[:2])
+        head = idf.limit(BATCH)
+        trace_window(card, f"trace {name}", f"one chunk of {BATCH} images",
+                     lambda: head.with_column("out", expr).collect())
+        by_path[name] = launches
+        del inst, expr, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        name = "hf classify_text ViT-L/14"
+        expr = classify_text(dt.col("t"), LABELS, weights_path=str(clip_dir))
+        out, launches, inst, _ = engine_run(card, name, df, NUM_TEXTS, expr, warm_rows=512)
+        tower = inst.text_embedder
+        check(tower.encoder.cfg.text_pool == "argmax_id" and
+              type(tower.tokenizer).__name__ == "MergesBPETokenizer",
+              f"{name}: pools by {tower.encoder.cfg.text_pool} behind "
+              f"{type(tower.tokenizer).__name__}")
+        emb = tower.embed_text(texts)
+        check(bool(np.isfinite(emb).all()) and
+              bool(np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3),
+              f"{name}: text embeddings not finite or not unit-norm")
+        sims = emb @ tower.embed_text(LABELS).T
+        check(out == [LABELS[i] for i in sims.argmax(axis=1)],
+              f"{name}: engine labels differ from a direct forward")
+        check(launches["flash_attention"] == 0,
+              f"{name}: flash_attention launched {launches['flash_attention']} times")
+        print(f"[{name}] labels equal a direct forward; {len(set(out))} distinct", flush=True)
+        check_staged_tokens(name, tower, texts[:1024])
+        check_text_tower(name, tower, texts, emb)
+        by_path[name] = launches
+        del inst, expr, tower
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1205,6 +1648,7 @@ def main() -> int:
         by_path.update(phase_text(card))
         by_path.update(phase_generate(card))
         by_path["relational"] = phase_relational(card)
+        by_path.update(phase_hf(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

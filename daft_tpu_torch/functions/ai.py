@@ -117,7 +117,9 @@ def embed_text(text: Expression, *, provider: Union[str, object, None] = None,
     """Embed a string column (reference: daft/functions/ai/__init__.py:72).
     The default provider is ``cuda`` and the default model
     ``all-MiniLM-L6-v2``; a model name with "clip" or "vit" in it takes the
-    CLIP text tower. ``device="cpu"`` runs it on the CPU."""
+    CLIP text tower. ``weights_path`` takes a JAX-package ``.npz`` or a local
+    HF checkpoint directory (BERT, or CLIP for a CLIP model name) with its
+    tokenizer files. ``device="cpu"`` runs it on the CPU."""
     p = load_provider(provider)
     desc = p.get_text_embedder(model, **options)
     dtype = DataType.embedding(DataType.float32(), desc.get_dimensions() or 384)
@@ -131,7 +133,9 @@ def embed_text(text: Expression, *, provider: Union[str, object, None] = None,
 def embed_image(image: Expression, *, provider: Union[str, object, None] = None,
                 model: Optional[str] = None, **options) -> Expression:
     """Embed an image column (reference: daft/functions/ai/__init__.py:157).
-    The default provider is ``cuda``; ``device="cpu"`` runs it on the CPU."""
+    The default provider is ``cuda``; ``weights_path`` takes a JAX-package
+    ``.npz`` or a local HF CLIP checkpoint directory; ``device="cpu"`` runs
+    it on the CPU."""
     p = load_provider(provider)
     desc = p.get_image_embedder(model, **options)
     dims = desc.get_dimensions() or 768

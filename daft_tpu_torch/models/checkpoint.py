@@ -4,9 +4,10 @@ Reads the ``.npz`` layout that ``daft_tpu/models/checkpoint.py::_load_flax_file`
 reads: one array per parameter under its ``/``-joined flax state-dict key
 (``params/vision/block_0/attn/qkv/kernel``). numpy only; each model module
 names its keys (``models/clip.py``, ``models/minilm.py``) and
-``copy_flax_params`` copies them in. Not ported yet: flax ``.msgpack`` files,
-orbax checkpoint directories and HF checkpoint directories (ROADMAP Queue A,
-item 2).
+``copy_flax_params`` copies them in; ``models/convert.py`` converts local HF
+checkpoint directories into the same keys. Not ported yet: flax
+``.msgpack`` files and orbax checkpoint directories (ROADMAP Queue A, item
+A.2).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
@@ -27,16 +28,6 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         raise DaftValueError(f"only .npz checkpoints are supported, got {path!r}")
     with np.load(os.path.abspath(path)) as f:
         return {k: f[k] for k in f.files}
-
-
-def reject_hf_checkpoint_dir(path: str) -> None:
-    """Raise for a local HF checkpoint directory (a directory holding
-    ``config.json``): the port does not convert HF checkpoints yet, and never
-    serves random weights in their place."""
-    if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
-        raise DaftNotImplementedError(
-            f"{path!r} is an HF checkpoint directory; the port does not read those yet "
-            f"(ROADMAP Queue A, item 5: BERT and HF conversion, models/convert.py)")
 
 
 @torch.no_grad()

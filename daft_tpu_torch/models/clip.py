@@ -11,7 +11,8 @@ it to XLA's convolution, and a plain product keeps the f32 path off cuDNN's
 TF32 default. ``CLIPTextEncoder`` embeds token ids (f32 table, cast to the
 model dtype, then the positions added in that dtype), runs causal pre-norm
 blocks through the masked attention path, ``ln_final`` in f32 over every
-position, pools each row's last non-pad token and projects in f32.
+position, pools each row's last non-pad token (or, for a converted
+checkpoint, its end-of-text token) and projects in f32.
 ``CLIPModel`` holds both towers and the contrastive ``logit_scale``.
 
 Parameters live in the dtype the JAX package computes in: the model dtype
@@ -20,15 +21,15 @@ LayerNorms, ``cls``, the embeddings, ``proj`` and ``logit_scale``.
 ``init_random_`` fills them from an explicit ``torch.Generator`` on the
 parameters' device; ``load_flax_params`` copies a flax state dict in.
 
-Not ported yet: HF checkpoint conversion (``models/convert.py``) and what
-only converted checkpoints set: a text activation and LayerNorm eps of
-their own, and pooling at an end-of-text id.
+A converted HF checkpoint (``models/convert.py``) sets the options only it
+needs: the text tower's own activation and LayerNorm eps, and pooling at the
+first end-of-text id or at the highest id instead of the last non-pad token.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -66,6 +67,17 @@ class CLIPConfig:
     ln_eps: float = 1e-6
     vision_mlp_ratio: float = 4.0
     text_mlp_ratio: float = 4.0
+    # What only a converted HF checkpoint sets (models/convert.py): the text
+    # tower's own activation and LayerNorm eps (None: the vision tower's),
+    # and where it pools. "last_nonpad": the last non-pad token (the hashing
+    # tokenizer's ids, pad = 0); "first_eos": the first position holding
+    # ``eos_token_id``; "argmax_id": the position of the highest id (HF's
+    # legacy branch for configs with eos_token_id 2, as OpenAI's ship, whose
+    # end-of-text id is the top of the vocabulary).
+    text_hidden_act: Optional[str] = None
+    text_ln_eps: Optional[float] = None
+    text_pool: str = "last_nonpad"
+    eos_token_id: Optional[int] = None
 
     @staticmethod
     def vit_b_32() -> "CLIPConfig":
@@ -179,18 +191,20 @@ class CLIPTextEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         w = cfg.text_width
+        act = cfg.text_hidden_act or cfg.hidden_act
+        eps = cfg.ln_eps if cfg.text_ln_eps is None else cfg.text_ln_eps
         self.tok_embed = nn.Embedding(cfg.vocab_size, w, dtype=torch.float32, device=device)
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.context_length, w, device=device))
         self.blocks = nn.ModuleList(
-            TransformerBlock(w, cfg.text_heads, cfg.text_mlp_ratio, cfg.dtype, cfg.hidden_act,
-                             cfg.ln_eps, device=device)
+            TransformerBlock(w, cfg.text_heads, cfg.text_mlp_ratio, cfg.dtype, act, eps,
+                             device=device)
             for _ in range(cfg.text_layers))
-        self.ln_final = LayerNorm(w, cfg.ln_eps, device=device)
+        self.ln_final = LayerNorm(w, eps, device=device)
         self.proj = nn.Linear(w, cfg.embed_dim, bias=False, dtype=torch.float32, device=device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: (B, L) int32 or int64, L <= context_length. Returns
-        (B, embed_dim) f32, the projection of each row's last non-pad token."""
+        (B, embed_dim) f32, the projection of each row's pooled token."""
         cfg = self.cfg
         L = tokens.shape[1]
         # Cast, then add: the JAX tower adds the positions in the model dtype.
@@ -199,13 +213,21 @@ class CLIPTextEncoder(nn.Module):
         for block in self.blocks:
             x = block(x, mask)
         x = self.ln_final(x)
-        pooled = x[torch.arange(x.shape[0], device=x.device), self.pool_positions(tokens)]
+        pooled = x[torch.arange(x.shape[0], device=x.device), self.pool_positions(
+            tokens, cfg.text_pool, cfg.eos_token_id)]
         return self.proj(pooled)
 
     @staticmethod
-    def pool_positions(tokens: torch.Tensor) -> torch.Tensor:
-        """Each row's last non-pad position (pad = 0, the hashing
-        tokenizer's ids); an all-pad row pools position 0."""
+    def pool_positions(tokens: torch.Tensor, text_pool: str = "last_nonpad",
+                       eos_token_id: Optional[int] = None) -> torch.Tensor:
+        """Each row's pooled position by ``text_pool`` (``CLIPConfig``): the
+        last non-pad token (an all-pad row pools position 0), the first
+        ``eos_token_id`` (position 0 where there is none; a vocabulary id 0
+        mid-sequence does not move it) or the highest id, the first of ties."""
+        if text_pool == "first_eos" and eos_token_id is not None:
+            return torch.argmax((tokens == eos_token_id).to(torch.int32), dim=1)
+        if text_pool == "argmax_id":
+            return torch.argmax(tokens, dim=1)
         return ((tokens != 0).sum(dim=1) - 1).clamp(min=0)
 
     def flax_names(self) -> Dict[str, tuple]:

@@ -417,11 +417,31 @@ def _arith(op: str, a, b, unsigned_max: Optional[int] = None):
         if op == "floordiv":
             return _int_floordiv(a, b, unsigned_max)
         return _int_mod(a, b, unsigned_max is not None)
-    if op == "mod":
-        return a % b
-    # jnp: x // 0.0 is NaN (its divmod goes through fmod); torch gives inf.
     a, b = _tensors(a, b)
-    return torch.where(b == 0, float("nan"), a // b)
+    return _float_mod(a, b) if op == "mod" else _float_floordiv(a, b)
+
+
+def _float_mod(a, b):
+    """Float ``a % b`` as jnp.remainder computes it: fmod, then add ``b``
+    where the remainder is nonzero and its sign differs from ``b``'s."""
+    mod = torch.fmod(a, b)
+    plus = ((mod < 0) != (b < 0)) & (mod != 0)
+    return torch.where(plus, mod + b, mod)
+
+
+def _float_floordiv(a, b):
+    """Float ``a // b`` as jnp.floor_divide computes it: CPython's divmod,
+    each step rounded in the operands' dtype (one rounding of ``a // b``
+    differs in bf16: -17.875 // -0.142578125 is 126 there, not 125), then
+    rounded half away from zero. x // 0.0 is NaN (through fmod), where
+    torch gives inf."""
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    fix = (mod != 0) & (torch.sign(b) != torch.sign(mod))
+    div = torch.where(fix, div - 1, div)
+    t = torch.trunc(div)
+    # div - t is exact, and t + sign(div) only happens below 2**mantissa.
+    return torch.where((div - t).abs() >= 0.5, t + torch.sign(div), t)
 
 
 _COMPARE = {
@@ -549,9 +569,12 @@ def cached_program(key: tuple, build: Callable[[], Callable]) -> Callable:
 
 
 def reset_programs() -> None:
+    """Drop the cached programs, the padded lengths seen and every pinned
+    staging buffer."""
     with _PROGRAMS_LOCK:
         _PROGRAMS.clear()
         _SHAPES_SEEN.clear()
+    _PINNED.clear()
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -612,25 +635,43 @@ def _as_device_value(t: torch.Tensor, dt: np.dtype):
 
 
 class _Pinned:
-    """Pinned host buffers keyed on (slot, shape, dtype). A buffer is filled
-    again only for a later morsel, after that morsel's predecessor fetched its
-    outputs, which synchronised the stream its copy ran on."""
+    """Pinned host buffers, one per (slot, dtype), grown to the largest
+    morsel the slot has staged; a morsel's columns are views of their
+    front. So the bytes held are at most the largest morsel per slot, and
+    ``clear`` drops them all. A buffer is filled again only for a later
+    morsel, after that morsel's predecessor fetched its outputs, which
+    synchronised the stream its copy ran on."""
 
-    def __init__(self) -> None:
+    def __init__(self, pin_memory: bool = True) -> None:
         self._bufs: Dict[tuple, torch.Tensor] = {}
+        self._pin = pin_memory
         self._lock = threading.Lock()
 
     def get(self, slot: str, shape: tuple, dtype: np.dtype) -> torch.Tensor:
-        key = (slot, shape, dtype.str)
+        n = int(np.prod(shape))
+        key = (slot, dtype.str)
         with self._lock:
             buf = self._bufs.get(key)
-            if buf is None:
+            if buf is None or buf.numel() < n:
                 tdt = torch.from_numpy(np.empty(0, dtype)).dtype
-                buf = self._bufs[key] = torch.empty(shape, dtype=tdt, pin_memory=True)
-            return buf
+                buf = self._bufs[key] = torch.empty(n, dtype=tdt, pin_memory=self._pin)
+        return buf[:n].view(shape)
+
+    def held_bytes(self) -> int:
+        with self._lock:
+            return sum(b.numel() * b.element_size() for b in self._bufs.values())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._bufs.clear()
 
 
 _PINNED = _Pinned()
+
+
+def pinned_bytes() -> int:
+    """Bytes of pinned staging memory the device path holds."""
+    return _PINNED.held_bytes()
 
 
 def stage(cols_np: Dict[str, np.ndarray], padded: int, n: int, device: torch.device,

@@ -10,6 +10,8 @@ in f32 and one bf16 step (8e-3) in bf16; the embedding distances at rtol 1e-6
 the EXPLAIN test: the port has no EXPLAIN yet).
 """
 
+import zlib
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -266,7 +268,7 @@ def _operands(dtype: str, n: int = 257):
     """Seeded operands of ``dtype``: signed values in [-20, 20], unsigned in
     [0, 40] (so unsigned subtraction wraps), floats with their signs; the
     divisors hold zeros; ``e`` is a small non-negative exponent column."""
-    rng = np.random.default_rng(abs(hash(dtype)) % 1000)
+    rng = np.random.default_rng(zlib.crc32(dtype.encode()) % 1000)
     if dtype.startswith("uint"):
         a, b = rng.integers(0, 41, n), rng.integers(0, 41, n)
     elif dtype.startswith("int"):
@@ -298,6 +300,68 @@ def test_binary_op_parity(dtype, op):
     tol = (BF16_TOL if dtype == "bfloat16" else F32_TOL) \
         if op == "pow" and dtype in ("bfloat16", "float32") else 0.0
     _assert_equal(j, p, rtol=tol)
+
+
+def _assert_same_bits(jax_s, port_s):
+    """Equal bit for bit, the signs of zeros included; NaN matches NaN."""
+    jv, pv = (s.to_numpy().astype(np.float32) for s in (jax_s, port_s))
+    nan = np.isnan(jv)
+    np.testing.assert_array_equal(np.isnan(pv), nan)
+    np.testing.assert_array_equal(pv[~nan].view(np.uint32), jv[~nan].view(np.uint32))
+
+
+def test_bf16_floordiv_rounds_each_divmod_step():
+    """jnp.floor_divide on floats is CPython's divmod, each step rounded in
+    the operands' dtype: in bf16, -17.875 // -0.142578125 is 126 (one
+    rounding of the quotient gives 125)."""
+    a = np.array([-17.875, 1.0], dtype=ml_dtypes.bfloat16)
+    b = np.array([-0.142578125, 0.0], dtype=ml_dtypes.bfloat16)
+    j, p = _both({"a": a, "b": b}, lambda pkg: (pkg.col("a") // pkg.col("b")).alias("r"))
+    _assert_same_bits(j, p)
+    assert float(p.to_numpy()[0]) == 126.0
+    assert np.isnan(float(p.to_numpy()[1]))  # x // 0.0 is NaN, as jnp's fmod gives it
+
+
+@pytest.mark.parametrize("op", ["floordiv", "mod"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_float_divmod_sweep_is_bit_equal(dtype, op):
+    """100,000 seeded float pairs (zeros of both signs, infinities and zero
+    divisors among them): ``//`` and ``%`` equal the JAX device path bit for
+    bit."""
+    n = 100_000
+    rng = np.random.default_rng(zlib.crc32(f"{dtype}-{op}".encode()))
+    a, b = rng.standard_normal(n) * 8, rng.standard_normal(n) * 8
+    a[:8] = [0.0, -0.0, 1.5, -1.5, 7.0, -7.0, np.inf, -np.inf]
+    b[::9], b[1::90] = 0.0, -0.0
+    dt = _np_dtype(dtype)
+    j, p = _both({"a": a.astype(dt), "b": b.astype(dt)},
+                 lambda pkg: _OPS[op](pkg.col("a"), pkg.col("b")).alias("r"))
+    _assert_same_bits(j, p)
+
+
+def test_f32_subnormals_are_kept_as_the_host_keeps_them():
+    """f32 subnormals (3e-39, and 1e-20 squared): the port's device path
+    keeps them, as the JAX package's host path does; XLA's CPU device path
+    flushes them to zero on input and output (``d * 2.0`` is 0 there, and
+    ``d > 0.0`` False). ``d + 0.0`` is equal on every path."""
+    n = 4096
+    data = {"d": np.full(n, 3e-39, np.float32), "s": np.full(n, 1e-20, np.float32)}
+    exprs = {"d2": lambda pkg: pkg.col("d") * 2.0, "pos": lambda pkg: pkg.col("d") > 0.0,
+             "ss": lambda pkg: pkg.col("s") * pkg.col("s"), "d0": lambda pkg: pkg.col("d") + 0.0}
+    want = {"d2": np.float32(3e-39) * np.float32(2), "pos": True,
+            "ss": np.float32(1e-20) * np.float32(1e-20), "d0": np.float32(3e-39)}
+    assert 0 < want["ss"] < np.finfo(np.float32).tiny  # the product is subnormal
+    rb = _rb(daft_tpu_torch, data)
+    with daft_tpu.execution_config_ctx(device_eval=False, compiled_eval_enabled=False,
+                                       result_cache_enabled=False):
+        host = daft_tpu.from_pydict(data).select(
+            *[f(daft_tpu).alias(k) for k, f in exprs.items()]).to_pydict()
+    for k, f in exprs.items():
+        port = tde.try_evaluate_fused(rb, [f(daft_tpu_torch).alias(k)._expr])[0].to_numpy()
+        np.testing.assert_array_equal(port, np.full(n, want[k]))
+        np.testing.assert_array_equal(port, np.asarray(host[k], port.dtype))
+    j, p = _both(data, exprs["d0"])
+    _assert_equal(j, p)
 
 
 @pytest.mark.parametrize("op", ["add", "mul", "floordiv", "mod", "lt", "ge"])
@@ -416,8 +480,11 @@ def test_q06_boundary_literals_compare_in_f32():
 
 @pytest.mark.parametrize("fn", ["sqrt", "exp", "ln", "sin", "tanh", "log1p", "ceil", "floor",
                                 "round", "sign", "clip", "log2_base", "atan2", "is_nan",
-                                "is_inf", "not_nan", "elementwise_max", "elementwise_min"])
+                                "is_inf", "not_nan", "elementwise_max", "elementwise_min",
+                                "round_1", "round_2"])
 def test_numeric_kernel_parity(fn):
+    if fn.startswith("round_"):
+        return _check_round_decimals(int(fn[-1]))
     rng = np.random.default_rng(11)
     x = (rng.standard_normal(300) * 4).astype(np.float32)
     x[:4] = [np.nan, np.inf, -np.inf, 0.0]
@@ -447,6 +514,23 @@ def test_numeric_kernel_parity(fn):
     _assert_equal(*_both(data, build), rtol=0.0 if exact else F32_TOL)
 
 
+def _check_round_decimals(decimals: int):
+    """``round(decimals)`` on 4096 f32 values, N(0, 100**2): the port's
+    device path equals the host (Arrow, half to even) bit for bit. XLA's
+    ``jnp.round(x, decimals)`` scales, rounds and unscales, so the JAX
+    device path is one f32 step off the host on about a quarter of the
+    rows; the port matches the host, not it."""
+    x = (np.random.default_rng(0).standard_normal(4096) * 100).astype(np.float32)
+    build = lambda pkg: pkg.col("x").round(decimals).alias("r")  # noqa: E731
+    j, p = _both({"x": x}, build)
+    with daft_tpu.execution_config_ctx(device_eval=False, compiled_eval_enabled=False,
+                                       result_cache_enabled=False):
+        host = np.asarray(daft_tpu.from_pydict({"x": x}).select(build(daft_tpu))
+                          .to_pydict()["r"], np.float32)
+    np.testing.assert_array_equal(p.to_numpy(), host)
+    np.testing.assert_array_max_ulp(j.to_numpy(), host, maxulp=1)
+
+
 def test_default_config_raises_without_a_cuda_device(monkeypatch):
     """A fusable projection at device_eval_min_rows with the default config
     (device "cuda") raises where no CUDA device is visible: it never runs on
@@ -461,3 +545,21 @@ def test_default_config_raises_without_a_cuda_device(monkeypatch):
         # Below the floor the host takes it, by the same rule as the JAX package.
         out = df.limit(n - 1).with_column("y", daft_tpu_torch.col("x") * 2).to_pydict()
         assert out["y"][:3] == [0.0, 2.0, 4.0]
+
+
+def test_pinned_staging_is_bounded_and_reset_programs_frees_it(monkeypatch):
+    """Staging holds one buffer per (slot, dtype), grown to the largest
+    morsel the slot staged; a smaller morsel is a view of its front, and
+    ``reset_programs`` drops every buffer. Pinning needs a CUDA device, so
+    the bookkeeping runs on unpinned buffers here."""
+    pinned = tde._Pinned(pin_memory=False)
+    monkeypatch.setattr(tde, "_PINNED", pinned)
+    f32, i16 = np.dtype(np.float32), np.dtype(np.int16)
+    for rows in (1024, 4096, 512, 4096, 2048):
+        assert pinned.get("a", (rows,), f32).shape == (rows,)
+        assert pinned.get("e", (rows, 8), f32).shape == (rows, 8)
+    pinned.get("a", (300,), i16)
+    assert tde.pinned_bytes() == 4096 * 4 + 4096 * 8 * 4 + 300 * 2
+    assert pinned.get("a", (16,), f32).data_ptr() == pinned.get("a", (4096,), f32).data_ptr()
+    tde.reset_programs()
+    assert tde.pinned_bytes() == 0

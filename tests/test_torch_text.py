@@ -30,7 +30,7 @@ from daft_tpu.models import clip as jclip
 from daft_tpu.models import layers as jlayers
 from daft_tpu.models import minilm as jminilm
 from daft_tpu_torch.ai import cuda_provider, protocols
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.functions import ai as tai
 from daft_tpu_torch.models import clip as tclip
 from daft_tpu_torch.models import layers as tlayers
@@ -534,21 +534,6 @@ def test_classifier_default_model_is_vit_b_32():
     p = cuda_provider.CUDAProvider()
     assert p.get_image_classifier(device="cpu").model == "ViT-B/32"
     assert p.get_text_classifier(device="cpu").model == "ViT-B/32"
-
-
-def test_an_hf_checkpoint_dir_raises_and_never_serves_random_weights(tmp_path):
-    (tmp_path / "config.json").write_text("{}")
-    for kind in ("text_embedder", "image_embedder", "image_classifier", "text_classifier"):
-        with pytest.raises(DaftNotImplementedError, match="ROADMAP"):
-            getattr(cuda_provider.CUDAProvider(), f"get_{kind}")(
-                "tiny", weights_path=str(tmp_path), device="cpu")
-    for cls in (cuda_provider.CUDAMiniLMTextEmbedder, cuda_provider.CUDACLIPTextEmbedder,
-                cuda_provider.CUDACLIPImageEmbedder):
-        with pytest.raises(DaftNotImplementedError):
-            cls("tiny", weights_path=str(tmp_path), device="cpu")
-    # cuda_random drops the path and makes random weights, as flax_random does.
-    daft_tpu_torch.ai.provider.load_provider("cuda_random").get_text_embedder(
-        "tiny", weights_path=str(tmp_path), device="cpu").instantiate()
 
 
 @pytest.mark.parametrize("fn", ["embed_text", "classify_text", "classify_image"])
