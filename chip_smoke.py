@@ -74,13 +74,26 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    (``compiled_eval_enabled=False``) must equal the host route
    (``device_eval=False``) bit for bit; with Python literals the host's f64
    intermediates are one or two f32 roundings away, and the largest gap is
-   printed. Last, ``cosine_distance`` of 1,000,000 x 768 f32 embeddings
-   (CLIP ViT-L/14's width) against a query vector, and a ``where`` on it, on
-   the card and through the port on the CPU: distances within 1e-6, the same
-   rows kept;
+   printed. Then TPC-H q01 whole (grouped by ``l_returnflag``,
+   ``l_linestatus``; DELTA 90) over the same 59,986,052 rows with q01's
+   columns, warm and timed, with the counts set to 0 just before each run:
+   rows/s, column GB/s, the counters (the filter's rows in the device chain,
+   the ``disc_price`` / ``charge`` children in device_eval, the means' f64
+   casts and the grouped partials on the host), the split and a profiler
+   window of four chunks. It checks the four groups, ``count_order`` and
+   ``sum_qty`` exactly and every float within 1e-5 of an f64 reference, that
+   the two runs are the same bytes, the counters' exact values, no flash
+   launch, and, on the first 1M rows, the card's route against the host
+   route bit for bit. Then a high-cardinality grouped query (sum and count of
+   ``l_quantity`` per ``l_partkey`` under q01's filter) over SF1's 6,001,215
+   rows: the first-morsel probe must take the partitioned route, and every
+   group must equal ``np.bincount``'s. Last, ``cosine_distance`` of
+   1,000,000 x 768 f32 embeddings (CLIP ViT-L/14's width) against a query
+   vector, and a ``where`` on it, on the card and through the port on the
+   CPU: distances within 1e-6, the same rows kept;
    The pinned staging memory the device path holds is printed after q06 and
-   after the scan, held to one buffer per column of the largest chunk, and
-   must fall to 0 after ``reset_programs``; a column of f32 subnormals
+   after the scan, held to one buffer per staged column of the largest padded
+   chunk, and must fall to 0 after ``reset_programs``; a column of f32 subnormals
    (3e-39, and 1e-20 squared) through device_eval on the card is printed as
    kept or flushed;
 8. local HF checkpoints (nothing downloaded): write two checkpoint
@@ -144,10 +157,12 @@ WAVE_8B_NEW_TOKENS = 16
 Q06_RTOL = 1e-5          # f32 sums per chunk against an f64 reference
 Q06_TRACE_ROWS = 4 * 2 * 256 * 1024  # four aggregation chunks
 PARITY_ROWS = 1_000_000  # rows of the host-route bit-equality checks
+Q01_PROFILE_ROWS = 64 * 256 * 1024  # 64 morsels of q01 under cProfile
 EMBED_ROWS, EMBED_DIM = 1_000_000, 768
 COSINE_TOL = 1e-6        # card against the CPU, f32 reductions in another order
 COSINE_KEEP = 0.95       # the where's threshold on the cosine distance
 PINNED_PROBE_BYTES = 1 << 30
+NUMERIC_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
 
 # The published configs of the two local HF checkpoints (config.json, the
 # fields the converters read and the architecture's name).
@@ -1006,10 +1021,11 @@ def phase_generate(card: str) -> dict:
 
 
 def phase_relational(card: str) -> dict:
-    """The relational device layer through the engine on the card: q06 over
-    SF10's lineitem, the q01 projection chain and the device_eval route held
-    against the host route, and a cosine-distance scan held against the CPU.
-    Returns the launch counts of the path."""
+    """The relational layer through the engine on the card: q06 over SF10's
+    lineitem, the q01 projection chain and the device_eval route held against
+    the host route, q01 whole (grouped) over SF10's lineitem, the partitioned
+    grouped route over SF1's rows, and a cosine-distance scan held against the
+    CPU. Returns the launch counts of each path (q06, q01, partitioned)."""
     import gc
 
     import numpy as np
@@ -1024,7 +1040,7 @@ def phase_relational(card: str) -> dict:
     rows = lineitem.SF10_LINEITEM_ROWS
     t0 = time.perf_counter()
     cols = lineitem.lineitem_columns(rows, seed=0)
-    df = dt.from_pydict(cols)
+    df = dt.from_pydict({k: cols[k] for k in NUMERIC_COLS})
     gen_s = time.perf_counter() - t0
     scan_bytes = sum(cols[k].nbytes for k in ("l_shipdate", "l_discount", "l_quantity",
                                               "l_extendedprice"))
@@ -1036,7 +1052,8 @@ def phase_relational(card: str) -> dict:
     morsels = [range(min(morsel, rows - s)) for s in range(0, rows, morsel)]
     chunk_rows = [sum(map(len, c)) for c in chunk_morsels(morsels, 256 * 1024)]
     shapes = {de._bucket(n, cfg.device_batch_buckets) for n in chunk_rows}
-    print(f"[relational] lineitem SF10 numeric columns: {rows} rows generated in {gen_s:.1f} s; "
+    print(f"[relational] lineitem SF10 columns (q06's five, q01's four more): {rows} rows "
+          f"generated in {gen_s:.1f} s; "
           f"q06 reads {scan_bytes / 1e9:.3f} GB in {len(chunk_rows)} chunks, padded lengths "
           f"{sorted(shapes)}", flush=True)
 
@@ -1105,28 +1122,253 @@ def phase_relational(card: str) -> dict:
           f"of the largest chunk: {q06_bound / 1e6:.3f} MB)", flush=True)
     check(pinned_q06 == q06_bound, f"q06 holds {pinned_q06} pinned bytes, not {q06_bound}")
 
-    head = dt.from_pydict({k: v[:Q06_TRACE_ROWS] for k, v in cols.items()})
+    head = dt.from_pydict({k: cols[k][:Q06_TRACE_ROWS] for k in NUMERIC_COLS})
     trace_window(card, "trace relational", f"q06 over {Q06_TRACE_ROWS} rows (four chunks)",
                  lambda: lineitem.q06(dt, head).to_pydict())
 
-    check_relational_routes(card, {k: v[:PARITY_ROWS] for k, v in cols.items()})
-    del df, head, cols
+    check_relational_routes(card, {k: cols[k][:PARITY_ROWS] for k in NUMERIC_COLS})
+    del df, head
+    gc.collect()
+    q01_launches, q01_pad = check_q01(card, cols)
+    part_launches = check_partitioned(card, {k: cols[k][:lineitem.SF1_LINEITEM_ROWS]
+                                             for k in ("l_shipdate", "l_partkey", "l_quantity")})
+    del cols
     gc.collect()
     check_cosine_scan(card)
     scan_rows = de._bucket(cfg.default_morsel_size, cfg.device_batch_buckets)
-    # q01 stages l_tax besides q06's four columns; the scan e and q, f32.
-    scan_bound = 5 * max(shapes) * 4 + 2 * scan_rows * EMBED_DIM * 4
+    # Five 4-byte columns are staged by name: q06's four, and l_tax (the q01
+    # projection), each at the largest padded length that q06's chunks and
+    # the filters' morsels gave it; the scan stages e and q, f32.
+    col_pad = max(max(shapes), q01_pad)
+    scan_bound = 5 * col_pad * 4 + 2 * scan_rows * EMBED_DIM * 4
     pinned_scan = de.pinned_bytes()
     de.reset_programs()
     pinned_reset = de.pinned_bytes()
     print(f"[relational] pinned staging held after the cosine scan: {pinned_scan / 1e9:.3f} GB "
-          f"(bound: five 4-byte columns of {max(shapes)} rows and two {EMBED_DIM}-wide f32 "
+          f"(bound: five 4-byte columns of {col_pad} rows and two {EMBED_DIM}-wide f32 "
           f"columns of {scan_rows} rows, "
           f"{scan_bound / 1e9:.3f} GB); after reset_programs: {pinned_reset} bytes", flush=True)
     check(pinned_scan <= scan_bound, f"the scan holds {pinned_scan} pinned bytes > {scan_bound}")
     check(pinned_reset == 0, f"reset_programs left {pinned_reset} pinned bytes")
     check_subnormals(card)
-    return {"flash_attention": launches}
+    return {"relational": {"flash_attention": launches}, "q01": {"flash_attention": q01_launches},
+            "q01_partitioned": {"flash_attention": part_launches}}
+
+
+def check_q01(card: str, cols: dict) -> tuple:
+    """TPC-H q01 whole over every row of ``cols``: warm and timed, with the
+    counts set to 0 just before each run; the four groups against the f64
+    reference, the runs against each other, the routes against the host
+    route on PARITY_ROWS rows and a profiler window. Returns the flash
+    launches of the timed run and the padded length of the filter's morsels."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import lineitem
+
+    q01_cols = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+                "l_returnflag", "l_linestatus")
+    df = dt.from_pydict({k: cols[k] for k in q01_cols})
+    rows = len(cols["l_shipdate"])
+    read_bytes = sum(cols[k].nbytes for k in q01_cols)
+    t0 = time.perf_counter()
+    ref = lineitem.q01_reference(cols)
+    ref_s = time.perf_counter() - t0
+    # What the counters must show: the Filter's rows in the device chain (one
+    # predicate per row), and the grouped partials with their children on the
+    # host (agg_grouped), as in the JAX package, over every chunk and once more
+    # over the first morsel (the cardinality probe).
+    cfg = dt.get_context().execution_config
+    morsel = cfg.default_morsel_size
+    keep = cols["l_shipdate"] <= lineitem.Q01_SHIPDATE_MAX
+    kept = int(keep.sum())
+    probe = int(keep[:morsel].sum())
+    pad = de._bucket(morsel, cfg.device_batch_buckets)
+    want_counts = {"chain_rows": {"filter_project": rows}, "fused_rows": rows,
+                   "host_rows": {"agg_grouped": kept + probe}}
+    results = []
+    for run in ("warm", "timed"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        de.device_eval_counters.reset()
+        de.phase_timer.reset()
+        de.phase_timer.enabled = run == "timed"
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        out = lineitem.sorted_groups(lineitem.q01(dt, df).to_pydict())
+        elapsed = time.perf_counter() - t0
+        de.phase_timer.enabled = False
+        snap = de.device_eval_counters.snapshot()
+        launches = flash_attention.launch_count
+        results.append((out, elapsed, snap))
+        got_counts = {k: snap[k] for k in want_counts}
+        check(got_counts == want_counts, f"q01 {run}: counters {got_counts}, want {want_counts}")
+        check(launches == 0, f"q01 {run}: flash_attention launched {launches} times")
+    (warm, warm_s, _), (out, elapsed, snap) = results
+    peak = torch.cuda.max_memory_allocated()
+    split = de.phase_timer.totals
+    groups = list(zip(out["l_returnflag"], out["l_linestatus"]))
+    check(groups == [("A", "F"), ("N", "F"), ("N", "O"), ("R", "F")], f"q01 groups {groups}")
+    check(out["count_order"] == ref["count_order"] and out["sum_qty"] == ref["sum_qty"],
+          f"q01 counts / sum_qty {out['count_order']} {out['sum_qty']} vs the reference "
+          f"{ref['count_order']} {ref['sum_qty']}")
+    errs = {k: max(abs(a - b) / abs(b) for a, b in zip(out[k], ref[k]))
+            for k in ("sum_base_price", "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
+                      "avg_disc")}
+    check(max(errs.values()) <= Q06_RTOL, f"q01 vs the f64 reference: {errs}")
+    check(out == warm, "q01: the warm and the timed run differ")
+    print(f"[relational] q01 over {rows} rows ({kept} kept, 4 groups, reference in {ref_s:.1f} s): "
+          f"warm run {warm_s:.3f} s, timed run {elapsed:.3f} s = {rows / elapsed:.4e} rows/s, "
+          f"{read_bytes / elapsed / 1e9:.3f} GB/s of the {read_bytes / 1e9:.3f} GB of columns it "
+          f"reads; largest rel err vs the f64 reference {max(errs.values()):.2e} (tol {Q06_RTOL}); "
+          f"counts and sum_qty exact; peak device memory {peak / 1e9:.3f} GB, pinned staging "
+          f"{de.pinned_bytes() / 1e6:.3f} MB [{card}]", flush=True)
+    print(f"[relational] q01 counters (timed run): chain_rows {snap['chain_rows']}, fused_rows "
+          f"{snap['fused_rows']} (the filter's rows), host_rows {snap['host_rows']} (the chunks' "
+          f"{kept} kept rows and the {probe}-row probe), program cache "
+          f"{snap['program_hits']} hits / {snap['program_misses']} misses; flash launches 0",
+          flush=True)
+    print(f"[relational] q01 split: staging {split['stage_s']:.3f} s, host->device "
+          f"{split['h2d_ms']:.3f} ms, device {split['device_ms']:.3f} ms, fetch "
+          f"{split['d2h_ms']:.3f} ms (stream time, CUDA events, summed over the filter's "
+          f"morsels); the rest of the {elapsed:.3f} s is host work (split below) "
+          f"[{card}]",
+          flush=True)
+    head = dt.from_pydict({k: cols[k][:Q06_TRACE_ROWS] for k in q01_cols})
+    trace_window(card, "trace relational", f"q01 over {Q06_TRACE_ROWS} rows (four chunks)",
+                 lambda: lineitem.q01(dt, head).to_pydict())
+    head = dt.from_pydict({k: cols[k][:Q01_PROFILE_ROWS] for k in q01_cols})
+    host_split(card, f"q01 over {Q01_PROFILE_ROWS} rows", lambda: lineitem.q01(dt, head).to_pydict(),
+               (("Acero's hash aggregation", "pyarrow/acero.py", "_group_by"),
+                ("the filter's device program (staging, copies, fetch)", "ops/compiled_eval.py",
+                 "run_morsel"),
+                ("  of it, the host's selection of the kept rows", "ops/compiled_eval.py",
+                 "_assemble"),
+                ("the keys and the children on the host", "expressions/evaluator.py", "evaluate"),
+                ("concatenating each chunk's morsels", "daft_tpu_torch/recordbatch.py", "concat"),
+                ("the merge and finalize", "execution/aggregation.py", "finalize")))
+
+    # The card's routes against the host route, bit for bit.
+    part = dt.from_pydict({k: cols[k][:PARITY_ROWS] for k in q01_cols})
+    card_out = lineitem.sorted_groups(lineitem.q01(dt, part).to_pydict())
+    with dt.execution_config_ctx(device_eval=False, compiled_eval_enabled=False):
+        part = dt.from_pydict({k: cols[k][:PARITY_ROWS] for k in q01_cols})
+        host_out = lineitem.sorted_groups(lineitem.q01(dt, part).to_pydict())
+    check(card_out == host_out, "q01: the card's route differs from the host route on "
+          f"{PARITY_ROWS} rows")
+    print(f"[relational] q01 on the first {PARITY_ROWS} rows: the card's route (filter in the "
+          f"device chain) equals the host route bit for bit [{card}]",
+          flush=True)
+    return launches, pad
+
+
+def host_split(card: str, what: str, run, parts) -> None:
+    """``run()`` once under cProfile: the host seconds inside each of
+    ``parts`` ((label, file suffix, function name)), beside the profiled wall
+    time. cProfile's own cost falls on the Python calls, not on the native
+    work inside them."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    run()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    rows = []
+    for label, suffix, name in parts:
+        cum = sum(v[3] for (f, _line, n), v in stats.items() if n == name and f.endswith(suffix))
+        rows.append(f"{label} {cum:.3f} s ({cum / wall:.1%})")
+    print(f"[relational] host split of {what} (cProfile, {wall:.3f} s wall): " + "; ".join(rows)
+          + f" [{card}]", flush=True)
+
+
+def check_partitioned(card: str, cols: dict) -> int:
+    """A high-cardinality grouped query over ``cols`` (SF1's rows): where
+    l_shipdate <= q01's cutoff, then sum(l_quantity) and count per l_partkey.
+    With the default config the first-morsel probe must take the partitioned
+    route; every group's sum and count must equal np.bincount's. The same
+    query is then timed on the partitioned route with one bucket and on the
+    merge route (the threshold above any reduction), each held to the same
+    check, and the default once more. Returns the default run's flash
+    launches."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution.executor import Executor
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import lineitem
+
+    rows = len(cols["l_partkey"])
+    keep = cols["l_shipdate"] <= lineitem.Q01_SHIPDATE_MAX
+    keys = cols["l_partkey"][keep]
+    want_sum = np.bincount(keys, weights=cols["l_quantity"][keep].astype(np.float64))
+    want_n = np.bincount(keys)
+    present = np.flatnonzero(want_n)
+    real = Executor._partitioned_agg
+    df = dt.from_pydict(cols)
+    c = dt.col
+
+    def run(label: str, **cfg) -> tuple:
+        routes = []
+
+        def spy(self, *args, **kwargs):
+            routes.append(self.compute_threads)
+            return real(self, *args, **kwargs)
+
+        Executor._partitioned_agg = spy
+        try:
+            with dt.execution_config_ctx(**cfg):
+                de.device_eval_counters.reset()
+                flash_attention.launch_count = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = (df.where(c("l_shipdate") <= lineitem.Q01_SHIPDATE_MAX).groupby("l_partkey")
+                       .agg(c("l_quantity").sum().alias("sum_qty"),
+                            c("l_quantity").count().alias("n")).to_pydict())
+                elapsed = time.perf_counter() - t0
+                launches = flash_attention.launch_count
+                snap = de.device_eval_counters.snapshot()
+        finally:
+            Executor._partitioned_agg = real
+        order = np.argsort(np.asarray(out["l_partkey"]))
+        got_keys = np.asarray(out["l_partkey"])[order]
+        check(np.array_equal(got_keys, present), f"partitioned query, {label}: {len(got_keys)} "
+              f"groups, want {len(present)}")
+        check(np.array_equal(np.asarray(out["sum_qty"])[order], want_sum[present].astype(np.int64))
+              and np.array_equal(np.asarray(out["n"])[order], want_n[present]),
+              f"partitioned query, {label}: a group's sum or count differs from np.bincount")
+        check(launches == 0, f"partitioned query, {label}: flash_attention launched {launches} "
+              "times")
+        return routes, elapsed, launches, snap
+
+    routes, elapsed, launches, snap = run("default")
+    check(len(routes) == 1, f"partitioned query: the probe took {len(routes)} partitioned routes")
+    print(f"[relational] partitioned grouped query over {rows} rows ({int(keep.sum())} kept): "
+          f"{len(present)} groups of l_partkey in {routes[0]} buckets, {elapsed:.3f} s = "
+          f"{rows / elapsed:.4e} rows/s; every sum and count equals np.bincount; counters: "
+          f"chain_rows {snap['chain_rows']}, host_rows {snap['host_rows']} [{card}]", flush=True)
+    times = {f"partitioned, {routes[0]} buckets": elapsed}
+    one, times["partitioned, 1 bucket"], _, _ = run("1 bucket", num_compute_threads=1)
+    check(one == [1], f"partitioned query, 1 bucket: routes {one}")
+    merge, times["merge"], _, _ = run("merge", high_cardinality_aggregation_threshold=1.0)
+    check(merge == [], f"partitioned query, merge: routes {merge}")
+    again, times[f"partitioned, {routes[0]} buckets, again"], _, _ = run("default again")
+    check(again == routes, f"partitioned query, default again: routes {again}")
+    print("[relational] partitioned query by route (same rows, every group equal to "
+          "np.bincount): " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f" [{card}]", flush=True)
+    return launches
 
 
 def check_subnormals(card: str) -> None:
@@ -1647,7 +1889,7 @@ def main() -> int:
         by_path = {"embed_image": launches}
         by_path.update(phase_text(card))
         by_path.update(phase_generate(card))
-        by_path["relational"] = phase_relational(card)
+        by_path.update(phase_relational(card))
         by_path.update(phase_hf(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

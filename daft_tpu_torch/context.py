@@ -1,8 +1,8 @@
 """Engine context and execution config (port of ``daft_tpu/context.py`` and
 ``daft_tpu/config.py``).
 
-This slice keeps the knobs the embedding path and the relational device layer
-read. ``execution_config_ctx`` changes them for a block of code. Not ported
+This slice keeps the knobs the embedding path and the relational layer (the
+device layer and the grouped aggregation's cardinality switch) read. ``execution_config_ctx`` changes them for a block of code. Not ported
 yet: the planning config, the runner choice (the port runs the local executor
 only), tenants, subscribers and the per-query clock.
 """
@@ -31,6 +31,15 @@ class ExecutionConfig:
     # Whole-chain evaluation (ops/compiled_eval): a filter → project → global
     # partial-aggregation chain runs as ONE cached program per morsel or chunk.
     compiled_eval_enabled: bool = True
+    # First-chunk group-reduction ratio above which the grouped aggregation
+    # hash-partitions instead of merging chunk partials: a partial pass that
+    # keeps more than 30% of its rows feeds a merge nearly the size of the
+    # input (daft_tpu/config.py's default).
+    high_cardinality_aggregation_threshold: float = 0.3
+    # Buckets of the partitioned aggregation, one per worker; 0 = one per
+    # visible CPU core. The port aggregates the buckets one after another on
+    # the calling thread (the compute pool is ROADMAP A.9.4).
+    num_compute_threads: int = 0
 
     def with_changes(self, **kwargs) -> "ExecutionConfig":
         return dataclasses.replace(self, **kwargs)

@@ -5,9 +5,10 @@ LogicalPlanBuilder; transformations return new DataFrames; materialisation
 optimizes the plan, translates it and runs it on the local executor. The port
 has ``select``, ``with_column``/``with_columns``, ``where``/``filter``,
 ``limit``, the global ``agg`` and ``sum``/``mean``/``min``/``max``/``count``,
-``collect``, ``iter_partitions`` and ``to_pydict``. Not ported yet: the
-runner layer (native/distributed runners, admission, plan caches, query log,
-profiling), SQL predicates, ``sort``/``groupby``/joins/set operations,
+``groupby`` (``dataframe/groupby.py``), ``collect``, ``iter_partitions`` and
+``to_pydict``. Not ported yet: the runner layer (native/distributed runners,
+admission, plan caches, query log, profiling), SQL predicates,
+``sort``/joins/set operations,
 ``explode``/``unpivot``/``pivot``/``sample``, the writers, the preview and
 notebook display, and the pandas/arrow/torch/ray exporters.
 """
@@ -32,6 +33,16 @@ def _to_expr(c: ColumnInput) -> Expression:
     if isinstance(c, str):
         return col(c)
     raise DaftValueError(f"Expected column name or Expression, got {type(c)}")
+
+
+def _flatten(items) -> list:
+    out = []
+    for it in items:
+        if isinstance(it, (list, tuple)):
+            out.extend(it)
+        else:
+            out.append(it)
+    return out
 
 
 class DataFrame:
@@ -74,6 +85,13 @@ class DataFrame:
     def agg(self, *exprs: Expression) -> "DataFrame":
         """A global aggregation: one row of ``exprs`` over every row."""
         return DataFrame(self._builder.aggregate([e._expr for e in exprs], []))
+
+    def groupby(self, *group_by: ColumnInput) -> "GroupedDataFrame":
+        from daft_tpu_torch.dataframe.groupby import GroupedDataFrame
+
+        return GroupedDataFrame(self, _flatten(group_by))
+
+    group_by = groupby
 
     def _agg_all(self, op: str) -> "DataFrame":
         return self.agg(*[getattr(col(f.name), op)() for f in self.schema

@@ -353,16 +353,33 @@ class AggOp(Expr):
     """Aggregation over a (possibly computed) child expression.
 
     Reference: ``AggExpr`` (src/daft-dsl/src/expr/mod.rs AggExpr enum). The
-    port has the global aggregations sum, mean, min, max and count.
+    port has the aggregations in ``OPS``, global and grouped; those in
+    ``LEFT_OUT`` raise ``DaftNotImplementedError`` naming the ROADMAP item
+    that ports them.
     """
 
-    OPS = {"sum", "mean", "min", "max", "count"}
+    OPS = {"sum", "mean", "min", "max", "count", "product", "any_value", "bool_and",
+           "bool_or", "stddev", "variance"}
+    _LIST = "ROADMAP A.3 (list partials, with the .list namespace)"
+    LEFT_OUT = {
+        "median": _LIST, "string_agg": _LIST, "list": _LIST, "concat": _LIST,
+        "count_distinct": _LIST, "approx_count_distinct": _LIST,
+        "approx_percentile": "ROADMAP A.3 (sketch partials, with the .list namespace)",
+        "dd_sketch": "ROADMAP A.3 (sketch partials, with the .list namespace)",
+        "dd_merge": "ROADMAP A.3 (sketch partials, with the .list namespace)",
+        "skew": "ROADMAP A.3 (its pow_3_2 final, with the list aggregations)",
+        "udaf": "ROADMAP A.2 (udaf)", "udaf_partial": "ROADMAP A.2 (udaf)",
+        "udaf_merge": "ROADMAP A.2 (udaf)",
+    }
 
     __slots__ = ("op", "child", "kwargs")
 
     def __init__(self, op: str, child: Expr, kwargs: Optional[Dict[str, Any]] = None):
+        if op in self.LEFT_OUT:
+            raise DaftNotImplementedError(
+                f"aggregation {op!r} is not ported to daft_tpu_torch: {self.LEFT_OUT[op]}")
         if op not in self.OPS:
-            raise DaftNotImplementedError(f"aggregation {op!r} is not ported")
+            raise DaftValueError(f"Unknown aggregation op: {op}")
         self.op = op
         self.child = child
         self.kwargs = dict(kwargs or {})
@@ -377,13 +394,16 @@ class AggOp(Expr):
         from daft_tpu_torch.series import _sum_dtype
 
         f = self.child.to_field(schema)
-        if self.op == "sum":
+        op = self.op
+        if op in ("sum", "product"):
             return f.with_dtype(_sum_dtype(f.dtype))
-        if self.op == "mean":
+        if op in ("mean", "stddev", "variance"):
             return f.with_dtype(DataType.float64())
-        if self.op == "count":
+        if op == "count":
             return f.with_dtype(DataType.uint64())
-        return f
+        if op in ("bool_and", "bool_or"):
+            return f.with_dtype(DataType.bool())
+        return f  # min, max, any_value
 
     def _attrs_key(self) -> tuple:
         return (self.op, tuple(sorted((k, repr(v)) for k, v in self.kwargs.items())))

@@ -2,11 +2,14 @@
 
 ``col`` / ``lit`` build expressions; the operators build arithmetic,
 comparison and logic; ``cast``, ``if_else``, ``abs``, the numeric functions of
-``kernels/numeric.py``, the aggregations (sum, mean, min, max, count) and the
-``.float`` / ``.embedding`` namespaces (the kernels of ``kernels/float_ops.py``
-and ``kernels/embedding_ops.py``) are ported. Not ported yet: ``is_in``,
-``between`` on subqueries, the shift operators, ``apply``, the other
-aggregations and the ``.str`` / ``.list`` / ``.dt`` / ``.image`` namespaces.
+``kernels/numeric.py`` and ``kernels/extended_ops.py``, the aggregations (sum,
+mean, min, max, count, product, any_value, bool_and, bool_or, stddev,
+variance) and the ``.float`` / ``.embedding`` namespaces (the kernels of
+``kernels/float_ops.py``, ``kernels/embedding_ops.py`` and
+``cosine_similarity``) are ported. Not ported yet: ``is_in``, ``between`` on
+subqueries, the shift operators, ``apply``, the aggregations with list or
+sketch partials and ``skew`` (``AggOp.LEFT_OUT``) and the ``.str`` / ``.list`` /
+``.dt`` / ``.image`` namespaces.
 """
 
 from __future__ import annotations
@@ -263,6 +266,52 @@ class Expression:
     def sign(self):
         return self._fn("sign")
 
+    # -- kernels/extended_ops.py --------------------------------------------
+    def negate(self) -> "Expression":
+        return self._fn("negate")
+
+    def csc(self):
+        return self._fn("csc")
+
+    def sec(self):
+        return self._fn("sec")
+
+    def cot(self):
+        return self._fn("cot")
+
+    def arctanh(self):
+        return self._fn("atanh")
+
+    def arccosh(self):
+        return self._fn("acosh")
+
+    def arcsinh(self):
+        return self._fn("asinh")
+
+    def radians(self):
+        return self._fn("radians")
+
+    def degrees(self):
+        return self._fn("degrees")
+
+    def hypot(self, other):
+        return self._fn("hypot", other)
+
+    def pmod(self, other):
+        return self._fn("pmod", other)
+
+    def bitwise_and(self, other):
+        return self._fn("bitwise_and", other)
+
+    def bitwise_or(self, other):
+        return self._fn("bitwise_or", other)
+
+    def bitwise_xor(self, other):
+        return self._fn("bitwise_xor", other)
+
+    def bitwise_not(self):
+        return self._fn("bitwise_not")
+
     # -- aggregation constructors ----------------------------------------
     def _agg(self, op: str, **kwargs) -> "Expression":
         return Expression(AggOp(op, self._expr, kwargs))
@@ -284,6 +333,24 @@ class Expression:
 
     def count(self, mode: str = "valid"):
         return self._agg("count", mode=mode)
+
+    def product(self):
+        return self._agg("product")
+
+    def any_value(self, ignore_nulls: bool = False):
+        return self._agg("any_value", ignore_nulls=ignore_nulls)
+
+    def bool_and(self):
+        return self._agg("bool_and")
+
+    def bool_or(self):
+        return self._agg("bool_or")
+
+    def stddev(self):
+        return self._agg("stddev")
+
+    def variance(self):
+        return self._agg("variance")
 
     # -- namespaces -------------------------------------------------------
     @property
@@ -331,3 +398,7 @@ class EmbeddingNamespace(_Namespace):
 
     def l2_normalize(self):
         return self._fn("l2_normalize")
+
+    def cosine_similarity(self, other):
+        other = other._e if isinstance(other, _Namespace) else other
+        return self._fn("cosine_similarity", other)

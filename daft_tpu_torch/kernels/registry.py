@@ -5,7 +5,7 @@ keyed by name (src/daft-dsl/src/functions/scalar.rs). Each kernel bundles a
 host implementation over Series with a field resolver; kernels the device can
 run also carry a torch lowering (``torch_fn``) that the relational device layer
 calls on device tensors. The registry holds the kernels of ``numeric.py``,
-``float_ops.py`` and ``embedding_ops.py``; every other name of the JAX
+``float_ops.py``, ``embedding_ops.py`` and ``extended_ops.py``; every other name of the JAX
 package's registry is not ported yet and raises ``DaftNotImplementedError``
 when a plan resolves it.
 """
@@ -90,7 +90,12 @@ def _ensure_loaded() -> None:
             return
         # Imported for their registrations; _loaded flips only after the
         # imports complete.
-        from daft_tpu_torch.kernels import embedding_ops, float_ops, numeric  # noqa: F401
+        from daft_tpu_torch.kernels import (  # noqa: F401
+            embedding_ops,
+            extended_ops,
+            float_ops,
+            numeric,
+        )
 
         _loaded = True
 

@@ -3,8 +3,8 @@
 Reference: the ``LogicalPlan`` enum (src/daft-logical-plan/src/logical_plan.rs:35-66).
 Nodes are immutable; the output schema is resolved at construction so schema
 errors surface at build time. The port has ``InMemorySource``, ``Project``,
-``UDFProject``, ``Filter``, ``Limit`` and ``Aggregate`` (global only: a
-group-by raises ``DaftNotImplementedError``). Not ported yet: ``ScanSource``,
+``UDFProject``, ``Filter``, ``Limit`` and ``Aggregate`` (global and grouped).
+Not ported yet: ``ScanSource``,
 ``Sample``, ``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``, ``Sort``,
 ``TopN``, ``Pivot``, ``Distinct``, ``Window``, ``Concat``,
 ``Join``, ``AsofJoin``, ``Intersect``/``Except``, ``Repartition``, ``Shard``,
@@ -17,7 +17,6 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from daft_tpu_torch.errors import (
-    DaftNotImplementedError,
     DaftPlanError,
     DaftTypeError,
     DaftValueError,
@@ -147,18 +146,22 @@ class Filter(LogicalPlan):
 
 
 class Aggregate(LogicalPlan):
+    """Aggregation, global or by ``group_by``: the schema is the key fields
+    followed by the aggregation fields."""
+
     def __init__(self, input: LogicalPlan, agg_exprs: Sequence[Expr], group_by: Sequence[Expr]):
-        if group_by:
-            raise DaftNotImplementedError("grouped aggregation is not ported to daft_tpu_torch")
         self.agg_exprs = list(agg_exprs)
-        self.group_by: List[Expr] = []
+        self.group_by = list(group_by)
         for e in self.agg_exprs:
             if not e.has_agg():
                 raise DaftValueError(f"Aggregate expression {e!r} contains no aggregation")
-        super().__init__([input], Schema([e.to_field(input.schema) for e in self.agg_exprs]))
+        fields = [g.to_field(input.schema) for g in self.group_by]
+        fields += [e.to_field(input.schema) for e in self.agg_exprs]
+        super().__init__([input], Schema(fields))
 
     def with_children(self, children):
         return Aggregate(children[0], self.agg_exprs, self.group_by)
 
     def multiline_display(self):
-        return [f"Aggregate: {[e.name() for e in self.agg_exprs]}"]
+        return [f"Aggregate: {[e.name() for e in self.agg_exprs]} "
+                f"groupby={[g.name() for g in self.group_by]}"]

@@ -27,6 +27,7 @@ routes are those the plan, the dtypes or the data decide, each one counted in
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -334,20 +335,21 @@ def _kind(x):
     return ("i", torch.iinfo(x.dtype).bits)
 
 
-def _promote_wide(a, b):
-    """Result class of a binary op with a uint16/uint32 operand, by JAX's
-    promotion with 64-bit types off: floats win; unsigned with unsigned,
-    bool or a Python int stays unsigned (the wider); unsigned with a signed
-    type becomes int32 (int64 in JAX's lattice, canonicalised to int32)."""
-    ka, kb = _kind(a), _kind(b)
-    floats = [k[1] for k in (ka, kb) if k[0] == "f"]
+def _promote_wide(*xs):
+    """Result class of an op over operands one of which is a uint16/uint32
+    lane, by JAX's promotion with 64-bit types off: floats win; unsigned with
+    unsigned, bool or a Python int stays unsigned (the wider); unsigned with
+    a signed type becomes int32 (int64 in JAX's lattice, canonicalised to
+    int32)."""
+    kinds = [_kind(x) for x in xs]
+    floats = [k[1] for k in kinds if k[0] == "f"]
     if floats:
-        return ("f", floats[0] if len(floats) == 1 else torch.promote_types(*floats))
-    if "wf" in (ka[0], kb[0]):
+        return ("f", functools.reduce(torch.promote_types, floats))
+    if any(k[0] == "wf" for k in kinds):
         return ("f", torch.float32)
-    if "i" in (ka[0], kb[0]):
+    if any(k[0] == "i" for k in kinds):
         return ("i", 32)
-    return ("u", max(k[1] for k in (ka, kb) if k[0] == "u"))
+    return ("u", max(k[1] for k in kinds if k[0] == "u"))
 
 
 def _as_kind(x, kind):
@@ -543,9 +545,19 @@ def _eval_tree(expr: Expr, cols: Dict[str, object]):
     if isinstance(expr, FunctionCall):
         from daft_tpu_torch.kernels.registry import get_kernel
 
-        args = [a.t if isinstance(a, _Wide) else a
-                for a in (_eval_tree(a, cols) for a in expr.args)]
-        return get_kernel(expr.fn_name).torch_fn(args, **expr.kwargs)
+        fn = get_kernel(expr.fn_name).torch_fn
+        vals = [_eval_tree(a, cols) for a in expr.args]
+        if not any(isinstance(a, _Wide) for a in vals):
+            return fn(vals, **expr.kwargs)
+        kind = _promote_wide(*vals)
+        if kind[0] == "f":
+            return fn([a.t if isinstance(a, _Wide) else a for a in vals], **expr.kwargs)
+        # Integer operands meet in their promoted class, as jnp's promotion
+        # has them meet: int32 when a signed operand is among them (a uint32
+        # lane wraps), else the widest unsigned lane, whose integer result
+        # wraps as XLA's native unsigned arithmetic does (-x, ~x, a | b).
+        out = fn([_as_kind(a, kind) for a in vals], **expr.kwargs)
+        return _wrap_unsigned(out, kind[1]) if kind[0] == "u" and _is_int(out) else out
     raise AssertionError(f"unfusable node slipped through: {type(expr).__name__}")
 
 

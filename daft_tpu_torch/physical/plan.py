@@ -3,7 +3,7 @@
 Reference: ``LocalPhysicalPlan`` (src/daft-local-plan/src/plan.rs:74-133). Each
 node maps 1:1 onto an operator of ``execution/executor.py``. The port has
 ``InMemorySource``, ``Project``, ``UDFProject``, ``Filter``, ``Limit`` and
-``Aggregate`` (global); the other nodes wait for their logical counterparts
+``Aggregate`` (global and grouped); the other nodes wait for their logical counterparts
 (see ``logical/plan.py``).
 """
 
@@ -81,4 +81,4 @@ class Aggregate(PhysicalPlan):
         self.group_by = group_by
 
     def describe(self):
-        return f"Aggregate[{len(self.agg_exprs)} aggs]"
+        return f"Aggregate[{len(self.agg_exprs)} aggs, {len(self.group_by)} keys]"

@@ -7,9 +7,8 @@ compute where possible (native C++ kernels), to engine kernels otherwise.
 Expression evaluation (`eval_expression_list`, reference lib.rs:1623) runs on
 the host in this port.
 
-Port of ``daft_tpu/recordbatch.py``. Not ported yet: ``hash_rows`` and
-``partition_by_hash`` (they need the hashing kernels); ``agg`` evaluates global
-aggregations only.
+Port of ``daft_tpu/recordbatch.py``. ``agg`` evaluates global and grouped
+aggregations (``expressions/agg_eval.py``).
 """
 
 from __future__ import annotations
@@ -252,6 +251,19 @@ class RecordBatch:
     # ------------------------------------------------------------------ #
     # Hashing / partitioning                                              #
     # ------------------------------------------------------------------ #
+    def partition_by_hash(self, key_series: Sequence[Series], num_partitions: int) -> List["RecordBatch"]:
+        """Split by the combined row hash of ``key_series``: every row of a
+        key lands in one part, in input order (``_split_by_ids`` is stable)."""
+        from daft_tpu_torch.kernels.hashing import combine_hashes
+
+        if num_partitions <= 1:
+            return [self]
+        if not key_series:
+            raise DaftValueError("partition_by_hash requires at least one key")
+        hashes = combine_hashes([k.hash().to_numpy() for k in key_series])
+        part_ids = (hashes % np.uint64(num_partitions)).astype(np.int64)
+        return self._split_by_ids(part_ids, num_partitions)
+
     def partition_by_random(self, num_partitions: int, seed: int) -> List["RecordBatch"]:
         rng = np.random.default_rng(seed)
         part_ids = rng.integers(0, num_partitions, size=self._num_rows)

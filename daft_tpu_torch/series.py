@@ -6,8 +6,8 @@ Arrow array (Arrow C++ buffers via pyarrow) whose Arrow type is exactly
 Fixed-width columns reach the GPU as dense numpy batches that the AI providers
 copy to the device themselves.
 
-Not ported yet: the device seam (``from_jax``/``to_jax``), ``hash`` and
-``approx_count_distinct`` (they need the kernels package), and lazy ``File``
+Not ported yet: the device seam (``from_jax``/``to_jax``),
+``approx_count_distinct`` (it needs the sketch kernels), and lazy ``File``
 handles for File columns (``to_pylist`` returns their Arrow rows).
 
 CPU kernels delegate to ``pyarrow.compute`` (Arrow C++ SIMD kernels — the
@@ -523,6 +523,13 @@ class Series:
         else:
             idx = np.searchsorted(hay, needles, side="left")
         return Series.from_numpy(idx.astype(np.uint64), keys.name, DataType.uint64())
+
+    def hash(self, seed: Optional["Series"] = None) -> "Series":
+        """Deterministic 64-bit hash (vectorised FNV over value bytes),
+        stable across processes and hosts (``kernels/hashing.py``)."""
+        from daft_tpu_torch.kernels.hashing import hash_series
+
+        return hash_series(self, seed)
 
     # ------------------------------------------------------------------ #
     # Aggregations (global)                                               #

@@ -14,6 +14,7 @@ import zlib
 
 import ml_dtypes
 import numpy as np
+import pyarrow as pa
 import pytest
 import torch
 
@@ -64,7 +65,7 @@ def _both(data, build, dtypes=None):
     return [_fused(p, rb, build) for p, rb in zip(PKGS, rbs)]
 
 
-def _assert_equal(jax_s, port_s, rtol=0.0):
+def _assert_equal(jax_s, port_s, rtol=0.0, atol=0.0):
     assert jax_s is not None, "the JAX package's device path did not take the expression"
     assert port_s is not None, "the port's device path did not take the expression"
     assert repr(jax_s.dtype) == repr(port_s.dtype)
@@ -73,8 +74,8 @@ def _assert_equal(jax_s, port_s, rtol=0.0):
     assert (jm is None) == (pm is None) and (jm is None or np.array_equal(jm, pm))
     if jv.dtype == ml_dtypes.bfloat16:
         jv, pv = jv.astype(np.float32), pv.astype(np.float32)
-    if rtol:
-        np.testing.assert_allclose(pv, jv, rtol=rtol, equal_nan=True)
+    if rtol or atol:
+        np.testing.assert_allclose(pv, jv, rtol=rtol, atol=atol, equal_nan=True)
     else:
         np.testing.assert_array_equal(pv, jv)
 
@@ -478,13 +479,152 @@ def test_q06_boundary_literals_compare_in_f32():
     assert float(np.float32(0.07)) > 0.07 and p.to_pylist()[7]  # f32(0.07) kept
 
 
+# The extended_ops lowerings (kernels/extended_ops.py): name -> (build, rtol).
+# Exact where the port computes what XLA computes (a scale by an f32
+# constant, negation, jnp.mod, bitwise ops); rtol 1e-6 for the libm functions
+# and jnp.hypot's formula against torch.hypot. cosine_similarity is held at
+# atol 1e-6 instead: a value in [-1, 1] from f32 dot products summed in
+# another order cancels near 0, where no relative tolerance holds.
+_EXT_DATA_SEED = 5
+_EXTENDED = {
+    "csc": (lambda p: p.col("x").csc(), F32_TOL),
+    "sec": (lambda p: p.col("x").sec(), F32_TOL),
+    "cot": (lambda p: p.col("x").cot(), F32_TOL),
+    "atanh": (lambda p: p.col("t").arctanh(), F32_TOL),
+    "acosh": (lambda p: p.col("a").arccosh(), F32_TOL),
+    "asinh": (lambda p: p.col("x").arcsinh(), F32_TOL),
+    "radians": (lambda p: p.col("x").radians(), 0.0),
+    "degrees": (lambda p: p.col("x").degrees(), 0.0),
+    "negate": (lambda p: p.col("i").negate(), 0.0),
+    "negate_uint16": (lambda p: p.col("u").negate(), 0.0),
+    "hypot": (lambda p: p.col("x").hypot(p.col("y")), F32_TOL),
+    "pmod": (lambda p: p.col("i").pmod(p.col("j")), 0.0),
+    "pmod_float": (lambda p: p.col("x").pmod(p.col("y")), 0.0),
+    "bitwise_and": (lambda p: p.col("i").bitwise_and(p.col("j")), 0.0),
+    "bitwise_or": (lambda p: p.col("i").bitwise_or(p.col("j")), 0.0),
+    "bitwise_xor": (lambda p: p.col("i").bitwise_xor(p.col("j")), 0.0),
+    "bitwise_not": (lambda p: p.col("i").bitwise_not(), 0.0),
+    "bitwise_not_uint16": (lambda p: p.col("u").bitwise_not(), 0.0),
+    # f64 out: only inside a 32-bit expression does the device take it.
+    "cosine_similarity": (lambda p: p.col("e").embedding.cosine_similarity(p.col("q"))
+                          .cast(p.DataType.float32()), 0.0),
+}
+
+
+def _extended_data(pkg):
+    """300 seeded rows: f32 operands with zeros among the divisors of pmod,
+    int32 operands in -50..50 and -5..5 (zeros included), uint16, and 16-wide
+    f32 embeddings."""
+    rng = np.random.default_rng(_EXT_DATA_SEED)
+    x = (rng.standard_normal(300) * 4).astype(np.float32)
+    y = (rng.standard_normal(300) * 4).astype(np.float32)
+    y[:5] = 0.0
+    emb = pkg.DataType.embedding(pkg.DataType.float32(), 16)
+    cols = {"x": x, "y": y, "a": np.abs(x) + np.float32(1), "t": np.tanh(x) * np.float32(0.99),
+            "i": rng.integers(-50, 50, 300).astype(np.int32),
+            "j": rng.integers(-5, 6, 300).astype(np.int32),
+            "u": rng.integers(0, 60000, 300).astype(np.uint16)}
+    rb = {k: pkg.Series.from_numpy(v, k) for k, v in cols.items()}
+    for k in ("e", "q"):
+        rb[k] = pkg.Series.from_numpy(rng.standard_normal((300, 16)).astype(np.float32), k, emb)
+    return pkg.RecordBatch.from_pydict(rb)
+
+
+def _check_extended(fn):
+    """The JAX package's device route and the port's take the kernel alike and
+    agree at the stated tolerance; pmod by 0 gives jnp.mod's values there
+    (0, NaN), not the host's null (ROADMAP C.26)."""
+    build, rtol = _EXTENDED[fn]
+    j, p = [_fused(pkg, _extended_data(pkg), lambda q: build(q).alias("r")) for pkg in PKGS]
+    _assert_equal(j, p, rtol=rtol, atol=F32_TOL if fn == "cosine_similarity" else 0.0)
+    if fn.startswith("pmod"):
+        vals, mask = p.to_numpy_masked()
+        assert mask is None
+        zero = _extended_data(daft_tpu_torch).get_column("j" if fn == "pmod" else "y").to_numpy() == 0
+        assert zero.any()
+        assert (vals[zero] == 0).all() if fn == "pmod" else np.isnan(vals[zero]).all()
+    if fn == "cosine_similarity":
+        # Alone it resolves to f64: both device paths leave it to the host.
+        tde.device_eval_counters.reset()
+        assert [_fused(pkg, _extended_data(pkg), lambda q: q.col("e").embedding
+                       .cosine_similarity(q.col("q")).alias("r")) for pkg in PKGS] == [None, None]
+        assert tde.device_eval_counters.snapshot()["host_exprs"] == {"dtype_64bit": 1}
+
+
+@pytest.mark.parametrize("fn", sorted(_EXTENDED))
+def test_extended_ops_route_nullable_inputs_to_the_host(fn):
+    """None of the extended_ops kernels has the same rules on both paths, so a
+    nullable input they read (the last row of every column is null) sends them to the host on both device paths
+    (counted as ``nullable_unsafe``), and the two hosts agree bit for bit."""
+    build, _ = _EXTENDED[fn]
+    rbs = []
+    for pkg in PKGS:
+        rb = _extended_data(pkg)
+        masked = [pkg.Series.from_arrow(
+            pa.array(c.to_arrow().to_pylist()[:-1] + [None], c.to_arrow().type), c.name, c.dtype)
+            for c in rb.columns()]
+        rbs.append(pkg.RecordBatch.from_pydict({c.name: c for c in masked}))
+    tde.device_eval_counters.reset()
+    assert [_fused(pkg, rb, lambda q: build(q).alias("r")) for pkg, rb in zip(PKGS, rbs)] == \
+        [None, None]
+    assert tde.device_eval_counters.snapshot()["host_exprs"] == {"nullable_unsafe": 1}
+    with daft_tpu.execution_config_ctx(device_eval=False), \
+            daft_tpu_torch.execution_config_ctx(device_eval=False):
+        j, p = [rb.eval_expression_list([build(pkg).alias("r")._expr]).get_column("r")
+                for pkg, rb in zip(PKGS, rbs)]
+    assert repr(j.dtype) == repr(p.dtype)
+    # Null for all but cosine_similarity, whose host impl reads a null row as
+    # zeros in both packages (0.0 there).
+    assert j.to_pylist()[-1] == p.to_pylist()[-1]
+    assert (p.to_pylist()[-1] is None) == (fn != "cosine_similarity")
+    np.testing.assert_array_equal(*(np.asarray(s.to_pylist()[:-1], dtype=np.float64)
+                                    for s in (j, p)))
+
+
+def _kernel_call(pkg, fn, *names):
+    """``fn`` over columns ``names`` as a bare registry FunctionCall."""
+    expr_mod = (daft_tpu_torch if pkg is daft_tpu_torch else daft_tpu).expressions.expr
+    return pkg.expressions.Expression(expr_mod.FunctionCall(fn, [pkg.col(n)._expr for n in names]))
+
+
+# Integer kernels over operands of mixed signedness, by kernel and operand
+# columns: int32 "k" in -200000..200000 (negatives and values past 16 bits),
+# uint16 "u" and uint32 "w" (values past 2**31). The operands meet in jnp's
+# promoted class (int32 when a signed one is among them, a uint32 lane
+# wrapping); only an all-unsigned result wraps to its lane. Exact.
+_MIXED = {
+    "bitwise_or_i32_u16": ("bitwise_or", "k", "u"),
+    "bitwise_xor_i32_u16": ("bitwise_xor", "k", "u"),
+    "bitwise_and_u16_i32": ("bitwise_and", "u", "k"),
+    "bitwise_or_u32_u16": ("bitwise_or", "w", "u"),
+    "elementwise_min_i32_u16": ("elementwise_min", "k", "u"),
+    "elementwise_max_i32_u16": ("elementwise_max", "k", "u"),
+    "elementwise_max_u32_u16": ("elementwise_max", "w", "u"),
+}
+
+
+def _check_mixed(case):
+    rng = np.random.default_rng(7)
+    data = {"k": rng.integers(-200_000, 200_000, 300).astype(np.int32),
+            "u": rng.integers(0, 1 << 16, 300).astype(np.uint16),
+            "w": rng.integers(0, 1 << 32, 300, dtype=np.uint64).astype(np.uint32)}
+    data["k"][:3] = [-5, 100_000, -1]
+    data["u"][:3] = [1, 5, 3]
+    fn, *names = _MIXED[case]
+    _assert_equal(*_both(data, lambda pkg: _kernel_call(pkg, fn, *names).alias("r")))
+
+
 @pytest.mark.parametrize("fn", ["sqrt", "exp", "ln", "sin", "tanh", "log1p", "ceil", "floor",
                                 "round", "sign", "clip", "log2_base", "atan2", "is_nan",
                                 "is_inf", "not_nan", "elementwise_max", "elementwise_min",
-                                "round_1", "round_2"])
+                                "round_1", "round_2", *sorted(_EXTENDED), *sorted(_MIXED)])
 def test_numeric_kernel_parity(fn):
     if fn.startswith("round_"):
         return _check_round_decimals(int(fn[-1]))
+    if fn in _EXTENDED:
+        return _check_extended(fn)
+    if fn in _MIXED:
+        return _check_mixed(fn)
     rng = np.random.default_rng(11)
     x = (rng.standard_normal(300) * 4).astype(np.float32)
     x[:4] = [np.nan, np.inf, -np.inf, 0.0]
@@ -502,10 +642,7 @@ def test_numeric_kernel_parity(fn):
         if fn in ("is_nan", "is_inf", "not_nan"):
             return getattr(c.float, fn)().alias("r")
         if fn.startswith("elementwise"):
-            from_mod = daft_tpu_torch if pkg is daft_tpu_torch else daft_tpu
-            expr_mod = from_mod.expressions.expr
-            return pkg.expressions.Expression(expr_mod.FunctionCall(
-                fn, [c._expr, pkg.col("y")._expr])).alias("r")
+            return _kernel_call(pkg, fn, "x", "y").alias("r")
         return getattr(c, fn)().alias("r")
 
     # sqrt too differs by an ulp: XLA's CPU sqrt is not correctly rounded.
