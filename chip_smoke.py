@@ -114,8 +114,24 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    same tower on the CPU (cosine >= 0.99), 24 flash-attention launches per
    image chunk and none on the text paths; one chunk of the BERT and of the
    image path is traced as in phase 4;
-9. print one JSON line of per-kernel numbers (with the launches on each
-   path), then, last, the device line.
+9. the image path, on 1024 seeded encoded photos (short side 256-640, aspect
+   0.75-1.33, gradients plus noise; JPEG at quality 90, one in 16 PNG, one
+   grayscale, one RGBA, one null, one corrupt): ``.image.decode(mode="RGB",
+   on_error="null")`` and ``.image.resize(224, 224)`` on the host, each timed,
+   every row held against PIL's own decode and resize and the null and
+   corrupt rows null; (a) bytes to ViT-L/14 ``embed_image`` through the
+   engine (rows/s, the decode / resize / forward split, 24 flash launches per
+   chunk, one chunk equal to a direct forward); (b) ResNet-18 at its default
+   config (bf16, seeded weights and BatchNorm statistics) as a batch ``Udf``
+   over morsels of 256 resized rows giving the top-1 class: rows/s, peak
+   memory, no flash launch, one traced batch (time by kind, idle share), the
+   card's logits on 8 images against a CPU copy (cosine >= 0.99, top-1
+   equal); (c) 1024 seeded 256x256 RGB ``FixedShapeImage`` rows resized to
+   224x224 on the card: that it ran on CUDA, its time with the batch resident
+   beside the byte bound, 64 rows against the CPU route (one level on < 1 %
+   of values), one traced engine call;
+10. print the whole run's time and one JSON line of per-kernel numbers (with
+   the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -181,6 +197,20 @@ HF_CLIP_CONFIG = {  # openai/clip-vit-large-patch14
                       "num_hidden_layers": 24, "patch_size": 14, "image_size": 224,
                       "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5,
                       "projection_dim": 768}}
+
+# Phase 9: encoded photos with the side and aspect spread of LAION and
+# ImageNet, mostly JPEG; ResNet-18 at torchvision's published config.
+NUM_ENCODED = 1024
+SIDES = (256, 640)
+ASPECTS = (0.75, 1.33)
+PNG_EVERY = 16
+JPEG_QUALITY = 90
+GRAY_ROW, RGBA_ROW, NULL_ROW, CORRUPT_ROW = 1, 2, 3, 4
+RESNET_BATCH = 256
+RESNET_CPU_ROWS = 8
+RESIZE_SIDE = 256
+RESIZE_CPU_ROWS = 64
+RESIZE_MAX_OFF, RESIZE_OFF_SHARE = 1, 0.01  # tests/test_torch_image.py's uint8 tolerance
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -494,6 +524,8 @@ def trace_window(card: str, tag: str, what: str, run):
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / window_us:.4f} [{card}]", flush=True)
     kinds = (("attention", ("attn_bf16",)), ("softmax", ("softmax",)),
              ("masked_fill", ("masked_fill",)), ("cache writes", ("index_put", "indexing")),
+             ("convolution", ("fprop", "implicit_convolve", "conv2d", "winograd", "cudnn")),
+             ("max-pool", ("max_pool",)),
              ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")),
              ("layernorm", ("layer_norm",)), ("gelu / sigmoid", ("gelu", "sigmoid")),
              ("copies", ("memcpy", "memset", "copy_kernel")))
@@ -1871,12 +1903,324 @@ def phase_hf(card: str) -> dict:
     return by_path
 
 
+def make_encoded(n: int, seed: int) -> list:
+    """``n`` seeded encoded photos: the short side drawn from ``SIDES``, the
+    aspect from ``ASPECTS``, smooth per-channel gradients plus noise (so the
+    JPEG sizes are those of photos, not of flat or random images); JPEG at
+    ``JPEG_QUALITY`` but every ``PNG_EVERY``-th PNG, row ``GRAY_ROW`` a
+    grayscale JPEG, ``RGBA_ROW`` an RGBA PNG, ``NULL_ROW`` null and
+    ``CORRUPT_ROW`` a JPEG header over garbage. The draws are made in order;
+    the images are encoded on a thread pool (PIL and numpy release the GIL)."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    top = int(SIDES[1] * ASPECTS[1]) + 1
+    noise = rng.integers(-20, 21, (top, top, 4), dtype=np.int16)
+    draws = []
+    for _ in range(n):
+        short = int(rng.integers(SIDES[0], SIDES[1] + 1))
+        aspect = float(rng.uniform(*ASPECTS))
+        h, w = (short, round(short * aspect)) if aspect >= 1 else (round(short / aspect), short)
+        draws.append((h, w, rng.uniform(-160, 160, (2, 4)).astype(np.float32),
+                      rng.uniform(60, 200, 4).astype(np.float32),
+                      int(rng.integers(0, top - h + 1)), int(rng.integers(0, top - w + 1))))
+    garbage = rng.bytes(4096)
+
+    def encode(i: int):
+        if i == NULL_ROW:
+            return None
+        if i == CORRUPT_ROW:
+            return b"\xff\xd8\xff\xe0" + garbage
+        h, w, slope, level, oy, ox = draws[i]
+        ramp = (level + slope[0] * np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+                + slope[1] * np.linspace(0, 1, w, dtype=np.float32)[None, :, None])
+        pixels = np.clip(ramp + noise[oy:oy + h, ox:ox + w], 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        if i == RGBA_ROW:
+            Image.fromarray(pixels, "RGBA").save(buf, format="PNG")
+        elif i == GRAY_ROW:
+            Image.fromarray(pixels[..., 0], "L").save(buf, format="JPEG", quality=JPEG_QUALITY)
+        elif i % PNG_EVERY == PNG_EVERY - 1:
+            Image.fromarray(pixels[..., :3], "RGB").save(buf, format="PNG")
+        else:
+            Image.fromarray(pixels[..., :3], "RGB").save(buf, format="JPEG",
+                                                         quality=JPEG_QUALITY)
+        return buf.getvalue()
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(encode, range(n)))
+
+
+def pil_decode_resize(raw: bytes):
+    """PIL's own decode to RGB and bilinear resize to IMAGE x IMAGE."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(raw))
+    img = img if img.mode == "RGB" else img.convert("RGB")
+    return np.asarray(img.resize((IMAGE, IMAGE), Image.BILINEAR))
+
+
+def image_column(df, name: str):
+    """Column ``name`` of ``df``'s result as one Series (to_pydict would
+    turn every pixel into a Python int)."""
+    from daft_tpu_torch.micropartition import MicroPartition
+
+    return MicroPartition.concat(list(df.iter_partitions())).combined().get_column(name)
+
+
+def uint8_close(a, b) -> tuple:
+    """(largest gap in levels, share of values that differ)."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def phase_image(card: str) -> dict:
+    """Encoded photos through decode, resize and two models, and the card's
+    fixed-shape resize; returns the launch counts of each model path."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.kernels import image_ops
+    from daft_tpu_torch.kernels.registry import get_kernel
+    from daft_tpu_torch.models import ResNet18, ResNetConfig, init_resnet_params
+    from daft_tpu_torch.models.clip import embed
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.udf import Udf
+
+    phase_start = t0 = time.perf_counter()
+    raw = make_encoded(NUM_ENCODED, seed=20)
+    sizes = np.array([len(r) for r in raw if r is not None])
+    print(f"[image] {NUM_ENCODED} encoded images in {time.perf_counter() - t0:.1f} s: "
+          f"{sizes.sum() / 1e6:.1f} MB, {sizes.mean() / 1e3:.1f} kB per image "
+          f"({sizes.min() / 1e3:.1f}..{sizes.max() / 1e3:.1f}) [{card}]", flush=True)
+    bdf = dt.from_pydict({"b": raw})
+    decode = dt.col("b").image.decode(mode="RGB", on_error="null")
+    by_path = {}
+
+    # Decode, then resize, each timed on the host (PIL, one thread). A
+    # DataFrame built on a collected one plans from its source again, so
+    # each later step starts from a new frame over the column it needs.
+    with dt.execution_config_ctx(default_morsel_size=NUM_ENCODED):
+        t0 = time.perf_counter()
+        decoded = image_column(bdf.with_column("img", decode).select("img"), "img")
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        col = image_column(dt.from_pydict({"img": decoded}).with_column(
+            "img", dt.col("img").image.resize(IMAGE, IMAGE)), "img")
+        resize_s = time.perf_counter() - t0
+    resized = dt.from_pydict({"img": col})
+    pixels, mask = col.to_numpy_masked()
+    check(repr(col.dtype) == f"Image[RGB; {IMAGE} x {IMAGE}]", f"resized column is {col.dtype!r}")
+    check(mask is not None and np.flatnonzero(mask).tolist() == [NULL_ROW, CORRUPT_ROW],
+          f"null rows {None if mask is None else np.flatnonzero(mask).tolist()}, expected "
+          f"the null and the corrupt row")
+    t0 = time.perf_counter()
+    rows = [i for i in range(NUM_ENCODED) if i not in (NULL_ROW, CORRUPT_ROW)]
+    with ThreadPoolExecutor(8) as pool:
+        for i, want in zip(rows, pool.map(pil_decode_resize, [raw[i] for i in rows])):
+            check(np.array_equal(pixels[i], want),
+                  f"row {i}: engine decode + resize differs from PIL's")
+    print(f"[image] decode {decode_s:.3f} s ({NUM_ENCODED / decode_s:.1f} rows/s), resize "
+          f"{resize_s:.3f} s ({NUM_ENCODED / resize_s:.1f} rows/s) on the host; every row equals "
+          f"PIL's own decode and resize ({time.perf_counter() - t0:.1f} s to check), rows "
+          f"{NULL_ROW} (null) and {CORRUPT_ROW} (corrupt) null [{card}]", flush=True)
+
+    # (a) bytes -> ViT-L/14 embeddings through the engine, and the forward alone.
+    name = "image embed_image ViT-L/14"
+    expr = embed_image(decode.image.resize(IMAGE, IMAGE), provider="cuda_random",
+                       model="ViT-L/14", batch_size=BATCH)
+    out, launches, inst, elapsed = engine_run(card, name, bdf, NUM_ENCODED, expr, warm_rows=BATCH)
+    emb = np.asarray(out, dtype=np.float32)  # null rows embed as black images
+    chunks = math.ceil(NUM_ENCODED / BATCH)
+    check(launches["flash_attention"] == VIT_L_LAYERS * chunks,
+          f"{name}: flash_attention launched {launches['flash_attention']} times, expected "
+          f"{VIT_L_LAYERS} x {chunks}")
+    check(emb.shape == (NUM_ENCODED, 768) and bool(np.isfinite(emb).all()),
+          f"{name}: embeddings {emb.shape}, or not finite")
+    fwd_expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                           batch_size=BATCH)
+    fwd_expr._expr.udf._instance = inst
+    with dt.execution_config_ctx(default_morsel_size=NUM_ENCODED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd = image_column(resized.with_column("emb", fwd_expr).select("emb"), "emb")
+        forward_s = time.perf_counter() - t0
+    direct = embed(inst.encoder, torch.tensor(pixels[:BATCH]).cuda()).cpu().numpy()
+    err = float(np.abs(direct - emb[:BATCH]).max())
+    same = float(np.abs(fwd.to_numpy() - emb).max())
+    print(f"[{name}] bytes to embeddings {NUM_ENCODED / elapsed:.1f} rows/s; split: decode "
+          f"{decode_s:.3f} s, resize {resize_s:.3f} s, forward {forward_s:.3f} s "
+          f"({NUM_ENCODED / forward_s:.1f} rows/s from the resized column); flash_attention "
+          f"launches {launches['flash_attention']} for {chunks} chunk(s); engine chunk vs direct "
+          f"forward: max_abs_err {err:.3e} (tol {CHUNK_TOL}); the forward alone vs the whole "
+          f"path: {same:.3e} [{card}]", flush=True)
+    check(err <= CHUNK_TOL, f"{name}: engine chunk differs from a direct forward by {err}")
+    check(same <= CHUNK_TOL, f"{name}: the forward alone differs from the whole path by {same}")
+    by_path[name] = launches
+    del inst, expr, fwd_expr, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) ResNet-18 at its default config as a batch UDF: the top-1 class.
+    name = "image ResNet-18"
+    cfg = ResNetConfig()
+    model = init_resnet_params(cfg, seed=21).eval()
+    params = sum(p.numel() for p in model.parameters())
+
+    @torch.no_grad()
+    def top1(s):
+        x = torch.from_numpy(np.require(s.to_numpy(), requirements=("C", "W"))).cuda()
+        return model(x).argmax(dim=1).to(torch.int64).cpu().numpy()
+
+    classify = Udf(top1, dt.DataType.int64(), name="resnet18_top1", batch_size=RESNET_BATCH)
+    with dt.execution_config_ctx(default_morsel_size=RESNET_BATCH):
+        resized.limit(RESNET_BATCH).with_column("cls", classify(dt.col("img"))).collect()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        classes = resized.with_column("cls", classify(dt.col("img"))).select(
+            "cls").to_pydict()["cls"]
+        torch.cuda.synchronize()
+        udf_s = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launch_count}
+        peak = torch.cuda.max_memory_allocated()
+    bound_s = 2 * resnet_macs(cfg, IMAGE) * NUM_ENCODED / PEAK_OPS_PER_S["bfloat16"]
+    print(f"[{name}] {params} parameters; the UDF over {NUM_ENCODED} resized rows in "
+          f"{udf_s:.3f} s = {NUM_ENCODED / udf_s:.1f} rows/s (bound at the bf16 peak "
+          f"{bound_s * 1e3:.2f} ms); bytes to classes, the sum of the decode, resize and UDF "
+          f"times: {NUM_ENCODED / (decode_s + resize_s + udf_s):.1f} rows/s; peak device memory {peak / 1e9:.3f} GB; "
+          f"launches {launches}; {len(set(c for c in classes if c is not None))} distinct "
+          f"class(es) [{card}]", flush=True)
+    check(len(classes) == NUM_ENCODED and all(isinstance(c, int) and 0 <= c < cfg.num_classes
+                                              for c in classes),
+          f"{name}: classes out of range or missing")
+    check(launches["flash_attention"] == 0,
+          f"{name}: flash_attention launched {launches['flash_attention']} times")
+    head = resized.limit(RESNET_BATCH)
+    with dt.execution_config_ctx(default_morsel_size=RESNET_BATCH):
+        trace_window(card, f"trace {name}", f"one batch of {RESNET_BATCH} images",
+                     lambda: head.with_column("cls", classify(dt.col("img"))).collect())
+    sample = torch.tensor(pixels[8:8 + RESNET_CPU_ROWS])
+    cpu = ResNet18(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        card_logits = model(sample.cuda()).float().cpu().numpy()
+        cpu_logits = cpu(sample).float().numpy()
+    cos = cosines(card_logits, cpu_logits)
+    print(f"[{name}] card vs CPU logits on {RESNET_CPU_ROWS} images: cosine {cos.min():.6f} "
+          f"(min {CPU_COSINE_MIN}), max_abs_err {np.abs(card_logits - cpu_logits).max():.3e} "
+          f"of |logit| <= {np.abs(cpu_logits).max():.1f}; top-1 {card_logits.argmax(1).tolist()} "
+          f"vs {cpu_logits.argmax(1).tolist()} [{card}]", flush=True)
+    check(bool(cos.min() >= CPU_COSINE_MIN), f"{name}: card and CPU logits disagree: {cos}")
+    check(np.array_equal(card_logits.argmax(1), cpu_logits.argmax(1)),
+          f"{name}: card and CPU top-1 differ")
+    check(classes[8:8 + RESNET_CPU_ROWS] == card_logits.argmax(1).tolist(),
+          f"{name}: the engine's classes differ from a direct forward")
+    by_path[name] = launches
+    del model, cpu, classify
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the card's fixed-shape resize: 1024 RGB rows of 256x256 -> 224x224.
+    name = "image resize"
+    rng = np.random.default_rng(22)
+    vals = rng.integers(0, 256, (NUM_ENCODED, RESIZE_SIDE * RESIZE_SIDE * 3), dtype=np.uint8)
+    series = dt.Series.from_numpy(vals, "img", dt.DataType.image("RGB", RESIZE_SIDE, RESIZE_SIDE))
+    rdf = dt.from_pydict({"img": series})
+    devices, batch_resize = [], image_ops._batch_resize
+
+    def spy(batch, h, w):
+        res = batch_resize(batch, h, w)
+        devices.append(res.device.type)
+        return res
+
+    image_ops._batch_resize = spy
+    try:
+        with dt.execution_config_ctx(default_morsel_size=NUM_ENCODED):
+            image_column(rdf.with_column("r", dt.col("img").image.resize(IMAGE, IMAGE)), "r")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = image_column(rdf.with_column("r", dt.col("img").image.resize(IMAGE, IMAGE)),
+                               "r")
+            engine_s = time.perf_counter() - t0
+    finally:
+        image_ops._batch_resize = batch_resize
+    card_out = got.to_numpy()
+    check(devices == ["cuda", "cuda"], f"{name}: the resize ran on {devices}")
+    x = torch.from_numpy(vals.reshape(-1, RESIZE_SIDE, RESIZE_SIDE, 3)).cuda()
+    check(np.array_equal(image_ops._resize_nhwc(x, IMAGE, IMAGE).cpu().numpy(), card_out),
+          f"{name}: the engine's rows differ from a direct resize on the card")
+    ms = time_ms(lambda: image_ops._resize_nhwc(x, IMAGE, IMAGE), iters=10)
+    stage_ms = time_ms(lambda: torch.from_numpy(vals).cuda(), iters=5)
+    bytes_moved = x.numel() + card_out.size
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    n, c = NUM_ENCODED, 3
+    ops = 2 * n * c * (RESIZE_SIDE * RESIZE_SIDE * IMAGE + RESIZE_SIDE * IMAGE * IMAGE)
+    with dt.execution_config_ctx(device="cpu"):
+        cpu_out = get_kernel("image_resize")([series.slice(0, RESIZE_CPU_ROWS)],
+                                             w=IMAGE, h=IMAGE).to_numpy()
+    off, share = uint8_close(cpu_out, card_out[:RESIZE_CPU_ROWS])
+    print(f"[{name}] {NUM_ENCODED} rows {RESIZE_SIDE}x{RESIZE_SIDE} -> {IMAGE}x{IMAGE} RGB on "
+          f"{devices[-1]}: engine {engine_s:.3f} s; on the card {ms:.4f} ms (CUDA events, the "
+          f"batch resident), host->device of the batch {stage_ms:.3f} ms; byte bound "
+          f"{bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"the dense contraction's {ops / 1e9:.1f} GFLOP take "
+          f"{ops / PEAK_OPS_PER_S['float32'] * 1e3:.3f} ms at the f32 peak; "
+          f"{RESIZE_CPU_ROWS} rows vs the CPU route: {off} level(s) on {share:.2e} of values "
+          f"(tol {RESIZE_MAX_OFF} on < {RESIZE_OFF_SHARE}) [{card}]", flush=True)
+    check(off <= RESIZE_MAX_OFF and share < RESIZE_OFF_SHARE,
+          f"{name}: card and CPU routes differ by {off} levels on {share:.2%} of values")
+    trace_window(card, f"trace {name}", f"{NUM_ENCODED} rows resized by the engine",
+                 lambda: image_column(rdf.with_column(
+                     "r", dt.col("img").image.resize(IMAGE, IMAGE)), "r"))
+    print(f"[image] phase 9 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
+def resnet_macs(cfg, size: int) -> int:
+    """Multiply-adds of one ``size``-square image through ResNet-18's
+    convolutions and head (BatchNorm, pooling and the adds left out)."""
+    def conv(s_in, c_in, c_out, k, stride):
+        s_out = (s_in + 2 * (k // 2) - k) // stride + 1
+        return s_out, s_out * s_out * c_out * c_in * k * k
+
+    s, macs = conv(size, 3, cfg.width, 7, 2)
+    s, c_in = (s + 2 - 3) // 2 + 1, cfg.width
+    for i, n_blocks in enumerate(cfg.stage_sizes):
+        filters = cfg.width * 2 ** i
+        for j in range(n_blocks):
+            stride = 2 if (i > 0 and j == 0) else 1
+            s_out, m0 = conv(s, c_in, filters, 3, stride)
+            _, m1 = conv(s_out, filters, filters, 3, 1)
+            macs += m0 + m1
+            if stride != 1 or c_in != filters:
+                macs += conv(s, c_in, filters, 1, stride)[1]
+            s, c_in = s_out, filters
+    return macs + c_in * cfg.num_classes
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1891,6 +2235,7 @@ def main() -> int:
         by_path.update(phase_generate(card))
         by_path.update(phase_relational(card))
         by_path.update(phase_hf(card))
+        by_path.update(phase_image(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1901,6 +2246,7 @@ def main() -> int:
         print(f"[main] {rec['name']}: {rec['launches']} launches x {rec['ms']:.4f} ms = "
               f"{rec['launches'] * rec['ms']:.1f} ms of the main path's "
               f"{wall_ms:.1f} ms wall [{card}]", flush=True)
+    print(f"[run] every phase passed in {time.perf_counter() - start:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,12 @@
 comparison and logic; ``cast``, ``if_else``, ``abs``, the numeric functions of
 ``kernels/numeric.py`` and ``kernels/extended_ops.py``, the aggregations (sum,
 mean, min, max, count, product, any_value, bool_and, bool_or, stddev,
-variance) and the ``.float`` / ``.embedding`` namespaces (the kernels of
-``kernels/float_ops.py``, ``kernels/embedding_ops.py`` and
-``cosine_similarity``) are ported. Not ported yet: ``is_in``, ``between`` on
-subqueries, the shift operators, ``apply``, the aggregations with list or
-sketch partials and ``skew`` (``AggOp.LEFT_OUT``) and the ``.str`` / ``.list`` /
-``.dt`` / ``.image`` namespaces.
+variance) and the ``.float`` / ``.embedding`` / ``.image`` namespaces (the
+kernels of ``kernels/float_ops.py``, ``kernels/embedding_ops.py`` and
+``cosine_similarity``, and of ``kernels/image_ops.py``) are ported. Not ported
+yet: ``is_in``, ``between`` on subqueries, the shift operators, ``apply``, the
+aggregations with list or sketch partials and ``skew`` (``AggOp.LEFT_OUT``)
+and the ``.str`` / ``.list`` / ``.dt`` namespaces.
 """
 
 from __future__ import annotations
@@ -358,6 +358,10 @@ class Expression:
         return FloatNamespace(self)
 
     @property
+    def image(self) -> "ImageNamespace":
+        return ImageNamespace(self)
+
+    @property
     def embedding(self) -> "EmbeddingNamespace":
         return EmbeddingNamespace(self)
 
@@ -384,6 +388,46 @@ class FloatNamespace(_Namespace):
 
     def fill_nan(self, fill_value):
         return self._fn("fill_nan", fill_value)
+
+
+class ImageNamespace(_Namespace):
+    def decode(self, on_error: str = "raise", mode=None):
+        return self._fn("image_decode", on_error=on_error, mode=mode)
+
+    def encode(self, image_format):
+        return self._fn("image_encode", image_format=image_format)
+
+    def resize(self, w: int, h: int):
+        return self._fn("image_resize", w=w, h=h)
+
+    def crop(self, bbox):
+        return self._fn("image_crop", bbox=bbox)
+
+    def to_mode(self, mode):
+        return self._fn("image_to_mode", mode=mode)
+
+    def width(self):
+        return self._fn("image_attribute", name="width")
+
+    def height(self):
+        return self._fn("image_attribute", name="height")
+
+    def channel(self):
+        return self._fn("image_attribute", name="channel")
+
+    def mode(self):
+        return self._fn("image_attribute", name="mode")
+
+    def attribute(self, name: str):
+        return self._fn("image_attribute", name=name)
+
+    def hash(self, *, method: str = "phash", hash_size: int = 8,
+             binbits: int = 3, segments: int = 3):
+        return self._fn("image_hash", method=method, hash_size=hash_size,
+                        binbits=binbits, segments=segments)
+
+    def to_tensor(self):
+        return self._fn("to_tensor")
 
 
 class EmbeddingNamespace(_Namespace):

@@ -5,9 +5,9 @@ keyed by name (src/daft-dsl/src/functions/scalar.rs). Each kernel bundles a
 host implementation over Series with a field resolver; kernels the device can
 run also carry a torch lowering (``torch_fn``) that the relational device layer
 calls on device tensors. The registry holds the kernels of ``numeric.py``,
-``float_ops.py``, ``embedding_ops.py`` and ``extended_ops.py``; every other name of the JAX
-package's registry is not ported yet and raises ``DaftNotImplementedError``
-when a plan resolves it.
+``float_ops.py``, ``embedding_ops.py``, ``extended_ops.py``, ``image_ops.py`` and
+``file_ops.py``; every other name of the JAX package's registry is not ported
+yet and raises ``DaftNotImplementedError`` when a plan resolves it.
 """
 
 from __future__ import annotations
@@ -93,7 +93,9 @@ def _ensure_loaded() -> None:
         from daft_tpu_torch.kernels import (  # noqa: F401
             embedding_ops,
             extended_ops,
+            file_ops,
             float_ops,
+            image_ops,
             numeric,
         )
 

@@ -6,9 +6,8 @@ Arrow array (Arrow C++ buffers via pyarrow) whose Arrow type is exactly
 Fixed-width columns reach the GPU as dense numpy batches that the AI providers
 copy to the device themselves.
 
-Not ported yet: the device seam (``from_jax``/``to_jax``),
-``approx_count_distinct`` (it needs the sketch kernels), and lazy ``File``
-handles for File columns (``to_pylist`` returns their Arrow rows).
+Not ported yet: the device seam (``from_jax``/``to_jax``) and
+``approx_count_distinct`` (it needs the sketch kernels).
 
 CPU kernels delegate to ``pyarrow.compute`` (Arrow C++ SIMD kernels — the
 native-code analogue of the reference's arrow-rs + hand-rolled kernels in
@@ -190,6 +189,11 @@ class Series:
         tid = self._dtype.id
         if tid in (TypeId.TENSOR, TypeId.FIXED_SHAPE_TENSOR):
             return _tensor_to_pylist(self)
+        if tid == TypeId.FILE:
+            # Row-wise UDFs receive lazy File handles (reference: daft-file).
+            from daft_tpu_torch.io.file import File
+
+            return [File.from_row(r) for r in self._data.to_pylist()]
         if tid == TypeId.BFLOAT16:
             vals, mask = self.to_numpy_masked()
             return [

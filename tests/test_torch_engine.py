@@ -182,7 +182,11 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch.models.serving, daft_tpu_torch.tools.lineitem\n"
         "import daft_tpu_torch.ops.device_eval, daft_tpu_torch.ops.compiled_eval\n"
         "import daft_tpu_torch.execution.executor, daft_tpu_torch.kernels.registry\n"
+        "import daft_tpu_torch.io.file, daft_tpu_torch.kernels.image_ops\n"
+        "import daft_tpu_torch.kernels.file_ops, daft_tpu_torch.functions.media\n"
+        "import daft_tpu_torch.functions, daft_tpu_torch.models.resnet\n"
         "daft_tpu_torch.kernels.registry.get_kernel('cosine_distance')\n"
+        "daft_tpu_torch.kernels.registry.get_kernel('image_resize')\n"
         "new = set(sys.modules) - before\n"
         "print(json.dumps(sorted(m for m in new if m.split('.')[0] in\n"
         "                        ('jax', 'jaxlib', 'flax', 'optax', 'daft_tpu'))))\n")
