@@ -130,7 +130,27 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    224x224 on the card: that it ran on CUDA, its time with the batch resident
    beside the byte bound, 64 rows against the CPU route (one level on < 1 %
    of values), one traced engine call;
-10. print the whole run's time and one JSON line of per-kernel numbers (with
+10. relational joins, sort and TopN (``daft_tpu_torch/tools/tpch.py``): SF10's
+   customer (1,500,000 rows), orders (15,000,000) and lineitem (about
+   60,000,000; the draw's count is printed) generated from a seed by clause
+   4.2.3's distributions; TPC-H q03 (two inner joins through the build-once
+   join index, a grouped sum, ``sort().limit(10)`` as a TopN) and q04 (a
+   semi join, a grouped count, a sort), each warm and then timed with the
+   counts set to 0 just before: rows/s and wall s, the rows on each side of
+   each join, its route (the index's dense or sorted form, or Acero), the
+   device counters (both date filters and q03's revenue chain on the card,
+   the ``c_mktsegment`` string filter on the host) and the chains' staging /
+   host→device / device / fetch split. It checks q03's top ten keys, dates
+   and priorities exactly and each revenue within 1e-6 of an f64 numpy
+   reference (adjacent revenues within that tolerance may come in either
+   order, and the check says so), q04's counts exactly, the routes the
+   index's rule gives the build keys, the counters, identical warm and
+   timed results and no flash launch. Then a sort of the 15,000,000 orders by
+   (``o_custkey``, ``o_orderdate`` desc) held against ``np.lexsort``, and
+   over SF1's tables a cProfile host split of q03 (filters, index build,
+   probe, aggregate, TopN) and a ``torch.profiler`` trace of it (idle
+   share, "not measured" where the profiler records no device activity);
+11. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -211,6 +231,13 @@ RESNET_CPU_ROWS = 8
 RESIZE_SIDE = 256
 RESIZE_CPU_ROWS = 64
 RESIZE_MAX_OFF, RESIZE_OFF_SHARE = 1, 0.01  # tests/test_torch_image.py's uint8 tolerance
+
+# Phase 10: TPC-H q03 and q04 over SF10's customer, orders and lineitem
+# (daft_tpu_torch/tools/tpch.py, clause 4.2.3's distributions), and a sort of
+# the orders; q03's host split and trace over SF1's tables.
+TPCH_SF = 10
+TPCH_PROFILE_SF = 1
+Q03_RTOL = 1e-6  # f32 line revenues summed in f64, rounded to f32, vs an f64 reference
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -1300,7 +1327,7 @@ def check_q01(card: str, cols: dict) -> tuple:
     return launches, pad
 
 
-def host_split(card: str, what: str, run, parts) -> None:
+def host_split(card: str, what: str, run, parts, tag: str = "relational") -> None:
     """``run()`` once under cProfile: the host seconds inside each of
     ``parts`` ((label, file suffix, function name)), beside the profiled wall
     time. cProfile's own cost falls on the Python calls, not on the native
@@ -1319,7 +1346,7 @@ def host_split(card: str, what: str, run, parts) -> None:
     for label, suffix, name in parts:
         cum = sum(v[3] for (f, _line, n), v in stats.items() if n == name and f.endswith(suffix))
         rows.append(f"{label} {cum:.3f} s ({cum / wall:.1%})")
-    print(f"[relational] host split of {what} (cProfile, {wall:.3f} s wall): " + "; ".join(rows)
+    print(f"[{tag}] host split of {what} (cProfile, {wall:.3f} s wall): " + "; ".join(rows)
           + f" [{card}]", flush=True)
 
 
@@ -2192,6 +2219,183 @@ def phase_image(card: str) -> dict:
     return by_path
 
 
+def index_form(keys) -> str:
+    """The form of ``JoinIndex`` that build keys ``keys`` (int, no nulls)
+    take: ``dense`` where their span fits the offset table, else ``sorted``."""
+    from daft_tpu_torch.execution.join_index import JoinIndex
+
+    span = int(keys.max()) - int(keys.min()) + 1
+    cap = min(max(JoinIndex.DENSE_SPAN_FACTOR * len(keys), 1 << 16), JoinIndex.DENSE_SPAN_MAX)
+    return "dense" if span <= cap else "sorted"
+
+
+def phase_relational_joins(card: str) -> dict:
+    """TPC-H q03 and q04 through the port on the card over SF10's tables,
+    each warm and then timed with the counts set to 0 just before: rows/s,
+    the rows on each side of each join and its route, the device counters
+    and the chains' split; the results against the numpy references. Then
+    q03's host split (cProfile) and a trace over SF1's tables, and a sort of
+    SF10's orders held against ``np.lexsort``. Returns the launch counts of
+    q03 and q04."""
+    import gc
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute  # noqa: F401  (pa.compute)
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution.join_index import join_counters
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import tpch
+
+    phase_start = t0 = time.perf_counter()
+    tables = tpch.tpch_tables(TPCH_SF, seed=0)
+    gen_s = time.perf_counter() - t0
+    sizes = {t: len(next(iter(cols.values()))) for t, cols in tables.items()}
+    t0 = time.perf_counter()
+    ref3, ref4 = tpch.q03_reference(tables), tpch.q04_reference(tables)
+    # The index form each join's build keys must take (JoinIndex's rule).
+    cu, o, li = tables["customer"], tables["orders"], tables["lineitem"]
+    segment = cu["c_custkey"][pa.compute.equal(cu["c_mktsegment"], tpch.Q03_SEGMENT)
+                              .to_numpy(zero_copy_only=False)]
+    orders_build = o["o_orderkey"][(o["o_orderdate"] < tpch.Q03_DATE)
+                                   & np.isin(o["o_custkey"], segment)]
+    want_routes = {"q03": [index_form(segment), index_form(orders_build)],
+                   "q04": [index_form(li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]])]}
+    del cu, o, li, segment, orders_build
+    print(f"[joins] TPC-H SF{TPCH_SF} from seed 0: customer {sizes['customer']} rows, orders "
+          f"{sizes['orders']}, lineitem {sizes['lineitem']} (this draw's count), generated in "
+          f"{gen_s:.1f} s; numpy references in {time.perf_counter() - t0:.1f} s "
+          f"({len(ref3['l_orderkey'])} q03 groups)", flush=True)
+
+    def frames(tabs, columns):
+        return {t: dt.from_pydict({c: tabs[t][c] for c in cs}) for t, cs in columns.items()}
+
+    queries = {"q03": (tpch.Q03_COLUMNS,
+                       lambda f: tpch.q03(dt, f["customer"], f["orders"], f["lineitem"])),
+               "q04": (tpch.Q04_COLUMNS, lambda f: tpch.q04(dt, f["orders"], f["lineitem"]))}
+    by_path = {}
+    for name, (columns, query) in queries.items():
+        f = frames(tables, columns)
+        rows_in = sum(sizes[t] for t in columns)
+        results = []
+        for run in ("warm", "timed"):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            de.device_eval_counters.reset()
+            de.phase_timer.reset()
+            de.phase_timer.enabled = run == "timed"
+            join_counters.reset()
+            flash_attention.launch_count = 0
+            t0 = time.perf_counter()
+            out = query(f).to_pydict()
+            elapsed = time.perf_counter() - t0
+            de.phase_timer.enabled = False
+            launches = flash_attention.launch_count
+            results.append((out, elapsed, de.device_eval_counters.snapshot(),
+                            join_counters.snapshot()))
+            check(launches == 0, f"{name} {run}: flash_attention launched {launches} times")
+        (warm, warm_s, _, _), (out, elapsed, snap, joins) = results
+        by_path[name] = {"flash_attention": launches}
+        peak = torch.cuda.max_memory_allocated()
+        check(out == warm, f"{name}: the warm and the timed run differ")
+        check(all(len(j["routes"]) == 1 for j in joins),
+              f"{name}: a join's probe morsels took more than one route: {joins}")
+        routes = [next(iter(j["routes"])) for j in joins]
+        check(routes == want_routes[name], f"{name}: join routes {routes}, want "
+              f"{want_routes[name]} (the index's rule over the build keys)")
+        sides = "; ".join(
+            f"{j['how']} on {j['on']}: build {j['build_rows']} rows, probe {r['rows_in']} rows in "
+            f"{r['morsels']} morsels, {r['rows_out']} out, route {route}"
+            for j, route in zip(joins, routes) for r in [j["routes"][route]])
+        host = snap["host_rows"]
+        chain = snap["chain_rows"].get("filter_project", 0)
+        if name == "q03":
+            problems, notes = tpch.q03_compare(out, ref3, Q03_RTOL)
+            check(not problems, f"q03 vs the numpy reference: {problems}")
+            err = max(abs(r - w) / w for r, w in zip(out["revenue"], ref3["revenue"]))
+            verdict = (f"the top {len(out['l_orderkey'])} order keys, dates and priorities exact, "
+                       f"revenue within {err:.2e} of the f64 reference (tol {Q03_RTOL})"
+                       + ("; " + "; ".join(notes) if notes else "; no near-tie"))
+            # Both date filters and the revenue chain on the card; the tail
+            # morsel of the revenue chain may fall below device_eval_min_rows.
+            joined = joins[1]["routes"][routes[1]]["rows_out"]
+            tail = host.get("chain_below_min_rows", 0)
+            want_card = sizes["lineitem"] + sizes["orders"] + joined
+            check(chain + tail == want_card and tail < 1024,
+                  f"q03: {chain} rows in device chains and {tail} below the minimum, want "
+                  f"{want_card} (lineitem, orders, the {joined} joined rows)")
+            check(host.get("chain_not_fusable") == sizes["customer"],
+                  f"q03: the c_mktsegment filter's host rows {host}")
+        else:
+            check(out == ref4, f"q04 {out} vs the numpy reference {ref4}")
+            verdict = f"the {len(out['o_orderpriority'])} priorities and counts exact"
+            check(chain == sizes["lineitem"] + sizes["orders"] and not any(
+                k.startswith("chain_") for k in host), f"q04: device chains {snap}")
+        split = de.phase_timer.totals
+        print(f"[joins] {name} over {rows_in} rows: warm run {warm_s:.3f} s, timed run "
+              f"{elapsed:.3f} s = {rows_in / elapsed:.4e} rows/s; {verdict}; peak device memory "
+              f"{peak / 1e9:.3f} GB; flash launches 0 [{card}]", flush=True)
+        print(f"[joins] {name} joins (timed run): {sides}", flush=True)
+        print(f"[joins] {name} counters (timed run): chain_rows {snap['chain_rows']}, fused_rows "
+              f"{snap['fused_rows']}, host_rows {host}, program cache {snap['program_hits']} hits "
+              f"/ {snap['program_misses']} misses", flush=True)
+        print(f"[joins] {name} chains' split: staging {split['stage_s']:.3f} s, host->device "
+              f"{split['h2d_ms']:.3f} ms, device {split['device_ms']:.3f} ms, fetch "
+              f"{split['d2h_ms']:.3f} ms (stream time, CUDA events, summed over "
+              f"{sum(snap['chain_morsels'].values())} morsels); the rest of the {elapsed:.3f} s "
+              f"is host work [{card}]", flush=True)
+        del f
+        gc.collect()
+
+    # The sort: SF10's orders by (o_custkey, o_orderdate desc); Arrow's sort
+    # and np.lexsort are both stable, so ties keep the input order in both.
+    o = tables["orders"]
+    odf = dt.from_pydict(o)
+    t0 = time.perf_counter()
+    parts = list(odf.sort(["o_custkey", "o_orderdate"], desc=[False, True]).iter_partitions())
+    sort_s = time.perf_counter() - t0
+    out = pa.concat_tables([p.to_arrow_table() for p in parts])
+    t0 = time.perf_counter()
+    order = np.lexsort((-o["o_orderdate"], o["o_custkey"]))
+    lexsort_s = time.perf_counter() - t0
+    check(np.array_equal(out["o_orderkey"].to_numpy(), o["o_orderkey"][order]),
+          "the orders' sort differs from np.lexsort")
+    check(out["o_orderpriority"].combine_chunks().equals(o["o_orderpriority"].take(order)),
+          "the sort moved o_orderpriority apart from its rows")
+    print(f"[joins] sort of {sizes['orders']} orders (5 columns) by (o_custkey, o_orderdate "
+          f"desc): {sort_s:.3f} s = {sizes['orders'] / sort_s:.4e} rows/s through the engine; "
+          f"equal to np.lexsort ({lexsort_s:.3f} s for the permutation alone) [{card}]",
+          flush=True)
+    del tables, odf, parts, out, order
+    gc.collect()
+
+    small = tpch.tpch_tables(TPCH_PROFILE_SF, seed=0)
+    f = frames(small, tpch.Q03_COLUMNS)
+
+    def q03_small():
+        return tpch.q03(dt, f["customer"], f["orders"], f["lineitem"]).to_pydict()
+
+    host_split(card, f"q03 over SF{TPCH_PROFILE_SF}'s tables", q03_small,
+               (("filters and the revenue chain (device programs with staging and fetch)",
+                 "ops/compiled_eval.py", "run_morsel"),
+                ("the c_mktsegment filter on the host", "daft_tpu_torch/micropartition.py",
+                 "filter"),
+                ("index build", "execution/join_index.py", "try_build"),
+                ("probe", "execution/join_index.py", "probe"),
+                ("aggregate (Acero partials)", "execution/executor.py", "_grouped_partial"),
+                ("merge and finalize", "execution/aggregation.py", "finalize"),
+                ("TopN", "execution/executor.py", "_topk"),
+                ("concatenating morsels", "daft_tpu_torch/recordbatch.py", "concat")),
+               tag="joins")
+    trace_window(card, "trace joins", f"q03 over SF{TPCH_PROFILE_SF}'s tables", q03_small)
+    print(f"[joins] phase 10 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
 def resnet_macs(cfg, size: int) -> int:
     """Multiply-adds of one ``size``-square image through ResNet-18's
     convolutions and head (BatchNorm, pooling and the adds left out)."""
@@ -2236,6 +2440,7 @@ def main() -> int:
         by_path.update(phase_relational(card))
         by_path.update(phase_hf(card))
         by_path.update(phase_image(card))
+        by_path.update(phase_relational_joins(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,17 +5,21 @@ LogicalPlanBuilder; transformations return new DataFrames; materialisation
 optimizes the plan, translates it and runs it on the local executor. The port
 has ``select``, ``with_column``/``with_columns``, ``where``/``filter``,
 ``limit``, the global ``agg`` and ``sum``/``mean``/``min``/``max``/``count``,
-``groupby`` (``dataframe/groupby.py``), ``collect``, ``iter_partitions`` and
-``to_pydict``. Not ported yet: the runner layer (native/distributed runners,
-admission, plan caches, query log, profiling), SQL predicates,
-``sort``/joins/set operations,
+``groupby`` (``dataframe/groupby.py``), ``sort``, ``distinct`` (``unique``,
+``drop_duplicates``), ``join``, ``join_asof``, ``cross_join``, ``concat``
+(``union``), ``intersect``, ``except_distinct``, ``collect``,
+``iter_partitions`` and ``to_pydict``. ``intersect_all`` and ``except_all``
+build their plans and raise when run (they need ``Window``, ROADMAP A.3). Not
+ported yet: the runner layer (native/distributed runners, admission, plan
+caches, query log, profiling), SQL predicates, ``union_all`` and the
+``*_by_name`` unions,
 ``explode``/``unpivot``/``pivot``/``sample``, the writers, the preview and
 notebook display, and the pandas/arrow/torch/ray exporters.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 from daft_tpu_torch.context import get_context
 from daft_tpu_torch.errors import DaftValueError
@@ -33,6 +37,10 @@ def _to_expr(c: ColumnInput) -> Expression:
     if isinstance(c, str):
         return col(c)
     raise DaftValueError(f"Expected column name or Expression, got {type(c)}")
+
+
+def _inner(exprs: Sequence[ColumnInput]) -> list:
+    return [_to_expr(e)._expr for e in exprs]
 
 
 def _flatten(items) -> list:
@@ -80,6 +88,70 @@ class DataFrame:
 
     def limit(self, n: int, offset: int = 0) -> "DataFrame":
         return DataFrame(self._builder.limit(n, offset))
+
+    def sort(self, by: Union[ColumnInput, List[ColumnInput]], desc: Union[bool, List[bool]] = False,
+             nulls_first: Optional[Union[bool, List[bool]]] = None) -> "DataFrame":
+        by = by if isinstance(by, list) else [by]
+        desc = desc if isinstance(desc, list) else [desc] * len(by)
+        if nulls_first is not None and not isinstance(nulls_first, list):
+            nulls_first = [nulls_first] * len(by)
+        return DataFrame(self._builder.sort(_inner(by), desc, nulls_first))
+
+    def distinct(self, *on: ColumnInput) -> "DataFrame":
+        return DataFrame(self._builder.distinct(_inner(on) if on else None))
+
+    unique = distinct
+    drop_duplicates = distinct
+
+    # -- joins and set operations ---------------------------------------
+    def join(self, other: "DataFrame", on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
+             left_on=None, right_on=None, how: str = "inner", strategy: Optional[str] = None,
+             suffix: str = "right.", prefix: str = "") -> "DataFrame":
+        if on is not None:
+            on = on if isinstance(on, list) else [on]
+            left_on = right_on = on
+        if left_on is None or right_on is None:
+            raise DaftValueError("join requires `on` or both `left_on` and `right_on`")
+        left_on = left_on if isinstance(left_on, list) else [left_on]
+        right_on = right_on if isinstance(right_on, list) else [right_on]
+        return DataFrame(self._builder.join(
+            other._builder, _inner(left_on), _inner(right_on), how, strategy, suffix, prefix))
+
+    def join_asof(self, other: "DataFrame", on: Optional[ColumnInput] = None,
+                  left_on: Optional[ColumnInput] = None, right_on: Optional[ColumnInput] = None,
+                  by: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
+                  direction: str = "backward", suffix: str = "right.") -> "DataFrame":
+        """Nearest-key join: each left row takes the right row with the
+        greatest key <= its own (backward) or the least >= (forward), within
+        equal ``by`` values."""
+        if on is not None:
+            left_on = right_on = on
+        if left_on is None or right_on is None:
+            raise DaftValueError("join_asof requires `on` or both `left_on`/`right_on`")
+        by = by if isinstance(by, list) else ([by] if by is not None else [])
+        return DataFrame(self._builder.asof_join(
+            other._builder, _to_expr(left_on)._expr, _to_expr(right_on)._expr,
+            _inner(by), _inner(by), direction, suffix))
+
+    def cross_join(self, other: "DataFrame", suffix: str = "right.") -> "DataFrame":
+        return DataFrame(self._builder.cross_join(other._builder, suffix))
+
+    def concat(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.concat(other._builder))
+
+    union = concat
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.intersect(other._builder))
+
+    def intersect_all(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.intersect(other._builder, is_all=True))
+
+    def except_distinct(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.except_(other._builder))
+
+    def except_all(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._builder.except_(other._builder, is_all=True))
 
     # -- aggregation ----------------------------------------------------
     def agg(self, *exprs: Expression) -> "DataFrame":

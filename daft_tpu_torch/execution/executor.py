@@ -24,15 +24,32 @@ MicroPartitions in input order. The port has these operators:
   picks the route: merge the chunks' partials in chunk order at the end, or, above
   ``high_cardinality_aggregation_threshold``, hash-partition the rows into
   ``num_compute_threads`` buckets and aggregate each bucket once;
-* ``Limit`` — offset/limit over the stream, closing its input early.
+* ``Limit`` — offset/limit over the stream, closing its input early;
+* ``Sort`` / ``Distinct`` — collect the input, then one Arrow sort (stable)
+  or a per-morsel then whole-input dedupe; ``TopN`` keeps a buffer trimmed
+  to the first ``limit + offset`` rows whenever it passes four times that;
+* ``HashJoin`` — collects the build (right) side; for inner / left / semi /
+  anti joins it builds a ``JoinIndex`` over it once where the keys allow
+  and streams the probe (left) side against it in ``morselize``d morsels, in
+  input order, or else joins each probe morsel through Arrow's Acero; right
+  and outer joins collect both sides and join them once through Acero.
+  ``join_index.join_counters`` records each join's route and rows;
+* ``AsofJoin`` / ``CrossJoin`` — collect the right side, stream the left;
+  ``Concat`` — its children's streams one after another.
+
+Joins, sorts and dedupes run on the host, as in the JAX package; the
+Project/Filter chains on each side of them still run on the device.
 
 Every stage runs sequentially on the calling thread, the partitioned
-aggregation's buckets too. Not ported yet: the shared compute pool and
-pipelined stages (``map_stage``, ROADMAP A.9.4), UDF replica concurrency and
-dynamic batching, memory permits and spill (the grouped aggregation's grace
-spill under a memory budget goes with them, A.3), cancellation, profiling
-spans, runtime stats, the feedback plane, shared-subtree caching, and the
-other operators (scan, joins, sort, window, repartition, write, ...).
+aggregation's buckets and the join's probe morsels too. Not ported yet: the
+shared compute pool and pipelined stages (``map_stage``) with the join's
+probe-side ``Prefetch`` and parallel probe (ROADMAP A.9.4), UDF replica
+concurrency and dynamic batching, memory permits and spill (the grouped
+aggregation's grace spill, the grace hash join, the external sort and the
+grace distinct under a memory budget go with them, A.3), the feedback plane
+with its join bucket counts (A.8), cancellation, profiling spans, runtime
+stats, shared-subtree caching, and the other operators (scan, window,
+repartition, write, ...).
 """
 
 from __future__ import annotations
@@ -44,9 +61,10 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from daft_tpu_torch.context import ExecutionConfig
+from daft_tpu_torch.datatype import unify_dtypes
 from daft_tpu_torch.errors import DaftPlanError
 from daft_tpu_torch.execution.aggregation import AggState
-from daft_tpu_torch.execution.join_index import _key_values
+from daft_tpu_torch.execution.join_index import JoinIndex, _key_values, join_counters
 from daft_tpu_torch.execution.pipeline import chunk_morsels, morselize, split_morsels
 from daft_tpu_torch.expressions.evaluator import evaluate
 from daft_tpu_torch.expressions.expr import UdfCall
@@ -55,6 +73,7 @@ from daft_tpu_torch.ops import compiled_eval
 from daft_tpu_torch.ops.device_eval import device_eval_counters
 from daft_tpu_torch.physical import plan as pp
 from daft_tpu_torch.recordbatch import RecordBatch
+from daft_tpu_torch.schema import Field, Schema
 from daft_tpu_torch.series import Series
 
 
@@ -366,3 +385,186 @@ class Executor:
             yield mp
             if remaining <= 0:
                 break
+
+    # -- blocking sinks ---------------------------------------------------
+    def _collect(self, node: pp.PhysicalPlan) -> MicroPartition:
+        """Materialise a blocking sink's input in memory (the port has no
+        memory permits: A.3)."""
+        parts = list(self._run(node))
+        if not parts:
+            return MicroPartition.empty(node.schema)
+        return MicroPartition.concat(parts)
+
+    def _run_Sort(self, node: pp.Sort) -> Iterator[MicroPartition]:
+        combined = self._collect(node.children[0])
+        yield combined.sort(node.sort_by, node.descending, node.nulls_first)
+
+    def _run_TopN(self, node: pp.TopN) -> Iterator[MicroPartition]:
+        k = node.limit + node.offset
+        buffer: Optional[RecordBatch] = None
+        for mp in self._run(node.children[0]):
+            rb = mp.combined()
+            buffer = rb if buffer is None else RecordBatch.concat([buffer, rb])
+            if len(buffer) > 4 * max(k, 1):
+                buffer = self._topk(buffer, node, k)
+        if buffer is None:
+            yield MicroPartition.empty(node.schema)
+            return
+        buffer = self._topk(buffer, node, k)
+        yield MicroPartition(node.schema, [buffer.slice(node.offset, node.limit)])
+
+    @staticmethod
+    def _topk(rb: RecordBatch, node, k: int) -> RecordBatch:
+        # Arrow's sort is stable, so repeated trims keep the rows one sort
+        # of the whole input would keep.
+        keys = [evaluate(e, rb) for e in node.sort_by]
+        return rb.sort(keys, node.descending, node.nulls_first).head(k)
+
+    def _run_Distinct(self, node: pp.Distinct) -> Iterator[MicroPartition]:
+        on = [e.name() for e in node.on] if node.on else None
+        buffer = [mp.combined().distinct(on) for mp in self._run(node.children[0])]
+        if not buffer:
+            yield MicroPartition.empty(node.schema)
+            return
+        yield MicroPartition(node.schema, [RecordBatch.concat(buffer).distinct(on)])
+
+    # -- joins ------------------------------------------------------------
+    @staticmethod
+    def _unified_keys(rb: RecordBatch, key_exprs, key_dtypes) -> List[Series]:
+        keys = [evaluate(e, rb) for e in key_exprs]
+        return [k.cast(dt) if dt is not None and k.dtype != dt else k
+                for k, dt in zip(keys, key_dtypes)]
+
+    def _run_HashJoin(self, node: pp.HashJoin) -> Iterator[MicroPartition]:
+        lschema, rschema = node.children[0].schema, node.children[1].schema
+        # int32 against int64 keys (and the like) index and hash as one dtype.
+        key_dtypes = [
+            unify_dtypes(lt, rt) if lt != rt else None
+            for lt, rt in ((le.to_field(lschema).dtype, re.to_field(rschema).dtype)
+                           for le, re in zip(node.left_on, node.right_on))
+        ]
+        right = self._collect(node.children[1]).combined()
+        on = [e.name() for e in node.left_on]
+        if node.how in ("right", "outer"):
+            # Unmatched build rows are known only after the whole probe side:
+            # both sides materialise and join once.
+            left = self._collect(node.children[0]).combined()
+            left_keys = [evaluate(e, left) for e in node.left_on]
+            right_keys = [evaluate(e, right) for e in node.right_on]
+            out = self._join_and_fix(left, right, left_keys, right_keys, node)
+            join_counters.record_probe(join_counters.start(node.how, on, len(right)), "acero",
+                                       len(left), len(out))
+            yield MicroPartition(node.schema, [out])
+            return
+        right_keys = [evaluate(e, right) for e in node.right_on]
+        right_data, coalesce = self._prep_join_right(right, node)
+        # Build once, probe many: an index over the build side where the
+        # keys and the join type allow (a pure function of plan and data).
+        index = JoinIndex.try_build(self._unified_keys(right, node.right_on, key_dtypes),
+                                    node.how, right_data)
+        build_rb = right_data
+        if index is not None and node.how not in ("semi", "anti"):
+            lnames = set(lschema.column_names())
+            ren = {n: f"{node.suffix}{n}" for n in right_data.schema.column_names()
+                   if n in lnames}
+            if ren:
+                cols = [c.rename(ren[c.name]) if c.name in ren else c
+                        for c in right_data.columns()]
+                build_rb = RecordBatch(Schema([Field(c.name, c.dtype) for c in cols]),
+                                       cols, len(right_data))
+        rec = join_counters.start(node.how, on, len(right))
+        route = "acero" if index is None else \
+            ("dense" if index.offsets is not None else "sorted")
+        source = self._run(node.children[0])
+        if index is not None:
+            # Without an index each probe morsel re-hashes the build side, so
+            # the probe keeps its natural (coarse) morsels.
+            source = morselize(source, self.min_morsel_rows, self.max_morsel_rows)
+        for mp in source:
+            left = mp.combined()
+            joined = None
+            if index is not None:
+                joined = index.probe(left, self._unified_keys(left, node.left_on, key_dtypes),
+                                     build_rb, node.how)
+            if joined is not None:
+                out = self._finish_join(joined, coalesce, node)
+                join_counters.record_probe(rec, route, len(left), len(out))
+            else:
+                left_keys = [evaluate(e, left) for e in node.left_on]
+                out = self._join_and_fix(left, right, left_keys, right_keys, node)
+                join_counters.record_probe(rec, "acero", len(left), len(out))
+            yield MicroPartition(node.schema, [out])
+
+    @staticmethod
+    def _conform_to_schema(rb: RecordBatch, schema: Schema) -> RecordBatch:
+        """Reorder/cast columns to the planned output schema."""
+        import pyarrow as pa
+
+        cols = []
+        for f in schema:
+            c = rb.get_column(f.name)
+            if c.dtype != f.dtype:
+                if f.dtype.is_null() and c.to_arrow().null_count == len(rb):
+                    # A null-planned column whose runtime values ARE all null
+                    # (e.g. the upcast key of a semi join on an all-None
+                    # column) substitutes cleanly; arrow has no cast INTO
+                    # null. Real values against a null plan still fail loud.
+                    c = Series.from_arrow(pa.nulls(len(rb)), f.name, f.dtype)
+                else:
+                    c = c.cast(f.dtype)
+            cols.append(c)
+        return RecordBatch(schema, cols, len(rb))
+
+    @staticmethod
+    def _prep_join_right(right: RecordBatch, node):
+        """Node-constant right-side prep shared by the Acero and probe-index
+        paths: drop merged join keys from the right copy and, for
+        right/outer joins, carry the right copy under a reserved ``__rk_``
+        name so right-only rows can coalesce the null left key after the
+        join (the reference coalesces common join columns in
+        hash_outer_join). Returns ``(right_data, coalesce_names)``."""
+        merged = sorted(node.merged_keys) if node.merged_keys and node.how not in ("semi", "anti") else []
+        coalesce = merged if node.how in ("right", "outer") else []
+        if not merged:
+            return right, coalesce
+        keep = right.schema.exclude(merged)
+        cols = [right.get_column(n) for n in keep.column_names()]
+        cols += [right.get_column(n).rename(f"__rk_{n}") for n in coalesce]
+        schema = Schema([Field(c.name, c.dtype) for c in cols])
+        return RecordBatch(schema, cols, len(right)), coalesce
+
+    def _finish_join(self, joined: RecordBatch, coalesce, node) -> RecordBatch:
+        if coalesce:
+            cols = [c.coalesce(joined.get_column(f"__rk_{c.name}")) if c.name in coalesce
+                    else c for c in joined.columns() if not c.name.startswith("__rk_")]
+            joined = RecordBatch(Schema([Field(c.name, c.dtype) for c in cols]),
+                                 cols, len(joined))
+        return self._conform_to_schema(joined, node.schema)
+
+    def _join_and_fix(self, left, right, left_keys, right_keys, node) -> RecordBatch:
+        right_data, coalesce = self._prep_join_right(right, node)
+        joined = left.hash_join(right_data, left_keys, right_keys, node.how, node.suffix)
+        return self._finish_join(joined, coalesce, node)
+
+    def _run_AsofJoin(self, node: pp.AsofJoin) -> Iterator[MicroPartition]:
+        right = self._collect(node.children[1]).combined()
+        right_on = evaluate(node.right_on, right)
+        right_by = [evaluate(e, right) for e in node.right_by]
+        for mp in self._run(node.children[0]):
+            left = mp.combined()
+            left_on = evaluate(node.left_on, left)
+            left_by = [evaluate(e, left) for e in node.left_by]
+            joined = left.asof_join(right, left_on, right_on, left_by, right_by,
+                                    node.direction, node.suffix)
+            yield MicroPartition(node.schema, [self._conform_to_schema(joined, node.schema)])
+
+    def _run_CrossJoin(self, node: pp.CrossJoin) -> Iterator[MicroPartition]:
+        right = self._collect(node.children[1]).combined()
+        for mp in self._run(node.children[0]):
+            joined = mp.combined().cross_join(right, node.suffix)
+            yield MicroPartition(node.schema, [self._conform_to_schema(joined, node.schema)])
+
+    # -- multi-input ------------------------------------------------------
+    def _run_Concat(self, node: pp.Concat) -> Iterator[MicroPartition]:
+        for child in node.children:
+            yield from self._run(child)

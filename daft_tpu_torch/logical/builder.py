@@ -4,11 +4,13 @@ src/daft-logical-plan/src/builder/mod.rs:61-1240).
 Thin, immutable builder over LogicalPlan nodes; the DataFrame API wraps this.
 Not ported yet: the unnest/explode markers and window hoisting in ``project``,
 and every builder step whose plan node is not ported (see ``logical/plan.py``).
+``intersect`` / ``except_`` build their ``ALL`` form, which translation
+refuses until ``Window`` is ported (ROADMAP A.3).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 from daft_tpu_torch.expressions.expr import ColumnRef, Expr
 from daft_tpu_torch.logical import plan as lp
@@ -50,6 +52,38 @@ class LogicalPlanBuilder:
 
     def limit(self, n: int, offset: int = 0) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.Limit(self._plan, n, offset))
+
+    # -- blocking ---------------------------------------------------------
+    def sort(self, sort_by: Sequence[Expr], descending: Sequence[bool],
+             nulls_first: Optional[Sequence[bool]] = None) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Sort(self._plan, sort_by, descending, nulls_first))
+
+    def distinct(self, on: Optional[Sequence[Expr]] = None) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Distinct(self._plan, on))
+
+    # -- multi-input ------------------------------------------------------
+    def concat(self, other: "LogicalPlanBuilder") -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Concat([self._plan, other._plan]))
+
+    def join(self, right: "LogicalPlanBuilder", left_on, right_on, how="inner",
+             strategy=None, suffix="right.", prefix="") -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Join(self._plan, right._plan, left_on, right_on,
+                                          how, strategy, suffix, prefix))
+
+    def asof_join(self, right: "LogicalPlanBuilder", left_on, right_on,
+                  left_by=(), right_by=(), direction="backward",
+                  suffix="right.") -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.AsofJoin(self._plan, right._plan, left_on, right_on,
+                                              left_by, right_by, direction, suffix))
+
+    def cross_join(self, right: "LogicalPlanBuilder", suffix="right.") -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Join(self._plan, right._plan, [], [], "cross", None, suffix))
+
+    def intersect(self, right: "LogicalPlanBuilder", is_all=False) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Intersect(self._plan, right._plan, is_all))
+
+    def except_(self, right: "LogicalPlanBuilder", is_all=False) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Except(self._plan, right._plan, is_all))
 
     def optimize(self) -> "LogicalPlanBuilder":
         from daft_tpu_torch.logical.optimizer import Optimizer

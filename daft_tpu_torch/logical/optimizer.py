@@ -1,13 +1,17 @@
 """Logical plan optimizer (port of ``daft_tpu/logical/optimizer.py``).
 
 Reference: src/daft-logical-plan/src/optimization/optimizer.rs:127-280 — an
-ordered list of rule batches, each run to fixed point. This slice ports one
-rule, SplitUDFs, which isolates UDF calls into UDFProject nodes so the executor
-runs them in their own operator (reference: rules/split_udfs.rs). Not ported
-yet: SimplifyExpressions, UnnestSubqueries, DetectMonotonicId, PushDownFilter,
-PushDownSemiAnti, PushDownShard, DropRepartition, PushDownLimit,
+ordered list of rule batches, each run to fixed point. The port has two
+rules, in the JAX package's batch order: SplitUDFs, which isolates UDF calls
+into UDFProject nodes so the executor runs them in their own operator
+(reference: rules/split_udfs.rs), and PushDownLimit, which composes limits,
+moves a limit below a projection and fuses a sort with the limit above it
+into a TopN (its scan case waits for the scan, ROADMAP A.3). Not ported yet
+(A.3): SimplifyExpressions, UnnestSubqueries, DetectMonotonicId,
+PushDownFilter, PushDownSemiAnti, PushDownShard, DropRepartition,
 EnrichWithStats, PushDownAggregation, FilterNullJoinKey, ReorderJoins,
-PushDownProjection and the final column pruning.
+PushDownProjection and the final column pruning. A join therefore builds on
+the right side as the user wrote it.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ class Optimizer:
     MAX_PASSES = 24
 
     def __init__(self):
-        self.batches: List[List[Rule]] = [[SplitUDFs()]]
+        self.batches: List[List[Rule]] = [[SplitUDFs()], [PushDownLimit()]]
 
     def optimize(self, plan: lp.LogicalPlan) -> lp.LogicalPlan:
         for batch in self.batches:
@@ -90,3 +94,23 @@ class SplitUDFs(Rule):
             rewritten = e.transform(hoist)
             final_exprs.append(Alias(rewritten, e.name()) if rewritten.name() != e.name() else rewritten)
         return lp.Project(base, final_exprs)
+
+
+class PushDownLimit(Rule):
+    name = "PushDownLimit"
+
+    def rewrite(self, node):
+        if not isinstance(node, lp.Limit):
+            return None
+        child = node.children()[0]
+        if isinstance(child, lp.Limit):
+            # Compose: inner yields [o_in, o_in+l_in); outer takes [o_out, o_out+l_out)
+            # of that -> offset o_in+o_out, limit min(l_out, l_in - o_out).
+            new_limit = max(0, min(node.limit, child.limit - node.offset))
+            return lp.Limit(child.children()[0], new_limit, node.offset + child.offset)
+        if isinstance(child, (lp.Project,)):
+            return child.with_children([lp.Limit(child.children()[0], node.limit, node.offset)])
+        if isinstance(child, lp.Sort):
+            return lp.TopN(child.children()[0], child.sort_by, child.descending,
+                           child.nulls_first, node.limit, node.offset)
+        return None

@@ -3,27 +3,28 @@
 Reference: the ``LogicalPlan`` enum (src/daft-logical-plan/src/logical_plan.rs:35-66).
 Nodes are immutable; the output schema is resolved at construction so schema
 errors surface at build time. The port has ``InMemorySource``, ``Project``,
-``UDFProject``, ``Filter``, ``Limit`` and ``Aggregate`` (global and grouped).
-Not ported yet: ``ScanSource``,
-``Sample``, ``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``, ``Sort``,
-``TopN``, ``Pivot``, ``Distinct``, ``Window``, ``Concat``,
-``Join``, ``AsofJoin``, ``Intersect``/``Except``, ``Repartition``, ``Shard``,
-``Sink``, and the cardinality estimates (``approx_stats``) that the
-optimizer's join ordering reads.
+``UDFProject``, ``Filter``, ``Limit``, ``Aggregate`` (global and grouped),
+``Sort``, ``TopN``, ``Distinct``, ``Concat``, ``Intersect``/``Except``,
+``Join`` and ``AsofJoin``. Not ported yet: ``ScanSource``, ``Sample``,
+``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``, ``Pivot``,
+``Window``, ``Repartition``, ``Shard``, ``Sink``, and the cardinality
+estimates (``approx_stats``) that the optimizer's join ordering reads.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
+from daft_tpu_torch.datatype import unify_dtypes
 from daft_tpu_torch.errors import (
     DaftPlanError,
+    DaftSchemaError,
     DaftTypeError,
     DaftValueError,
 )
 from daft_tpu_torch.expressions.evaluator import resolve_schema
-from daft_tpu_torch.expressions.expr import Expr, UdfCall
-from daft_tpu_torch.schema import Schema
+from daft_tpu_torch.expressions.expr import ColumnRef, Expr, UdfCall
+from daft_tpu_torch.schema import Field, Schema
 
 
 class LogicalPlan:
@@ -165,3 +166,176 @@ class Aggregate(LogicalPlan):
     def multiline_display(self):
         return [f"Aggregate: {[e.name() for e in self.agg_exprs]} "
                 f"groupby={[g.name() for g in self.group_by]}"]
+
+
+class Sort(LogicalPlan):
+    def __init__(self, input: LogicalPlan, sort_by: Sequence[Expr],
+                 descending: Sequence[bool], nulls_first: Optional[Sequence[bool]] = None):
+        self.sort_by = list(sort_by)
+        self.descending = list(descending)
+        self.nulls_first = list(nulls_first) if nulls_first is not None else list(descending)
+        for e in self.sort_by:
+            f = e.to_field(input.schema)
+            if not f.dtype.is_comparable():
+                raise DaftTypeError(f"Cannot sort by {f.dtype!r}")
+        super().__init__([input], input.schema)
+
+    def with_children(self, children):
+        return Sort(children[0], self.sort_by, self.descending, self.nulls_first)
+
+    def multiline_display(self):
+        return [f"Sort: {[e.name() for e in self.sort_by]} desc={self.descending}"]
+
+
+class TopN(LogicalPlan):
+    """Sort + limit fused (reference: ops/top_n.rs)."""
+
+    def __init__(self, input: LogicalPlan, sort_by: Sequence[Expr], descending: Sequence[bool],
+                 nulls_first: Sequence[bool], limit: int, offset: int = 0):
+        self.sort_by = list(sort_by)
+        self.descending = list(descending)
+        self.nulls_first = list(nulls_first)
+        self.limit = limit
+        self.offset = offset
+        super().__init__([input], input.schema)
+
+    def with_children(self, children):
+        return TopN(children[0], self.sort_by, self.descending, self.nulls_first, self.limit, self.offset)
+
+
+class Distinct(LogicalPlan):
+    def __init__(self, input: LogicalPlan, on: Optional[Sequence[Expr]] = None):
+        self.on = list(on) if on else None
+        super().__init__([input], input.schema)
+
+    def with_children(self, children):
+        return Distinct(children[0], self.on)
+
+
+class Concat(LogicalPlan):
+    def __init__(self, inputs: Sequence[LogicalPlan]):
+        first = inputs[0].schema
+        for other in inputs[1:]:
+            if other.schema.column_names() != first.column_names():
+                raise DaftSchemaError(
+                    f"Cannot concat differing schemas: {first!r} vs {other.schema!r}"
+                )
+        super().__init__(list(inputs), first)
+
+    def with_children(self, children):
+        return Concat(children)
+
+
+class Intersect(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, is_all: bool = False):
+        self.is_all = is_all
+        super().__init__([left, right], left.schema)
+
+    def with_children(self, children):
+        return Intersect(children[0], children[1], self.is_all)
+
+
+class Except(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, is_all: bool = False):
+        self.is_all = is_all
+        super().__init__([left, right], left.schema)
+
+    def with_children(self, children):
+        return Except(children[0], children[1], self.is_all)
+
+
+class Join(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_on: Sequence[Expr], right_on: Sequence[Expr], how: str = "inner",
+                 strategy: Optional[str] = None, suffix: str = "right.", prefix: str = ""):
+        if how not in ("inner", "left", "right", "outer", "semi", "anti", "cross"):
+            raise DaftValueError(f"Unknown join type {how}")
+        if strategy not in (None, "auto", "hash", "broadcast", "sort_merge", "cross"):
+            raise DaftValueError(f"Unknown join strategy {strategy!r}")
+        if strategy == "broadcast" and how in ("right", "outer"):
+            raise DaftValueError(
+                f"broadcast strategy cannot preserve unmatched build-side rows "
+                f"for {how!r} joins; use hash"
+            )
+        self.left_on = list(left_on)
+        self.right_on = list(right_on)
+        self.how = how
+        self.strategy = strategy  # None=auto | hash | broadcast | sort_merge | cross
+        self.suffix = suffix
+        self.prefix = prefix
+        if len(self.left_on) != len(self.right_on):
+            raise DaftValueError("join requires equal numbers of left/right keys")
+        if how != "cross" and not self.left_on:
+            raise DaftValueError(f"{how} join requires at least one key")
+        # Resolve keys eagerly so bad column names fail at plan time.
+        for e in self.left_on:
+            e.to_field(left.schema)
+        for e in self.right_on:
+            e.to_field(right.schema)
+        fields = list(left.schema.fields())
+        if how not in ("semi", "anti"):
+            # Right-side join keys with identical names merge into the left key.
+            merged = {
+                r.name() for l, r in zip(self.left_on, self.right_on)
+                if isinstance(l, ColumnRef) and isinstance(r, ColumnRef) and l.name_ == r.name_
+            } if how != "cross" else set()
+            # A merged key's output dtype unifies both sides (an all-null
+            # left key against an int64 right key resolves int64, not null —
+            # the execution-time join casts keys the same way).
+            if merged:
+                right_types = {f.name: f.dtype for f in right.schema}
+                for i, f in enumerate(fields):
+                    if f.name in merged and f.name in right_types:
+                        fields[i] = Field(f.name, unify_dtypes(
+                            f.dtype, right_types[f.name]))
+            left_names = set(left.schema.column_names())
+            for f in right.schema:
+                if f.name in merged:
+                    continue
+                if f.name in left_names:
+                    fields.append(f.rename(f"{prefix}{suffix}{f.name}"))
+                else:
+                    fields.append(f)
+        super().__init__([left, right], Schema(fields))
+
+    def with_children(self, children):
+        return Join(children[0], children[1], self.left_on, self.right_on, self.how,
+                    self.strategy, self.suffix, self.prefix)
+
+    def multiline_display(self):
+        return [f"Join[{self.how}]: on {[e.name() for e in self.left_on]}"]
+
+
+class AsofJoin(LogicalPlan):
+    """Nearest-key join (reference: asof join in the local execution joins)."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, left_on: Expr, right_on: Expr,
+                 left_by: Sequence[Expr] = (), right_by: Sequence[Expr] = (),
+                 direction: str = "backward", suffix: str = "right."):
+        self.left_on = left_on
+        self.right_on = right_on
+        self.left_by = list(left_by)
+        self.right_by = list(right_by)
+        self.direction = direction
+        self.suffix = suffix
+        if direction not in ("backward", "forward"):
+            raise DaftValueError(
+                f"asof direction must be 'backward' or 'forward', got {direction!r}"
+            )
+        lf = left_on.to_field(left.schema)
+        rf = right_on.to_field(right.schema)
+        if not lf.dtype.is_comparable() or not rf.dtype.is_comparable():
+            raise DaftTypeError("asof join keys must be orderable")
+        for e in self.left_by:
+            e.to_field(left.schema)
+        for e in self.right_by:
+            e.to_field(right.schema)
+        fields = list(left.schema.fields())
+        left_names = set(left.schema.column_names())
+        for f in right.schema:
+            fields.append(f.rename(f"{suffix}{f.name}") if f.name in left_names else f)
+        super().__init__([left, right], Schema(fields))
+
+    def with_children(self, children):
+        return AsofJoin(children[0], children[1], self.left_on, self.right_on,
+                        self.left_by, self.right_by, self.direction, self.suffix)

@@ -2,9 +2,10 @@
 
 Reference: ``LocalPhysicalPlan`` (src/daft-local-plan/src/plan.rs:74-133). Each
 node maps 1:1 onto an operator of ``execution/executor.py``. The port has
-``InMemorySource``, ``Project``, ``UDFProject``, ``Filter``, ``Limit`` and
-``Aggregate`` (global and grouped); the other nodes wait for their logical counterparts
-(see ``logical/plan.py``).
+``InMemorySource``, ``Project``, ``UDFProject``, ``Filter``, ``Limit``,
+``Aggregate`` (global and grouped), ``TopN``, ``Sort``, ``Distinct``,
+``HashJoin``, ``AsofJoin``, ``CrossJoin`` and ``Concat``; the other nodes wait
+for their logical counterparts (see ``logical/plan.py``).
 """
 
 from __future__ import annotations
@@ -82,3 +83,65 @@ class Aggregate(PhysicalPlan):
 
     def describe(self):
         return f"Aggregate[{len(self.agg_exprs)} aggs, {len(self.group_by)} keys]"
+
+
+class TopN(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, sort_by, descending, nulls_first, limit, offset):
+        super().__init__([child], child.schema)
+        self.sort_by = sort_by
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self.limit = limit
+        self.offset = offset
+
+
+class Sort(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, sort_by, descending, nulls_first):
+        super().__init__([child], child.schema)
+        self.sort_by = sort_by
+        self.descending = descending
+        self.nulls_first = nulls_first
+
+
+class Distinct(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, on):
+        super().__init__([child], child.schema)
+        self.on = on
+
+
+class HashJoin(PhysicalPlan):
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan, left_on, right_on,
+                 how, schema: Schema, suffix: str, merged_keys, strategy=None):
+        super().__init__([left, right], schema)
+        self.left_on = left_on
+        self.right_on = right_on
+        self.how = how
+        self.suffix = suffix
+        self.merged_keys = merged_keys
+        self.strategy = strategy  # None=auto | broadcast | hash | sort_merge
+
+    def describe(self):
+        return f"HashJoin[{self.how}]"
+
+
+class AsofJoin(PhysicalPlan):
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan, left_on, right_on,
+                 left_by, right_by, direction, schema: Schema, suffix: str):
+        super().__init__([left, right], schema)
+        self.left_on = left_on
+        self.right_on = right_on
+        self.left_by = left_by
+        self.right_by = right_by
+        self.direction = direction
+        self.suffix = suffix
+
+
+class CrossJoin(PhysicalPlan):
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan, schema: Schema, suffix: str):
+        super().__init__([left, right], schema)
+        self.suffix = suffix
+
+
+class Concat(PhysicalPlan):
+    def __init__(self, children: Sequence[PhysicalPlan], schema: Schema):
+        super().__init__(list(children), schema)

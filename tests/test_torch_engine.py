@@ -185,6 +185,10 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch.io.file, daft_tpu_torch.kernels.image_ops\n"
         "import daft_tpu_torch.kernels.file_ops, daft_tpu_torch.functions.media\n"
         "import daft_tpu_torch.functions, daft_tpu_torch.models.resnet\n"
+        "import daft_tpu_torch.execution.join_index, daft_tpu_torch.tools.tpch\n"
+        "import daft_tpu_torch.logical.plan, daft_tpu_torch.logical.builder\n"
+        "import daft_tpu_torch.logical.optimizer, daft_tpu_torch.physical.plan\n"
+        "import daft_tpu_torch.physical.translate, daft_tpu_torch.dataframe.dataframe\n"
         "daft_tpu_torch.kernels.registry.get_kernel('cosine_distance')\n"
         "daft_tpu_torch.kernels.registry.get_kernel('image_resize')\n"
         "new = set(sys.modules) - before\n"
