@@ -92,8 +92,9 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    vector, and a ``where`` on it, on the card and through the port on the
    CPU: distances within 1e-6, the same rows kept;
    The pinned staging memory the device path holds is printed after q06 and
-   after the scan, held to one buffer per staged column of the largest padded
-   chunk, and must fall to 0 after ``reset_programs``; a column of f32 subnormals
+   after the scan, held to one set per worker (a set: one buffer per staged
+   column of the largest padded chunk), and must fall to 0 after
+   ``reset_programs``; a column of f32 subnormals
    (3e-39, and 1e-20 squared) through device_eval on the card is printed as
    kept or flushed;
 8. local HF checkpoints (nothing downloaded): write two checkpoint
@@ -150,7 +151,28 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    over SF1's tables a cProfile host split of q03 (filters, index build,
    probe, aggregate, TopN) and a ``torch.profiler`` trace of it (idle
    share, "not measured" where the profiler records no device activity);
-11. print the whole run's time and one JSON line of per-kernel numbers (with
+11. the pipelined engine (``phase_pipelined``): print ``os.cpu_count()`` and
+   the compute pool's resolved workers, then run each path at
+   ``num_compute_threads=1`` and at the default (one worker per core): q06
+   and q01 over SF10's lineitem (the same seed as phase 7; wall s at each,
+   the same bytes at both, the card's idle share over a traced run at N, the
+   pinned staging after each run held to the workers so far times one set of
+   the largest chunk's columns); the partitioned query over SF1's rows
+   (equal to ``np.bincount`` at both, one bucket per worker); q03 over SF10's
+   tables (the same rows and ``join_counters`` at both); phase 9's photos
+   decoded, resized and embedded with ViT-L/14 in morsels of 128 (the decoded
+   bytes equal, decode and whole-path rows/s at both, 24 flash launches per
+   chunk); phase 3's main path with ``max_concurrency=2`` beside 1 (two UDF
+   workers on two streams sharing one instance, 24 launches per chunk, the
+   embeddings the same bits or, where not, cosine >= 0.99999); the card's
+   fixed-shape resize in morsels of 128 at N threads under a caller's
+   ``allow_tf32=True``, bit-equal to the serial run with TF32 off and the
+   flag restored; and q01 at N threads under ``collect(timeout=0.5)``, which
+   must raise ``DaftTimeoutError`` within 0.5 s plus one morsel, leave no
+   pool, feeder or prefetch thread alive, and leave the next q06 exact.
+   Phases 7 and 10 run their cProfile host splits serially (cProfile sees
+   one thread) and hold the pinned staging to one set per worker;
+12. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -238,6 +260,12 @@ RESIZE_MAX_OFF, RESIZE_OFF_SHARE = 1, 0.01  # tests/test_torch_image.py's uint8 
 TPCH_SF = 10
 TPCH_PROFILE_SF = 1
 Q03_RTOL = 1e-6  # f32 line revenues summed in f64, rounded to f32, vs an f64 reference
+
+# Phase 11: the pipelined engine.
+CANCEL_TIMEOUT_S = 0.5   # q01's deadline in the cancellation check
+THREAD_EXIT_S = 10.0     # how long the stage threads may take to end after it
+MC_COSINE_MIN = 0.99999  # max_concurrency=2 vs 1 embeddings, where not the same bits
+STAGE_THREAD_NAMES = ("daft-compute", "daft-feed", "daft-udf", "daft-probe-side")
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -516,16 +544,18 @@ def phase_trace(card: str) -> None:
                  lambda: df.with_column("emb", expr).collect())
 
 
-def trace_window(card: str, tag: str, what: str, run):
-    """``run()`` once warm, then once under torch.profiler: device time by
-    kernel and by kind, and the share of the window in which no device work
-    ran ("not measured" where the profiler records no device activity).
-    Returns the µs in which device work ran, or None where not measured."""
+def trace_window(card: str, tag: str, what: str, run, warm: bool = True):
+    """``run()`` once warm (unless ``warm`` is False), then once under
+    torch.profiler: device time by kernel and by kind, and the share of the
+    window in which no device work ran ("not measured" where the profiler
+    records no device activity). Returns the µs in which device work ran and
+    the window's µs, or None where not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run()  # weights and a warm forward
+    if warm:
+        run()  # weights and a warm forward
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -565,7 +595,7 @@ def trace_window(card: str, tag: str, what: str, run):
         for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])), flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms {us / total_us:6.1%}  {name[:120]}", flush=True)
-    return busy_us
+    return busy_us, window_us
 
 
 def make_texts(n: int, seed: int) -> list:
@@ -1017,9 +1047,10 @@ def phase_generate(card: str) -> dict:
         row = tokens[slot % len(tokens)]
         batcher._prefill(Request(tokens=row[row != 0], max_new_tokens=4 * TRACE_STEPS), slot)
     start = batcher._positions + 1  # every slot active; trace_window runs the steps twice
-    busy_us = trace_window(card, "trace prompt default-lm",
-                           f"{TRACE_STEPS} decode steps of 8 slots",
-                           lambda: [batcher._decode() for _ in range(TRACE_STEPS)])
+    traced = trace_window(card, "trace prompt default-lm",
+                          f"{TRACE_STEPS} decode steps of 8 slots",
+                          lambda: [batcher._decode() for _ in range(TRACE_STEPS)])
+    busy_us = None if traced is None else traced[0]
     live = float(np.mean([(start + k).sum() for k in range(TRACE_STEPS, 2 * TRACE_STEPS)]))
     bound_ms, bound_by, _ = decode_step_bound(inst.model, batcher, live)
     if busy_us is not None:
@@ -1174,12 +1205,16 @@ def phase_relational(card: str) -> dict:
           f"{hbm_bound_s * 1e3:.3f} ms; peak device memory {peak / 1e9:.3f} GB [{card}]",
           flush=True)
 
-    # Pinned staging: one buffer per staged column, of the largest chunk.
+    # Pinned staging: a set per chunk in flight (at most one per worker), one
+    # buffer per staged column in a set, of the largest chunk it staged.
+    workers = compute_workers()
     pinned_q06 = de.pinned_bytes()
     q06_bound = 4 * max(shapes) * 4  # four 4-byte columns
     print(f"[relational] pinned staging held after q06: {pinned_q06 / 1e6:.3f} MB (four columns "
-          f"of the largest chunk: {q06_bound / 1e6:.3f} MB)", flush=True)
-    check(pinned_q06 == q06_bound, f"q06 holds {pinned_q06} pinned bytes, not {q06_bound}")
+          f"of the largest chunk: {q06_bound / 1e6:.3f} MB a set, at most {workers} sets)",
+          flush=True)
+    check(q06_bound <= pinned_q06 <= workers * q06_bound,
+          f"q06 holds {pinned_q06} pinned bytes, not between {q06_bound} and {workers} x that")
 
     head = dt.from_pydict({k: cols[k][:Q06_TRACE_ROWS] for k in NUMERIC_COLS})
     trace_window(card, "trace relational", f"q06 over {Q06_TRACE_ROWS} rows (four chunks)",
@@ -1206,8 +1241,10 @@ def phase_relational(card: str) -> dict:
     print(f"[relational] pinned staging held after the cosine scan: {pinned_scan / 1e9:.3f} GB "
           f"(bound: five 4-byte columns of {col_pad} rows and two {EMBED_DIM}-wide f32 "
           f"columns of {scan_rows} rows, "
-          f"{scan_bound / 1e9:.3f} GB); after reset_programs: {pinned_reset} bytes", flush=True)
-    check(pinned_scan <= scan_bound, f"the scan holds {pinned_scan} pinned bytes > {scan_bound}")
+          f"{scan_bound / 1e9:.3f} GB a set, at most {workers} sets); after reset_programs: "
+          f"{pinned_reset} bytes", flush=True)
+    check(pinned_scan <= workers * scan_bound,
+          f"the scan holds {pinned_scan} pinned bytes > {workers} x {scan_bound}")
     check(pinned_reset == 0, f"reset_programs left {pinned_reset} pinned bytes")
     check_subnormals(card)
     return {"relational": {"flash_attention": launches}, "q01": {"flash_attention": q01_launches},
@@ -1328,25 +1365,31 @@ def check_q01(card: str, cols: dict) -> tuple:
 
 
 def host_split(card: str, what: str, run, parts, tag: str = "relational") -> None:
-    """``run()`` once under cProfile: the host seconds inside each of
-    ``parts`` ((label, file suffix, function name)), beside the profiled wall
-    time. cProfile's own cost falls on the Python calls, not on the native
-    work inside them."""
+    """``run()`` once under cProfile at ``num_compute_threads=1`` (cProfile
+    sees the calling thread only): the host seconds inside each of ``parts``
+    ((label, file suffix, function name)), beside the profiled wall time.
+    cProfile's own cost falls on the Python calls, not on the native work
+    inside them."""
     import cProfile
     import pstats
 
+    import daft_tpu_torch as dt
+
     prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    run()
-    prof.disable()
-    wall = time.perf_counter() - t0
+    # cProfile sees the calling thread only: the split is of a serial run.
+    with dt.execution_config_ctx(num_compute_threads=1):
+        t0 = time.perf_counter()
+        prof.enable()
+        run()
+        prof.disable()
+        wall = time.perf_counter() - t0
     stats = pstats.Stats(prof).stats
     rows = []
     for label, suffix, name in parts:
         cum = sum(v[3] for (f, _line, n), v in stats.items() if n == name and f.endswith(suffix))
         rows.append(f"{label} {cum:.3f} s ({cum / wall:.1%})")
-    print(f"[{tag}] host split of {what} (cProfile, {wall:.3f} s wall): " + "; ".join(rows)
+    print(f"[{tag}] host split of {what} (cProfile, serial, {wall:.3f} s wall): "
+          + "; ".join(rows)
           + f" [{card}]", flush=True)
 
 
@@ -2396,6 +2439,368 @@ def phase_relational_joins(card: str) -> dict:
     return by_path
 
 
+def compute_workers() -> int:
+    """The compute pool's workers under the current config (0 resolves to
+    one per core), as the executor sizes it."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution.executor import Executor
+
+    return Executor(dt.get_context().execution_config).compute_threads
+
+
+def stage_threads() -> list:
+    """The live threads of a query's stages: the compute pool, the feeders,
+    a UDF's own pool and a join's probe-side prefetch."""
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.is_alive() and t.name.startswith(STAGE_THREAD_NAMES)]
+
+
+def timed_at(threads: int, run, **cfg) -> tuple:
+    """``run()`` at ``num_compute_threads=threads`` (and ``cfg``), after a
+    synchronisation: its result and wall seconds."""
+    import torch
+
+    import daft_tpu_torch as dt
+
+    with dt.execution_config_ctx(num_compute_threads=threads, **cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+
+def phase_pipelined(card: str) -> dict:
+    """The pipelined engine on the card: each path at num_compute_threads=1
+    and at the default (one worker per core), results equal between the two;
+    a UDF with max_concurrency=2 on the main path; the resize under a caller's
+    TF32 flag on overlapping threads; a query cut by its deadline. Returns the
+    launch counts of its paths."""
+    import contextlib
+    import gc
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.errors import DaftTimeoutError
+    from daft_tpu_torch.execution.executor import Executor
+    from daft_tpu_torch.execution.join_index import join_counters
+    from daft_tpu_torch.execution.pipeline import chunk_morsels
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.kernels import image_ops
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import lineitem, tpch
+
+    phase_start = time.perf_counter()
+    workers = compute_workers()
+    counts = (1, workers)
+    print(f"[pipelined] os.cpu_count() {os.cpu_count()}; num_compute_threads "
+          f"{dt.get_context().execution_config.num_compute_threads} resolves to {workers} "
+          f"workers [{card}]", flush=True)
+    check(workers > 1, f"the default config runs {workers} worker(s): no pool to test")
+    by_path = {}
+
+    # q06 and q01 over SF10's lineitem, at 1 and N threads.
+    rows = lineitem.SF10_LINEITEM_ROWS
+    t0 = time.perf_counter()
+    cols = lineitem.lineitem_columns(rows, seed=0)
+    q01_cols = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+                "l_returnflag", "l_linestatus")
+    df06 = dt.from_pydict({k: cols[k] for k in NUMERIC_COLS})
+    df01 = dt.from_pydict({k: cols[k] for k in q01_cols})
+    cfg = dt.get_context().execution_config
+    morsel = cfg.default_morsel_size
+    morsels = [range(min(morsel, rows - s)) for s in range(0, rows, morsel)]
+    chunk_rows = [sum(map(len, c)) for c in chunk_morsels(morsels, Executor.AGG_CHUNK_ROWS)]
+    max_pad = max(de._bucket(n, cfg.device_batch_buckets) for n in chunk_rows + [morsel])
+    set_bytes = 4 * max_pad * 4  # q06's four 4-byte columns; q01 stages l_shipdate alone
+    print(f"[pipelined] lineitem SF10 columns: {rows} rows in {time.perf_counter() - t0:.1f} s; "
+          f"{len(morsels)} morsels, {len(chunk_rows)} aggregation chunks", flush=True)
+    de.reset_programs()
+    results, most = {}, 1  # the most workers any run so far had
+    for name, run in (("q06", lambda: lineitem.q06(dt, df06).to_pydict()),
+                      ("q01", lambda: lineitem.sorted_groups(lineitem.q01(dt, df01).to_pydict()))):
+        for n in counts:
+            if name == "q06":
+                timed_at(n, run)  # warm: at N, each worker's first chunk pins its set
+            out, wall = timed_at(n, run)
+            results[(name, n)] = (out, wall)
+            most = max(most, n)
+            pinned = de.pinned_bytes()
+            print(f"[pipelined] {name} over {rows} rows at {n} thread(s): {wall:.3f} s = "
+                  f"{rows / wall:.4e} rows/s; pinned staging {pinned / 1e6:.3f} MB (bound: "
+                  f"{most} worker(s) x {set_bytes / 1e6:.3f} MB) [{card}]", flush=True)
+            check(pinned <= most * set_bytes,
+                  f"{name} at {n} thread(s): {pinned} pinned bytes > {most} x {set_bytes}")
+        (serial, serial_s), (pooled, pooled_s) = results[(name, 1)], results[(name, workers)]
+        if name == "q06":
+            check(np.float32(serial["revenue"][0]).tobytes()
+                  == np.float32(pooled["revenue"][0]).tobytes(),
+                  f"q06: {serial['revenue'][0]!r} at 1 thread, {pooled['revenue'][0]!r} at "
+                  f"{workers}")
+        else:
+            check(serial == pooled, f"q01: the {workers}-thread groups differ from the serial ones")
+        with dt.execution_config_ctx(num_compute_threads=workers):
+            traced = trace_window(card, "trace pipelined", f"{name} over {rows} rows at {workers} "
+                                  "threads", run, warm=False)
+        idle = "not measured" if traced is None else f"{1 - traced[0] / traced[1]:.4f}"
+        print(f"[pipelined] {name}: 1 thread {serial_s:.3f} s, {workers} threads {pooled_s:.3f} s "
+              f"({serial_s / pooled_s:.2f}x); results the same bytes; idle share over the "
+              f"traced {workers}-thread run {idle} [{card}]", flush=True)
+    q06_ref = results[("q06", 1)][0]["revenue"][0]
+    q01_pooled_s = results[("q01", workers)][1]
+    del df06
+    gc.collect()
+
+    # Cancellation: q01 at N threads under a 0.5 s deadline. One morsel is
+    # the mean time a worker held one chunk in the timed N-thread run.
+    morsel_s = q01_pooled_s * workers / len(chunk_rows)
+    t0 = time.perf_counter()
+    while stage_threads() and time.perf_counter() - t0 < THREAD_EXIT_S:
+        time.sleep(0.01)  # the idle workers of the earlier queries' pools
+    before = stage_threads()
+    t0 = time.perf_counter()
+    try:
+        lineitem.q01(dt, df01).collect(timeout=CANCEL_TIMEOUT_S)
+        raised = None
+    except DaftTimeoutError as e:
+        raised = e
+    cancel_s = time.perf_counter() - t0
+    check(raised is not None, "q01 under a 0.5 s deadline ran to its end")
+    left, t0 = stage_threads(), time.perf_counter()
+    while left and time.perf_counter() - t0 < THREAD_EXIT_S:
+        time.sleep(0.01)
+        left = stage_threads()
+    exit_s = time.perf_counter() - t0
+    print(f"[pipelined] q01 at {workers} threads with collect(timeout={CANCEL_TIMEOUT_S}): "
+          f"DaftTimeoutError after {cancel_s:.3f} s (bound {CANCEL_TIMEOUT_S} s + one morsel, "
+          f"{morsel_s:.3f} s); stage threads alive: {len(before)} before the query, {len(left)} "
+          f"{exit_s:.3f} s after the raise {left} [{card}]", flush=True)
+    check(cancel_s <= CANCEL_TIMEOUT_S + morsel_s,
+          f"the timeout took {cancel_s:.3f} s > {CANCEL_TIMEOUT_S} + {morsel_s:.3f}")
+    check(not left, f"stage threads left after the cancelled query: {left}")
+    del raised, df01
+    gc.collect()
+    df06 = dt.from_pydict({k: cols[k] for k in NUMERIC_COLS})
+    after = lineitem.q06(dt, df06).to_pydict()["revenue"][0]
+    check(np.float32(after).tobytes() == np.float32(q06_ref).tobytes(),
+          f"q06 after the cancelled query: {after!r}, before {q06_ref!r}")
+    print(f"[pipelined] the next q06 at {workers} threads equals the earlier ones: {after!r}",
+          flush=True)
+
+    # The partitioned query over SF1's rows: one bucket per worker.
+    sf1 = {k: cols[k][:lineitem.SF1_LINEITEM_ROWS] for k in ("l_shipdate", "l_partkey",
+                                                             "l_quantity")}
+    del cols, df06
+    gc.collect()
+    keep = sf1["l_shipdate"] <= lineitem.Q01_SHIPDATE_MAX
+    want_n = np.bincount(sf1["l_partkey"][keep])
+    want_sum = np.bincount(sf1["l_partkey"][keep],
+                           weights=sf1["l_quantity"][keep].astype(np.float64))
+    present = np.flatnonzero(want_n)
+    pdf = dt.from_pydict(sf1)
+    c = dt.col
+    real = Executor._partitioned_agg
+    outs = {}
+    for n in counts:
+        buckets = []
+
+        def spy(self, *args, **kwargs):
+            buckets.append(self.compute_threads)
+            return real(self, *args, **kwargs)
+
+        Executor._partitioned_agg = spy
+        try:
+            out, wall = timed_at(n, lambda: (
+                pdf.where(c("l_shipdate") <= lineitem.Q01_SHIPDATE_MAX).groupby("l_partkey")
+                .agg(c("l_quantity").sum().alias("sum_qty"), c("l_quantity").count().alias("n"))
+                .to_pydict()))
+        finally:
+            Executor._partitioned_agg = real
+        order = np.argsort(np.asarray(out["l_partkey"]))
+        got = {k: np.asarray(v)[order] for k, v in out.items()}
+        check(buckets == [n], f"partitioned query at {n} thread(s): routes {buckets}")
+        check(np.array_equal(got["l_partkey"], present)
+              and np.array_equal(got["sum_qty"], want_sum[present].astype(np.int64))
+              and np.array_equal(got["n"], want_n[present]),
+              f"partitioned query at {n} thread(s): a group differs from np.bincount")
+        outs[n] = got
+        print(f"[pipelined] partitioned query over {len(keep)} rows at {n} thread(s): "
+              f"{len(present)} groups in {buckets[0]} bucket(s), {wall:.3f} s; every group "
+              f"equals np.bincount [{card}]", flush=True)
+    check(all(np.array_equal(outs[1][k], outs[workers][k]) for k in outs[1]),
+          "partitioned query: 1 and N threads differ")
+    del pdf, sf1, outs
+    gc.collect()
+
+    # q03 over SF10's tables.
+    tables = tpch.tpch_tables(TPCH_SF, seed=0)
+    f = {t: dt.from_pydict({k: tables[t][k] for k in cs}) for t, cs in tpch.Q03_COLUMNS.items()}
+    rows_in = sum(len(tables[t][next(iter(cs))]) for t, cs in tpch.Q03_COLUMNS.items())
+    del tables
+    q03 = {}
+    for n in counts:
+        join_counters.reset()
+        out, wall = timed_at(n, lambda: tpch.q03(dt, f["customer"], f["orders"],
+                                                f["lineitem"]).to_pydict())
+        q03[n] = (out, wall, join_counters.snapshot())
+        print(f"[pipelined] q03 over {rows_in} rows at {n} thread(s): {wall:.3f} s = "
+              f"{rows_in / wall:.4e} rows/s; joins {q03[n][2]} [{card}]", flush=True)
+    check(q03[1][0] == q03[workers][0], "q03: the rows at 1 and N threads differ")
+    check(q03[1][2] == q03[workers][2],
+          f"q03: join routes or rows differ: {q03[1][2]} vs {q03[workers][2]}")
+    print(f"[pipelined] q03: 1 thread {q03[1][1]:.3f} s, {workers} threads {q03[workers][1]:.3f} s "
+          f"({q03[1][1] / q03[workers][1]:.2f}x); rows and join counters equal [{card}]",
+          flush=True)
+    del f, q03
+    gc.collect()
+
+    # The image path: phase 9's photos -> decode -> resize -> ViT-L/14.
+    raw = make_encoded(NUM_ENCODED, seed=20)
+    bdf = dt.from_pydict({"b": raw})
+    decode = dt.col("b").image.decode(mode="RGB", on_error="null")
+    expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14", batch_size=BATCH)
+    with dt.execution_config_ctx(default_morsel_size=BATCH):
+        bdf.limit(BATCH).with_column("img", decode.image.resize(IMAGE, IMAGE)).with_column(
+            "emb", expr).collect()  # the weights and a warm forward
+    decoded, embs = {}, {}
+    for n in counts:
+        col, dec_s = timed_at(n, lambda: image_column(
+            bdf.with_column("img", decode).select("img"), "img"), default_morsel_size=BATCH)
+        decoded[n] = col.to_arrow()
+        flash_attention.launch_count = 0
+        emb, path_s = timed_at(n, lambda: image_column(
+            bdf.with_column("img", decode.image.resize(IMAGE, IMAGE))
+            .with_column("emb", expr).select("emb"), "emb"), default_morsel_size=BATCH)
+        launches = flash_attention.launch_count
+        embs[n] = emb.to_numpy()
+        chunks = math.ceil(NUM_ENCODED / BATCH)
+        check(launches == VIT_L_LAYERS * chunks,
+              f"image path at {n}: {launches} flash launches, want {VIT_L_LAYERS} x {chunks}")
+        by_path[f"pipelined image path, {n} thread(s)"] = {"flash_attention": launches}
+        print(f"[pipelined] image path at {n} thread(s), morsels of {BATCH}: decode "
+              f"{NUM_ENCODED / dec_s:.1f} rows/s ({dec_s:.3f} s); bytes -> ViT-L/14 embeddings "
+              f"{NUM_ENCODED / path_s:.1f} rows/s ({path_s:.3f} s); flash launches {launches} "
+              f"[{card}]", flush=True)
+    check(decoded[1].equals(decoded[workers]), "the decoded images at 1 and N threads differ")
+    err = float(np.abs(embs[1] - embs[workers]).max())
+    print(f"[pipelined] decoded bytes equal at 1 and {workers} threads; embeddings max_abs_err "
+          f"{err:.3e} (tol {CHUNK_TOL}) [{card}]", flush=True)
+    check(err <= CHUNK_TOL, f"image path embeddings differ by {err} between thread counts")
+    del raw, bdf, decoded, embs, expr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The main path with max_concurrency=2: two UDF workers, two streams,
+    # one instance.
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (NUM_IMAGES, IMAGE * IMAGE * 3), dtype=np.uint8)
+    idf = dt.from_pydict({"img": dt.Series.from_numpy(
+        imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))})
+    udf = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                      batch_size=BATCH)._expr.udf
+    inst = udf._get_instance()
+    callers, real_embed = set(), inst.embed_image
+
+    def traced_embed(images):
+        callers.add(threading.current_thread().name)
+        return real_embed(images)
+
+    inst.embed_image = traced_embed
+    mc = {}
+    try:
+        for conc in (1, 2):
+            e = udf.with_concurrency(conc)(dt.col("img"))
+            with dt.execution_config_ctx(default_morsel_size=2 * BATCH):
+                idf.limit(BATCH).with_column("emb", e).collect()  # warm
+                callers.clear()
+                torch.cuda.synchronize()
+                flash_attention.launch_count = 0
+                t0 = time.perf_counter()
+                parts = list(idf.with_column("emb", e).select("emb").iter_partitions())
+                wall = time.perf_counter() - t0
+                launches = flash_attention.launch_count
+            out = np.concatenate([np.asarray(p.to_pydict()["emb"], np.float32) for p in parts])
+            chunks = math.ceil(NUM_IMAGES / BATCH)
+            check(launches == VIT_L_LAYERS * chunks,
+                  f"max_concurrency={conc}: {launches} flash launches, want {VIT_L_LAYERS} x "
+                  f"{chunks}")
+            mc[conc] = out
+            by_path[f"embed_image max_concurrency={conc}"] = {"flash_attention": launches}
+            print(f"[pipelined] main path, max_concurrency={conc}: {NUM_IMAGES} images in "
+                  f"{wall:.3f} s = {NUM_IMAGES / wall:.1f} img/s; UDF calls on {sorted(callers)}; "
+                  f"flash launches {launches} for {chunks} chunks [{card}]", flush=True)
+            if conc == 2:
+                check(len(callers) == 2 and all(c.startswith("daft-udf") for c in callers),
+                      f"max_concurrency=2 ran its morsels on {callers}, not two UDF workers")
+    finally:
+        inst.embed_image = real_embed
+    same = np.array_equal(mc[1], mc[2])
+    if same:
+        print(f"[pipelined] max_concurrency=2 embeddings equal max_concurrency=1 bit for bit "
+              f"[{card}]", flush=True)
+    else:
+        cos = cosines(mc[1], mc[2])
+        print(f"[pipelined] max_concurrency=2 vs 1: max_abs_err {np.abs(mc[1] - mc[2]).max():.3e}, "
+              f"cosine min {cos.min():.8f} (min {MC_COSINE_MIN}) [{card}]", flush=True)
+        check(bool(cos.min() >= MC_COSINE_MIN), f"max_concurrency=2 embeddings: cosine {cos.min()}")
+    del inst, udf, idf, imgs, mc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The card's resize on overlapping threads under a caller's TF32 flag.
+    vals = np.random.default_rng(22).integers(
+        0, 256, (NUM_ENCODED, RESIZE_SIDE * RESIZE_SIDE * 3), dtype=np.uint8)
+    rdf = dt.from_pydict({"img": dt.Series.from_numpy(
+        vals, "img", dt.DataType.image("RGB", RESIZE_SIDE, RESIZE_SIDE))})
+    depth = {"now": 0, "max": 0}
+    lock, real_guard = threading.Lock(), image_ops._tf32_off
+
+    @contextlib.contextmanager
+    def counted_guard():
+        with lock:
+            depth["now"] += 1
+            depth["max"] = max(depth["max"], depth["now"])
+        try:
+            with real_guard():
+                yield
+        finally:
+            with lock:
+                depth["now"] -= 1
+
+    def resize():
+        return image_column(rdf.with_column("r", dt.col("img").image.resize(IMAGE, IMAGE)),
+                            "r").to_numpy()
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on before the serial resize")
+    serial, serial_s = timed_at(1, resize, default_morsel_size=BATCH)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    image_ops._tf32_off = counted_guard
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pooled, pooled_s = timed_at(workers, resize, default_morsel_size=BATCH)
+        flag_after = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        image_ops._tf32_off = real_guard
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    print(f"[pipelined] resize of {NUM_ENCODED} x {RESIZE_SIDE}^2 -> {IMAGE}^2 in morsels of "
+          f"{BATCH}: serial with TF32 off {serial_s:.3f} s; {workers} threads with the caller's "
+          f"allow_tf32=True {pooled_s:.3f} s, up to {depth['max']} resizes inside the guard at "
+          f"once; equal bit for bit: {np.array_equal(serial, pooled)}; the caller's flag after: "
+          f"{flag_after} [{card}]", flush=True)
+    check(np.array_equal(serial, pooled), "the TF32-on pooled resize differs from the serial one")
+    check(flag_after is True, "the caller's allow_tf32=True was not restored")
+    print(f"[pipelined] phase 11 took {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return by_path
+
+
 def resnet_macs(cfg, size: int) -> int:
     """Multiply-adds of one ``size``-square image through ResNet-18's
     convolutions and head (BatchNorm, pooling and the adds left out)."""
@@ -2441,6 +2846,7 @@ def main() -> int:
         by_path.update(phase_hf(card))
         by_path.update(phase_image(card))
         by_path.update(phase_relational_joins(card))
+        by_path.update(phase_pipelined(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

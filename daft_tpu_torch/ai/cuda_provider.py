@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import threading
 import time
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -71,32 +72,42 @@ class _Stager:
     enough because the loop fetches chunk i (which orders every earlier copy)
     before it stages chunk i + 2. The buffers take the chunk's shape and
     dtype: numpy casts without a word on assignment, so int32 token ids
-    written into a uint8 buffer would arrive mod 256."""
+    written into a uint8 buffer would arrive mod 256. Each calling thread has
+    its own buffers, turn and side stream: the workers of a UDF with
+    ``max_concurrency > 1`` share one instance and so one stager."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._pinned: list = []
-        self._key: tuple = ()
-        self._turn = 0
-        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._local = threading.local()
+
+    def _thread_state(self) -> SimpleNamespace:
+        """The calling thread's buffers, turn and side stream (the stream is
+        made on the thread's first CUDA chunk)."""
+        mine = getattr(self._local, "state", None)
+        if mine is None:
+            mine = self._local.state = SimpleNamespace(stream=None, pinned=[], key=(), turn=0)
+        return mine
 
     def __call__(self, chunk: np.ndarray, rows: int) -> torch.Tensor:
-        if self._stream is None:
+        if self.device.type != "cuda":
             return torch.tensor(_pad_batch(chunk, rows))
+        mine = self._thread_state()
+        if mine.stream is None:
+            mine.stream = torch.cuda.Stream(self.device)
         key = ((rows,) + chunk.shape[1:], chunk.dtype)
-        if key != self._key:
+        if key != mine.key:
             dtype = torch.from_numpy(np.empty(0, chunk.dtype)).dtype
-            self._pinned = [torch.empty(key[0], dtype=dtype, pin_memory=True)
-                            for _ in range(2)]
-            self._key = key
-        buf = self._pinned[self._turn]
-        self._turn ^= 1
+            mine.pinned = [torch.empty(key[0], dtype=dtype, pin_memory=True)
+                           for _ in range(2)]
+            mine.key = key
+        buf = mine.pinned[mine.turn]
+        mine.turn ^= 1
         host = buf.numpy()
         host[:len(chunk)] = chunk
         host[len(chunk):] = 0
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(mine.stream):
             dev = buf.to(self.device, non_blocking=True)
-        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        torch.cuda.current_stream(self.device).wait_stream(mine.stream)
         dev.record_stream(torch.cuda.current_stream(self.device))
         return dev
 
@@ -109,7 +120,9 @@ def _chunked_forward(fwd: Callable[[torch.Tensor], torch.Tensor], arr: np.ndarra
     fetch chunk i. ``stats_out`` receives the phase split: ``stage_s`` is the
     host time spent staging (padding, the pinned-buffer fill, issuing the
     copy), ``fwd_fetch_s`` the rest of the loop (dispatch, and waiting for and
-    fetching each result)."""
+    fetching each result). Callers pass a dict of the call's own and publish
+    it whole when the call ends, so concurrent calls never mix their
+    stats."""
     n = arr.shape[0]
     if n == 0:
         return np.zeros((0, out_dim), dtype=np.float32)
@@ -200,7 +213,8 @@ class CUDACLIPImageEmbedder:
                                        init_random_, load_params, seed, weights_path,
                                        self.device)
         self._stage = _Stager(self.device)
-        # Phase split of this instance's most recent embed_image call.
+        # Phase split of this instance's most recently finished embed_image
+        # call, on whichever thread it ran.
         self.last_forward_stats: Dict[str, Any] = {}
 
     @property
@@ -218,8 +232,11 @@ class CUDACLIPImageEmbedder:
         n = images.shape[0]
         if images.ndim == 2:
             images = images.reshape(n, self.cfg.image_size, self.cfg.image_size, 3)
-        return _chunked_forward(self.forward, images, self.max_batch, self.cfg.embed_dim,
-                                self._stage, stats_out=self.last_forward_stats)
+        stats: Dict[str, Any] = {}
+        out = _chunked_forward(self.forward, images, self.max_batch, self.cfg.embed_dim,
+                               self._stage, stats_out=stats)
+        self.last_forward_stats = stats
+        return out
 
 
 class _TextEmbedder:
@@ -235,7 +252,8 @@ class _TextEmbedder:
         self.tokenizer = tokenizer
         self._dims = dims
         self._stage = _Stager(device)
-        # Phase split of this instance's most recent embed_text call.
+        # Phase split of this instance's most recently finished embed_text
+        # call, on whichever thread it ran.
         self.last_forward_stats: Dict[str, Any] = {}
 
     @property
@@ -252,9 +270,11 @@ class _TextEmbedder:
         t0 = time.perf_counter()
         tokens, _ = self.tokenizer.encode_batch(texts)
         tokenize_s = time.perf_counter() - t0
+        stats: Dict[str, Any] = {}
         out = _chunked_forward(self.forward, tokens, self.max_batch, self._dims, self._stage,
-                               stats_out=self.last_forward_stats)
-        self.last_forward_stats["tokenize_s"] = tokenize_s
+                               stats_out=stats)
+        stats["tokenize_s"] = tokenize_s
+        self.last_forward_stats = stats
         return out
 
 
@@ -416,7 +436,8 @@ class _CUDADescriptor(Descriptor):
 
     def get_udf_options(self) -> UDFOptions:
         bs = self.options.get("batch_size")
-        return UDFOptions(batch_size=bs if bs is not None else DEFAULT_UDF_BATCH)
+        return UDFOptions(batch_size=bs if bs is not None else DEFAULT_UDF_BATCH,
+                          max_concurrency=self.options.get("max_concurrency", 1))
 
     def get_dimensions(self) -> Optional[int]:
         """The embedding width of an embedder (a local HF checkpoint's from

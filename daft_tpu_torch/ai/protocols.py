@@ -3,8 +3,8 @@
 Reference: daft/ai/protocols.py:15-60 — each protocol is paired with a
 Descriptor that carries instantiation options and the UDF's batch size. This
 slice ports the text and image embedders and the text and image classifiers.
-Not ported yet: the Prompter protocol and its descriptor, and the replica
-options (concurrency, accelerator ask).
+Not ported yet: the accelerator asks of the replica options (``tpus``,
+``chips_per_replica``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ class UDFOptions:
     (reference: get_udf_options, daft/ai/transformers/protocols/image_embedder.py:45-50)."""
 
     batch_size: int = 256
+    # UDF morsels evaluated at once, each on a pool thread of its own, all
+    # sharing the one instance.
+    max_concurrency: int = 1
 
 
 @runtime_checkable

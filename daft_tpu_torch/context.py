@@ -1,10 +1,12 @@
 """Engine context and execution config (port of ``daft_tpu/context.py`` and
 ``daft_tpu/config.py``).
 
-This slice keeps the knobs the embedding path and the relational layer (the
-device layer and the grouped aggregation's cardinality switch) read. ``execution_config_ctx`` changes them for a block of code. Not ported
-yet: the planning config, the runner choice (the port runs the local executor
-only), tenants, subscribers and the per-query clock.
+This slice keeps the knobs the embedding path, the relational layer (the
+device layer and the grouped aggregation's cardinality switch), the stage
+pool, UDF batching and query deadlines read. ``execution_config_ctx``
+changes them for a block of code. Not ported yet: the planning config, the
+runner choice (the port runs the local executor only), tenants, subscribers
+and the per-query clock.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from dataclasses import dataclass
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -36,10 +38,22 @@ class ExecutionConfig:
     # keeps more than 30% of its rows feeds a merge nearly the size of the
     # input (daft_tpu/config.py's default).
     high_cardinality_aggregation_threshold: float = 0.3
-    # Buckets of the partitioned aggregation, one per worker; 0 = one per
-    # visible CPU core. The port aggregates the buckets one after another on
-    # the calling thread (the compute pool is ROADMAP A.9.4).
+    # Workers of the executor's compute pool, which every pipelined stage
+    # (Project/Filter chains, aggregation chunk partials, the partitioned
+    # aggregation's split and buckets, join probes) shares, and the number of
+    # the partitioned aggregation's buckets; 0 = one per visible CPU core.
+    # 1 runs every stage serially on the calling thread.
     num_compute_threads: int = 0
+    # Ordered stages yield in input order; False lets them yield in
+    # completion order (daft_tpu/config.py's default).
+    default_maintain_order: bool = True
+    # Latency-constrained dynamic batching of a UDF without a batch_size
+    # (execution/dynamic_batching.py), aiming each batch at this latency.
+    udf_dynamic_batching: bool = True
+    udf_target_batch_latency_s: float = 0.2
+    # Seconds a query may run before it fails with DaftTimeoutError, when
+    # collect() names no timeout; None = unbounded.
+    query_timeout_s: Optional[float] = None
 
     def with_changes(self, **kwargs) -> "ExecutionConfig":
         return dataclasses.replace(self, **kwargs)

@@ -8,8 +8,11 @@ has ``select``, ``with_column``/``with_columns``, ``where``/``filter``,
 ``groupby`` (``dataframe/groupby.py``), ``sort``, ``distinct`` (``unique``,
 ``drop_duplicates``), ``join``, ``join_asof``, ``cross_join``, ``concat``
 (``union``), ``intersect``, ``except_distinct``, ``collect``,
-``iter_partitions`` and ``to_pydict``. ``intersect_all`` and ``except_all``
-build their plans and raise when run (they need ``Window``, ROADMAP A.3). Not
+``iter_partitions`` and ``to_pydict``; ``collect(timeout=)`` and
+``iter_partitions`` (under ``query_timeout_s``) run under the query's cancel
+token, whose id is ``df.query_id`` while it runs
+(``cancellation.cancel_query``). ``intersect_all`` and ``except_all`` build
+their plans and raise when run (they need ``Window``, ROADMAP A.3). Not
 ported yet: the runner layer (native/distributed runners, admission, plan
 caches, query log, profiling), SQL predicates, ``union_all`` and the
 ``*_by_name`` unions,
@@ -19,8 +22,16 @@ notebook display, and the pandas/arrow/torch/ray exporters.
 
 from __future__ import annotations
 
+import uuid
 from typing import Dict, Iterator, List, Optional, Sequence, Union
 
+from daft_tpu_torch.cancellation import (
+    CancelToken,
+    Deadline,
+    iter_with_cancel_scope,
+    register_query_token,
+    unregister_query_token,
+)
 from daft_tpu_torch.context import get_context
 from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.expressions.expression import Expression, col
@@ -57,6 +68,9 @@ class DataFrame:
     def __init__(self, builder: LogicalPlanBuilder):
         self._builder = builder
         self._result: Optional[List[MicroPartition]] = None
+        # The id of this frame's latest run, under which its cancel token is
+        # registered while it runs.
+        self.query_id: Optional[str] = None
 
     @property
     def schema(self) -> Schema:
@@ -185,16 +199,36 @@ class DataFrame:
         return self.agg(*[_to_expr(c).count() for c in cols]) if cols else self._agg_all("count")
 
     # -- materialisation ------------------------------------------------
-    def _run_iter(self) -> Iterator[MicroPartition]:
+    def _run_iter(self, timeout: Optional[float] = None) -> Iterator[MicroPartition]:
+        """Run the query under one cancel token, with a deadline of
+        ``timeout`` seconds (``query_timeout_s`` when None; none when both
+        are None), as the JAX package's runner builds it."""
         from daft_tpu_torch.execution.executor import Executor
         from daft_tpu_torch.physical.translate import translate
 
-        plan = translate(self._builder.optimize().plan)
-        return Executor(get_context().execution_config).run(plan)
+        cfg = get_context().execution_config
+        if timeout is None:
+            timeout = cfg.query_timeout_s
+        query_id = self.query_id = uuid.uuid4().hex[:16]
+        token = CancelToken(Deadline.after(timeout) if timeout is not None else None,
+                            query_id=query_id)
+        register_query_token(query_id, token)
+        run = None
+        try:
+            plan = translate(self._builder.optimize().plan)
+            run = Executor(cfg, cancel_token=token).run(plan)
+            yield from iter_with_cancel_scope(run, token)
+        finally:
+            if run is not None:
+                run.close()  # a failure or an abandoned iteration stops the pool now
+            unregister_query_token(query_id)
 
-    def collect(self) -> "DataFrame":
+    def collect(self, timeout: Optional[float] = None) -> "DataFrame":
+        """Materialise the query. ``timeout`` (seconds) bounds the whole
+        query: on expiry it fails with ``DaftTimeoutError`` at the next morsel
+        boundary; None falls back to ``query_timeout_s``."""
         if self._result is None:
-            self._result = list(self._run_iter())
+            self._result = list(self._run_iter(timeout))
         return self
 
     def iter_partitions(self) -> Iterator[MicroPartition]:

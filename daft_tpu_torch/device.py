@@ -4,6 +4,8 @@ asks for its device by name and never falls back."""
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Union
 
 import torch
@@ -26,3 +28,20 @@ def resolve_device(device: Union[str, torch.device, None] = DEFAULT_DEVICE) -> t
     if dev.type != "cpu":
         raise DaftValueError(f"the port runs on cuda or cpu, got device {device!r}")
     return dev
+
+
+_THREAD = threading.local()
+
+
+def worker_stream():
+    """A context that makes the calling thread's own CUDA stream current,
+    made on the thread's first call; a no-op where no CUDA device is visible.
+    The stage pool runs each morsel under it, so a worker's copies in, its
+    programs and its fetch share one stream, and the fetch's synchronisation
+    waits for that worker's work only."""
+    if not torch.cuda.is_available():
+        return contextlib.nullcontext()
+    stream = getattr(_THREAD, "stream", None)
+    if stream is None:
+        stream = _THREAD.stream = torch.cuda.Stream()
+    return torch.cuda.stream(stream)

@@ -1,71 +1,101 @@
 """Local execution engine (port of ``daft_tpu/execution/executor.py``).
 
 Runs a physical plan as a pull chain of operator generators, yielding result
-MicroPartitions in input order. The port has these operators:
+MicroPartitions in input order, with the streaming operators as stages on ONE
+shared compute pool of ``num_compute_threads`` workers (one per core by
+default; ``execution/pipeline.py``). The port has these operators:
 
 * ``InMemorySource`` — yields the materialised partitions;
 * ``Project`` / ``Filter`` — the maximal Project/Filter chain below a node runs
-  as one stage over ``morselize``d input (morsels of ``MIN_MORSEL_ROWS`` ..
-  ``default_morsel_size`` rows); the longest suffix of the chain that the
-  device can run whole runs as ONE program per morsel
+  as one stage (``map_stage``) over ``morselize``d input (morsels of
+  ``MIN_MORSEL_ROWS`` .. ``default_morsel_size`` rows); the longest suffix of
+  the chain that the device can run whole runs as ONE program per morsel
   (``ops/compiled_eval.ChainSpec``), the rest step by step, where each
   projection's numeric subtrees may still run on the device
   (``ops/device_eval``);
-* ``UDFProject`` — re-morsels its input to ``min(udf.batch_size * 16,
-  default_morsel_size)`` rows (16 device batches per morsel: enough chunks for
-  the provider to overlap the copy of one with the forward of another, with a
-  bounded host window) and evaluates the UDF per morsel;
-* ``Aggregate`` — partial aggregation per chunk of ``AGG_CHUNK_ROWS``+ rows.
-  A global one absorbs the Project/Filter chain below it: the chain and the
-  partial aggregation run as one program per chunk
+* ``UDFProject`` — a UDF with a ``batch_size`` gets morsels of
+  ``min(batch_size * 16, default_morsel_size)`` rows (16 device batches: enough
+  chunks for the provider to overlap the copy of one with the forward of
+  another, with a bounded host window); one without follows the
+  latency-constrained dynamic batching (``execution/dynamic_batching.py``)
+  unless ``udf_dynamic_batching=False``. ``max_concurrency > 1`` evaluates that
+  many morsels at once, in order, on a pool of the UDF's own;
+* ``Aggregate`` — partial aggregation per chunk of ``AGG_CHUNK_ROWS``+ rows,
+  the chunks' partials on the pool and merged in chunk order. A global one
+  absorbs the Project/Filter chain below it: the chain and the partial
+  aggregation run as one program per chunk
   (``ops/compiled_eval.AggChainSpec``). A grouped one leaves the chain as its
   own stage and aggregates through Acero on the host, the aggregations'
   children too, as the JAX package does; the first morsel's group reduction
-  picks the route: merge the chunks' partials in chunk order at the end, or, above
+  picks the route: merge the chunks' partials, or, above
   ``high_cardinality_aggregation_threshold``, hash-partition the rows into
-  ``num_compute_threads`` buckets and aggregate each bucket once;
+  ``num_compute_threads`` buckets on the pool and aggregate each bucket once,
+  the buckets at once (``collect_parallel``);
 * ``Limit`` — offset/limit over the stream, closing its input early;
 * ``Sort`` / ``Distinct`` — collect the input, then one Arrow sort (stable)
   or a per-morsel then whole-input dedupe; ``TopN`` keeps a buffer trimmed
   to the first ``limit + offset`` rows whenever it passes four times that;
-* ``HashJoin`` — collects the build (right) side; for inner / left / semi /
-  anti joins it builds a ``JoinIndex`` over it once where the keys allow
-  and streams the probe (left) side against it in ``morselize``d morsels, in
-  input order, or else joins each probe morsel through Arrow's Acero; right
-  and outer joins collect both sides and join them once through Acero.
+* ``HashJoin`` — collects the build (right) side while a ``Prefetch`` thread
+  warms the probe (left) side's stages; for inner / left / semi / anti joins
+  it builds a ``JoinIndex`` over the build side once where the keys allow
+  and probes ``morselize``d morsels of the left side against it on the pool,
+  in input order, or else joins each probe morsel through Arrow's Acero;
+  right and outer joins collect both sides and join them once through Acero.
   ``join_index.join_counters`` records each join's route and rows;
 * ``AsofJoin`` / ``CrossJoin`` — collect the right side, stream the left;
   ``Concat`` — its children's streams one after another.
 
 Joins, sorts and dedupes run on the host, as in the JAX package; the
-Project/Filter chains on each side of them still run on the device.
+Project/Filter chains on each side of them still run on the device, each
+pool worker on a CUDA stream of its own.
 
-Every stage runs sequentially on the calling thread, the partitioned
-aggregation's buckets and the join's probe morsels too. Not ported yet: the
-shared compute pool and pipelined stages (``map_stage``) with the join's
-probe-side ``Prefetch`` and parallel probe (ROADMAP A.9.4), UDF replica
-concurrency and dynamic batching, memory permits and spill (the grouped
-aggregation's grace spill, the grace hash join, the external sort and the
-grace distinct under a memory budget go with them, A.3), the feedback plane
-with its join bucket counts (A.8), cancellation, profiling spans, runtime
-stats, shared-subtree caching, and the other operators (scan, window,
-repartition, write, ...).
+The determinism contract of ``pipeline.py`` holds: morsel, chunk and bucket
+boundaries are pure functions of the input, so results are the same bytes at
+``num_compute_threads=1`` (every stage serial on the calling thread) and at
+any other count; ordered stages keep input order unless
+``default_maintain_order=False``. A worker's error reaches the caller as
+raised, never retried. The query's cancel token is observed at every morsel
+boundary (``_cancel_checked`` around each operator's stream, and each worker
+before its morsel); on every exit of ``run`` the pool is shut down and every
+operator iterator closed, which releases the feeders.
+
+Not ported yet: the per-stage byte accounting and memory permits with spill
+(the grouped aggregation's grace spill, the grace hash join, the external
+sort and the grace distinct under a memory budget go with them, A.3), the
+profiling spans and the ``timer=`` hook (A.9.5), replica slots for
+``chips_per_replica`` (A.10), the feedback plane with its join bucket counts
+(A.8), runtime stats, shared-subtree caching, the scan's IO pool, and the
+other operators (scan, window, repartition, write, ...).
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional
 
 import numpy as np
 
+from daft_tpu_torch.cancellation import CancelToken
 from daft_tpu_torch.context import ExecutionConfig
 from daft_tpu_torch.datatype import unify_dtypes
 from daft_tpu_torch.errors import DaftPlanError
 from daft_tpu_torch.execution.aggregation import AggState
 from daft_tpu_torch.execution.join_index import JoinIndex, _key_values, join_counters
-from daft_tpu_torch.execution.pipeline import chunk_morsels, morselize, split_morsels
+from daft_tpu_torch.execution.dynamic_batching import LatencyConstrainedBatching, dynamic_remorsel
+from daft_tpu_torch.execution.pipeline import (
+    DEFAULT_MIN_MORSEL_ROWS,
+    Prefetch,
+    chunk_morsels,
+    collect_parallel,
+    map_stage,
+    morselize,
+    run_stage,
+    split_morsels,
+)
 from daft_tpu_torch.expressions.evaluator import evaluate
 from daft_tpu_torch.expressions.expr import UdfCall
 from daft_tpu_torch.micropartition import MicroPartition
@@ -85,23 +115,100 @@ class Executor:
     AGG_CHUNK_ROWS = 256 * 1024
     #: Morsels smaller than this merge before a Project/Filter/Aggregate stage
     #: (the JAX package's default ``min_morsel_size``).
-    MIN_MORSEL_ROWS = 16 * 1024
+    MIN_MORSEL_ROWS = DEFAULT_MIN_MORSEL_ROWS
+    #: How long ``run``'s cleanup waits for an operator iterator that another
+    #: thread is inside of (a feeder finishing its last pull) before it stops
+    #: trying to close it.
+    CLOSE_WAIT_S = 10.0
 
-    def __init__(self, cfg: ExecutionConfig):
+    def __init__(self, cfg: ExecutionConfig, cancel_token: Optional[CancelToken] = None):
         self.cfg = cfg
+        self.cancel_token = cancel_token
         self.max_morsel_rows = cfg.default_morsel_size
         self.min_morsel_rows = min(self.MIN_MORSEL_ROWS, self.max_morsel_rows)
         n = cfg.num_compute_threads
         self.compute_threads = n if n > 0 else (os.cpu_count() or 1)
+        self._state_lock = threading.Lock()
+        self._compute_pool: Optional[ThreadPoolExecutor] = None
+        self._live_iters: List = []
+
+    def _pool(self) -> Optional[ThreadPoolExecutor]:
+        """The executor-wide compute pool, shared by every stage so stacked
+        operators compete for ``compute_threads`` workers instead of each
+        spawning a pool; None when the stages run serially. Made on first
+        use, which may be on a feeder thread."""
+        if self.compute_threads <= 1:
+            return None
+        with self._state_lock:
+            if self._compute_pool is None:
+                self._compute_pool = ThreadPoolExecutor(
+                    max_workers=self.compute_threads, thread_name_prefix="daft-compute")
+            return self._compute_pool
 
     def run(self, plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
-        return self._run(plan)
+        try:
+            yield from self._run(plan)
+        finally:
+            self._shutdown()
+
+    def _shutdown(self) -> None:
+        """On every exit of ``run``: stop the pool (a later submit raises,
+        which unwinds any feeder still pulling), then close every operator
+        iterator, children first, so each stage's stop flag releases its
+        feeder. An iterator another thread is inside of cannot be closed yet;
+        it is tried again until that thread has left it."""
+        with self._state_lock:
+            pool = self._compute_pool
+            live, self._live_iters = list(self._live_iters), []
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+        deadline = time.monotonic() + self.CLOSE_WAIT_S
+        while live:
+            busy = []
+            for g in reversed(live):
+                try:
+                    g.close()
+                except ValueError:  # "generator already executing" on a feeder
+                    busy.append(g)
+            if not busy or time.monotonic() > deadline:
+                return
+            live = list(reversed(busy))
+            time.sleep(0.005)
 
     def _run(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         handler = getattr(self, f"_run_{type(node).__name__}", None)
         if handler is None:
             raise DaftPlanError(f"No executor for physical node {node.name()}")
-        return handler(node)
+        it = self._track(handler(node))
+        if self.cancel_token is not None:
+            it = self._track(self._cancel_checked(node.name(), it))
+        return it
+
+    def _track(self, it):
+        """Register an operator iterator for ``_shutdown`` to close."""
+        with self._state_lock:
+            self._live_iters.append(it)
+        return it
+
+    def _cancel_checked(self, op: str, it: Iterator[MicroPartition]) -> Iterator[MicroPartition]:
+        """Observe the query's cancel token at every morsel boundary: a
+        cancelled or expired query fails out of the pull chain at the next
+        morsel instead of running the plan to its end."""
+        token = self.cancel_token
+        for mp in it:
+            token.check(op)
+            yield mp
+
+    def _streaming_map(self, fn, source: Iterator[MicroPartition], *, name: str,
+                       split: bool = True) -> Iterator[MicroPartition]:
+        """A per-morsel map as one stage on the compute pool. ``split``
+        morselizes the input first (at every thread count, so the morsels,
+        and everything keyed on them, are the same at 1 and N threads).
+        Ordered unless ``default_maintain_order=False``."""
+        if split:
+            source = morselize(source, self.min_morsel_rows, self.max_morsel_rows)
+        yield from map_stage(source, fn, pool=self._pool(), workers=self.compute_threads,
+                             name=name, ordered=self.cfg.default_maintain_order)
 
     def _run_InMemorySource(self, node: pp.InMemorySource) -> Iterator[MicroPartition]:
         yield from node.partitions
@@ -162,30 +269,57 @@ class Executor:
         steps = self._chain_steps(nodes)
         split, spec, reason = self._compiled_suffix(nodes, steps, head.schema)
         kernels = [self._node_kernel(nd) for nd in reversed(nodes)]
-        for mp in morselize(self._run(nodes[-1].children[0]), self.min_morsel_rows,
-                            self.max_morsel_rows):
+
+        def composed(mp: MicroPartition) -> MicroPartition:
             for kern in kernels[:split]:
                 mp = kern(mp)
             if spec is not None:
                 out = spec.run_morsel(mp)
                 if out is not None:
-                    yield out
-                    continue
+                    return out
             elif reason != "nothing_on_device":
                 device_eval_counters.record_host(f"chain_{reason}", rows=len(mp))
             for kern in kernels[split:]:
                 mp = kern(mp)
-            yield mp
+            return mp
+
+        yield from self._streaming_map(composed, self._run(nodes[-1].children[0]),
+                                       name=type(head).__name__)
 
     def _run_UDFProject(self, node: pp.UDFProject) -> Iterator[MicroPartition]:
         udf = next(n.udf for n in node.udf_expr.walk() if isinstance(n, UdfCall))
+        concurrency = max(1, getattr(udf, "max_concurrency", None) or 1)
         exprs = node.passthrough + [node.udf_expr]
+        source = self._run(node.children[0])
         udf_bs = udf.batch_size
-        morsel_rows = self.cfg.default_morsel_size
+        batch_state = None
         if udf_bs:
-            morsel_rows = min(udf_bs * 16, morsel_rows)
-        for mp in split_morsels(self._run(node.children[0]), morsel_rows):
-            yield mp.eval_expression_list(exprs)
+            child_iter = split_morsels(source, min(udf_bs * 16, self.cfg.default_morsel_size))
+        elif self.cfg.udf_dynamic_batching:
+            batch_state = LatencyConstrainedBatching(
+                target_latency_s=self.cfg.udf_target_batch_latency_s,
+                b_max=self.cfg.default_morsel_size).make_state()
+            child_iter = dynamic_remorsel(source, batch_state)
+        else:
+            child_iter = split_morsels(source, self.cfg.default_morsel_size)
+
+        def eval_mp(mp: MicroPartition) -> MicroPartition:
+            if batch_state is None:
+                return mp.eval_expression_list(exprs)
+            t0 = time.perf_counter()
+            out = mp.eval_expression_list(exprs)
+            batch_state.record(len(mp), time.perf_counter() - t0)
+            return out
+
+        if concurrency == 1:
+            for mp in child_iter:
+                yield eval_mp(mp)
+            return
+        # In order, on a pool of the UDF's own: a slow UDF must never starve
+        # the shared relational pool.
+        udf_pool = ThreadPoolExecutor(max_workers=concurrency, thread_name_prefix="daft-udf")
+        yield from run_stage(child_iter, eval_mp, pool=udf_pool, workers=concurrency,
+                             name="UDFProject", owns_pool=True)
 
     def _run_Aggregate(self, node: pp.Aggregate) -> Iterator[MicroPartition]:
         def fresh_state() -> AggState:
@@ -266,9 +400,11 @@ class Executor:
                 return
         # add_partial defers merging to ONE pass at finalize: the threshold
         # merge would re-aggregate the whole merged state once per chunk as
-        # soon as it outgrows the threshold.
-        for chunk in itertools.chain([first], chunks):
-            state.add_partial(partial_of(chunk))
+        # soon as it outgrows the threshold. The partials come in chunk order.
+        for partial in map_stage(itertools.chain([first], chunks), partial_of,
+                                 pool=self._pool(), workers=self.compute_threads,
+                                 name="AggPartial"):
+            state.add_partial(partial)
         yield MicroPartition(node.schema, [state.finalize()])
 
     def _partitioned_agg(self, node: pp.Aggregate, fresh_state,
@@ -279,20 +415,24 @@ class Executor:
         preserved (stable partitioning), so each group's float accumulation
         order, and thus every sum, is the same at any bucket count; only the
         output ROW order varies with it, and grouped output order is
-        unspecified engine-wide. The port aggregates the buckets one after
-        another (the compute pool is ROADMAP A.9.4)."""
+        unspecified engine-wide. The split runs as a stage on the pool, and
+        the buckets all at once (``collect_parallel``)."""
         buckets_n = max(self.compute_threads, 1)
-        buckets: List[List[RecordBatch]] = [[] for _ in range(buckets_n)]
-        for chunk in chunks:
+
+        def split_chunk(chunk: List[MicroPartition]) -> List[RecordBatch]:
             rb = RecordBatch.concat([b for mp in chunk for b in mp.record_batches()])
             keys = [evaluate(g, rb) for g in node.group_by]
             parts = self._cheap_int_partition(rb, keys, buckets_n)
-            if parts is None:
-                parts = rb.partition_by_hash(keys, buckets_n)
+            return parts if parts is not None else rb.partition_by_hash(keys, buckets_n)
+
+        buckets: List[List[RecordBatch]] = [[] for _ in range(buckets_n)]
+        for parts in map_stage(chunks, split_chunk, pool=self._pool(),
+                               workers=self.compute_threads, name="AggPartition"):
             for i, part in enumerate(parts):
                 if len(part):
                     buckets[i].append(part)
-        for rbs in buckets:
+
+        def agg_bucket(rbs: List[RecordBatch]) -> RecordBatch:
             st: AggState = fresh_state()
             if rbs:
                 rb = rbs[0] if len(rbs) == 1 else RecordBatch.concat(rbs)
@@ -300,7 +440,10 @@ class Executor:
                 # threshold keeps each group's association a single in-order
                 # Acero pass, invariant to the bucket count).
                 st.accumulate_partial(self._grouped_partial(rb, st.plan))
-            out = st.finalize()
+            return st.finalize()
+
+        for out in collect_parallel(buckets, agg_bucket, pool=self._pool(),
+                                    workers=self.compute_threads):
             if len(out):
                 yield MicroPartition(node.schema, [out])
 
@@ -387,10 +530,12 @@ class Executor:
                 break
 
     # -- blocking sinks ---------------------------------------------------
-    def _collect(self, node: pp.PhysicalPlan) -> MicroPartition:
-        """Materialise a blocking sink's input in memory (the port has no
-        memory permits: A.3)."""
-        parts = list(self._run(node))
+    def _collect(self, node: pp.PhysicalPlan,
+                 source: Optional[Iterator[MicroPartition]] = None) -> MicroPartition:
+        """Materialise a blocking sink's input (``source`` in place of the
+        node's own stream, when given) in memory (the port has no memory
+        permits: A.3)."""
+        parts = list(self._run(node) if source is None else source)
         if not parts:
             return MicroPartition.empty(node.schema)
         return MicroPartition.concat(parts)
@@ -436,6 +581,20 @@ class Executor:
                 for k, dt in zip(keys, key_dtypes)]
 
     def _run_HashJoin(self, node: pp.HashJoin) -> Iterator[MicroPartition]:
+        # While the build side collects, a bounded prefetch warms the probe
+        # side's stages, so the probe starts on full queues. It is closed on
+        # any exit, so a failed build cannot leave its thread pulling.
+        prefetch = Prefetch(self._run(node.children[0]), capacity=4, name="probe-side") \
+            if self.compute_threads > 1 else None
+        try:
+            yield from self._hash_join(node, iter(prefetch) if prefetch is not None
+                                       else self._run(node.children[0]))
+        finally:
+            if prefetch is not None:
+                prefetch.close()
+
+    def _hash_join(self, node: pp.HashJoin,
+                   left_source: Iterator[MicroPartition]) -> Iterator[MicroPartition]:
         lschema, rschema = node.children[0].schema, node.children[1].schema
         # int32 against int64 keys (and the like) index and hash as one dtype.
         key_dtypes = [
@@ -448,7 +607,7 @@ class Executor:
         if node.how in ("right", "outer"):
             # Unmatched build rows are known only after the whole probe side:
             # both sides materialise and join once.
-            left = self._collect(node.children[0]).combined()
+            left = self._collect(node.children[0], left_source).combined()
             left_keys = [evaluate(e, left) for e in node.left_on]
             right_keys = [evaluate(e, right) for e in node.right_on]
             out = self._join_and_fix(left, right, left_keys, right_keys, node)
@@ -475,12 +634,8 @@ class Executor:
         rec = join_counters.start(node.how, on, len(right))
         route = "acero" if index is None else \
             ("dense" if index.offsets is not None else "sorted")
-        source = self._run(node.children[0])
-        if index is not None:
-            # Without an index each probe morsel re-hashes the build side, so
-            # the probe keeps its natural (coarse) morsels.
-            source = morselize(source, self.min_morsel_rows, self.max_morsel_rows)
-        for mp in source:
+
+        def probe(mp: MicroPartition) -> MicroPartition:
             left = mp.combined()
             joined = None
             if index is not None:
@@ -493,7 +648,12 @@ class Executor:
                 left_keys = [evaluate(e, left) for e in node.left_on]
                 out = self._join_and_fix(left, right, left_keys, right_keys, node)
                 join_counters.record_probe(rec, "acero", len(left), len(out))
-            yield MicroPartition(node.schema, [out])
+            return MicroPartition(node.schema, [out])
+
+        # Without an index each probe morsel re-hashes the build side, so the
+        # probe keeps its natural (coarse) morsels.
+        yield from self._streaming_map(probe, left_source, name="HashJoin",
+                                       split=index is not None)
 
     @staticmethod
     def _conform_to_schema(rb: RecordBatch, schema: Schema) -> RecordBatch:

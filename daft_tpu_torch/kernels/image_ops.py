@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import io
+import threading
 
 import numpy as np
 import pyarrow as pa
@@ -153,19 +154,44 @@ def _weight_mat(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device)
 
 
+def _weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``_weight_mat``'s cached matrix, marked in use by the calling
+    thread's stream: a pool worker's stream may read a matrix that another
+    worker made, and the caching allocator must not hand its block out again
+    (after an eviction) while that read is pending."""
+    wm = _weight_mat(n_in, n_out, device)
+    if wm.is_cuda:
+        wm.record_stream(torch.cuda.current_stream(wm.device))
+    return wm
+
+
+_TF32_LOCK = threading.Lock()
+_tf32_holders = 0
+_tf32_saved = False
+
+
 @contextlib.contextmanager
 def _tf32_off():
     """Full f32 products for the contraction, as XLA's ``HIGHEST`` precision
     gives the JAX package (C.5): TF32 would round the operands to 10 mantissa
     bits and move 1.8-4.5 % of uint8 outputs by one level (emulated in
-    tests/test_torch_image.py). The flag is process-wide, so it is restored
-    on the way out."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tests/test_torch_image.py). The flag is process-wide and resizes may
+    overlap on the stage pool's threads, so it stays off while any resize is
+    inside: the first holder saves the caller's flag, and the last one to
+    leave restores it."""
+    global _tf32_holders, _tf32_saved
+    with _TF32_LOCK:
+        if _tf32_holders == 0:
+            _tf32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_holders += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _TF32_LOCK:
+            _tf32_holders -= 1
+            if _tf32_holders == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _tf32_saved
 
 
 def _batch_resize(batch: np.ndarray, h: int, w: int) -> torch.Tensor:
@@ -191,9 +217,9 @@ def _resize_nhwc(batch: torch.Tensor, h: int, w: int) -> torch.Tensor:
     n_h, n_w = x.shape[1], x.shape[2]
     with _tf32_off():
         if n_w != w:
-            x = torch.einsum("nhwc,wq->nhqc", x, _weight_mat(n_w, w, x.device))
+            x = torch.einsum("nhwc,wq->nhqc", x, _weights(n_w, w, x.device))
         if n_h != h:
-            x = torch.einsum("nhwc,hp->npwc", x, _weight_mat(n_h, h, x.device))
+            x = torch.einsum("nhwc,hp->npwc", x, _weights(n_h, h, x.device))
     if batch.dtype == torch.uint8:
         return torch.round(x).clamp(0, 255).to(torch.uint8)
     return x

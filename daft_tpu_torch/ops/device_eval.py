@@ -9,9 +9,12 @@ to a later change.
 
 Inputs pad to a small set of bucket sizes (``cfg.device_batch_buckets``) as in
 the JAX package, so a program sees O(#buckets) shapes. On CUDA the columns are
-staged through pinned host buffers keyed on shape and dtype, copied
-``non_blocking``, and every output of a morsel comes back in one device→host
-fetch (one synchronisation).
+staged through pinned host buffers (one set per morsel in flight, one buffer
+per column and dtype in a set), copied ``non_blocking``, and every output of
+a morsel comes back in one device→host fetch (one synchronisation). A pool
+worker issues all of this on its own stream (``device.worker_stream``), so
+the synchronisation waits for its own morsel only; the cached programs hold
+no device tensors, so any thread's stream may run them.
 
 Null semantics: nullable inputs stage zero-filled with host-side validity
 masks; each fused output's validity is the AND-reduce of its referenced
@@ -127,35 +130,52 @@ class PhaseTimer:
     """Split of the device programs' time, on when ``enabled``: ``stage_s``
     is host time spent filling the staging buffers; ``h2d_ms``, ``device_ms``
     and ``d2h_ms`` are stream time (CUDA events) of the host→device copies,
-    the program's work and the device→host fetch, summed over morsels."""
+    the program's work and the device→host fetch, summed over morsels (and so
+    over the pool's workers, whose streams overlap). Each thread keeps its
+    own morsel's events; the totals are summed under a lock."""
 
     def __init__(self) -> None:
         self.enabled = False
+        self._lock = threading.Lock()
+        self._local = threading.local()
         self.reset()
 
     def reset(self) -> None:
-        self.totals = {"stage_s": 0.0, "h2d_ms": 0.0, "device_ms": 0.0, "d2h_ms": 0.0}
-        self._events: list = []
+        with self._lock:
+            self.totals = {"stage_s": 0.0, "h2d_ms": 0.0, "device_ms": 0.0, "d2h_ms": 0.0}
+        self._local.events = []
+
+    def _events(self) -> list:
+        ev = getattr(self._local, "events", None)
+        if ev is None:
+            ev = self._local.events = []
+        return ev
 
     def host(self, seconds: float) -> None:
         if self.enabled:
-            self.totals["stage_s"] += seconds
+            with self._lock:
+                self.totals["stage_s"] += seconds
 
     def mark(self, device: torch.device) -> None:
-        """An event on ``device``'s stream at a phase boundary: before the
-        copies in, before the program, before the fetch, after the fetch."""
+        """An event on the calling thread's current stream at a phase
+        boundary: before the copies in, before the program, before the
+        fetch, after the fetch."""
         if self.enabled and device.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
             ev.record(torch.cuda.current_stream(device))
-            self._events.append(ev)
+            self._events().append(ev)
 
     def settle(self) -> None:
-        """After the fetch's synchronisation: fold the morsel's events in."""
-        ev, self._events = self._events, []
+        """After the fetch's synchronisation: fold the calling thread's
+        morsel events in."""
+        ev, self._local.events = self._events(), []
         if len(ev) == 4:
-            for key, a, b in (("h2d_ms", ev[0], ev[1]), ("device_ms", ev[1], ev[2]),
-                              ("d2h_ms", ev[2], ev[3])):
-                self.totals[key] += a.elapsed_time(b)
+            spans = [(key, a.elapsed_time(b)) for key, a, b in
+                     (("h2d_ms", ev[0], ev[1]), ("device_ms", ev[1], ev[2]),
+                      ("d2h_ms", ev[2], ev[3]))]
+            with self._lock:
+                for key, ms in spans:
+                    self.totals[key] += ms
 
 
 phase_timer = PhaseTimer()
@@ -647,35 +667,70 @@ def _as_device_value(t: torch.Tensor, dt: np.dtype):
 
 
 class _Pinned:
-    """Pinned host buffers, one per (slot, dtype), grown to the largest
-    morsel the slot has staged; a morsel's columns are views of their
-    front. So the bytes held are at most the largest morsel per slot, and
-    ``clear`` drops them all. A buffer is filled again only for a later
-    morsel, after that morsel's predecessor fetched its outputs, which
-    synchronised the stream its copy ran on."""
+    """Pinned host staging buffers, in sets: one set per morsel in flight.
+    A thread's first ``get`` for a morsel takes a free set (or makes one),
+    and its ``release``, called by ``fetch`` after the synchronisation that
+    ordered the set's copies, gives it back. So a buffer is filled again
+    only after the copy that last read it is done, and two workers' morsels
+    never share one. A set holds one buffer per (slot, dtype), grown to the
+    largest morsel the set has staged; a morsel's columns are views of their
+    front. The bytes held are at most the morsels ever in flight at once
+    (the pool's workers) times the largest morsel, and ``clear`` drops them
+    all."""
 
     def __init__(self, pin_memory: bool = True) -> None:
-        self._bufs: Dict[tuple, torch.Tensor] = {}
         self._pin = pin_memory
         self._lock = threading.Lock()
+        self._sets: List[Dict[tuple, torch.Tensor]] = []  # every set, held or free
+        self._free: List[Dict[tuple, torch.Tensor]] = []
+        self._local = threading.local()
+
+    def _held(self) -> Optional[Dict[tuple, torch.Tensor]]:
+        bufs = getattr(self._local, "bufs", None)
+        # A set dropped by ``clear`` while this thread held it is not reused.
+        return bufs if bufs is not None and any(b is bufs for b in self._sets) else None
+
+    def holding(self) -> bool:
+        """True when the calling thread holds a set its fetch never gave
+        back (its last morsel failed between the copies and the fetch)."""
+        with self._lock:
+            return self._held() is not None
 
     def get(self, slot: str, shape: tuple, dtype: np.dtype) -> torch.Tensor:
         n = int(np.prod(shape))
         key = (slot, dtype.str)
         with self._lock:
-            buf = self._bufs.get(key)
+            bufs = self._held()
+            if bufs is None:
+                if self._free:
+                    bufs = self._free.pop()
+                else:
+                    bufs = {}
+                    self._sets.append(bufs)
+                self._local.bufs = bufs
+            buf = bufs.get(key)
             if buf is None or buf.numel() < n:
                 tdt = torch.from_numpy(np.empty(0, dtype)).dtype
-                buf = self._bufs[key] = torch.empty(n, dtype=tdt, pin_memory=self._pin)
+                buf = bufs[key] = torch.empty(n, dtype=tdt, pin_memory=self._pin)
         return buf[:n].view(shape)
+
+    def release(self) -> None:
+        """Give the calling thread's set back (after its copies are done)."""
+        with self._lock:
+            bufs = self._held()
+            self._local.bufs = None
+            if bufs is not None:
+                self._free.append(bufs)
 
     def held_bytes(self) -> int:
         with self._lock:
-            return sum(b.numel() * b.element_size() for b in self._bufs.values())
+            return sum(b.numel() * b.element_size() for bufs in self._sets
+                       for b in bufs.values())
 
     def clear(self) -> None:
         with self._lock:
-            self._bufs.clear()
+            self._sets.clear()
+            self._free.clear()
 
 
 _PINNED = _Pinned()
@@ -691,6 +746,10 @@ def stage(cols_np: Dict[str, np.ndarray], padded: int, n: int, device: torch.dev
     """Host columns (``n`` rows each) as device values of ``padded`` rows,
     zero-padded (``fill`` gives another pad value per column)."""
     t0 = time.perf_counter()
+    if device.type == "cuda" and _PINNED.holding():
+        # This thread's last morsel failed after its copies were issued: let
+        # them finish before its buffers are filled again.
+        torch.cuda.current_stream(device).synchronize()
     hosts = {}
     for name, v in cols_np.items():
         sdt = _staging_dtype(v.dtype)
@@ -722,7 +781,9 @@ def stage(cols_np: Dict[str, np.ndarray], padded: int, n: int, device: torch.dev
 def fetch(values: Sequence[object], device: torch.device) -> List[np.ndarray]:
     """Device values to host numpy arrays with one synchronisation: each
     copies ``non_blocking`` into fresh pinned memory (PyTorch's caching host
-    allocator), then the stream is synchronised once."""
+    allocator), then the calling thread's current stream (a pool worker's
+    own) is synchronised once, which also ends the morsel's staging copies:
+    its pinned set goes back to the free list."""
     phase_timer.mark(device)
     outs = []
     for v in values:
@@ -738,6 +799,7 @@ def fetch(values: Sequence[object], device: torch.device) -> List[np.ndarray]:
         outs.append((t, wide, bf16))
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+        _PINNED.release()
     phase_timer.mark(device)
     phase_timer.settle()
     arrays = []

@@ -3,13 +3,16 @@
 Reference: daft/udf/__init__.py. This slice ports the batch ``Udf`` the AI
 functions build on: calling it builds a ``UdfCall`` expression, and the
 executor's UDFProject operator evaluates it per morsel, handing ``fn`` whole
-Series. Not ported yet: row-wise UDFs, retries and ``on_error``, replica
-options (``max_concurrency``, accelerator asks), the ``func`` / ``func.batch``
-/ ``cls`` / ``method`` decorators and ``udaf``.
+Series. ``max_concurrency`` morsels of one UDF run at once on a pool of the
+UDF's own (``with_concurrency`` / ``override_options`` set it on a copy).
+Not ported yet: row-wise UDFs, retries and ``on_error``, the accelerator asks
+and ``chips_per_replica`` (ROADMAP A.10), the ``func`` / ``func.batch`` /
+``cls`` / ``method`` decorators and ``udaf`` (A.2).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Callable, List, Optional
 
@@ -24,11 +27,14 @@ class Udf:
     """A callable batch-UDF descriptor; calling it builds a UdfCall expression."""
 
     def __init__(self, fn: Callable, return_dtype: DataType, name: Optional[str] = None,
-                 batch_size: Optional[int] = None):
+                 batch_size: Optional[int] = None, max_concurrency: Optional[int] = None):
         self.fn = fn
         self.return_dtype = return_dtype
         self.name = name or getattr(fn, "__name__", "udf")
         self.batch_size = batch_size
+        # Morsels evaluated at once (None or 1: one at a time); ``fn`` must
+        # then be safe to call from that many threads.
+        self.max_concurrency = max_concurrency
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs) -> Expression:
@@ -39,6 +45,16 @@ class Udf:
     def evaluate(self, args: List[Series], kwargs: dict) -> Series:
         out = self.fn(*args, **kwargs)
         return _coerce_output_batch(out, self.name, self.return_dtype)
+
+    def override_options(self, **kwargs) -> "Udf":
+        """A copy of this UDF with the given attributes replaced."""
+        new = copy.copy(self)
+        for k, v in kwargs.items():
+            setattr(new, k, v)
+        return new
+
+    def with_concurrency(self, max_concurrency: int) -> "Udf":
+        return self.override_options(max_concurrency=max_concurrency)
 
 
 def _coerce_output_batch(out, name: str, dtype: DataType) -> Series:
