@@ -172,7 +172,31 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    pool, feeder or prefetch thread alive, and leave the next q06 exact.
    Phases 7 and 10 run their cProfile host splits serially (cProfile sees
    one thread) and hold the pinned staging to one set per worker;
-12. print the whole run's time and one JSON line of per-kernel numbers (with
+12. scan and local files (``phase_scan``): C.30's f32 sqrt on CUDA against
+   ``np.sqrt`` on 1,000,000 values, bit for bit; the free bytes of the temp
+   directory's disk (at least 3x the table, or the run fails); SF10's
+   lineitem (phase 7's seed, all nine columns) written with the port's
+   ``write_parquet`` (files, bytes on disk, write s); q06 (f32-typed rate
+   bounds, so the scan's host filter decides the rows the device would;
+   ROADMAP C.31) and q01 through ``read_parquet``, each warm and then timed
+   at 1 thread and at the default, with the columns the parquet reader
+   decoded in each batch (``io_stats``, 4 and 7 of 9), the counters, the pinned staging (at most one set per
+   worker), the scan's own wall and the idle share over a traced run: both
+   within 1e-5 of the f64 references, bit-equal at 1 and N threads, and
+   printed as bit-equal to the in-memory run or not; q06 with Python-float
+   bounds against its host-semantics reference (C.31); q01 over the parquet
+   files under ``collect(timeout=0.5)``, raised within 0.5 s plus one
+   morsel with no scan or stage thread left and the next q06 exact; SF1's
+   q01 columns written hive-partitioned by ``l_returnflag`` and read back
+   with ``where(l_returnflag == 'R')`` (the in-memory filter's multiset,
+   the other files pruned in ``io_stats``), then q01 over the whole
+   dataset; phase 9's photos as files (``from_glob_path`` →
+   ``image_file`` → ``decode_image_file``) and as parquet shards of 128 rows
+   (``read_parquet`` → ``.image.decode``), resized and embedded with
+   ViT-L/14 beside the in-memory column: rows/s, the decode / rest split, 24
+   flash launches per chunk, and the embeddings equal to the in-memory
+   column's or, where not, cosine >= 0.99999;
+13. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -262,6 +286,10 @@ TPCH_PROFILE_SF = 1
 Q03_RTOL = 1e-6  # f32 line revenues summed in f64, rounded to f32, vs an f64 reference
 
 # Phase 11: the pipelined engine.
+SQRT_VALUES = 1_000_000  # C.30's sqrt check on the card
+SCAN_FREE_FACTOR = 3     # free disk the scan phase needs, in multiples of the table
+SHARD_ROWS = 128         # rows per parquet shard of the photos
+PHOTO_COSINE_MIN = 0.99999  # photos from files vs the in-memory column, where not the same bits
 CANCEL_TIMEOUT_S = 0.5   # q01's deadline in the cancellation check
 THREAD_EXIT_S = 10.0     # how long the stage threads may take to end after it
 MC_COSINE_MIN = 0.99999  # max_concurrency=2 vs 1 embeddings, where not the same bits
@@ -1598,11 +1626,18 @@ def check_cosine_scan(card: str) -> None:
     d_gpu, kept_gpu, d_s, where_s, snap = run()
     peak = torch.cuda.max_memory_allocated()
     # The distance resolves to f64 (computed in f32, cast up after the
-    # fetch), which only device_eval takes: each query's distances run there,
-    # and the where compares the fetched f64 distances on the host, as in
-    # the JAX package.
-    check(snap["fused_rows"] == 2 * EMBED_ROWS and not snap["chain_rows"],
-          f"cosine scan: the distances did not all run on the card: {snap}")
+    # fetch), which only device_eval takes. PushDownFilter moves the where
+    # below the with_column, substituting the distance (as in the JAX
+    # package): the filter's chain refuses the f64 predicate and evaluates
+    # it on the host over every row, and the projection above it computes
+    # the kept rows' distances on the card. Before the rule the where
+    # compared the card's distances: 2 x EMBED_ROWS fused rows.
+    kept_n = len(kept_gpu["id"])
+    print(f"[relational] cosine scan counters: fused_rows {snap['fused_rows']} (select: "
+          f"{EMBED_ROWS}; with_column after the pushed-down where: {kept_n}; before "
+          f"PushDownFilter {2 * EMBED_ROWS}), host_rows {snap['host_rows']}", flush=True)
+    check(snap["fused_rows"] == EMBED_ROWS + kept_n and not snap["chain_rows"],
+          f"cosine scan: the distances did not run where the plan puts them: {snap}")
     with dt.execution_config_ctx(device="cpu"):
         d_cpu, kept_cpu, cpu_s, _, _ = run()
     err = float(np.abs(d_gpu - d_cpu).max())
@@ -2801,6 +2836,376 @@ def phase_pipelined(card: str) -> dict:
     return by_path
 
 
+def check_sqrt_on_card(card: str) -> None:
+    """C.30 on the card: torch's f32 sqrt on CUDA against the host's np.sqrt
+    on the same values, bit for bit."""
+    import numpy as np
+    import torch
+
+    from daft_tpu_torch.kernels.registry import get_kernel
+
+    x = np.abs(np.random.default_rng(2).standard_normal(SQRT_VALUES) * 4).astype(np.float32)
+    want = np.sqrt(x)
+    bare = torch.sqrt(torch.from_numpy(x).cuda()).cpu().numpy()
+    lowered = get_kernel("sqrt").torch_fn([torch.from_numpy(x).cuda()]).cpu().numpy()
+    cpu = torch.sqrt(torch.from_numpy(x)).numpy()
+    print(f"[scan] C.30: f32 sqrt of {SQRT_VALUES} values of |N(0, 4^2)| (seed 2): torch.sqrt on "
+          f"CUDA differs from np.sqrt on {int((bare != want).sum())}, the port's lowering on "
+          f"CUDA on {int((lowered != want).sum())}, a bare torch.sqrt on the CPU on "
+          f"{int((cpu != want).sum())} [{card}]", flush=True)
+    check(np.array_equal(lowered, want), "C.30: the card's f32 sqrt differs from np.sqrt")
+
+
+def scan_chunks(file_rows, morsel: int) -> int:
+    """The aggregation chunks a scan of files of ``file_rows`` rows gives:
+    each file read in batches of ``morsel`` rows (its last one short), packed
+    as the executor packs them."""
+    from daft_tpu_torch.execution.executor import Executor
+    from daft_tpu_torch.execution.pipeline import chunk_morsels
+
+    batches = [range(min(morsel, n - s)) for n in file_rows for s in range(0, n, morsel)]
+    return len(list(chunk_morsels(batches, Executor.AGG_CHUNK_ROWS)))
+
+
+def arrow_sorted(table):
+    """``table`` with large strings widened and its rows sorted by every
+    column: a multiset's canonical form."""
+    import pyarrow as pa
+
+    table = table.cast(pa.schema([pa.field(f.name, pa.large_string())
+                                  if pa.types.is_string(f.type) else f for f in table.schema]))
+    return table.sort_by([(n, "ascending") for n in table.column_names])
+
+
+def phase_scan(card: str, rows: int = 0) -> dict:
+    """Scan and local files on the card: SF10's lineitem written to parquet
+    and read back into q06 and q01 at 1 and N threads; hive pruning over
+    SF1's q01 columns; phase 9's photos read from files and from parquet
+    shards into ViT-L/14; C.30's sqrt on the card; a deadline over a parquet
+    scan. ``rows`` cuts the table (0: SF10's). Returns the launch counts of
+    its paths."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.errors import DaftTimeoutError
+    from daft_tpu_torch.execution.executor import Executor
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.functions.media import decode_image_file, image_file
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import lineitem
+
+    phase_start = time.perf_counter()
+    rows = rows or lineitem.SF10_LINEITEM_ROWS
+    sf1_rows = lineitem.SF1_LINEITEM_ROWS if rows == lineitem.SF10_LINEITEM_ROWS else rows // 10
+    workers = compute_workers()
+    counts = (1, workers)
+    f32 = dt.DataType.float32()
+    by_path = {}
+    check_sqrt_on_card(card)
+    print(f"[scan] IO pool {Executor.NUM_IO_THREADS} threads, "
+          f"compute pool {workers} workers, pyarrow.cpu_count() {pa.cpu_count()}, "
+          f"os.cpu_count() {os.cpu_count()}", flush=True)
+
+    t0 = time.perf_counter()
+    cols = lineitem.lineitem_columns(rows, seed=0)
+    names = list(cols)
+    table_bytes = sum(v.nbytes for v in cols.values())
+    print(f"[scan] lineitem: {rows} rows of {len(names)} columns, {table_bytes / 1e9:.3f} GB in "
+          f"memory, generated in {time.perf_counter() - t0:.1f} s", flush=True)
+    q01_names = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+                 "l_returnflag", "l_linestatus")
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"[scan] {tmp}: {free / 1e9:.3f} GB free on its disk (need {SCAN_FREE_FACTOR}x "
+              f"the table's {table_bytes / 1e9:.3f} GB)", flush=True)
+        check(free >= SCAN_FREE_FACTOR * table_bytes,
+              f"{tmp} has {free} bytes free, fewer than {SCAN_FREE_FACTOR} x the table's "
+              f"{table_bytes}: the scan phase needs that disk")
+
+        # In memory first: phase 7's queries over the same rows.
+        mem = dt.from_pydict({k: cols[k] for k in NUMERIC_COLS})
+        mem06 = lineitem.q06(dt, mem).to_pydict()["revenue"][0]
+        mem06_f32 = lineitem.q06(dt, mem, rate_dtype=f32).to_pydict()["revenue"][0]
+        del mem
+        mem = dt.from_pydict({k: cols[k] for k in q01_names})
+        mem01 = lineitem.sorted_groups(lineitem.q01(dt, mem).to_pydict())
+        del mem
+        ref06 = lineitem.q06_reference(cols)
+        ref06_host = lineitem.q06_reference(cols, host_literals=True)
+        ref01 = lineitem.q01_reference(cols)
+        check(np.float32(mem06).tobytes() == np.float32(mem06_f32).tobytes(),
+              f"in memory, q06 with f32 rate bounds gave {mem06_f32!r}, with Python floats "
+              f"{mem06!r}")
+
+        # (1) Write SF10's lineitem with the port's writer. The select's stage
+        # hands the writer morsels, so it rolls files at its target size.
+        li_dir = os.path.join(tmp, "lineitem")
+        dt.reset_io_stats()
+        t0 = time.perf_counter()
+        res = dt.from_pydict(cols).select(*names).write_parquet(li_dir).to_pydict()
+        write_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(p) for p in res["path"])
+        print(f"[scan] write_parquet: {len(res['path'])} files, {disk / 1e9:.3f} GB on disk "
+              f"({table_bytes / disk:.2f}x smaller than in memory), {write_s:.3f} s = "
+              f"{rows / write_s:.4e} rows/s; io_stats {dt.io_stats()} [{card}]", flush=True)
+        check(sum(res["num_rows"]) == rows, f"the writer wrote {sum(res['num_rows'])} rows")
+        morsel = dt.get_context().execution_config.default_morsel_size
+        chunks = scan_chunks(res["num_rows"], morsel)
+
+        # (2)-(4) q06 and q01 through read_parquet, each warm then timed at 1
+        # and N threads. The page cache is warm after the write.
+        queries = {
+            "q06": (lambda: lineitem.q06(dt, dt.read_parquet(li_dir), rate_dtype=f32),
+                    lambda out: out, NUMERIC_COLS[:3] + NUMERIC_COLS[4:]),
+            "q01": (lambda: lineitem.q01(dt, dt.read_parquet(li_dir)), lineitem.sorted_groups,
+                    q01_names),
+        }
+
+        def pq06():
+            return queries["q06"][0]().to_pydict()
+
+        # A pinned set per chunk in flight: at most one per worker, four 4-byte
+        # columns of the largest padded chunk a set (the bound phase 11 uses).
+        cfg = dt.get_context().execution_config
+        set_bytes = 4 * de._bucket(Executor.AGG_CHUNK_ROWS + morsel, cfg.device_batch_buckets) * 4
+        de.reset_programs()
+        results = {}
+        for name, (build, shape, used) in queries.items():
+            def run(build=build, shape=shape):
+                return shape(build().to_pydict())
+
+            for n in counts:
+                timed_at(n, run)  # warm
+                de.device_eval_counters.reset()
+                dt.reset_io_stats()
+                flash_attention.launch_count = 0
+                out, wall = timed_at(n, run)
+                snap, io = de.device_eval_counters.snapshot(), dt.io_stats()
+                check(flash_attention.launch_count == 0,
+                      f"parquet {name}: {flash_attention.launch_count} flash launches")
+                # The columns the parquet reader decoded in every batch: the
+                # scan's projection and its pushed-down filter's.
+                per_batch = io.parquet_columns / max(io.parquet_batches, 1)
+                check(io.parquet_batches > 0 and per_batch == len(used),
+                      f"parquet {name}: {io.parquet_columns} columns decoded over "
+                      f"{io.parquet_batches} batches, not {len(used)} a batch")
+                results[(name, n)] = (out, wall)
+                check(de.pinned_bytes() <= workers * set_bytes,
+                      f"parquet {name}: {de.pinned_bytes()} pinned bytes > {workers} x {set_bytes}")
+                print(f"[scan] parquet {name} at {n} thread(s): {wall:.3f} s = "
+                      f"{rows / wall:.4e} rows/s (page cache warm); the reader decoded "
+                      f"{per_batch:g} of {len(names)} columns in each of {io.parquet_batches} "
+                      f"batches; io_stats "
+                      f"{io}; counters chain_rows {snap['chain_rows']} host_rows "
+                      f"{snap['host_rows']} fused_rows {snap['fused_rows']}; pinned staging "
+                      f"{de.pinned_bytes() / 1e6:.3f} MB [{card}]", flush=True)
+            (serial, serial_s), (pooled, pooled_s) = results[(name, 1)], results[(name, workers)]
+            _, scan_s = timed_at(workers, lambda: dt.read_parquet(li_dir).select(*used).collect())
+            with dt.execution_config_ctx(num_compute_threads=workers):
+                traced = trace_window(card, "trace scan", f"parquet {name} at {workers} threads",
+                                      run, warm=False)
+            idle = "not measured" if traced is None else f"{1 - traced[0] / traced[1]:.4f}"
+            if name == "q06":
+                rev = pooled["revenue"][0]
+                check(np.float32(serial["revenue"][0]).tobytes() == np.float32(rev).tobytes(),
+                      f"parquet q06: {serial['revenue'][0]!r} at 1 thread, {rev!r} at {workers}")
+                err = abs(rev - ref06) / abs(ref06)
+                check(err <= Q06_RTOL, f"parquet q06 {rev} vs the f64 reference {ref06}: {err}")
+                same = np.float32(rev).tobytes() == np.float32(mem06).tobytes()
+                print(f"[scan] parquet q06 revenue {rev!r}: rel err {err:.2e} vs the f64 "
+                      f"reference (tol {Q06_RTOL}); equal at 1 and {workers} threads; equal to "
+                      f"the in-memory run bit for bit: {same} (in memory {mem06!r})", flush=True)
+            else:
+                check(serial == pooled, f"parquet q01: the {workers}-thread groups differ")
+                check(pooled["count_order"] == ref01["count_order"]
+                      and pooled["sum_qty"] == ref01["sum_qty"],
+                      "parquet q01: counts or sum_qty differ from the reference")
+                errs = max(max(abs(a - b) / abs(b) for a, b in zip(pooled[k], ref01[k]))
+                           for k in ("sum_base_price", "sum_disc_price", "sum_charge",
+                                     "avg_qty", "avg_price", "avg_disc"))
+                check(errs <= Q06_RTOL, f"parquet q01 vs the f64 reference: {errs}")
+                print(f"[scan] parquet q01: largest rel err {errs:.2e} vs the f64 reference (tol "
+                      f"{Q06_RTOL}), counts exact; equal at 1 and {workers} threads; equal to the "
+                      f"in-memory run bit for bit: {pooled == mem01}", flush=True)
+            print(f"[scan] parquet {name}: 1 thread {serial_s:.3f} s, {workers} threads "
+                  f"{pooled_s:.3f} s; the scan alone (read_parquet.select({len(used)} columns)."
+                  f"collect() at {workers} threads) {scan_s:.3f} s = {scan_s / pooled_s:.1%} of "
+                  f"the pooled query; idle share over the traced {workers}-thread run {idle} "
+                  f"[{card}]", flush=True)
+            by_path[f"scan parquet {name}"] = {"flash_attention": 0}
+        # C.31: Python-float rate bounds, decided on the host by the scan's
+        # pushed-down filter.
+        weak = lineitem.q06(dt, dt.read_parquet(li_dir)).to_pydict()["revenue"][0]
+        err = abs(weak - ref06_host) / abs(ref06_host)
+        print(f"[scan] C.31: parquet q06 with Python-float rate bounds (the filter in the scan, "
+              f"on the host) {weak!r} against its host-semantics f64 reference {ref06_host:.6f} "
+              f"(rel err {err:.2e}); in memory, on the device, {mem06!r} [{card}]", flush=True)
+        check(err <= Q06_RTOL, f"parquet q06 with Python floats {weak} vs {ref06_host}")
+
+        # Cancellation over the parquet files.
+        morsel_s = results[("q01", workers)][1] * workers / chunks
+        live = STAGE_THREAD_NAMES + ("daft-scan",)
+
+        def scan_threads():
+            import threading
+
+            return [t.name for t in threading.enumerate()
+                    if t.is_alive() and t.name.startswith(live)]
+
+        t0 = time.perf_counter()
+        while scan_threads() and time.perf_counter() - t0 < THREAD_EXIT_S:
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        try:
+            queries["q01"][0]().collect(timeout=CANCEL_TIMEOUT_S)
+            raised = None
+        except DaftTimeoutError as e:
+            raised = e
+        cancel_s = time.perf_counter() - t0
+        check(raised is not None, "parquet q01 under a 0.5 s deadline ran to its end")
+        left, t0 = scan_threads(), time.perf_counter()
+        while left and time.perf_counter() - t0 < THREAD_EXIT_S:
+            time.sleep(0.01)
+            left = scan_threads()
+        print(f"[scan] parquet q01 with collect(timeout={CANCEL_TIMEOUT_S}): DaftTimeoutError "
+              f"after {cancel_s:.3f} s (bound {CANCEL_TIMEOUT_S} s + one morsel, {morsel_s:.3f} "
+              f"s); scan and stage threads alive {time.perf_counter() - t0:.3f} s after the "
+              f"raise: {left} [{card}]", flush=True)
+        check(cancel_s <= CANCEL_TIMEOUT_S + morsel_s,
+              f"the timeout took {cancel_s:.3f} s > {CANCEL_TIMEOUT_S} + {morsel_s:.3f}")
+        check(not left, f"threads left after the cancelled scan: {left}")
+        del raised
+        after = pq06()["revenue"][0]
+        check(np.float32(after).tobytes() == np.float32(results[("q06", workers)][0]["revenue"][0])
+              .tobytes(), f"parquet q06 after the cancelled query: {after!r}")
+        print(f"[scan] the next parquet q06 equals the earlier ones: {after!r}", flush=True)
+        shutil.rmtree(li_dir)
+
+        # Hive pruning over SF1's q01 columns, partitioned by l_returnflag.
+        sf1 = {k: cols[k][:sf1_rows] for k in q01_names}
+        del cols
+        gc.collect()
+        hive_dir = os.path.join(tmp, "hive")
+        t0 = time.perf_counter()
+        res = dt.from_pydict(sf1).select(*q01_names).write_parquet(
+            hive_dir, partition_cols=["l_returnflag"]).to_pydict()
+        hive_write_s = time.perf_counter() - t0
+        c = dt.col
+        dt.reset_io_stats()
+        t0 = time.perf_counter()
+        got = result_table(dt.read_parquet(hive_dir, hive_partitioning=True)
+                                 .where(c("l_returnflag") == "R"))
+        read_s = time.perf_counter() - t0
+        io = dt.io_stats()
+        want = result_table(dt.from_pydict(sf1).where(c("l_returnflag") == "R"))
+        same = arrow_sorted(got.select(q01_names)).equals(arrow_sorted(want.select(q01_names)))
+        print(f"[scan] hive: {sf1_rows} rows written in {len(res['path'])} files under "
+              f"l_returnflag=... in {hive_write_s:.3f} s; where l_returnflag == 'R': {len(got)} "
+              f"rows in {read_s:.3f} s, the same multiset as the in-memory filter: {same}; "
+              f"files opened {io.files_opened}, pruned {io.files_pruned} [{card}]", flush=True)
+        check(same and len(got) == len(want), "hive: the pruned read differs from the filter")
+        check(io.files_pruned == len(res["path"]) - io.files_opened and io.files_pruned > 0,
+              f"hive: {io.files_pruned} files pruned, {io.files_opened} opened of "
+              f"{len(res['path'])}")
+        ref_sf1 = lineitem.q01_reference(sf1)
+        hq01, hq01_s = timed_at(workers, lambda: lineitem.sorted_groups(lineitem.q01(
+            dt, dt.read_parquet(hive_dir, hive_partitioning=True)).to_pydict()))
+        check(hq01["count_order"] == ref_sf1["count_order"]
+              and hq01["sum_qty"] == ref_sf1["sum_qty"], "hive q01: counts differ")
+        errs = max(max(abs(a - b) / abs(b) for a, b in zip(hq01[k], ref_sf1[k]))
+                   for k in ("sum_base_price", "sum_disc_price", "sum_charge", "avg_qty",
+                             "avg_price", "avg_disc"))
+        check(errs <= Q06_RTOL, f"hive q01 vs the f64 reference: {errs}")
+        print(f"[scan] hive q01 over the {sf1_rows} rows: {hq01_s:.3f} s, largest rel err "
+              f"{errs:.2e} vs the f64 reference, counts exact [{card}]", flush=True)
+        del sf1, got, want
+        gc.collect()
+
+        # Photos from files and from parquet shards into ViT-L/14.
+        raw = make_encoded(NUM_ENCODED, seed=20)
+        photo_dir, shard_dir = os.path.join(tmp, "photos"), os.path.join(tmp, "shards")
+        os.makedirs(photo_dir)
+        for i, b in enumerate(raw):
+            if b is not None:  # the null row has no file
+                with open(os.path.join(photo_dir, f"{i:04d}.img"), "wb") as fh:
+                    fh.write(b)
+        with dt.execution_config_ctx(default_morsel_size=SHARD_ROWS, parquet_target_filesize=1):
+            shards = dt.from_pydict({"image": raw}).select("image").write_parquet(
+                shard_dir).to_pydict()
+        check(shards["num_rows"] == [SHARD_ROWS] * (NUM_ENCODED // SHARD_ROWS),
+              f"shards of {shards['num_rows']} rows")
+        expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                           batch_size=BATCH)
+        sized = lambda e: e.image.resize(IMAGE, IMAGE)  # noqa: E731
+        paths = {
+            "in memory": (dt.from_pydict({"b": raw}), sized(dt.col("b").image.decode(
+                mode="RGB", on_error="null"))),
+            "files": (dt.from_glob_path(photo_dir), sized(decode_image_file(
+                image_file(dt.col("path")), mode="RGB", on_error="null"))),
+            "parquet shards": (dt.read_parquet(shard_dir), sized(dt.col("image").image.decode(
+                mode="RGB", on_error="null"))),
+        }
+        with dt.execution_config_ctx(default_morsel_size=BATCH):
+            src, img = paths["in memory"]
+            src.limit(BATCH).with_column("img", img).with_column("emb", expr).collect()  # warm
+        # Morsels of BATCH rows, as phase 11's image path: the decode spreads
+        # over the pool (the default 256 K rows would make one morsel).
+        embs = {}
+        for name, (src, img) in paths.items():
+            n_rows = NUM_ENCODED - (name == "files")
+            _, dec_s = timed_at(workers, lambda: src.with_column("img", img).select("img")
+                                .collect(), default_morsel_size=BATCH)
+            flash_attention.launch_count = 0
+            emb, path_s = timed_at(workers, lambda: image_column(
+                src.with_column("img", img).with_column("emb", expr).select("emb"), "emb"),
+                default_morsel_size=BATCH)
+            launches = flash_attention.launch_count
+            embs[name] = emb.to_numpy()
+            want = VIT_L_LAYERS * math.ceil(n_rows / BATCH)
+            check(launches == want, f"photos from {name}: {launches} flash launches, want {want}")
+            check(embs[name].shape == (n_rows, 768) and bool(np.isfinite(embs[name]).all()),
+                  f"photos from {name}: embeddings {embs[name].shape}, or not finite")
+            by_path[f"scan photos from {name}"] = {"flash_attention": launches}
+            print(f"[scan] photos from {name}: {n_rows} rows, {n_rows / path_s:.1f} rows/s end to "
+                  f"end ({path_s:.3f} s); decode + resize alone {dec_s:.3f} s, the rest "
+                  f"(forward and the engine) {path_s - dec_s:.3f} s; flash launches {launches} "
+                  f"[{card}]", flush=True)
+        keep = [i for i, b in enumerate(raw) if b is not None]
+        for name, ref in (("files", embs["in memory"][keep]), ("parquet shards",
+                                                               embs["in memory"])):
+            got = embs[name]
+            if np.array_equal(got, ref):
+                print(f"[scan] photos from {name}: the embeddings equal the in-memory column's "
+                      f"bit for bit [{card}]", flush=True)
+                continue
+            cos = cosines(got, ref)
+            print(f"[scan] photos from {name}: max_abs_err {np.abs(got - ref).max():.3e} against "
+                  f"the in-memory column, cosine min {cos.min():.8f} (min {PHOTO_COSINE_MIN}) "
+                  f"[{card}]", flush=True)
+            check(bool(cos.min() >= PHOTO_COSINE_MIN), f"photos from {name}: cosine {cos.min()}")
+        del raw, embs, expr, paths
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[scan] phase 12 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
+def result_table(df):
+    """``df``'s result as one Arrow table."""
+    from daft_tpu_torch.micropartition import MicroPartition
+
+    parts = list(df.iter_partitions())
+    return MicroPartition.concat(parts).to_arrow_table()
+
+
 def resnet_macs(cfg, size: int) -> int:
     """Multiply-adds of one ``size``-square image through ResNet-18's
     convolutions and head (BatchNorm, pooling and the adds left out)."""
@@ -2847,6 +3252,7 @@ def main() -> int:
         by_path.update(phase_image(card))
         by_path.update(phase_relational_joins(card))
         by_path.update(phase_pipelined(card))
+        by_path.update(phase_scan(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,7 +9,9 @@ CLIP image tower's attention in a hand-written CUDA kernel
 (``ops/flash_attention.py``, ``csrc/flash_attention.cu``), the text, zero-shot
 and generation paths, and the relational device layer (``where``,
 ``with_columns``, global ``agg`` through ``ops/device_eval.py`` and
-``ops/compiled_eval.py``). ``ROADMAP.md`` lists what is still to port.
+``ops/compiled_eval.py``), and local files through ``read_parquet`` /
+``read_csv`` / ``read_json`` / ``read_text`` / ``read_warc`` /
+``from_glob_path`` and the ``DataFrame.write_*`` writers. ``ROADMAP.md`` lists what is still to port.
 """
 
 from daft_tpu_torch.context import execution_config_ctx, get_context
@@ -18,6 +20,18 @@ from daft_tpu_torch.dataframe.creation import from_pydict
 from daft_tpu_torch.datatype import DataType, ImageFormat, ImageMode, TimeUnit
 from daft_tpu_torch.errors import DaftError
 from daft_tpu_torch.expressions import Expression, col, lit
+from daft_tpu_torch.io.config import IOConfig
+from daft_tpu_torch.io.iostats import chunked_upload, io_stats, read_range, reset_io_stats
+from daft_tpu_torch.io.reads import (
+    from_glob_path,
+    read_csv,
+    read_json,
+    read_parquet,
+    read_text,
+    read_warc,
+)
+from daft_tpu_torch.io.sink import DataSink
+from daft_tpu_torch.io.source import DataSource, DataSourceTask, read_source
 from daft_tpu_torch.micropartition import MicroPartition
 from daft_tpu_torch.recordbatch import RecordBatch
 from daft_tpu_torch.schema import Field, Schema
@@ -28,7 +42,11 @@ __all__ = [
     "DataType",
     "DaftError",
     "Expression",
+    "DataSink",
+    "DataSource",
+    "DataSourceTask",
     "Field",
+    "IOConfig",
     "ImageFormat",
     "ImageMode",
     "MicroPartition",
@@ -36,9 +54,20 @@ __all__ = [
     "Schema",
     "Series",
     "TimeUnit",
+    "chunked_upload",
     "col",
     "execution_config_ctx",
+    "from_glob_path",
     "from_pydict",
     "get_context",
+    "io_stats",
     "lit",
+    "read_csv",
+    "read_json",
+    "read_parquet",
+    "read_range",
+    "read_source",
+    "read_text",
+    "read_warc",
+    "reset_io_stats",
 ]

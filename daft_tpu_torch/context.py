@@ -3,7 +3,8 @@
 
 This slice keeps the knobs the embedding path, the relational layer (the
 device layer and the grouped aggregation's cardinality switch), the stage
-pool, UDF batching and query deadlines read. ``execution_config_ctx``
+pool, UDF batching, query deadlines, the scan's task sizing and the
+writers' target file sizes read. ``execution_config_ctx``
 changes them for a block of code. Not ported yet: the planning config, the
 runner choice (the port runs the local executor only), tenants, subscribers
 and the per-query clock.
@@ -19,6 +20,16 @@ from typing import Iterator, Optional, Tuple
 
 @dataclass(frozen=True)
 class ExecutionConfig:
+    # Scan task sizing (io/scan.py ScanInfo.to_scan_tasks): files are packed
+    # into tasks of at least min and at most max bytes, at most
+    # max_sources_per_scan_task files each (daft_tpu/config.py's defaults).
+    scan_tasks_min_size_bytes: int = 96 * 1024 * 1024
+    scan_tasks_max_size_bytes: int = 384 * 1024 * 1024
+    max_sources_per_scan_task: int = 10
+    # Writers roll to a new file past these in-memory bytes (io/writers.py).
+    parquet_target_filesize: int = 512 * 1024 * 1024
+    csv_target_filesize: int = 512 * 1024 * 1024
+    json_target_filesize: int = 512 * 1024 * 1024
     # Morsel rows for pipeline stages (daft_tpu/config.py's default).
     default_morsel_size: int = 256 * 1024
     # The device the relational layer runs on (device_eval and compiled

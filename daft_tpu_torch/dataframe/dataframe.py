@@ -8,7 +8,9 @@ has ``select``, ``with_column``/``with_columns``, ``where``/``filter``,
 ``groupby`` (``dataframe/groupby.py``), ``sort``, ``distinct`` (``unique``,
 ``drop_duplicates``), ``join``, ``join_asof``, ``cross_join``, ``concat``
 (``union``), ``intersect``, ``except_distinct``, ``collect``,
-``iter_partitions`` and ``to_pydict``; ``collect(timeout=)`` and
+``iter_partitions``, ``to_pydict``, the file writers (``write_parquet``,
+``write_csv``, ``write_json``, ``write_ipc``, hive-partitioned by
+``partition_cols``) and ``write_sink``; ``collect(timeout=)`` and
 ``iter_partitions`` (under ``query_timeout_s``) run under the query's cancel
 token, whose id is ``df.query_id`` while it runs
 (``cancellation.cancel_query``). ``intersect_all`` and ``except_all`` build
@@ -16,8 +18,10 @@ their plans and raise when run (they need ``Window``, ROADMAP A.3). Not
 ported yet: the runner layer (native/distributed runners, admission, plan
 caches, query log, profiling), SQL predicates, ``union_all`` and the
 ``*_by_name`` unions,
-``explode``/``unpivot``/``pivot``/``sample``, the writers, the preview and
-notebook display, and the pandas/arrow/torch/ray exporters.
+``explode``/``unpivot``/``pivot``/``sample``, the table-format and
+database writers (A.8), the writers' ``checkpoint=`` (A.2) and their
+invalidation of cached reads (the plan cache, A.8), the preview and notebook
+display, and the pandas/arrow/torch/ray exporters.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from daft_tpu_torch.cancellation import (
     unregister_query_token,
 )
 from daft_tpu_torch.context import get_context
-from daft_tpu_torch.errors import DaftValueError
+from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
 from daft_tpu_torch.expressions.expression import Expression, col
 from daft_tpu_torch.logical.builder import LogicalPlanBuilder
 from daft_tpu_torch.micropartition import MicroPartition
@@ -242,3 +246,42 @@ class DataFrame:
         if not parts:
             return {f.name: [] for f in self.schema}
         return MicroPartition.concat(parts).to_pydict()
+
+    # -- writes ---------------------------------------------------------
+    def _write(self, file_format: str, root_dir: str, partition_cols=None,
+               compression=None, write_mode="append", checkpoint=None) -> "DataFrame":
+        from daft_tpu_torch.io.writers import WriteInfo
+
+        if checkpoint is not None:
+            raise DaftNotImplementedError(
+                "write checkpoints (daft_tpu/checkpoint.py) are not ported yet (ROADMAP A.2)")
+        info = WriteInfo(
+            file_format=file_format, root_dir=str(root_dir),
+            partition_cols=_inner(partition_cols) if partition_cols else None,
+            compression=compression, write_mode=write_mode,
+        )
+        return DataFrame(self._builder.table_write(info)).collect()
+
+    def write_parquet(self, root_dir: str, compression: str = "snappy",
+                      partition_cols=None, write_mode: str = "append",
+                      checkpoint=None) -> "DataFrame":
+        return self._write("parquet", root_dir, partition_cols, compression, write_mode,
+                           checkpoint)
+
+    def write_csv(self, root_dir: str, partition_cols=None, write_mode: str = "append") -> "DataFrame":
+        return self._write("csv", root_dir, partition_cols, None, write_mode)
+
+    def write_json(self, root_dir: str, partition_cols=None, write_mode: str = "append") -> "DataFrame":
+        return self._write("json", root_dir, partition_cols, None, write_mode)
+
+    def write_ipc(self, root_dir: str, partition_cols=None, write_mode: str = "append") -> "DataFrame":
+        return self._write("ipc", root_dir, partition_cols, None, write_mode)
+
+    def write_sink(self, sink) -> "DataFrame":
+        """Write through a pluggable DataSink (reference: daft/io/sink.py)."""
+        from daft_tpu_torch.dataframe import creation
+
+        sink.start()
+        results = [sink.write(part) for part in self.iter_partitions()]
+        final = sink.finalize(results)
+        return creation.from_pydict(final if isinstance(final, dict) else {"result": [repr(final)]})

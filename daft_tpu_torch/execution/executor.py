@@ -6,6 +6,15 @@ shared compute pool of ``num_compute_threads`` workers (one per core by
 default; ``execution/pipeline.py``). The port has these operators:
 
 * ``InMemorySource`` — yields the materialised partitions;
+* ``PhysicalScan`` — reads its scan tasks (``io/formats.read_scan_task``):
+  one task inline on the pulling thread; several at once on an IO pool of
+  ``NUM_IO_THREADS`` threads (``daft-scan*``, 8 as in the JAX executor), each
+  task into a bounded queue of 4 morsels, yielded in task order. The readers
+  run in a copy of the caller's context (so they see the query's cancel
+  token), a stop flag releases them when the consumer goes away, and a
+  reader's error reaches the caller as ``DaftExecutionError("Scan failed:
+  ...")`` from its cause. A pushed-down filter runs on the IO threads, on the
+  host, as in the JAX package;
 * ``Project`` / ``Filter`` — the maximal Project/Filter chain below a node runs
   as one stage (``map_stage``) over ``morselize``d input (morsels of
   ``MIN_MORSEL_ROWS`` .. ``default_morsel_size`` rows); the longest suffix of
@@ -43,7 +52,10 @@ default; ``execution/pipeline.py``). The port has these operators:
   right and outer joins collect both sides and join them once through Acero.
   ``join_index.join_counters`` records each join's route and rows;
 * ``AsofJoin`` / ``CrossJoin`` — collect the right side, stream the left;
-  ``Concat`` — its children's streams one after another.
+  ``Concat`` — its children's streams one after another;
+* ``Write`` — streams its input into the writer (``io/writers.make_writer``)
+  and yields one row per written file; under ``write_mode="overwrite"`` it
+  then deletes every other file under the root directory.
 
 Joins, sorts and dedupes run on the host, as in the JAX package; the
 Project/Filter chains on each side of them still run on the device, each
@@ -64,14 +76,18 @@ Not ported yet: the per-stage byte accounting and memory permits with spill
 sort and the grace distinct under a memory budget go with them, A.3), the
 profiling spans and the ``timer=`` hook (A.9.5), replica slots for
 ``chips_per_replica`` (A.10), the feedback plane with its join bucket counts
-(A.8), runtime stats, shared-subtree caching, the scan's IO pool, and the
-other operators (scan, window, repartition, write, ...).
+(A.8), the scan-output cache tier in front of the scan
+(``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8), runtime
+stats, shared-subtree caching, and the other operators (window, repartition,
+shuffle reads, ...).
 """
 
 from __future__ import annotations
 
+import contextvars
 import itertools
 import os
+import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -82,7 +98,7 @@ import numpy as np
 from daft_tpu_torch.cancellation import CancelToken
 from daft_tpu_torch.context import ExecutionConfig
 from daft_tpu_torch.datatype import unify_dtypes
-from daft_tpu_torch.errors import DaftPlanError
+from daft_tpu_torch.errors import DaftExecutionError, DaftPlanError
 from daft_tpu_torch.execution.aggregation import AggState
 from daft_tpu_torch.execution.join_index import JoinIndex, _key_values, join_counters
 from daft_tpu_torch.execution.dynamic_batching import LatencyConstrainedBatching, dynamic_remorsel
@@ -107,6 +123,9 @@ from daft_tpu_torch.schema import Field, Schema
 from daft_tpu_torch.series import Series
 
 
+_SENTINEL = object()
+
+
 class Executor:
     """Runs a local physical plan, yielding result MicroPartitions."""
 
@@ -120,6 +139,8 @@ class Executor:
     #: thread is inside of (a feeder finishing its last pull) before it stops
     #: trying to close it.
     CLOSE_WAIT_S = 10.0
+    #: Threads of a scan's IO pool (the JAX executor's default).
+    NUM_IO_THREADS = 8
 
     def __init__(self, cfg: ExecutionConfig, cancel_token: Optional[CancelToken] = None):
         self.cfg = cfg
@@ -212,6 +233,62 @@ class Executor:
 
     def _run_InMemorySource(self, node: pp.InMemorySource) -> Iterator[MicroPartition]:
         yield from node.partitions
+
+    def _run_PhysicalScan(self, node: pp.PhysicalScan) -> Iterator[MicroPartition]:
+        from daft_tpu_torch.io.formats import read_scan_task
+
+        tasks = node.scan_tasks
+        if not tasks:
+            yield MicroPartition.empty(node.schema)
+            return
+        morsel_rows = self.cfg.default_morsel_size
+        if len(tasks) == 1:
+            yield from read_scan_task(tasks[0], morsel_rows)
+            return
+        # Parallel prefetch with per-task bounded queues; yield in task order.
+        # Readers poll a stop flag so an abandoned consumer (error in another
+        # task, early generator close) cannot leave them blocked on a full
+        # queue.
+        queues: List[queue.Queue] = [queue.Queue(maxsize=4) for _ in tasks]
+        stop = threading.Event()
+        pool = ThreadPoolExecutor(max_workers=min(self.NUM_IO_THREADS, len(tasks)),
+                                  thread_name_prefix="daft-scan")
+
+        def put_or_stop(q, item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def reader(task, q):
+            try:
+                for mp in read_scan_task(task, morsel_rows):
+                    if not put_or_stop(q, mp):
+                        return
+                put_or_stop(q, _SENTINEL)
+            except BaseException as e:  # noqa: BLE001
+                put_or_stop(q, e)
+
+        # Reader threads inherit the caller's contextvars (the query's cancel
+        # token): a bare pool task starts with an empty context.
+        ambient = contextvars.copy_context()
+        try:
+            for task, q in zip(tasks, queues):
+                pool.submit(ambient.copy().run, reader, task, q)
+            for q in queues:
+                while True:
+                    item = q.get()
+                    if item is _SENTINEL:
+                        break
+                    if isinstance(item, BaseException):
+                        raise DaftExecutionError(f"Scan failed: {item}") from item
+                    yield item
+        finally:
+            stop.set()
+            pool.shutdown(wait=False, cancel_futures=True)
 
     def _run_Project(self, node: pp.Project) -> Iterator[MicroPartition]:
         yield from self._run_relational_chain(node)
@@ -728,3 +805,20 @@ class Executor:
     def _run_Concat(self, node: pp.Concat) -> Iterator[MicroPartition]:
         for child in node.children:
             yield from self._run(child)
+
+    # -- write ------------------------------------------------------------
+    def _run_Write(self, node: pp.Write) -> Iterator[MicroPartition]:
+        from daft_tpu_torch.io.writers import make_writer, overwrite_files
+
+        child = node.children[0]
+        info = node.write_info
+        writer = make_writer(info, child.schema, self.cfg)
+        for mp in self._run(child):
+            writer.write(mp)
+        results = writer.close()
+        if info.write_mode == "overwrite":
+            overwrite_files(info.root_dir, [r["path"] for r in results])
+        yield MicroPartition.from_pydict({
+            "path": [r["path"] for r in results],
+            "num_rows": np.array([r["num_rows"] for r in results], dtype=np.uint64),
+        }) if results else MicroPartition.empty(node.schema)

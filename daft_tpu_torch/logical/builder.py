@@ -33,6 +33,10 @@ class LogicalPlanBuilder:
     def in_memory(partitions: Sequence, schema: Schema) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.InMemorySource(partitions, schema))
 
+    @staticmethod
+    def scan(scan_info) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.ScanSource(scan_info, scan_info.schema))
+
     def project(self, exprs: Sequence[Expr]) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.Project(self._plan, exprs))
 
@@ -84,6 +88,9 @@ class LogicalPlanBuilder:
 
     def except_(self, right: "LogicalPlanBuilder", is_all=False) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.Except(self._plan, right._plan, is_all))
+
+    def table_write(self, write_info) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Sink(self._plan, write_info))
 
     def optimize(self) -> "LogicalPlanBuilder":
         from daft_tpu_torch.logical.optimizer import Optimizer

@@ -5,10 +5,12 @@ Nodes are immutable; the output schema is resolved at construction so schema
 errors surface at build time. The port has ``InMemorySource``, ``Project``,
 ``UDFProject``, ``Filter``, ``Limit``, ``Aggregate`` (global and grouped),
 ``Sort``, ``TopN``, ``Distinct``, ``Concat``, ``Intersect``/``Except``,
-``Join`` and ``AsofJoin``. Not ported yet: ``ScanSource``, ``Sample``,
-``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``, ``Pivot``,
-``Window``, ``Repartition``, ``Shard``, ``Sink``, and the cardinality
-estimates (``approx_stats``) that the optimizer's join ordering reads.
+``Join``, ``AsofJoin``, ``ScanSource`` (file scans and ``DataSource``
+plugins, with their pushdowns) and ``Sink`` (file writes). Not ported yet:
+``Sample``, ``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``,
+``Pivot``, ``Window``, ``Repartition``, ``Shard``, and the cardinality
+estimates (``approx_stats``, ``ScanSource._approx_stats`` among them) that
+the optimizer's join ordering reads (ROADMAP A.3.3).
 """
 
 from __future__ import annotations
@@ -80,6 +82,39 @@ class InMemorySource(LogicalPlan):
 
     def multiline_display(self):
         return [f"InMemorySource: {len(self.partitions)} partitions"]
+
+
+class ScanSource(LogicalPlan):
+    """A file-based scan (reference: LogicalPlan::Source + daft-scan ScanTask,
+    src/daft-scan/src/lib.rs:350-378). Carries pushdowns set by the
+    optimizer: projection, filter, limit, sharding."""
+
+    def __init__(self, scan_info, schema: Schema, pushdowns=None):
+        super().__init__([], schema)
+        self.scan_info = scan_info
+        from daft_tpu_torch.io.scan import Pushdowns
+
+        self.pushdowns = pushdowns or Pushdowns()
+
+    def with_children(self, children):
+        assert not children
+        return self
+
+    def with_pushdowns(self, pushdowns) -> "ScanSource":
+        schema = self._schema
+        if pushdowns.columns is not None:
+            schema = self._schema.select(pushdowns.columns)
+        return ScanSource(self.scan_info, schema, pushdowns)
+
+    def multiline_display(self):
+        out = [f"ScanSource: {self.scan_info.display_name()}"]
+        if self.pushdowns.columns is not None:
+            out.append(f"Projection pushdown = {self.pushdowns.columns}")
+        if self.pushdowns.filters is not None:
+            out.append(f"Filter pushdown = {self.pushdowns.filters!r}")
+        if self.pushdowns.limit is not None:
+            out.append(f"Limit pushdown = {self.pushdowns.limit}")
+        return out
 
 
 class Project(LogicalPlan):
@@ -339,3 +374,18 @@ class AsofJoin(LogicalPlan):
     def with_children(self, children):
         return AsofJoin(children[0], children[1], self.left_on, self.right_on,
                         self.left_by, self.right_by, self.direction, self.suffix)
+
+
+class Sink(LogicalPlan):
+    """Write sink (reference: ops/sink.rs + SinkInfo). Produces a small
+    result table describing written files."""
+
+    def __init__(self, input: LogicalPlan, write_info):
+        self.write_info = write_info
+        super().__init__([input], write_info.result_schema())
+
+    def with_children(self, children):
+        return Sink(children[0], self.write_info)
+
+    def multiline_display(self):
+        return [f"Sink: {self.write_info.display_name()}"]

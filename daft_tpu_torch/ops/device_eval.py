@@ -159,15 +159,15 @@ class PhaseTimer:
     def mark(self, device: torch.device) -> None:
         """An event on the calling thread's current stream at a phase
         boundary: before the copies in, before the program, before the
-        fetch, after the fetch."""
+        fetch, after the fetch (recorded before its synchronisation)."""
         if self.enabled and device.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
             ev.record(torch.cuda.current_stream(device))
             self._events().append(ev)
 
     def settle(self) -> None:
-        """After the fetch's synchronisation: fold the calling thread's
-        morsel events in."""
+        """After the fetch's synchronisation, which completed the morsel's
+        four events: fold the calling thread's morsel events in."""
         ev, self._local.events = self._events(), []
         if len(ev) == 4:
             spans = [(key, a.elapsed_time(b)) for key, a, b in
@@ -797,10 +797,12 @@ def fetch(values: Sequence[object], device: torch.device) -> List[np.ndarray]:
             host.copy_(t, non_blocking=True)
             t = host
         outs.append((t, wide, bf16))
+    # The last mark goes on the stream before the synchronisation, which
+    # then completes every event of the morsel before settle() reads them.
+    phase_timer.mark(device)
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
         _PINNED.release()
-    phase_timer.mark(device)
     phase_timer.settle()
     arrays = []
     for t, wide, bf16 in outs:

@@ -4,8 +4,9 @@ Reference: ``LocalPhysicalPlan`` (src/daft-local-plan/src/plan.rs:74-133). Each
 node maps 1:1 onto an operator of ``execution/executor.py``. The port has
 ``InMemorySource``, ``Project``, ``UDFProject``, ``Filter``, ``Limit``,
 ``Aggregate`` (global and grouped), ``TopN``, ``Sort``, ``Distinct``,
-``HashJoin``, ``AsofJoin``, ``CrossJoin`` and ``Concat``; the other nodes wait
-for their logical counterparts (see ``logical/plan.py``).
+``HashJoin``, ``AsofJoin``, ``CrossJoin``, ``Concat``, ``PhysicalScan`` and
+``Write``; the other nodes wait for their logical counterparts (see
+``logical/plan.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,15 @@ class PhysicalPlan:
 
     def __repr__(self) -> str:
         return self.repr_indent()
+
+
+class PhysicalScan(PhysicalPlan):
+    def __init__(self, scan_tasks: List, schema: Schema):
+        super().__init__([], schema)
+        self.scan_tasks = scan_tasks
+
+    def describe(self):
+        return f"PhysicalScan[{len(self.scan_tasks)} tasks]"
 
 
 class InMemorySource(PhysicalPlan):
@@ -145,3 +155,12 @@ class CrossJoin(PhysicalPlan):
 class Concat(PhysicalPlan):
     def __init__(self, children: Sequence[PhysicalPlan], schema: Schema):
         super().__init__(list(children), schema)
+
+
+class Write(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, write_info, schema: Schema):
+        super().__init__([child], schema)
+        self.write_info = write_info
+
+    def describe(self):
+        return f"Write[{self.write_info.display_name()}]"

@@ -20,6 +20,11 @@ from daft_tpu_torch.physical import plan as pp
 def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
     if isinstance(node, lp.InMemorySource):
         return pp.InMemorySource(node.partitions, node.schema)
+    if isinstance(node, lp.ScanSource):
+        from daft_tpu_torch.context import get_context
+
+        tasks = node.scan_info.to_scan_tasks(node.pushdowns, get_context().execution_config)
+        return pp.PhysicalScan(tasks, node.schema)
     if isinstance(node, lp.Project):
         return pp.Project(translate(node.children()[0]), node.exprs, node.schema)
     if isinstance(node, lp.UDFProject):
@@ -69,4 +74,6 @@ def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
         left, right = node.children()
         keys = [ColumnRef(n) for n in left.schema.column_names()]
         return translate(lp.Join(lp.Distinct(left), right, keys, keys, how))
+    if isinstance(node, lp.Sink):
+        return pp.Write(translate(node.children()[0]), node.write_info, node.schema)
     raise DaftPlanError(f"Cannot translate logical node {node.name()}")

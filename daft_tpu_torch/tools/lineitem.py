@@ -69,24 +69,35 @@ def lineitem_columns(rows: int, seed: int = 0, scale_factor: int = 10) -> dict:
             "l_linestatus": _FLAGS.take(pa.array(status, pa.int8()))}
 
 
-def q06(pkg, df):
+def q06(pkg, df, rate_dtype=None):
     """TPC-H q06 over ``df`` with ``pkg``'s expressions (``daft_tpu`` or
     ``daft_tpu_torch``): revenue = sum(l_extendedprice * l_discount) over one
-    year of ship dates, the discount band and the quantity cap."""
+    year of ship dates, the discount band and the quantity cap. The discount
+    bounds are Python floats, or literals of ``rate_dtype`` when given: the
+    device compares a Python float in the column's f32 and the host in f64,
+    so only f32-typed bounds decide the same rows on every route (ROADMAP
+    C.31)."""
     c = pkg.col
+    lo, hi = Q06_DISCOUNT_LO, Q06_DISCOUNT_HI
+    if rate_dtype is not None:
+        lo, hi = pkg.lit(lo, rate_dtype), pkg.lit(hi, rate_dtype)
     return (df.where((c("l_shipdate") >= Q06_DATE_LO) & (c("l_shipdate") < Q06_DATE_HI)
-                     & (c("l_discount") >= Q06_DISCOUNT_LO) & (c("l_discount") <= Q06_DISCOUNT_HI)
+                     & (c("l_discount") >= lo) & (c("l_discount") <= hi)
                      & (c("l_quantity") < Q06_QUANTITY))
             .agg((c("l_extendedprice") * c("l_discount")).sum().alias("revenue")))
 
 
-def q06_reference(cols: dict) -> float:
+def q06_reference(cols: dict, host_literals: bool = False) -> float:
     """q06's revenue in f64 numpy: the predicate as the device decides it
-    (the rate literals compare in f32 against the f32 column), the products
-    and the sum in f64."""
+    (the rate literals compare in f32 against the f32 column), or with
+    ``host_literals`` as the host decides Python-float bounds (in f64), the
+    products and the sum in f64."""
     d = cols["l_discount"]
+    lo, hi = (Q06_DISCOUNT_LO, Q06_DISCOUNT_HI) if host_literals else \
+        (np.float32(Q06_DISCOUNT_LO), np.float32(Q06_DISCOUNT_HI))
+    dd = d.astype(np.float64) if host_literals else d
     keep = ((cols["l_shipdate"] >= Q06_DATE_LO) & (cols["l_shipdate"] < Q06_DATE_HI)
-            & (d >= np.float32(Q06_DISCOUNT_LO)) & (d <= np.float32(Q06_DISCOUNT_HI))
+            & (dd >= lo) & (dd <= hi)
             & (cols["l_quantity"] < Q06_QUANTITY))
     return float((cols["l_extendedprice"][keep].astype(np.float64) * d[keep]).sum())
 

@@ -131,6 +131,28 @@ def test_agg_chain_empty_filter_result_is_null_sum():
                 .agg((c("x") * c("y")).sum().alias("s"), c("x").count().alias("n")))
 
     fused = q(daft_tpu_torch).to_pydict()
+    # PushDownFilter moves the filter below the table's cast projection, as
+    # in the JAX package: it runs interpreted on the f64 input and empties
+    # the chunk, whose partial then takes the host route.
+    snap = _snap()
+    assert snap["chain_morsels"] == {}
+    assert snap["host_exprs"] == {"agg_below_min_rows": 1}
+    assert fused == {"s": [None], "n": [0]} == q(daft_tpu).to_pydict()
+
+
+def test_agg_chain_empty_filter_result_is_null_sum_on_f32_columns():
+    """The filter over columns that are f32 at the source: the whole chain
+    and the partial run as one program, and the empty result is a null sum."""
+    rng = np.random.default_rng(3)
+    data = {"x": rng.uniform(0.0, 100.0, 8_192).astype(np.float32),
+            "y": rng.uniform(0.0, 1.0, 8_192).astype(np.float32)}
+
+    def q(pkg):
+        c = pkg.col
+        return (pkg.from_pydict(data).where(c("x") > 1e9)
+                .agg((c("x") * c("y")).sum().alias("s"), c("x").count().alias("n")))
+
+    fused = q(daft_tpu_torch).to_pydict()
     assert _snap()["chain_morsels"] == {"filter_project_agg": 1}
     assert fused == {"s": [None], "n": [0]} == q(daft_tpu).to_pydict()
 
@@ -191,7 +213,9 @@ def test_stage_fusion_counts_and_parity():
 
     fused = q(daft_tpu_torch).to_pydict()
     snap = _snap()
-    assert snap["stage_fusions"] == 3
+    # PushDownFilter merges the second filter, moved below the projection,
+    # into the first (as in the JAX package): three nodes, two fusions.
+    assert snap["stage_fusions"] == 2
     assert snap["host_rows"]["chain_dtype_64bit"] == n
     with _host():
         host = q(daft_tpu_torch).to_pydict()
@@ -321,6 +345,26 @@ def test_mean_takes_the_host_partials_like_the_jax_package():
     def q(pkg):
         c = pkg.col
         return _f32_table(pkg).where(c("y") < 0.5).agg(c("x").mean().alias("m"))
+
+    got = q(daft_tpu_torch).to_pydict()
+    snap = _snap()
+    # PushDownFilter moves the filter below the table's cast projection (as
+    # in the JAX package), onto the f64 input: the chain runs interpreted.
+    assert snap["chain_morsels"] == {} and "chain_dtype_64bit" in snap["host_rows"]
+    assert "agg_dtype_64bit" in snap["host_rows"]
+    np.testing.assert_allclose(got["m"], q(daft_tpu).to_pydict()["m"], rtol=1e-12)
+
+
+def test_mean_takes_the_host_partials_like_the_jax_package_on_f32_columns():
+    """The same query over columns that are f32 at the source: the filter
+    chain runs on the device as one program, the f64 partial on the host."""
+    rng = np.random.default_rng(3)
+    data = {"x": rng.uniform(0.0, 100.0, 20_000).astype(np.float32),
+            "y": rng.uniform(0.0, 1.0, 20_000).astype(np.float32)}
+
+    def q(pkg):
+        c = pkg.col
+        return pkg.from_pydict(data).where(c("y") < 0.5).agg(c("x").mean().alias("m"))
 
     got = q(daft_tpu_torch).to_pydict()
     snap = _snap()
