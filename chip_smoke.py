@@ -196,7 +196,19 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    ViT-L/14 beside the in-memory column: rows/s, the decode / rest split, 24
    flash launches per chunk, and the embeddings equal to the in-memory
    column's or, where not, cosine >= 0.99999;
-13. print the whole run's time and one JSON line of per-kernel numbers (with
+13. the expression library (``phase_expressions``): TPC-H q05, q07-q10,
+   q12-q14 and q19 in DataFrame form (``daft_tpu_torch/tools/tpch.py``; the
+   strings, ``is_in``, ``.dt.year()``, ``if_else`` over strings, the
+   two-key and left outer joins they need) over SF1's tables (generated and
+   timed), each against its numpy reference, which also warms the device
+   programs; q19 and q12 there with ``device_eval=False`` must give the
+   same rows as with it on. Then SF10's tables (generation timed, the
+   numpy references timed), each query once at 8 workers with the counts
+   set to 0 just before: wall s, rows in, the device chains' rows, host
+   rows by reason and the joins' sides and routes, keys exact and sums
+   within 1e-6 of the f64 reference, no flash launch; q14 under
+   ``torch.profiler`` for the idle share; the process's peak RSS;
+14. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -294,6 +306,14 @@ CANCEL_TIMEOUT_S = 0.5   # q01's deadline in the cancellation check
 THREAD_EXIT_S = 10.0     # how long the stage threads may take to end after it
 MC_COSINE_MIN = 0.99999  # max_concurrency=2 vs 1 embeddings, where not the same bits
 STAGE_THREAD_NAMES = ("daft-compute", "daft-feed", "daft-udf", "daft-probe-side")
+
+# Phase 13: TPC-H q05, q07-q10, q12-q14 and q19 over SF10's tables
+# (tools/tpch.py with expressions=True), warmed over SF1's.
+EXPR_SF = 10
+EXPR_CHECK_SF = 1   # the warm runs, and q19 / q12 with device_eval off
+EXPR_WORKERS = 8
+EXPR_RTOL = 1e-6    # f32 line revenues summed in f64, rounded to f32, vs an f64 reference
+EXPR_TRACED = "q14"
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -3198,6 +3218,116 @@ def phase_scan(card: str, rows: int = 0) -> dict:
     return by_path
 
 
+def phase_expressions(card: str) -> dict:
+    """Phase 13: TPC-H q05, q07-q10, q12-q14 and q19 through the port over
+    SF1's and then SF10's tables, each against its numpy reference; q19 and
+    q12 with ``device_eval`` off over SF1's; q14 traced. Returns each
+    query's flash launches (0)."""
+    import gc
+    import resource
+
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution.join_index import join_counters
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import tpch
+
+    phase_start = time.perf_counter()
+    names = list(tpch.EXPR_QUERIES)
+
+    def run(tables, name, **cfg):
+        frames = tpch.expr_frames(dt, tables, name)
+        with dt.execution_config_ctx(num_compute_threads=EXPR_WORKERS, **cfg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tpch.EXPR_QUERIES[name](dt, frames).to_pydict()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+    # SF1: every query against its reference (this warms the device programs
+    # at the morsels' padded lengths), then q19 and q12 on the host route.
+    t0 = time.perf_counter()
+    small = tpch.tpch_tables(EXPR_CHECK_SF, seed=0, expressions=True)
+    gen_s = time.perf_counter() - t0
+    walls = {}
+    for name in names:
+        out, walls[name] = run(small, name)
+        problems = tpch.expr_compare(name, out, tpch.EXPR_REFERENCES[name](small), EXPR_RTOL)
+        check(not problems, f"{name} over SF{EXPR_CHECK_SF} vs the numpy reference: {problems}")
+    print(f"[expr] SF{EXPR_CHECK_SF}'s tables generated in {gen_s:.1f} s; the nine queries "
+          f"equal their references (warm runs): " + ", ".join(
+              f"{n} {s:.3f} s" for n, s in walls.items()) + f" [{card}]", flush=True)
+    for name in ("q19", "q12"):
+        on, on_s = run(small, name)
+        off, off_s = run(small, name, device_eval=False)
+        problems = tpch.expr_compare(name, off, on, EXPR_RTOL)
+        keys = [k for k, v in on.items() if v and not isinstance(v[0], float)]
+        check(not problems and all(on[k] == off[k] for k in keys),
+              f"{name} over SF{EXPR_CHECK_SF}: device_eval off {off} vs on {on}: {problems}")
+        print(f"[expr] {name} over SF{EXPR_CHECK_SF}: device_eval on {on_s:.3f} s, off "
+              f"{off_s:.3f} s, the same rows {on if name == 'q19' else on['l_shipmode']} "
+              f"[{card}]", flush=True)
+    del small
+    gc.collect()
+
+    t0 = time.perf_counter()
+    tables = tpch.tpch_tables(EXPR_SF, seed=0, expressions=True)
+    gen_s = time.perf_counter() - t0
+    sizes = {t: len(next(iter(cols.values()))) for t, cols in tables.items()}
+    t0 = time.perf_counter()
+    refs = {name: tpch.EXPR_REFERENCES[name](tables) for name in names}
+    print(f"[expr] TPC-H SF{EXPR_SF} from seed 0 with the expression columns: "
+          + ", ".join(f"{t} {n}" for t, n in sizes.items())
+          + f" rows, generated in {gen_s:.1f} s; numpy references in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    by_path = {}
+    chain_total = 0
+    for name in names:
+        rows_in = sum(sizes[t] for t in tpch.EXPR_COLUMNS[name])
+        gc.collect()
+        de.device_eval_counters.reset()
+        join_counters.reset()
+        flash_attention.launch_count = 0
+        out, wall = run(tables, name)
+        launches = flash_attention.launch_count
+        snap, joins = de.device_eval_counters.snapshot(), join_counters.snapshot()
+        by_path[f"expr {name}"] = {"flash_attention": launches}
+        check(launches == 0, f"{name}: flash_attention launched {launches} times")
+        problems = tpch.expr_compare(name, out, refs[name], EXPR_RTOL)
+        check(not problems, f"{name} over SF{EXPR_SF} vs the numpy reference: {problems}")
+        floats = [k for k, v in out.items() if v and isinstance(v[0], float)]
+        err = max((abs(g - w) / abs(w) for k in floats for g, w in
+                   zip(out[k], refs[name][k][:len(out[k])]) if w), default=0.0)
+        chain_total += sum(snap["chain_rows"].values())
+        shown = {k: (v if len(v) <= 8 else v[:4] + ["..."]) for k, v in out.items()}
+        print(f"[expr] {name} over {rows_in} rows at {EXPR_WORKERS} workers: {wall:.3f} s = "
+              f"{rows_in / wall:.4e} rows/s; keys exact, largest relative error "
+              f"{err:.2e} against the f64 reference (tol {EXPR_RTOL}); {shown}; flash "
+              f"launches 0 [{card}]", flush=True)
+        print(f"[expr] {name} counters: chain_rows {snap['chain_rows']}, fused_rows "
+              f"{snap['fused_rows']}, host_rows {snap['host_rows']}; joins: " + "; ".join(
+                  f"{j['how']} on {j['on']}: build {j['build_rows']}, " + ", ".join(
+                      f"{route} {r['rows_in']} in / {r['rows_out']} out"
+                      for route, r in j["routes"].items()) for j in joins), flush=True)
+        if name == "q19":
+            check(not snap["chain_rows"].get("filter_project")
+                  and snap["host_rows"].get("chain_not_fusable", 0) >= sizes["lineitem"],
+                  f"q19: its filters must be refused whole and run on the host: {snap}")
+    check(chain_total > 0, "no device chain ran in the nine queries")
+    frames = tpch.expr_frames(dt, tables, EXPR_TRACED)
+    with dt.execution_config_ctx(num_compute_threads=EXPR_WORKERS):
+        trace_window(card, "expr", f"{EXPR_TRACED} over SF{EXPR_SF}'s tables",
+                     lambda: tpch.EXPR_QUERIES[EXPR_TRACED](dt, frames).to_pydict(), warm=False)
+    del tables, refs, frames
+    gc.collect()
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    print(f"[expr] the process's peak RSS so far {peak:.2f} GB; phase 13 took "
+          f"{time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
 def result_table(df):
     """``df``'s result as one Arrow table."""
     from daft_tpu_torch.micropartition import MicroPartition
@@ -3253,6 +3383,7 @@ def main() -> int:
         by_path.update(phase_relational_joins(card))
         by_path.update(phase_pipelined(card))
         by_path.update(phase_scan(card))
+        by_path.update(phase_expressions(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,7 +11,10 @@ and generation paths, and the relational device layer (``where``,
 ``with_columns``, global ``agg`` through ``ops/device_eval.py`` and
 ``ops/compiled_eval.py``), and local files through ``read_parquet`` /
 ``read_csv`` / ``read_json`` / ``read_text`` / ``read_warc`` /
-``from_glob_path`` and the ``DataFrame.write_*`` writers. ``ROADMAP.md`` lists what is still to port.
+``from_glob_path`` and the ``DataFrame.write_*`` writers, and the expression
+library (``.str``, ``.dt``, ``.binary``, ``url.parse``, ``is_in``,
+``fill_null`` and ``daft_tpu_torch.functions``) on the host. ``ROADMAP.md``
+lists what is still to port.
 """
 
 from daft_tpu_torch.context import execution_config_ctx, get_context
@@ -19,7 +22,7 @@ from daft_tpu_torch.dataframe import DataFrame
 from daft_tpu_torch.dataframe.creation import from_pydict
 from daft_tpu_torch.datatype import DataType, ImageFormat, ImageMode, TimeUnit
 from daft_tpu_torch.errors import DaftError
-from daft_tpu_torch.expressions import Expression, col, lit
+from daft_tpu_torch.expressions import Expression, col, interval, lit
 from daft_tpu_torch.io.config import IOConfig
 from daft_tpu_torch.io.iostats import chunked_upload, io_stats, read_range, reset_io_stats
 from daft_tpu_torch.io.reads import (
@@ -60,6 +63,7 @@ __all__ = [
     "from_glob_path",
     "from_pydict",
     "get_context",
+    "interval",
     "io_stats",
     "lit",
     "read_csv",

@@ -5,15 +5,18 @@ This slice keeps the knobs the embedding path, the relational layer (the
 device layer and the grouped aggregation's cardinality switch), the stage
 pool, UDF batching, query deadlines, the scan's task sizing and the
 writers' target file sizes read. ``execution_config_ctx``
-changes them for a block of code. Not ported yet: the planning config, the
-runner choice (the port runs the local executor only), tenants, subscribers
-and the per-query clock.
+changes them for a block of code. The per-query clock (``query_now``) freezes
+CURRENT_DATE / CURRENT_TIMESTAMP once per statement. Not ported yet: the
+planning config, the runner choice (the port runs the local executor only),
+tenants and subscribers.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
+import datetime
 from dataclasses import dataclass
 from typing import Iterator, Optional, Tuple
 
@@ -91,3 +94,47 @@ def execution_config_ctx(**kwargs) -> Iterator[None]:
         yield
     finally:
         ctx.execution_config = old
+
+
+# -- per-query clock --------------------------------------------------------
+# CURRENT_DATE / CURRENT_TIMESTAMP are one value per statement, not one per
+# morsel: the DataFrame freezes the clock around the executor's stream, and
+# the now() / today() kernels read it through query_now(). Outside a query (a
+# bare Series evaluation) the wall clock is read directly. Stage threads see
+# the frozen value: the pipeline hands each task a copy of the caller's
+# contextvars.
+_query_clock: contextvars.ContextVar[Optional[datetime.datetime]] = \
+    contextvars.ContextVar("daft_torch_query_clock", default=None)
+
+
+def query_now() -> datetime.datetime:
+    frozen = _query_clock.get()
+    return frozen if frozen is not None else datetime.datetime.now(datetime.timezone.utc)
+
+
+def iter_with_frozen_clock(gen):
+    """Drain ``gen`` with the query clock frozen during each resumption only,
+    so two lazy queries interleaved on one thread cannot reset each other's
+    clock: the clock is set right before each ``next()`` and reset before
+    control returns to the caller."""
+    now = datetime.datetime.now(datetime.timezone.utc)
+    while True:
+        token = _query_clock.set(now)
+        try:
+            try:
+                item = next(gen)
+            finally:
+                _query_clock.reset(token)
+        except StopIteration:
+            return
+        yield item
+
+
+@contextlib.contextmanager
+def frozen_clock_scope(at: Optional[datetime.datetime] = None):
+    """Freeze the query clock for a synchronous block."""
+    token = _query_clock.set(at or datetime.datetime.now(datetime.timezone.utc))
+    try:
+        yield
+    finally:
+        _query_clock.reset(token)

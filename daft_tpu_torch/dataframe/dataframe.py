@@ -14,7 +14,7 @@ has ``select``, ``with_column``/``with_columns``, ``where``/``filter``,
 ``iter_partitions`` (under ``query_timeout_s``) run under the query's cancel
 token, whose id is ``df.query_id`` while it runs
 (``cancellation.cancel_query``). ``intersect_all`` and ``except_all`` build
-their plans and raise when run (they need ``Window``, ROADMAP A.3). Not
+their plans and raise when run (they need ``Window``, ROADMAP A.3.5). Not
 ported yet: the runner layer (native/distributed runners, admission, plan
 caches, query log, profiling), SQL predicates, ``union_all`` and the
 ``*_by_name`` unions,
@@ -36,7 +36,7 @@ from daft_tpu_torch.cancellation import (
     register_query_token,
     unregister_query_token,
 )
-from daft_tpu_torch.context import get_context
+from daft_tpu_torch.context import get_context, iter_with_frozen_clock
 from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
 from daft_tpu_torch.expressions.expression import Expression, col
 from daft_tpu_torch.logical.builder import LogicalPlanBuilder
@@ -221,7 +221,9 @@ class DataFrame:
         try:
             plan = translate(self._builder.optimize().plan)
             run = Executor(cfg, cancel_token=token).run(plan)
-            yield from iter_with_cancel_scope(run, token)
+            # CURRENT_TIMESTAMP is one instant per statement, frozen per
+            # resumption as the cancel token is.
+            yield from iter_with_cancel_scope(iter_with_frozen_clock(run), token)
         finally:
             if run is not None:
                 run.close()  # a failure or an abandoned iteration stops the pool now

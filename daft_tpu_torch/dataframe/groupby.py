@@ -4,7 +4,7 @@ daft/dataframe — GroupedDataFrame API).
 ``agg`` and the shorthands ``sum``, ``mean``, ``min``, ``max``, ``count``,
 ``stddev`` and ``any_value`` build a grouped ``Aggregate``. ``agg_list``,
 ``agg_concat`` and ``map_groups`` need list partials and the ``.list``
-namespace: they raise ``DaftNotImplementedError`` naming ROADMAP A.3.
+namespace: they raise ``DaftNotImplementedError`` naming ROADMAP A.3.5.
 """
 
 from __future__ import annotations
@@ -59,17 +59,17 @@ class GroupedDataFrame:
 
     def agg_list(self, *cols):
         raise DaftNotImplementedError(
-            "agg_list is not ported to daft_tpu_torch: ROADMAP A.3 (list partials, with the "
+            "agg_list is not ported to daft_tpu_torch: ROADMAP A.3.5 (list partials, with the "
             ".list namespace)")
 
     def agg_concat(self, *cols):
         raise DaftNotImplementedError(
-            "agg_concat is not ported to daft_tpu_torch: ROADMAP A.3 (list partials, with the "
+            "agg_concat is not ported to daft_tpu_torch: ROADMAP A.3.5 (list partials, with the "
             ".list namespace)")
 
     def map_groups(self, udf_expr):
         raise DaftNotImplementedError(
-            "map_groups is not ported to daft_tpu_torch: ROADMAP A.3 (it aggregates each "
+            "map_groups is not ported to daft_tpu_torch: ROADMAP A.3.5 (it aggregates each "
             "group's values as a list and explodes the UDF's lists)")
 
 

@@ -25,7 +25,7 @@ consumers see the serial sequence; unordered stages (``ordered=False``) yield
 in completion order and serve order-insensitive sinks only.
 
 Not ported yet: the per-stage byte account of the memory observatory
-(``_StageAccount`` and the ``ledger=`` hook, ROADMAP A.3) and the ``timer=``
+(``_StageAccount`` and the ``ledger=`` hook, ROADMAP A.3.4) and the ``timer=``
 profiling hook (A.9.5).
 """
 

@@ -1,3 +1,3 @@
-from daft_tpu_torch.expressions.expression import Expression, col, lit
+from daft_tpu_torch.expressions.expression import Expression, col, interval, lit
 
-__all__ = ["Expression", "col", "lit"]
+__all__ = ["Expression", "col", "interval", "lit"]

@@ -23,6 +23,7 @@ from daft_tpu_torch.expressions.expr import (
     Expr,
     FunctionCall,
     IfElse,
+    IsIn,
     Literal,
     UdfCall,
     UnaryOp,
@@ -44,6 +45,7 @@ _BINARY_DISPATCH = {
     "le": lambda a, b: a.le(b),
     "gt": lambda a, b: a.gt(b),
     "ge": lambda a, b: a.ge(b),
+    "eq_null_safe": lambda a, b: a.eq_null_safe(b),
     "and": lambda a, b: a.and_(b),
     "or": lambda a, b: a.or_(b),
     "xor": lambda a, b: a.xor_(b),
@@ -69,9 +71,23 @@ def evaluate(expr: Expr, rb) -> Series:
     if isinstance(expr, Cast):
         return evaluate(expr.child, rb).cast(expr.dtype)
     if isinstance(expr, BinaryOp):
-        return _BINARY_DISPATCH[expr.op](evaluate(expr.left, rb), evaluate(expr.right, rb))
+        a, b = evaluate(expr.left, rb), evaluate(expr.right, rb)
+        if expr.op in ("lshift", "rshift"):
+            av, am = a.to_numpy_masked()
+            bv, bm = b.to_numpy_masked()
+            out = (av << bv) if expr.op == "lshift" else (av >> bv)
+            mask = am if bm is None else (bm if am is None else am | bm)
+            return Series.from_numpy(out, a.name, a.dtype)._with_mask(mask)
+        return _BINARY_DISPATCH[expr.op](a, b)
     if isinstance(expr, UnaryOp):
         return _UNARY_DISPATCH[expr.op](evaluate(expr.child, rb))
+    if isinstance(expr, IsIn):
+        items = expr.items
+        if isinstance(items, Literal) and isinstance(items.value, (list, tuple)):
+            vals = Series.from_pylist(list(items.value), "items")
+        else:
+            vals = evaluate(items, rb)
+        return evaluate(expr.child, rb).is_in(vals)
     if isinstance(expr, IfElse):
         pred = evaluate(expr.pred, rb)
         return pred.if_else(evaluate(expr.if_true, rb), evaluate(expr.if_false, rb))

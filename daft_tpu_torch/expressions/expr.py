@@ -5,12 +5,12 @@ src/daft-dsl/src/expr/mod.rs:222-306) as a small class hierarchy. Nodes are
 immutable and structurally hashable; ``to_field`` binds a node to a schema
 (src/daft-dsl/src/expr/bound_expr.rs).
 
-The port has the nodes of the embedding path and of the relational device
-layer: ``ColumnRef``, ``Literal``, ``Alias``, ``Cast``, ``BinaryOp``,
-``UnaryOp``, ``IfElse``, ``FunctionCall`` (the kernel registry), ``AggOp`` (the
-global aggregations sum, mean, min, max and count) and ``UdfCall``. Not ported
-yet: ``IsIn``, ``WindowExpr``, the subquery nodes, the shift operators and the
-other aggregations.
+The port has the nodes of the embedding path, of the relational device
+layer and of the expression library: ``ColumnRef``, ``Literal``, ``Alias``,
+``Cast``, ``BinaryOp`` (with ``eq_null_safe`` and the shifts), ``UnaryOp``,
+``IsIn``, ``IfElse``, ``FunctionCall`` (the kernel registry), ``AggOp`` and
+``UdfCall``. Not ported yet: ``WindowExpr`` (ROADMAP A.3.5) and the subquery
+nodes (A.3.3).
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from daft_tpu_torch.datatype import DataType, TimeUnit, TypeId, unify_dtypes
 from daft_tpu_torch.errors import DaftNotImplementedError, DaftTypeError, DaftValueError
 from daft_tpu_torch.schema import Field, Schema
 
-COMPARISON_OPS = {"eq", "ne", "lt", "le", "gt", "ge"}
-ARITHMETIC_OPS = {"add", "sub", "mul", "truediv", "floordiv", "mod", "pow"}
+COMPARISON_OPS = {"eq", "ne", "lt", "le", "gt", "ge", "eq_null_safe"}
+ARITHMETIC_OPS = {"add", "sub", "mul", "truediv", "floordiv", "mod", "pow", "lshift", "rshift"}
 LOGICAL_OPS = {"and", "or", "xor"}
 
 
@@ -313,6 +313,26 @@ class IfElse(Expr):
         return f"if_else({self.pred!r}, {self.if_true!r}, {self.if_false!r})"
 
 
+class IsIn(Expr):
+    __slots__ = ("child", "items")
+
+    def __init__(self, child: Expr, items: Expr):
+        self.child = child
+        self.items = items
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self.child, self.items)
+
+    def with_children(self, children: Sequence[Expr]) -> "IsIn":
+        return IsIn(children[0], children[1])
+
+    def to_field(self, schema: Schema) -> Field:
+        return self.child.to_field(schema).with_dtype(DataType.bool())
+
+    def __repr__(self) -> str:
+        return f"{self.child!r}.is_in({self.items!r})"
+
+
 class FunctionCall(Expr):
     """A named scalar function from the kernel registry (``kernels/registry.py``).
 
@@ -360,14 +380,14 @@ class AggOp(Expr):
 
     OPS = {"sum", "mean", "min", "max", "count", "product", "any_value", "bool_and",
            "bool_or", "stddev", "variance"}
-    _LIST = "ROADMAP A.3 (list partials, with the .list namespace)"
+    _LIST = "ROADMAP A.3.5 (list partials, with the .list namespace)"
     LEFT_OUT = {
         "median": _LIST, "string_agg": _LIST, "list": _LIST, "concat": _LIST,
         "count_distinct": _LIST, "approx_count_distinct": _LIST,
-        "approx_percentile": "ROADMAP A.3 (sketch partials, with the .list namespace)",
-        "dd_sketch": "ROADMAP A.3 (sketch partials, with the .list namespace)",
-        "dd_merge": "ROADMAP A.3 (sketch partials, with the .list namespace)",
-        "skew": "ROADMAP A.3 (its pow_3_2 final, with the list aggregations)",
+        "approx_percentile": "ROADMAP A.3.5 (sketch partials, with the .list namespace)",
+        "dd_sketch": "ROADMAP A.3.5 (sketch partials, with the .list namespace)",
+        "dd_merge": "ROADMAP A.3.5 (sketch partials, with the .list namespace)",
+        "skew": "ROADMAP A.3.5 (its pow_3_2 final, with the list aggregations)",
         "udaf": "ROADMAP A.2 (udaf)", "udaf_partial": "ROADMAP A.2 (udaf)",
         "udaf_merge": "ROADMAP A.2 (udaf)",
     }

@@ -5,7 +5,7 @@ Reference: daft/functions/{file_.py,image_file_.py}. The File constructors
 verify format by magic-byte sniffing (``kernels/file_ops.py``). They take no
 ``io_config``: ``File`` reads local paths and ``file://`` URLs only (remote
 schemes are ROADMAP A.8). The video, audio, HDF5 and ``run_process``
-functions of the JAX module are ROADMAP A.3.
+functions of the JAX module are ROADMAP A.3.5.
 """
 
 from __future__ import annotations

@@ -5,9 +5,11 @@ keyed by name (src/daft-dsl/src/functions/scalar.rs). Each kernel bundles a
 host implementation over Series with a field resolver; kernels the device can
 run also carry a torch lowering (``torch_fn``) that the relational device layer
 calls on device tensors. The registry holds the kernels of ``numeric.py``,
-``float_ops.py``, ``embedding_ops.py``, ``extended_ops.py``, ``image_ops.py`` and
-``file_ops.py``; every other name of the JAX package's registry is not ported
-yet and raises ``DaftNotImplementedError`` when a plan resolves it.
+``float_ops.py``, ``embedding_ops.py``, ``extended_ops.py``, ``string_ops.py``,
+``temporal_ops.py``, ``binary_ops.py``, ``uri_ops.py``, ``misc_ops.py``,
+``image_ops.py`` and ``file_ops.py``. A name of the JAX package's registry
+that the port leaves out is in ``LEFT_OUT`` with the ROADMAP item that ports
+it, and ``get_kernel`` raises ``DaftNotImplementedError`` naming that item.
 """
 
 from __future__ import annotations
@@ -64,10 +66,39 @@ def register_kernel(name: str, resolver, torch_fn=None, torch_same_rules=False):
     return deco
 
 
+_LIST = "ROADMAP A.3.5 (the .list, .struct and .map namespaces)"
+_SKETCH = "ROADMAP A.3.5 (the aggregations with list or sketch partials)"
+_MEDIA = "ROADMAP A.3.5 (the rest of functions/media.py)"
+_UDAF = "ROADMAP A.2 (udaf)"
+_REMOTE = "ROADMAP A.8 (remote IO)"
+
+#: Every kernel of the JAX package's registry that the port does not hold,
+#: with the ROADMAP item that brings it.
+LEFT_OUT: Dict[str, str] = {
+    **{n: _LIST for n in (
+        "list_length", "list_count", "list_get", "list_slice", "list_chunk", "list_join",
+        "list_sum", "list_mean", "list_min", "list_max", "list_sort", "list_distinct",
+        "list_contains", "list_value_counts", "list_flatten", "list_bool_and",
+        "list_bool_or", "list_append", "list_map", "list_filter", "list_compact",
+        "list_seq", "list_pack", "struct_get", "map_get", "map_keys", "map_values",
+        "pack_struct", "unnest", "explode")},
+    **{n: _SKETCH for n in ("list_count_distinct", "list_quantile", "dd_quantile", "pow_3_2")},
+    **{n: _MEDIA for n in ("audio_metadata", "audio_resample", "video_metadata")},
+    "udaf_apply": _UDAF,
+    "udaf_finalize": _UDAF,
+    "monotonically_increasing_id": "ROADMAP A.3.5 (the MonotonicallyIncreasingId operator)",
+    "url_download": _REMOTE,
+    "url_upload": _REMOTE,
+}
+
+
 def get_kernel(name: str) -> Kernel:
     _ensure_loaded()
     k = _REGISTRY.get(name)
     if k is None:
+        if name in LEFT_OUT:
+            raise DaftNotImplementedError(
+                f"function {name!r} is not ported to daft_tpu_torch: {LEFT_OUT[name]}")
         raise DaftNotImplementedError(f"function {name!r} is not ported to daft_tpu_torch")
     return k
 
@@ -75,6 +106,11 @@ def get_kernel(name: str) -> Kernel:
 def has_kernel(name: str) -> bool:
     _ensure_loaded()
     return name in _REGISTRY
+
+
+def all_kernels() -> Dict[str, Kernel]:
+    _ensure_loaded()
+    return dict(_REGISTRY)
 
 
 _loaded = False
@@ -91,12 +127,17 @@ def _ensure_loaded() -> None:
         # Imported for their registrations; _loaded flips only after the
         # imports complete.
         from daft_tpu_torch.kernels import (  # noqa: F401
+            binary_ops,
             embedding_ops,
             extended_ops,
             file_ops,
             float_ops,
             image_ops,
+            misc_ops,
             numeric,
+            string_ops,
+            temporal_ops,
+            uri_ops,
         )
 
         _loaded = True

@@ -5,7 +5,7 @@ Thin, immutable builder over LogicalPlan nodes; the DataFrame API wraps this.
 Not ported yet: the unnest/explode markers and window hoisting in ``project``,
 and every builder step whose plan node is not ported (see ``logical/plan.py``).
 ``intersect`` / ``except_`` build their ``ALL`` form, which translation
-refuses until ``Window`` is ported (ROADMAP A.3).
+refuses until ``Window`` is ported (ROADMAP A.3.5).
 """
 
 from __future__ import annotations

@@ -70,7 +70,7 @@ def translate(node: lp.LogicalPlan) -> pp.PhysicalPlan:
         if node.is_all:
             raise DaftNotImplementedError(
                 f"{node.name().upper()} ALL tags each row with its occurrence number through "
-                f"a row_number Window, which the port has not yet (ROADMAP A.3)")
+                f"a row_number Window, which the port has not yet (ROADMAP A.3.5)")
         left, right = node.children()
         keys = [ColumnRef(n) for n in left.schema.column_names()]
         return translate(lp.Join(lp.Distinct(left), right, keys, keys, how))
