@@ -207,8 +207,23 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    set to 0 just before: wall s, rows in, the device chains' rows, host
    rows by reason and the joins' sides and routes, keys exact and sums
    within 1e-6 of the f64 reference, no flash launch; q14 under
-   ``torch.profiler`` for the idle share; the process's peak RSS;
-14. print the whole run's time and one JSON line of per-kernel numbers (with
+   ``torch.profiler`` for the idle share; the process's peak RSS. The
+   tables are SF1's for both parts (phase 14 runs the nine at SF10);
+14. TPC-H q01-q22 in SQL (``phase_sql``) through ``daft_tpu_torch.sql``
+   (``daft_tpu_torch/tools/tpch_sql.py``: the spec's validation parameters)
+   over one seeded database with every column the 22 read, the dates as
+   ``date32``: first SF1's (each query against its numpy reference, which
+   warms the device programs), then SF10's (generation and references
+   timed), each of the 21 once at 8 workers with the counts set to 0 just
+   before: wall s, the plan's parse and ``Optimizer.optimize`` s apart from
+   it, the join order ``ReorderJoins`` chose (q05, q08, q09), rows per route
+   and per join, keys exact and floats within 1e-6 of the reference (q06's
+   predicate as the route that ran it decides, printed), no flash launch;
+   q16 must raise naming ROADMAP A.3.5; the DataFrame forms of q03-q05,
+   q07-q10, q12-q14 and q19 over the same tables (timed, their join order
+   before and after the optimizer) equal to the SQL forms; q18 under
+   ``torch.profiler``; the process's peak RSS;
+15. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -309,11 +324,19 @@ STAGE_THREAD_NAMES = ("daft-compute", "daft-feed", "daft-udf", "daft-probe-side"
 
 # Phase 13: TPC-H q05, q07-q10, q12-q14 and q19 over SF10's tables
 # (tools/tpch.py with expressions=True), warmed over SF1's.
-EXPR_SF = 10
+EXPR_SF = 1         # cut from 10: phase 14 runs the nine at SF10, beside their SQL forms
 EXPR_CHECK_SF = 1   # the warm runs, and q19 / q12 with device_eval off
 EXPR_WORKERS = 8
 EXPR_RTOL = 1e-6    # f32 line revenues summed in f64, rounded to f32, vs an f64 reference
 EXPR_TRACED = "q14"
+# Phase 14: TPC-H q01-q22 in SQL.
+SQL_SF = 10
+SQL_CHECK_SF = 1    # the warm runs, each query against its reference
+SQL_WORKERS = 8
+SQL_RTOL = 1e-6
+SQL_TRACED = "q18"
+SQL_JOIN_ORDERS = ("q05", "q08", "q09")
+SQL_FRAME_FORMS = ("q03", "q04", "q05", "q07", "q08", "q09", "q10", "q12", "q13", "q14", "q19")
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -3328,6 +3351,181 @@ def phase_expressions(card: str) -> dict:
     return by_path
 
 
+_TABLE_OF_PREFIX = {"l_": "lineitem", "o_": "orders", "c_": "customer", "ps": "partsupp",
+                    "p_": "part", "s_": "supplier", "n_": "nation", "r_": "region"}
+
+
+def join_order(plan) -> str:
+    """The join tree of a logical plan as text: ``(probe ⋈ build)`` per inner
+    join, other kinds by their type, a relation by its table."""
+    from daft_tpu_torch.logical import plan as lp
+
+    if isinstance(plan, lp.Join):
+        left, right = (join_order(c) for c in plan.children())
+        mark = "⋈" if plan.how == "inner" else f"⋈[{plan.how}]"
+        return f"({left} {mark} {right})"
+    kids = plan.children()
+    if isinstance(plan, lp.Aggregate):
+        return f"agg({join_order(kids[0])})"
+    if not kids:
+        first = plan.schema.column_names()[0]
+        return next((t for pre, t in _TABLE_OF_PREFIX.items() if first.startswith(pre)), first)
+    return join_order(kids[0]) if len(kids) == 1 else \
+        f"{plan.name()}({', '.join(join_order(k) for k in kids)})"
+
+
+def phase_sql(card: str) -> dict:
+    """Phase 14: TPC-H q01-q22 in SQL over SF1's and then SF10's seeded
+    tables, each of the 21 against its numpy reference, q16 raising, the
+    DataFrame forms against the SQL forms, q18 traced. Returns each query's
+    flash launches (0)."""
+    import gc
+    import resource
+
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.errors import DaftNotImplementedError
+    from daft_tpu_torch.execution.join_index import join_counters
+    from daft_tpu_torch.logical.optimizer import Optimizer
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import tpch, tpch_sql
+
+    phase_start = time.perf_counter()
+    names = list(tpch_sql.RUNNABLE)
+
+    def run_sql(frames, name, sf):
+        """(rows, wall s, plan s, optimize s, the optimized plan)."""
+        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            df = dt.sql(tpch_sql.sql_text(name, sf), **frames)
+            t1 = time.perf_counter()
+            plan = Optimizer().optimize(df._builder.plan)
+            t2 = time.perf_counter()
+            out = df.to_pydict()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        return out, t3 - t0, t1 - t0, t2 - t1, plan
+
+    def host_literals(tables) -> bool:
+        # A Python-float bound decides rows as the route that ran the
+        # filter does (C.31): a device filter chain compares in f32.
+        return tpch.filter_on_host(de.device_eval_counters.snapshot()["chain_rows"],
+                                   len(tables["lineitem"]["l_orderkey"]))
+
+    # SF1: each query against its reference (warms the device programs).
+    t0 = time.perf_counter()
+    small = tpch.tpch_tables(SQL_CHECK_SF, seed=0, sql=True)
+    frames = tpch.sql_frames(dt, small)
+    gen_s = time.perf_counter() - t0
+    walls = {}
+    for name in names:
+        de.device_eval_counters.reset()
+        out, walls[name], _, _, _ = run_sql(frames, name, SQL_CHECK_SF)
+        ref = tpch.SQL_REFERENCES[name](small, SQL_CHECK_SF, host_literals(small))
+        problems = tpch.sql_compare(name, out, ref, SQL_RTOL)
+        check(not problems, f"{name} over SF{SQL_CHECK_SF} vs the numpy reference: {problems}")
+    print(f"[sql] SF{SQL_CHECK_SF}'s tables generated in {gen_s:.1f} s; the 21 queries equal "
+          f"their references (warm runs): " + ", ".join(f"{n} {s:.3f} s" for n, s in walls.items())
+          + f" [{card}]", flush=True)
+    try:
+        dt.sql(tpch_sql.sql_text("q16", SQL_CHECK_SF), **frames)
+        check(False, "q16's count(DISTINCT ...) must raise DaftNotImplementedError")
+    except DaftNotImplementedError as e:
+        check("A.3.5" in str(e), f"q16 must name ROADMAP A.3.5: {e}")
+        print(f"[sql] q16 raises DaftNotImplementedError: {e} [{card}]", flush=True)
+    del small, frames
+    gc.collect()
+
+    t0 = time.perf_counter()
+    tables = tpch.tpch_tables(SQL_SF, seed=0, sql=True)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = tpch.sql_frames(dt, tables)
+    frames_s = time.perf_counter() - t0
+    sizes = {t: len(next(iter(cols.values()))) for t, cols in tables.items()}
+    print(f"[sql] TPC-H SF{SQL_SF} from seed 0 with every column q01-q22 read: "
+          + ", ".join(f"{t} {n}" for t, n in sizes.items())
+          + f" rows, generated in {gen_s:.1f} s, date32 frames in {frames_s:.1f} s "
+          f"[{card}]", flush=True)
+    by_path, outs, device_rows = {}, {}, {}
+    chain_total, ref_s = 0, 0.0
+    for name in names:
+        gc.collect()
+        de.device_eval_counters.reset()
+        join_counters.reset()
+        flash_attention.launch_count = 0
+        out, wall, plan_s, opt_s, plan = run_sql(frames, name, SQL_SF)
+        launches = flash_attention.launch_count
+        snap, joins = de.device_eval_counters.snapshot(), join_counters.snapshot()
+        by_path[f"sql {name}"] = {"flash_attention": launches}
+        check(launches == 0, f"{name}: flash_attention launched {launches} times")
+        host = host_literals(tables)
+        t0 = time.perf_counter()
+        ref = tpch.SQL_REFERENCES[name](tables, SQL_SF, host)
+        ref_s += time.perf_counter() - t0
+        problems = tpch.sql_compare(name, out, ref, SQL_RTOL)
+        check(not problems, f"{name} over SF{SQL_SF} vs the numpy reference: {problems}")
+        check(all(len(v) for v in out.values()), f"{name} over SF{SQL_SF}: an empty result")
+        outs[name] = out
+        chain_total += sum(snap["chain_rows"].values())
+        device_rows[name] = snap["fused_rows"] + sum(snap["chain_rows"].values())
+        rows = len(next(iter(out.values())))
+        shown = {k: (v if len(v) <= 4 else v[:3] + ["..."]) for k, v in out.items()}
+        semantics = ("host (f64)" if host else "device (f32)") if name == "q06" else "n/a"
+        print(f"[sql] {name} at {SQL_WORKERS} workers: {wall:.3f} s wall, of it the plan "
+              f"{plan_s:.3f} s and Optimizer.optimize {opt_s:.3f} s timed alone (run again "
+              f"inside the wall); {rows} rows equal to the reference (tol {SQL_RTOL}; literal "
+              f"semantics {semantics}); {shown}; flash launches 0 [{card}]", flush=True)
+        print(f"[sql] {name} counters: chain_rows {snap['chain_rows']}, fused_rows "
+              f"{snap['fused_rows']}, host_rows {snap['host_rows']}; joins: " + "; ".join(
+                  f"{j['how']} on {j['on']}: build {j['build_rows']}, " + ", ".join(
+                      f"{route} {r['rows_in']} in / {r['rows_out']} out"
+                      for route, r in j["routes"].items()) for j in joins), flush=True)
+        if name in SQL_JOIN_ORDERS:
+            print(f"[sql] {name} join order (ReorderJoins): {join_order(plan)} [{card}]",
+                  flush=True)
+    check(chain_total > 0, "no device chain ran in the 21 queries")
+    print(f"[sql] the 21 numpy references took {ref_s:.1f} s [{card}]", flush=True)
+    for name in SQL_FRAME_FORMS:
+        gc.collect()
+        join_counters.reset()
+        df = tpch.frame_query(dt, tables, name)
+        written = join_order(df._builder.plan)
+        chosen = join_order(Optimizer().optimize(df._builder.plan))
+        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = df.to_pydict()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        problems = tpch.frame_compare(name, outs[name], frame, SQL_RTOL)
+        check(not problems, f"{name}: the SQL form vs the DataFrame form: {problems}")
+        builds = [j["build_rows"] for j in join_counters.snapshot()]
+        print(f"[sql] {name} DataFrame form: {wall:.3f} s at {SQL_WORKERS} workers, equal to "
+              f"the SQL form; build rows {builds}; join order as written {written}, after "
+              f"the optimizer {chosen}{'' if chosen == written else ' (reordered)'} [{card}]",
+              flush=True)
+    with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+        text = tpch_sql.sql_text(SQL_TRACED, SQL_SF)
+        traced = trace_window(card, "sql", f"{SQL_TRACED} over SF{SQL_SF}'s tables",
+                              lambda: dt.sql(text, **frames).to_pydict(), warm=False)
+    if traced is None and not device_rows[SQL_TRACED]:
+        # The counters saw no row on the device and the profiler no device
+        # event: every microsecond of the window was idle.
+        print(f"[sql] {SQL_TRACED}'s idle share 1.0000: no device work in the window (the "
+              f"profiler recorded no device event; the counters no device row) [{card}]",
+              flush=True)
+    del tables, frames, outs
+    gc.collect()
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    print(f"[sql] the process's peak RSS so far {peak:.2f} GB; phase 14 took "
+          f"{time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
 def result_table(df):
     """``df``'s result as one Arrow table."""
     from daft_tpu_torch.micropartition import MicroPartition
@@ -3384,6 +3582,7 @@ def main() -> int:
         by_path.update(phase_pipelined(card))
         by_path.update(phase_scan(card))
         by_path.update(phase_expressions(card))
+        by_path.update(phase_sql(card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

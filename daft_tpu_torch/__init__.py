@@ -13,7 +13,8 @@ and generation paths, and the relational device layer (``where``,
 ``read_csv`` / ``read_json`` / ``read_text`` / ``read_warc`` /
 ``from_glob_path`` and the ``DataFrame.write_*`` writers, and the expression
 library (``.str``, ``.dt``, ``.binary``, ``url.parse``, ``is_in``,
-``fill_null`` and ``daft_tpu_torch.functions``) on the host. ``ROADMAP.md``
+``fill_null`` and ``daft_tpu_torch.functions``) on the host, and SQL
+(``sql``, ``sql_expr``) through the optimizer's full rule set. ``ROADMAP.md``
 lists what is still to port.
 """
 
@@ -39,6 +40,7 @@ from daft_tpu_torch.micropartition import MicroPartition
 from daft_tpu_torch.recordbatch import RecordBatch
 from daft_tpu_torch.schema import Field, Schema
 from daft_tpu_torch.series import Series
+from daft_tpu_torch.sql import sql, sql_expr
 
 __all__ = [
     "DataFrame",
@@ -74,4 +76,6 @@ __all__ = [
     "read_text",
     "read_warc",
     "reset_io_stats",
+    "sql",
+    "sql_expr",
 ]

@@ -3,9 +3,9 @@
 Reference: daft/dataframe/dataframe.py. A DataFrame wraps an immutable
 LogicalPlanBuilder; transformations return new DataFrames; materialisation
 optimizes the plan, translates it and runs it on the local executor. The port
-has ``select``, ``with_column``/``with_columns``, ``where``/``filter``,
-``limit``, the global ``agg`` and ``sum``/``mean``/``min``/``max``/``count``,
-``groupby`` (``dataframe/groupby.py``), ``sort``, ``distinct`` (``unique``,
+has ``select``, ``with_column``/``with_columns``, ``with_columns_renamed``,
+``exclude``, ``where``/``filter``, ``limit``, ``offset``, the global ``agg``
+and ``sum``/``mean``/``min``/``max``/``count``, ``groupby`` (``dataframe/groupby.py``), ``sort``, ``distinct`` (``unique``,
 ``drop_duplicates``), ``join``, ``join_asof``, ``cross_join``, ``concat``
 (``union``), ``intersect``, ``except_distinct``, ``collect``,
 ``iter_partitions``, ``to_pydict``, the file writers (``write_parquet``,
@@ -16,8 +16,7 @@ token, whose id is ``df.query_id`` while it runs
 (``cancellation.cancel_query``). ``intersect_all`` and ``except_all`` build
 their plans and raise when run (they need ``Window``, ROADMAP A.3.5). Not
 ported yet: the runner layer (native/distributed runners, admission, plan
-caches, query log, profiling), SQL predicates, ``union_all`` and the
-``*_by_name`` unions,
+caches, query log, profiling), ``union_all`` and the ``*_by_name`` unions,
 ``explode``/``unpivot``/``pivot``/``sample``, the table-format and
 database writers (A.8), the writers' ``checkpoint=`` (A.2) and their
 invalidation of cached reads (the plan cache, A.8), the preview and notebook
@@ -38,6 +37,7 @@ from daft_tpu_torch.cancellation import (
 )
 from daft_tpu_torch.context import get_context, iter_with_frozen_clock
 from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.expressions.expr import ColumnRef
 from daft_tpu_torch.expressions.expression import Expression, col
 from daft_tpu_torch.logical.builder import LogicalPlanBuilder
 from daft_tpu_torch.micropartition import MicroPartition
@@ -99,6 +99,14 @@ class DataFrame:
         exprs = [_to_expr(e).alias(n)._expr for n, e in columns.items()]
         return DataFrame(self._builder.with_columns(exprs))
 
+    def with_columns_renamed(self, mapping: Dict[str, str]) -> "DataFrame":
+        exprs = [col(f.name).alias(mapping[f.name])._expr if f.name in mapping
+                 else ColumnRef(f.name) for f in self.schema]
+        return DataFrame(self._builder.project(exprs))
+
+    def exclude(self, *names: str) -> "DataFrame":
+        return DataFrame(self._builder.exclude(list(names)))
+
     def where(self, predicate: Expression) -> "DataFrame":
         return DataFrame(self._builder.filter(predicate._expr))
 
@@ -106,6 +114,9 @@ class DataFrame:
 
     def limit(self, n: int, offset: int = 0) -> "DataFrame":
         return DataFrame(self._builder.limit(n, offset))
+
+    def offset(self, n: int) -> "DataFrame":
+        return DataFrame(self._builder.limit(1 << 62, n))
 
     def sort(self, by: Union[ColumnInput, List[ColumnInput]], desc: Union[bool, List[bool]] = False,
              nulls_first: Optional[Union[bool, List[bool]]] = None) -> "DataFrame":

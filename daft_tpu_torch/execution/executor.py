@@ -78,8 +78,19 @@ profiling spans and the ``timer=`` hook (A.9.5), replica slots for
 ``chips_per_replica`` (A.10), the feedback plane with its join bucket counts
 (A.8), the scan-output cache tier in front of the scan
 (``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8), runtime
-stats, shared-subtree caching, and the other operators (window, repartition,
-shuffle reads, ...).
+stats, and the other operators (window, repartition, shuffle reads, ...).
+
+Plans are DAGs: a decorrelated subquery references one subtree from several
+parents. A node that more than one parent references
+(``physical/plan.shared_subtree_ids``) runs ONCE per query: the first puller
+materialises its output under a per-node fill event while any other puller
+(the join's prefetch thread among them) waits for it, a failed fill clears
+its slot so the next puller fills again, and the Project/Filter chains and
+the global aggregation's chain absorption stop at it. ``shared_fills``
+counts the fills per node id and ``shared_hits`` the pulls served from the
+cache. The JAX package charges the cached morsels to its memory permits;
+the port has no permits yet, so that waits for A.3.4 (see
+``_shared_subtree``).
 """
 
 from __future__ import annotations
@@ -91,7 +102,7 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -152,6 +163,10 @@ class Executor:
         self._state_lock = threading.Lock()
         self._compute_pool: Optional[ThreadPoolExecutor] = None
         self._live_iters: List = []
+        self._shared_ids: set = set()
+        self._shared_cache: dict = {}
+        self.shared_fills: Dict[int, int] = {}
+        self.shared_hits: Dict[int, int] = {}
 
     def _pool(self) -> Optional[ThreadPoolExecutor]:
         """The executor-wide compute pool, shared by every stage so stacked
@@ -167,10 +182,16 @@ class Executor:
             return self._compute_pool
 
     def run(self, plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
+        self._shared_ids = pp.shared_subtree_ids(plan)
+        with self._state_lock:
+            self._shared_cache = {}
+            self.shared_fills, self.shared_hits = {}, {}
         try:
             yield from self._run(plan)
         finally:
             self._shutdown()
+            with self._state_lock:
+                self._shared_cache = {}
 
     def _shutdown(self) -> None:
         """On every exit of ``run``: stop the pool (a later submit raises,
@@ -197,6 +218,47 @@ class Executor:
             time.sleep(0.005)
 
     def _run(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
+        if id(node) in self._shared_ids:
+            return iter(self._shared_subtree(node))
+        return self._run_uncached(node)
+
+    def _shared_subtree(self, node: pp.PhysicalPlan) -> List[MicroPartition]:
+        """Materialise a shared subtree exactly once, even when a join's
+        prefetch thread races the main pull chain for it. Coordination is a
+        per-node fill event; the lock is held only for bookkeeping, never
+        across the fill, so a fill that reaches another shared node cannot
+        deadlock (fills follow the acyclic plan DAG)."""
+        key = id(node)
+        while True:
+            with self._state_lock:
+                entry = self._shared_cache.get(key)
+                if entry is None:
+                    evt = threading.Event()
+                    self._shared_cache[key] = ("filling", evt)
+                    self.shared_fills[key] = self.shared_fills.get(key, 0) + 1
+                    break
+                if entry[0] == "done":
+                    self.shared_hits[key] = self.shared_hits.get(key, 0) + 1
+                    return entry[1]
+                waiting = entry[1]
+            waiting.wait()
+            # Loop: a failed filler clears the slot, and the next puller
+            # fills instead of waiting on a stale marker.
+        try:
+            # The JAX package charges these morsels to its memory permits
+            # (released at query end); the port has no permits yet (A.3.4).
+            cached = list(self._run_uncached(node))
+        except BaseException:
+            with self._state_lock:
+                self._shared_cache.pop(key, None)
+            evt.set()
+            raise
+        with self._state_lock:
+            self._shared_cache[key] = ("done", cached)
+        evt.set()
+        return cached
+
+    def _run_uncached(self, node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         handler = getattr(self, f"_run_{type(node).__name__}", None)
         if handler is None:
             raise DaftPlanError(f"No executor for physical node {node.name()}")
@@ -304,14 +366,16 @@ class Executor:
             return lambda mp: mp.filter(nd.predicate)
         return lambda mp: mp.eval_expression_list(nd.exprs)
 
-    @staticmethod
-    def _collect_stage_chain(head) -> List[pp.PhysicalPlan]:
+    def _collect_stage_chain(self, head) -> List[pp.PhysicalPlan]:
         """The maximal Project/Filter chain rooted at ``head``, top-first: a
-        pure function of the plan."""
+        pure function of the plan. It stops at a shared subtree, whose output
+        materialises once at that boundary for every parent."""
         nodes = [head]
-        while isinstance(nodes[-1].children[0], (pp.Project, pp.Filter)):
-            nodes.append(nodes[-1].children[0])
-        return nodes
+        while True:
+            child = nodes[-1].children[0]
+            if not isinstance(child, (pp.Project, pp.Filter)) or id(child) in self._shared_ids:
+                return nodes
+            nodes.append(child)
 
     @staticmethod
     def _chain_steps(nodes) -> List[tuple]:
@@ -432,7 +496,7 @@ class Executor:
         cur = node.children[0]
         if not plan.group_by:
             reason = None
-            while isinstance(cur, (pp.Project, pp.Filter)):
+            while isinstance(cur, (pp.Project, pp.Filter)) and id(cur) not in self._shared_ids:
                 chain_nodes.append(cur)
                 cur = cur.children[0]
             steps = self._chain_steps(chain_nodes)

@@ -9,8 +9,9 @@ The port has the nodes of the embedding path, of the relational device
 layer and of the expression library: ``ColumnRef``, ``Literal``, ``Alias``,
 ``Cast``, ``BinaryOp`` (with ``eq_null_safe`` and the shifts), ``UnaryOp``,
 ``IsIn``, ``IfElse``, ``FunctionCall`` (the kernel registry), ``AggOp`` and
-``UdfCall``. Not ported yet: ``WindowExpr`` (ROADMAP A.3.5) and the subquery
-nodes (A.3.3).
+``UdfCall``, and the subquery nodes ``Subquery``, ``InSubquery`` and
+``Exists``, which the optimizer's ``UnnestSubqueries`` rewrites into joins
+before execution. Not ported yet: ``WindowExpr`` (ROADMAP A.3.5).
 """
 
 from __future__ import annotations
@@ -91,6 +92,9 @@ class Expr:
 
     def has_udf(self) -> bool:
         return any(isinstance(e, UdfCall) for e in self.walk())
+
+    def has_subquery(self) -> bool:
+        return any(isinstance(e, (Subquery, InSubquery, Exists)) for e in self.walk())
 
     def has_column_ref(self) -> bool:
         return any(isinstance(e, ColumnRef) for e in self.walk())
@@ -282,6 +286,106 @@ class UnaryOp(Expr):
 
     def __repr__(self) -> str:
         return f"{self.op}({self.child!r})"
+
+
+class Subquery(Expr):
+    """Scalar subquery (reference: ``Expr::Subquery``,
+    src/daft-dsl/src/expr/mod.rs:222-306 and rules/unnest_subquery.rs).
+
+    Carries the subquery's child plan, the value expression evaluated over it
+    (may contain aggregations), and correlated equality pairs
+    ``(outer_expr, inner_expr)``. Never evaluated directly — the optimizer's
+    UnnestSubqueries rule rewrites it into a join before execution.
+    """
+
+    __slots__ = ("plan", "value", "corr")
+
+    def __init__(self, plan, value: Expr, corr: Sequence[Tuple[Expr, Expr]] = ()):
+        self.plan = plan
+        self.value = value
+        self.corr = tuple(corr)
+
+    def name(self) -> str:
+        return self.value.name()
+
+    def to_field(self, schema: Schema) -> Field:
+        inner = self.value.to_field(self.plan.schema)
+        return Field(inner.name, inner.dtype)
+
+    def _attrs_key(self) -> tuple:
+        return (id(self.plan), self.value.key(),
+                tuple((o.key(), i.key()) for o, i in self.corr))
+
+    def __repr__(self) -> str:
+        return f"subquery({self.value!r})"
+
+
+class InSubquery(Expr):
+    """``expr IN (subquery)`` (reference: ``Expr::InSubquery``).
+
+    ``extra`` holds non-equi correlated predicates; within them, inner-plan
+    columns are referenced as ``__in_<name>`` and outer columns naturally
+    (contract shared with the optimizer's UnnestSubqueries rule).
+    """
+
+    __slots__ = ("child", "plan", "value", "corr", "negated", "extra")
+
+    def __init__(self, child: Expr, plan, value: Expr,
+                 corr: Sequence[Tuple[Expr, Expr]] = (), negated: bool = False,
+                 extra: Sequence[Expr] = ()):
+        self.child = child
+        self.plan = plan
+        self.value = value
+        self.corr = tuple(corr)
+        self.negated = negated
+        self.extra = tuple(extra)
+
+    def children(self) -> Tuple[Expr, ...]:
+        return (self.child,)
+
+    def with_children(self, children: Sequence[Expr]) -> "InSubquery":
+        return InSubquery(children[0], self.plan, self.value, self.corr,
+                          self.negated, self.extra)
+
+    def to_field(self, schema: Schema) -> Field:
+        return self.child.to_field(schema).with_dtype(DataType.bool())
+
+    def _attrs_key(self) -> tuple:
+        return (id(self.plan), self.value.key(), self.negated,
+                tuple((o.key(), i.key()) for o, i in self.corr),
+                tuple(e.key() for e in self.extra))
+
+    def __repr__(self) -> str:
+        neg = "not " if self.negated else ""
+        return f"{self.child!r} {neg}in subquery({self.value!r})"
+
+
+class Exists(Expr):
+    """``EXISTS (subquery)`` (reference: ``Expr::Exists``). See InSubquery
+    for the ``extra`` contract."""
+
+    __slots__ = ("plan", "corr", "negated", "extra")
+
+    def __init__(self, plan, corr: Sequence[Tuple[Expr, Expr]] = (),
+                 negated: bool = False, extra: Sequence[Expr] = ()):
+        self.plan = plan
+        self.corr = tuple(corr)
+        self.negated = negated
+        self.extra = tuple(extra)
+
+    def name(self) -> str:
+        return "exists"
+
+    def to_field(self, schema: Schema) -> Field:
+        return Field("exists", DataType.bool())
+
+    def _attrs_key(self) -> tuple:
+        return (id(self.plan), self.negated,
+                tuple((o.key(), i.key()) for o, i in self.corr),
+                tuple(e.key() for e in self.extra))
+
+    def __repr__(self) -> str:
+        return f"{'not ' if self.negated else ''}exists(...)"
 
 
 class IfElse(Expr):

@@ -9,8 +9,8 @@ long-tail functions, the aggregations and the ``.str`` / ``.dt`` /
 the namespaced methods. Each lowers onto the port's Expr IR
 (``expressions/expr.py``) and the kernel registry (``kernels/registry.py``).
 Left out, each raising ``DaftNotImplementedError`` with its ROADMAP item: the
-``.list`` / ``.struct`` / ``.map`` namespaces and windows (A.3.5), ``apply``
-(A.2), an ``is_in`` subquery (A.3.3); the aggregations with list or sketch
+``.list`` / ``.struct`` / ``.map`` namespaces and windows (A.3.5) and ``apply``
+(A.2); the aggregations with list or sketch
 partials raise through ``AggOp.LEFT_OUT`` and the kernels the port leaves
 out through ``registry.LEFT_OUT``.
 """
@@ -214,7 +214,17 @@ class Expression:
         from daft_tpu_torch.dataframe.dataframe import DataFrame
 
         if isinstance(items, DataFrame):
-            _left_out("is_in over a DataFrame (an IN subquery)", "ROADMAP A.3.3 (subqueries)")
+            # Uncorrelated IN-subquery over a one-column DataFrame; the
+            # optimizer unnests it into a semi join (reference:
+            # Expr::InSubquery + rules/unnest_subquery.rs).
+            from daft_tpu_torch.expressions.expr import InSubquery
+
+            plan = items._builder.plan
+            names = plan.schema.column_names()
+            if len(names) != 1:
+                raise DaftValueError(
+                    f"is_in subquery must have exactly one column, got {names}")
+            return Expression(InSubquery(self._expr, plan, ColumnRef(names[0])))
         if isinstance(items, Expression):
             rhs = items._expr
         else:

@@ -8,9 +8,9 @@ projection/filter/limit/shard pruning into readers.
 
 The port lists and reads local paths and ``file://`` URLs through
 ``pyarrow.fs.LocalFileSystem``; every other scheme raises, as the object-store
-and HTTP clients are ROADMAP A.8. Not ported yet: ``ScanInfo.
-estimate_rows_bytes``, which feeds the cardinality estimates of
-``EnrichWithStats`` / ``ReorderJoins`` (A.3.3).
+and HTTP clients are ROADMAP A.8. ``ScanInfo.estimate_rows_bytes`` feeds the
+cardinality estimates that ``ReorderJoins`` reads; ``EnrichWithStats`` sets
+each parquet file's ``num_rows`` and the scan's per-column footer stats.
 """
 
 from __future__ import annotations
@@ -169,6 +169,13 @@ class ScanInfo:
 
     def display_name(self) -> str:
         return f"{self.file_format}({self.paths[0]}{'...' if len(self.paths) > 1 else ''})"
+
+    def estimate_rows_bytes(self) -> Tuple[float, float]:
+        files = self.files()
+        size = float(sum(f.size_bytes or 0 for f in files))
+        row_size = self.schema.estimate_row_size_bytes()
+        inflation = 3.0 if self.file_format == "parquet" else 1.0
+        return (size * inflation / max(row_size, 1.0), size * inflation)
 
     def to_scan_tasks(self, pushdowns: Pushdowns, cfg) -> List[ScanTask]:
         """Prune files by partition value, then pack them into scan tasks

@@ -48,6 +48,10 @@ class LogicalPlanBuilder:
         keep = [ColumnRef(f.name) for f in self.schema if f.name not in new_names]
         return self.project(keep + list(exprs))
 
+    def exclude(self, names: Sequence[str]) -> "LogicalPlanBuilder":
+        drop = set(names)
+        return self.project([ColumnRef(f.name) for f in self.schema if f.name not in drop])
+
     def filter(self, predicate: Expr) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.Filter(self._plan, predicate))
 
@@ -91,6 +95,16 @@ class LogicalPlanBuilder:
 
     def table_write(self, write_info) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.Sink(self._plan, write_info))
+
+    def explain_string(self, show_all: bool = False) -> str:
+        out = ["== Unoptimized Logical Plan ==", repr(self._plan)]
+        if show_all:
+            from daft_tpu_torch.physical.translate import translate
+
+            optimized = self.optimize()._plan
+            out += ["", "== Optimized Logical Plan ==", repr(optimized),
+                    "", "== Physical Plan ==", repr(translate(optimized))]
+        return "\n".join(out)
 
     def optimize(self) -> "LogicalPlanBuilder":
         from daft_tpu_torch.logical.optimizer import Optimizer

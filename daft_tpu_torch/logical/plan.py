@@ -8,9 +8,10 @@ errors surface at build time. The port has ``InMemorySource``, ``Project``,
 ``Join``, ``AsofJoin``, ``ScanSource`` (file scans and ``DataSource``
 plugins, with their pushdowns) and ``Sink`` (file writes). Not ported yet:
 ``Sample``, ``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``,
-``Pivot``, ``Window``, ``Repartition``, ``Shard``, and the cardinality
-estimates (``approx_stats``, ``ScanSource._approx_stats`` among them) that
-the optimizer's join ordering reads (ROADMAP A.3.3).
+``Pivot``, ``Window``, ``Repartition`` and ``Shard`` (ROADMAP A.3.5 / A.8).
+Every node has ``approx_stats``, the cardinality estimate that the
+optimizer's join ordering reads; the feedback plane's observed
+cardinalities, which override it in the JAX package, are not ported (A.8).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from daft_tpu_torch.errors import (
 from daft_tpu_torch.expressions.evaluator import resolve_schema
 from daft_tpu_torch.expressions.expr import ColumnRef, Expr, UdfCall
 from daft_tpu_torch.schema import Field, Schema
+from daft_tpu_torch.stats import ApproxStats
 
 
 class LogicalPlan:
@@ -51,6 +53,16 @@ class LogicalPlan:
 
     def multiline_display(self) -> List[str]:
         return [self.name()]
+
+    def approx_stats(self) -> ApproxStats:
+        """Cardinality estimate used by join ordering (reference:
+        src/daft-logical-plan/src/stats.rs)."""
+        return self._approx_stats()
+
+    def _approx_stats(self) -> ApproxStats:
+        if self._children:
+            return self._children[0].approx_stats()
+        return ApproxStats()
 
     def repr_indent(self, level: int = 0) -> str:
         pad = "  " * level
@@ -82,6 +94,11 @@ class InMemorySource(LogicalPlan):
 
     def multiline_display(self):
         return [f"InMemorySource: {len(self.partitions)} partitions"]
+
+    def _approx_stats(self) -> ApproxStats:
+        rows = sum(len(p) for p in self.partitions)
+        size = sum(p.size_bytes() for p in self.partitions)
+        return ApproxStats(rows, size)
 
 
 class ScanSource(LogicalPlan):
@@ -115,6 +132,16 @@ class ScanSource(LogicalPlan):
         if self.pushdowns.limit is not None:
             out.append(f"Limit pushdown = {self.pushdowns.limit}")
         return out
+
+    def _approx_stats(self) -> ApproxStats:
+        stats = ApproxStats(*self.scan_info.estimate_rows_bytes())
+        if self.pushdowns.limit is not None and stats.num_rows > self.pushdowns.limit:
+            stats = stats.scaled(self.pushdowns.limit / max(stats.num_rows, 1))
+        if self.pushdowns.filters is not None:
+            from daft_tpu_torch.stats import estimate_selectivity
+
+            stats = stats.scaled(estimate_selectivity(self.pushdowns.filters))
+        return stats
 
 
 class Project(LogicalPlan):
@@ -165,6 +192,12 @@ class Limit(LogicalPlan):
     def multiline_display(self):
         return [f"Limit: {self.limit}" + (f" offset {self.offset}" if self.offset else "")]
 
+    def _approx_stats(self) -> ApproxStats:
+        s = self._children[0].approx_stats()
+        if s.num_rows > self.limit:
+            return s.scaled(self.limit / max(s.num_rows, 1))
+        return s
+
 
 class Filter(LogicalPlan):
     def __init__(self, input: LogicalPlan, predicate: Expr):
@@ -179,6 +212,11 @@ class Filter(LogicalPlan):
 
     def multiline_display(self):
         return [f"Filter: {self.predicate!r}"]
+
+    def _approx_stats(self) -> ApproxStats:
+        from daft_tpu_torch.stats import estimate_selectivity
+
+        return self._children[0].approx_stats().scaled(estimate_selectivity(self.predicate))
 
 
 class Aggregate(LogicalPlan):
@@ -201,6 +239,12 @@ class Aggregate(LogicalPlan):
     def multiline_display(self):
         return [f"Aggregate: {[e.name() for e in self.agg_exprs]} "
                 f"groupby={[g.name() for g in self.group_by]}"]
+
+    def _approx_stats(self) -> ApproxStats:
+        s = self._children[0].approx_stats()
+        if not self.group_by:
+            return ApproxStats(1, 1024)
+        return s.scaled(0.1)
 
 
 class Sort(LogicalPlan):
@@ -259,6 +303,10 @@ class Concat(LogicalPlan):
 
     def with_children(self, children):
         return Concat(children)
+
+    def _approx_stats(self) -> ApproxStats:
+        stats = [c.approx_stats() for c in self._children]
+        return ApproxStats(sum(s.num_rows for s in stats), sum(s.size_bytes for s in stats))
 
 
 class Intersect(LogicalPlan):
@@ -339,6 +387,11 @@ class Join(LogicalPlan):
 
     def multiline_display(self):
         return [f"Join[{self.how}]: on {[e.name() for e in self.left_on]}"]
+
+    def _approx_stats(self) -> ApproxStats:
+        l = self._children[0].approx_stats()
+        r = self._children[1].approx_stats()
+        return ApproxStats(max(l.num_rows, r.num_rows), l.size_bytes + r.size_bytes)
 
 
 class AsofJoin(LogicalPlan):

@@ -164,3 +164,18 @@ class Write(PhysicalPlan):
 
     def describe(self):
         return f"Write[{self.write_info.display_name()}]"
+
+
+def shared_subtree_ids(plan: "PhysicalPlan") -> set:
+    """ids of DAG nodes referenced by more than one parent (decorrelated
+    subqueries share subtrees); the executor runs these exactly once."""
+    counts: dict = {}
+
+    def count(n):
+        counts[id(n)] = counts.get(id(n), 0) + 1
+        if counts[id(n)] == 1:
+            for c in n.children:
+                count(c)
+
+    count(plan)
+    return {i for i, c in counts.items() if c > 1}

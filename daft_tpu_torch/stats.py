@@ -4,8 +4,8 @@ Reference: src/daft-stats/src/lib.rs — ``ColumnRangeStatistics`` /
 ``TableStatistics`` / ``TableMetadata`` drive row-group pruning, broadcast-join
 decisions and optimizer cost estimates.
 
-Port of ``daft_tpu/stats.py``; ``estimate_selectivity`` (the optimizer's
-filter estimate) is not ported yet.
+Port of ``daft_tpu/stats.py``; ``estimate_selectivity`` is the filter
+estimate behind the plan nodes' ``approx_stats``.
 """
 
 from __future__ import annotations
@@ -102,4 +102,40 @@ class ApproxStats:
 #: arrived".
 UNKNOWN_SELECTIVITY = 0.25
 SELECTIVITY_FLOOR = 0.01
+
+
+def estimate_selectivity(expr) -> float:
+    """Shape-based predicate selectivity estimate (reference:
+    src/daft-logical-plan/src/stats.rs selectivity heuristics).
+
+    eq -> 0.1, ranges -> 0.3, AND multiplies, OR saturating-adds,
+    NOT complements, is_null -> 0.05, anything else ->
+    UNKNOWN_SELECTIVITY. The result is clamped to
+    [SELECTIVITY_FLOOR, 1.0].
+    """
+    return min(max(_estimate_selectivity(expr), SELECTIVITY_FLOOR), 1.0)
+
+
+def _estimate_selectivity(expr) -> float:
+    from daft_tpu_torch.expressions.expr import BinaryOp, UnaryOp
+
+    if isinstance(expr, BinaryOp):
+        if expr.op == "and":
+            return _estimate_selectivity(expr.left) * _estimate_selectivity(expr.right)
+        if expr.op == "or":
+            return min(_estimate_selectivity(expr.left) + _estimate_selectivity(expr.right), 1.0)
+        if expr.op == "eq":
+            return 0.1
+        if expr.op in ("lt", "le", "gt", "ge"):
+            return 0.3
+        if expr.op == "ne":
+            return 0.9
+    if isinstance(expr, UnaryOp):
+        if expr.op == "not":
+            return max(1.0 - _estimate_selectivity(expr.child), 0.05)
+        if expr.op == "is_null":
+            return 0.05
+        if expr.op == "not_null":
+            return 0.95
+    return UNKNOWN_SELECTIVITY
 

@@ -67,12 +67,14 @@ Q04_COLUMNS = {"orders": ("o_orderkey", "o_orderdate", "o_orderpriority"),
                "lineitem": ("l_orderkey", "l_commitdate", "l_receiptdate")}
 
 
-def tpch_tables(scale_factor: float = 10, seed: int = 0, expressions: bool = False) -> dict:
+def tpch_tables(scale_factor: float = 10, seed: int = 0, expressions: bool = False,
+                sql: bool = False) -> dict:
     """``{"customer": {...}, "orders": {...}, "lineitem": {...}}``: each a
     dict of columns (numpy arrays, Arrow arrays for the strings) at
     ``scale_factor``, drawn from ``seed``. With ``expressions``, also the
     tables and columns of q05-q19 (``part``, ``supplier``, ``partsupp``,
-    ``nation``, ``region`` and the columns the module docstring lists)."""
+    ``nation``, ``region`` and the columns the module docstring lists); with
+    ``sql``, those and the rest of what q01-q22 read (``add_sql_columns``)."""
     rng = np.random.default_rng(seed)
     n_cust = int(round(scale_factor * 150_000))
     n_orders = int(round(scale_factor * 1_500_000))
@@ -99,6 +101,7 @@ def tpch_tables(scale_factor: float = 10, seed: int = 0, expressions: bool = Fal
     quantity = rng.integers(1, 51, n_lines, dtype=np.int32)
     partkey = rng.integers(1, int(scale_factor * 200_000) + 1, n_lines, dtype=np.int64)
     retail_cents = 90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1_000)
+    expressions = expressions or sql
     l_partkey = partkey.astype(np.int32) if expressions else None
     del partkey
     price = (quantity * retail_cents / 100.0).astype(np.float32)
@@ -111,6 +114,8 @@ def tpch_tables(scale_factor: float = 10, seed: int = 0, expressions: bool = Fal
     if expressions:
         lineitem["l_partkey"] = l_partkey
         _add_expression_tables(tables, scale_factor, seed)
+    if sql:
+        add_sql_columns(tables, scale_factor, seed)
     return tables
 
 
@@ -876,3 +881,442 @@ def expr_compare(name: str, out: dict, ref: dict, rtol: float) -> List[str]:
         elif list(got) != list(want):
             problems.append(f"{name}.{col}: {list(got)[:8]} vs {list(want)[:8]}")
     return problems
+
+
+# --------------------------------------------------------------------------- #
+# The rest of what q01-q22 read, and the tables in SQL form                    #
+# --------------------------------------------------------------------------- #
+#: The date columns, int32 days since EPOCH in the tables, ``date32`` in SQL.
+DATE_COLUMNS = {"orders": ("o_orderdate",),
+                "lineitem": ("l_shipdate", "l_commitdate", "l_receiptdate")}
+MANUFACTURERS = tuple(f"Manufacturer#{m}" for m in range(1, 6))
+LINESTATUS = ("F", "O")
+ORDERSTATUS = ("F", "O", "P")
+#: TPC-H 4.2.2.7's v-string alphabet (letters, digits, space, comma, period).
+_VCHARS = np.frombuffer(b"0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ ,.",
+                        np.uint8)
+
+
+def _vstring(rng, n: int, lo: int, hi: int) -> pa.Array:
+    """``n`` random strings of ``lo``..``hi`` characters of the v-string
+    alphabet, built from two buffers (no Python string per row)."""
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(rng.integers(lo, hi + 1, n), out=offsets[1:])
+    data = _VCHARS[rng.integers(0, len(_VCHARS), int(offsets[-1]))]
+    return pa.LargeStringArray.from_buffers(n, pa.py_buffer(offsets), pa.py_buffer(data))
+
+
+def _digits(values: np.ndarray, width: int = 0) -> pa.Array:
+    out = pc.cast(pa.array(values), pa.large_string())
+    return pc.utf8_lpad(out, width, "0") if width else out
+
+
+def _joined(parts, sep: str = "") -> pa.Array:
+    return pc.binary_join_element_wise(*parts, pa.scalar(sep, pa.large_string()))
+
+
+def _phones(rng, nationkey: np.ndarray) -> pa.Array:
+    """The spec's phone: country code (nation key + 10), then 3, 3 and 4
+    random digits, joined by dashes."""
+    n = len(nationkey)
+    return _joined([_digits(nationkey.astype(np.int32) + 10)]
+                   + [_digits(rng.integers(lo, hi + 1, n, dtype=np.int32))
+                      for lo, hi in ((100, 999), (100, 999), (1000, 9999))], "-")
+
+
+def _names(prefix: str, keys: np.ndarray) -> pa.Array:
+    """``prefix`` and the key padded to nine digits (``Customer#000000001``)."""
+    return _joined([pa.scalar(prefix, pa.large_string()), _digits(keys, 9)])
+
+
+def _money(rng, n: int) -> np.ndarray:
+    """An account balance, -999.99..9999.99 in cents, as float32."""
+    return (rng.integers(-99_999, 1_000_000, n) / 100.0).astype(np.float32)
+
+
+def _supplier_comments(rng, n: int, scale_factor: float) -> pa.Array:
+    """Seven-word sentences, where SF * 5 random rows hold ``Customer ...
+    Complaints`` and another SF * 5 ``Customer ... Recommends`` (clause
+    4.2.3's S_COMMENT), each inside the sentence's words."""
+    comments = _sentence(rng, n)
+    k = min(max(1, int(round(scale_factor * 5))), n // 2)
+    rows = rng.choice(n, 2 * k, replace=False)
+    words = rng.integers(0, len(_NOUNS), 2 * k)
+    text = comments.take(pa.array(rows)).to_pylist()
+    for i, (row_text, w) in enumerate(zip(text, words)):
+        head = row_text.split(" ", 3)  # seven words: three before the phrase
+        tag = "Complaints" if i < k else "Recommends"
+        text[i] = f"{' '.join(head[:3])} Customer {_NOUNS[w]} {tag} {head[3]}"
+    mask = np.zeros(n, bool)
+    mask[rows] = True
+    order = np.argsort(rows)
+    return pc.replace_with_mask(comments, pa.array(mask),
+                                pa.array([text[i] for i in order], pa.large_string()))
+
+
+def add_sql_columns(tables: dict, scale_factor: float, seed: int) -> None:
+    """Add to ``tpch_tables(..., expressions=True)``'s tables the columns
+    that the rest of q01-q22 read, by clause 4.2.3, each from a generator of
+    its own (``(seed, 8)`` on), so the columns above stay byte-identical:
+    ``l_tax`` (0.00..0.08), ``l_linestatus`` (``O`` when shipped after
+    CURRENTDATE, else ``F``); ``o_orderstatus`` (``F`` when all its lines are
+    ``F``, ``O`` when all are ``O``, else ``P``) and ``o_totalprice`` (the sum
+    of its lines' price * (1 + tax) * (1 - discount)); ``c_name``,
+    ``c_address``, ``c_phone``, ``c_acctbal``, ``c_comment``; ``p_mfgr`` (the
+    brand's manufacturer); ``s_name``, ``s_address``, ``s_phone``,
+    ``s_acctbal``, ``s_comment`` (with the Complaints and Recommends rows);
+    ``ps_availqty`` (1..9999)."""
+    def gen(k):
+        return np.random.default_rng((seed, k))
+
+    li, o, cu = tables["lineitem"], tables["orders"], tables["customer"]
+    p, su, ps = tables["part"], tables["supplier"], tables["partsupp"]
+    n = len(li["l_orderkey"])
+    li["l_tax"] = (gen(8).integers(0, 9, n) / 100.0).astype(np.float32)
+    shipped = li["l_shipdate"] <= CURRENT_DAY
+    li["l_linestatus"] = _take(LINESTATUS, (~shipped).astype(np.int8))
+    key = li["l_orderkey"]
+    starts = np.flatnonzero(np.concatenate(([True], key[1:] != key[:-1])))
+    assert len(starts) == len(o["o_orderkey"]), "every order has its lines, in key order"
+    lines = np.diff(np.append(starts, n))
+    n_shipped = np.add.reduceat(shipped.astype(np.int32), starts)
+    o["o_orderstatus"] = _take(ORDERSTATUS, np.where(
+        n_shipped == lines, 0, np.where(n_shipped == 0, 1, 2)).astype(np.int8))
+    del shipped, n_shipped, lines
+    charge = (li["l_extendedprice"].astype(np.float64) * (1.0 + li["l_tax"].astype(np.float64))
+              * (1.0 - li["l_discount"].astype(np.float64)))
+    o["o_totalprice"] = np.add.reduceat(charge, starts).astype(np.float32)
+    del charge, starts
+    n_cust = len(cu["c_custkey"])
+    cu["c_name"] = _names("Customer#", cu["c_custkey"])
+    cu["c_address"] = _vstring(gen(9), n_cust, 10, 40)
+    cu["c_phone"] = _phones(gen(10), cu["c_nationkey"])
+    cu["c_acctbal"] = _money(gen(11), n_cust)
+    cu["c_comment"] = _sentence(gen(12), n_cust)
+    p["p_mfgr"] = _take(MANUFACTURERS, _codes(p["p_brand"], _dict(BRANDS)) // 5)
+    n_supp = len(su["s_suppkey"])
+    su["s_name"] = _names("Supplier#", su["s_suppkey"])
+    su["s_address"] = _vstring(gen(13), n_supp, 10, 40)
+    su["s_phone"] = _phones(gen(14), su["s_nationkey"])
+    su["s_acctbal"] = _money(gen(15), n_supp)
+    su["s_comment"] = _supplier_comments(gen(16), n_supp, scale_factor)
+    ps["ps_availqty"] = gen(17).integers(1, 10_000, len(ps["ps_partkey"]), dtype=np.int32)
+
+
+def date32(days: np.ndarray) -> pa.Array:
+    """int32 days since EPOCH as an Arrow ``date32`` (days since
+    1970-01-01): the day plus ``DAYS_TO_EPOCH``, viewed as a date."""
+    shifted = days.astype(np.int32) + np.int32(DAYS_TO_EPOCH)
+    return pa.Array.from_buffers(pa.date32(), len(shifted), [None, pa.py_buffer(shifted)])
+
+
+def sql_frames(pkg, tables: dict) -> dict:
+    """Every table as a ``pkg`` DataFrame for the SQL queries, each date
+    column a ``date32``."""
+    out = {}
+    for name, cols in tables.items():
+        dates = DATE_COLUMNS.get(name, ())
+        out[name] = pkg.from_pydict({c: date32(v) if c in dates else v for c, v in cols.items()})
+    return out
+
+
+# -- the SQL queries' references ---------------------------------------------
+# The rest of the validation parameters (clause 2.4) the SQL text carries.
+Q02_SIZE, Q02_TYPE, Q02_REGION = 15, "BRASS", "EUROPE"
+Q11_NATION = "GERMANY"
+Q15_DATE = _day(1996, 1, 1)
+Q17_BRAND, Q17_CONTAINER = "Brand#23", "MED BOX"
+Q18_QUANTITY = 300
+Q20_COLOR, Q20_NATION, Q20_DATE = "forest", "CANADA", _day(1994, 1, 1)
+Q21_NATION = "SAUDI ARABIA"
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def _nation(name: str) -> int:
+    return next(i for i, (n, _) in enumerate(NATIONS) if n == name)
+
+
+def _pylist(arr, rows) -> list:
+    return arr.take(pa.array(np.asarray(rows, np.int64))).to_pylist()
+
+
+def _order_runs(li) -> np.ndarray:
+    """The first line of each order (the lines are grouped by order)."""
+    key = li["l_orderkey"]
+    return np.flatnonzero(np.concatenate(([True], key[1:] != key[:-1])))
+
+
+def q01_sql_reference(t: dict) -> dict:
+    from daft_tpu_torch.tools.lineitem import q01_reference
+
+    return q01_reference(t["lineitem"])
+
+
+def q02_reference(t: dict) -> dict:
+    p, ps, su = t["part"], t["partsupp"], t["supplier"]
+    part_ok = _by_key(p["p_partkey"], (p["p_size"] == Q02_SIZE)
+                      & _np(pc.ends_with(p["p_type"], Q02_TYPE)), False)
+    region = REGIONS.index(Q02_REGION)
+    nat_region = np.array([r for _, r in NATIONS])
+    supp_row = _by_key(su["s_suppkey"], np.arange(len(su["s_suppkey"])), -1)
+    srow = supp_row[ps["ps_suppkey"]]
+    in_region = nat_region[su["s_nationkey"][srow]] == region
+    best = np.full(int(p["p_partkey"].max(initial=0)) + 1, np.inf, np.float32)
+    np.minimum.at(best, ps["ps_partkey"][in_region], ps["ps_supplycost"][in_region])
+    rows = np.flatnonzero(in_region & part_ok[ps["ps_partkey"]]
+                          & (ps["ps_supplycost"] == best[ps["ps_partkey"]]))
+    s = srow[rows]
+    cols = {"s_acctbal": [float(v) for v in su["s_acctbal"][s]],
+            "s_name": _pylist(su["s_name"], s),
+            "n_name": [NATIONS[k][0] for k in su["s_nationkey"][s]],
+            "p_partkey": [int(k) for k in ps["ps_partkey"][rows]],
+            "p_mfgr": _pylist(p["p_mfgr"], _by_key(p["p_partkey"], np.arange(len(p["p_partkey"])),
+                                                    -1)[ps["ps_partkey"][rows]]),
+            "s_address": _pylist(su["s_address"], s), "s_phone": _pylist(su["s_phone"], s),
+            "s_comment": _pylist(su["s_comment"], s)}
+    order = sorted(range(len(rows)), key=lambda i: (-cols["s_acctbal"][i], cols["n_name"][i],
+                                                   cols["s_name"][i], cols["p_partkey"][i]))[:100]
+    return {k: [v[i] for i in order] for k, v in cols.items()}
+
+
+def q06_sql_reference(t: dict, host_literals: bool = False) -> dict:
+    from daft_tpu_torch.tools.lineitem import q06_reference
+
+    return {"revenue": [q06_reference(t["lineitem"], host_literals)]}
+
+
+def q10_sql_reference(t: dict) -> dict:
+    """q10's reference with the customer's columns that the SQL form returns."""
+    ref = q10_reference(t)
+    cu = t["customer"]
+    row = _by_key(cu["c_custkey"], np.arange(len(cu["c_custkey"])), -1)[
+        np.asarray(ref["c_custkey"], np.int64)]
+    return {"c_custkey": ref["c_custkey"], "c_name": _pylist(cu["c_name"], row),
+            "revenue": ref["revenue"], "c_acctbal": [float(v) for v in cu["c_acctbal"][row]],
+            "n_name": ref["n_name"], "c_address": _pylist(cu["c_address"], row),
+            "c_phone": _pylist(cu["c_phone"], row), "c_comment": _pylist(cu["c_comment"], row)}
+
+
+def q11_reference(t: dict, scale_factor: float) -> dict:
+    """The value (f64 products of the f32 cost and the int32 quantity, f64
+    sums) per part of GERMANY's suppliers above 0.0001 / SF of the total."""
+    ps, su = t["partsupp"], t["supplier"]
+    nat = _by_key(su["s_suppkey"], su["s_nationkey"], -1)[ps["ps_suppkey"]]
+    rows = np.flatnonzero(nat == _nation(Q11_NATION))
+    value = ps["ps_supplycost"][rows].astype(np.float64) * ps["ps_availqty"][rows]
+    keys, inv = np.unique(ps["ps_partkey"][rows], return_inverse=True)
+    sums = np.bincount(inv, weights=value, minlength=len(keys))
+    keep = sums > value.sum() * (0.0001 / scale_factor)
+    keys, sums = keys[keep], sums[keep]
+    order = np.lexsort((keys, -sums))
+    return {"ps_partkey": [int(k) for k in keys[order]], "value": [float(v) for v in sums[order]]}
+
+
+def _q15_revenue(t: dict):
+    li = t["lineitem"]
+    rows = np.flatnonzero((li["l_shipdate"] >= Q15_DATE) & (li["l_shipdate"] < _day(1996, 4, 1)))
+    keys, inv = np.unique(li["l_suppkey"][rows], return_inverse=True)
+    return keys, np.bincount(inv, weights=_rev(li, rows), minlength=len(keys))
+
+
+def q15_reference(t: dict) -> dict:
+    """The supplier(s) of the largest revenue of 1996's first quarter. The
+    query compares the sums as it computes them (float32), so ``near`` lists
+    every supplier within 1e-6 of the largest f64 sum, any of which it may
+    return."""
+    su = t["supplier"]
+    keys, rev = _q15_revenue(t)
+    top = rev.max()
+    best = keys[rev == top]
+    row = _by_key(su["s_suppkey"], np.arange(len(su["s_suppkey"])), -1)[best]
+    return {"s_suppkey": [int(k) for k in best], "s_name": _pylist(su["s_name"], row),
+            "s_address": _pylist(su["s_address"], row), "s_phone": _pylist(su["s_phone"], row),
+            "total_revenue": [float(top)] * len(best),
+            "near": [int(k) for k in keys[rev >= top * (1 - 1e-6)]]}
+
+
+def q17_reference(t: dict) -> dict:
+    """The yearly average of the prices of Brand#23 MED BOX lines whose
+    quantity is under a fifth of their part's average quantity (over all of
+    the part's lines; the compare in f64)."""
+    li, p = t["lineitem"], t["part"]
+    part_ok = _by_key(p["p_partkey"], _np(pc.equal(p["p_brand"], Q17_BRAND))
+                      & _np(pc.equal(p["p_container"], Q17_CONTAINER)), False)
+    pk = li["l_partkey"]
+    n = np.bincount(pk)
+    avg = np.bincount(pk, weights=li["l_quantity"].astype(np.float64)) / np.maximum(n, 1)
+    rows = np.flatnonzero(part_ok[pk])
+    rows = rows[li["l_quantity"][rows] < 0.2 * avg[pk[rows]]]
+    return {"avg_yearly": [float(li["l_extendedprice"][rows].astype(np.float64).sum() / 7.0)]}
+
+
+def q18_reference(t: dict) -> dict:
+    li, o, cu = t["lineitem"], t["orders"], t["customer"]
+    starts = _order_runs(li)
+    qty = np.add.reduceat(li["l_quantity"].astype(np.int64), starts)
+    big = np.flatnonzero(qty > Q18_QUANTITY)  # order rows: the orders are in key order
+    order = np.lexsort((o["o_orderkey"][big], o["o_orderdate"][big], -o["o_totalprice"][big]))
+    big = big[order][:100]
+    cust = o["o_custkey"][big]
+    crow = _by_key(cu["c_custkey"], np.arange(len(cu["c_custkey"])), -1)[cust]
+    return {"c_name": _pylist(cu["c_name"], crow), "c_custkey": [int(k) for k in cust],
+            "o_orderkey": [int(k) for k in o["o_orderkey"][big]],
+            "o_orderdate": [int(d) for d in o["o_orderdate"][big]],
+            "o_totalprice": [float(v) for v in o["o_totalprice"][big]],
+            "total_qty": [int(q) for q in qty[big]]}
+
+
+def q20_reference(t: dict) -> dict:
+    """CANADA's suppliers with a forest part whose available quantity
+    exceeds half of 1994's shipped quantity of that part from them (a pair
+    with no such lines has a null sum, which no quantity exceeds)."""
+    li, p, ps, su = t["lineitem"], t["part"], t["partsupp"], t["supplier"]
+    forest = _by_key(p["p_partkey"], _np(pc.starts_with(p["p_name"], Q20_COLOR)), False)
+    span = int(max(su["s_suppkey"].max(initial=0), li["l_suppkey"].max(initial=0))) + 1
+    rows = np.flatnonzero((li["l_shipdate"] >= Q20_DATE) & (li["l_shipdate"] < _day(1995, 1, 1)))
+    line_key = li["l_partkey"][rows].astype(np.int64) * span + li["l_suppkey"][rows]
+    keys, inv = np.unique(line_key, return_inverse=True)
+    sums = np.bincount(inv, weights=li["l_quantity"][rows].astype(np.float64), minlength=len(keys))
+    cand = np.flatnonzero(forest[ps["ps_partkey"]])
+    ps_key = ps["ps_partkey"][cand].astype(np.int64) * span + ps["ps_suppkey"][cand]
+    at = np.minimum(np.searchsorted(keys, ps_key), max(len(keys) - 1, 0))
+    has = (len(keys) > 0) & (keys[at] == ps_key) if len(keys) else np.zeros(len(cand), bool)
+    ok = has & (ps["ps_availqty"][cand] > 0.5 * np.where(has, sums[at] if len(keys) else 0, 0))
+    supp = np.unique(ps["ps_suppkey"][cand][ok])
+    srow = _by_key(su["s_suppkey"], np.arange(len(su["s_suppkey"])), -1)[supp]
+    srow = srow[su["s_nationkey"][srow] == _nation(Q20_NATION)]
+    names = _pylist(su["s_name"], srow)
+    order = sorted(range(len(srow)), key=names.__getitem__)
+    return {"s_name": [names[i] for i in order],
+            "s_address": [_pylist(su["s_address"], srow)[i] for i in order]}
+
+
+def q21_reference(t: dict) -> dict:
+    """Per SAUDI ARABIA supplier, its late lines of F orders where another
+    supplier shipped in the order and no other supplier was late."""
+    li, o, su = t["lineitem"], t["orders"], t["supplier"]
+    starts = _order_runs(li)
+    n = len(li["l_orderkey"])
+    order_of = np.repeat(np.arange(len(starts)), np.diff(np.append(starts, n)))
+    s = li["l_suppkey"].astype(np.int64)
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    lo, hi = np.minimum.reduceat(s, starts), np.maximum.reduceat(s, starts)
+    big = np.int64(1) << 40
+    late_lo = np.minimum.reduceat(np.where(late, s, big), starts)
+    late_hi = np.maximum.reduceat(np.where(late, s, -1), starts)
+    status_f = _np(pc.equal(o["o_orderstatus"], "F"))
+    g = order_of
+    other = (lo[g] != hi[g]) | (lo[g] != s)
+    only_me_late = (late_lo[g] == s) & (late_hi[g] == s)
+    nat = _by_key(su["s_suppkey"], su["s_nationkey"], -1)[li["l_suppkey"]]
+    keep = late & status_f[g] & other & only_me_late & (nat == _nation(Q21_NATION))
+    supp, counts = np.unique(li["l_suppkey"][keep], return_counts=True)
+    srow = _by_key(su["s_suppkey"], np.arange(len(su["s_suppkey"])), -1)[supp]
+    names = _pylist(su["s_name"], srow)
+    order = sorted(range(len(supp)), key=lambda i: (-counts[i], names[i]))[:100]
+    return {"s_name": [names[i] for i in order], "numwait": [int(counts[i]) for i in order]}
+
+
+def q22_reference(t: dict) -> dict:
+    """Per country code of the seven, the customers without orders whose
+    balance is above the codes' average positive balance (f64)."""
+    cu, o = t["customer"], t["orders"]
+    code = _np(pc.utf8_slice_codeunits(cu["c_phone"], 0, 2))
+    in_codes = np.isin(code, np.array(Q22_CODES, object))
+    bal = cu["c_acctbal"].astype(np.float64)
+    avg = bal[in_codes & (bal > 0.0)].mean()
+    has_order = np.zeros(int(cu["c_custkey"].max(initial=0)) + 1, bool)
+    has_order[o["o_custkey"]] = True
+    keep = in_codes & (bal > avg) & ~has_order[cu["c_custkey"]]
+    codes = sorted(set(code[keep].tolist()))
+    return {"cntrycode": codes,
+            "numcust": [int((code[keep] == c).sum()) for c in codes],
+            "totacctbal": [float(bal[keep][code[keep] == c].sum()) for c in codes]}
+
+
+#: Each SQL query's reference: ``f(tables, scale_factor, host_literals)``.
+SQL_REFERENCES = {
+    "q01": lambda t, sf, host: q01_sql_reference(t),
+    "q02": lambda t, sf, host: q02_reference(t),
+    "q03": lambda t, sf, host: q03_reference(t),
+    "q04": lambda t, sf, host: q04_reference(t),
+    "q05": lambda t, sf, host: q05_reference(t),
+    "q06": lambda t, sf, host: q06_sql_reference(t, host),
+    "q07": lambda t, sf, host: q07_reference(t),
+    "q08": lambda t, sf, host: q08_reference(t),
+    "q09": lambda t, sf, host: q09_reference(t),
+    "q10": lambda t, sf, host: q10_sql_reference(t),
+    "q11": lambda t, sf, host: q11_reference(t, sf),
+    "q12": lambda t, sf, host: q12_reference(t),
+    "q13": lambda t, sf, host: q13_reference(t),
+    "q14": lambda t, sf, host: q14_reference(t),
+    "q15": lambda t, sf, host: q15_reference(t),
+    "q17": lambda t, sf, host: q17_reference(t),
+    "q18": lambda t, sf, host: q18_reference(t),
+    "q19": lambda t, sf, host: q19_reference(t),
+    "q20": lambda t, sf, host: q20_reference(t),
+    "q21": lambda t, sf, host: q21_reference(t),
+    "q22": lambda t, sf, host: q22_reference(t),
+}
+
+
+def frame_query(pkg, tables: dict, name: str):
+    """Query ``name`` (q03, q04 or one of ``EXPR_QUERIES``) in DataFrame
+    form over ``tables`` (int32 days), as ``pkg`` DataFrames."""
+    if name in EXPR_QUERIES:
+        return EXPR_QUERIES[name](pkg, expr_frames(pkg, tables, name))
+    cols = Q03_COLUMNS if name == "q03" else Q04_COLUMNS
+    f = {tab: pkg.from_pydict({c: tables[tab][c] for c in cc}) for tab, cc in cols.items()}
+    if name == "q03":
+        return q03(pkg, f["customer"], f["orders"], f["lineitem"])
+    return q04(pkg, f["orders"], f["lineitem"])
+
+
+def filter_on_host(chain_rows: dict, rows: int) -> bool:
+    """Whether a query's filter over a table of ``rows`` rows ran on the
+    host, from the device counters' ``chain_rows``: no device chain with a
+    filter step saw every row (one that ran only on the rows the host's
+    filter kept, such as an aggregation's, does not count). A Python-float
+    bound then decides rows in f64, as ``host_literals`` references take it
+    (ROADMAP C.31)."""
+    return not any("filter" in kind and n >= rows for kind, n in chain_rows.items())
+
+
+def _as_days(values) -> list:
+    """A column of ``to_pydict`` with each ``datetime.date`` as its int day
+    since EPOCH (the tables' int32 form)."""
+    return [(v - EPOCH).days if isinstance(v, datetime.date) else v for v in values]
+
+
+def sql_compare(name: str, out: dict, ref: dict, rtol: float) -> List[str]:
+    """The problems of SQL query ``name``'s result (``to_pydict``) against
+    its reference: dates as int days, keys and strings exact and in order,
+    floats within ``rtol``; q03 and q10 take ``q03_compare`` / ``expr_compare``
+    (near ties of their float sort keys), q15 any supplier of the reference's
+    ``near`` set."""
+    out = {k: _as_days(v) for k, v in out.items()}
+    if name == "q03":
+        ref = {k: np.asarray(v) for k, v in ref.items()}
+        return q03_compare(out, ref, rtol)[0]
+    if name == "q10":
+        return expr_compare(name, out, ref, rtol)
+    if name == "q15":
+        near, ref = set(ref["near"]), {k: v for k, v in ref.items() if k != "near"}
+        if not out["s_suppkey"] or not set(out["s_suppkey"]) <= near:
+            return [f"q15: suppliers {out['s_suppkey']}, want some of {sorted(near)}"]
+        if out["s_suppkey"] != ref["s_suppkey"]:
+            return []  # another supplier within 1e-6 of the largest revenue
+    return expr_compare(name, out, ref, rtol)
+
+
+def frame_compare(name: str, sql_out: dict, frame_out: dict, rtol: float) -> List[str]:
+    """The problems of the SQL form's result against the DataFrame form's on
+    the same tables, over the DataFrame form's columns (q10's leaves out the
+    customer's strings): dates as int days; each float within ``rtol`` (the
+    forms' literals differ: ``1 - l_discount`` has an int literal in SQL, an
+    f32 one in the DataFrame form); q03 and q10 as ``sql_compare``."""
+    frame = {k: _as_days(v) for k, v in frame_out.items()}
+    sql_cols = {k: _as_days(sql_out[k]) for k in frame}
+    if name == "q03":
+        return q03_compare(sql_cols, {k: np.asarray(v) for k, v in frame.items()}, rtol)[0]
+    return expr_compare(name, sql_cols, frame, rtol)
