@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout on a machine with an NVIDIA GPU, nvcc and
-PyTorch built for CUDA. Phases, each of which fails the run on any error:
+After each phase it prints the lines of this script where the main thread
+spent the phase's wall (sampled every 50 ms). Run from the root of a
+checkout on a machine with an NVIDIA GPU, nvcc and PyTorch built for CUDA.
+Phases, each of which fails the run on any error:
 
 1. print the card's name and power limit; build every kernel of
    ``daft_tpu_torch/csrc`` (one nvcc per source, started together);
@@ -131,9 +133,9 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    224x224 on the card: that it ran on CUDA, its time with the batch resident
    beside the byte bound, 64 rows against the CPU route (one level on < 1 %
    of values), one traced engine call;
-10. relational joins, sort and TopN (``daft_tpu_torch/tools/tpch.py``): SF10's
-   customer (1,500,000 rows), orders (15,000,000) and lineitem (about
-   60,000,000; the draw's count is printed) generated from a seed by clause
+10. relational joins, sort and TopN (``daft_tpu_torch/tools/tpch.py``): SF1's
+   customer (150,000 rows), orders (1,500,000) and lineitem (about
+   6,000,000; the draw's count is printed) generated from a seed by clause
    4.2.3's distributions; TPC-H q03 (two inner joins through the build-once
    join index, a grouped sum, ``sort().limit(10)`` as a TopN) and q04 (a
    semi join, a grouped count, a sort), each warm and then timed with the
@@ -146,7 +148,7 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    reference (adjacent revenues within that tolerance may come in either
    order, and the check says so), q04's counts exactly, the routes the
    index's rule gives the build keys, the counters, identical warm and
-   timed results and no flash launch. Then a sort of the 15,000,000 orders by
+   timed results and no flash launch. Then a sort of the orders by
    (``o_custkey``, ``o_orderdate`` desc) held against ``np.lexsort``, and
    over SF1's tables a cProfile host split of q03 (filters, index build,
    probe, aggregate, TopN) and a ``torch.profiler`` trace of it (idle
@@ -154,12 +156,12 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
 11. the pipelined engine (``phase_pipelined``): print ``os.cpu_count()`` and
    the compute pool's resolved workers, then run each path at
    ``num_compute_threads=1`` and at the default (one worker per core): q06
-   and q01 over SF10's lineitem (the same seed as phase 7; wall s at each,
+   and q01 over half of SF10's lineitem (phase 7's seed; wall s at each,
    the same bytes at both, the card's idle share over a traced run at N, the
    pinned staging after each run held to the workers so far times one set of
    the largest chunk's columns); the partitioned query over SF1's rows
-   (equal to ``np.bincount`` at both, one bucket per worker); q03 over SF10's
-   tables (the same rows and ``join_counters`` at both); phase 9's photos
+   (equal to ``np.bincount`` at both, one bucket per worker); q03 over
+   ``TPCH_SF``'s tables (the same rows and ``join_counters`` at both); phase 9's photos
    decoded, resized and embedded with ViT-L/14 in morsels of 128 (the decoded
    bytes equal, decode and whole-path rows/s at both, 24 flash launches per
    chunk); phase 3's main path with ``max_concurrency=2`` beside 1 (two UDF
@@ -174,8 +176,9 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
    one thread) and hold the pinned staging to one set per worker;
 12. scan and local files (``phase_scan``): C.30's f32 sqrt on CUDA against
    ``np.sqrt`` on 1,000,000 values, bit for bit; the free bytes of the temp
-   directory's disk (at least 3x the table, or the run fails); SF10's
-   lineitem (phase 7's seed, all nine columns) written with the port's
+   directory's disk (at least 3x the table, or the run fails); the first
+   ``SCAN_ROWS`` rows of SF10's lineitem (a quarter of it; phase 7's seed, all
+   nine columns) written with the port's
    ``write_parquet`` (files, bytes on disk, write s); q06 (f32-typed rate
    bounds, so the scan's host filter decides the rows the device would;
    ROADMAP C.31) and q01 through ``read_parquet``, each warm and then timed
@@ -212,18 +215,36 @@ PyTorch built for CUDA. Phases, each of which fails the run on any error:
 14. TPC-H q01-q22 in SQL (``phase_sql``) through ``daft_tpu_torch.sql``
    (``daft_tpu_torch/tools/tpch_sql.py``: the spec's validation parameters)
    over one seeded database with every column the 22 read, the dates as
-   ``date32``: first SF1's (each query against its numpy reference, which
-   warms the device programs), then SF10's (generation and references
-   timed), each of the 21 once at 8 workers with the counts set to 0 just
-   before: wall s, the plan's parse and ``Optimizer.optimize`` s apart from
-   it, the join order ``ReorderJoins`` chose (q05, q08, q09), rows per route
-   and per join, keys exact and floats within 1e-6 of the reference (q06's
-   predicate as the route that ran it decides, printed), no flash launch;
+   ``date32``: first SF1's, each of the 21 against its numpy reference (keys
+   exact, floats within 1e-6; q06's predicate as the route that ran it
+   decides) with the join order ``ReorderJoins`` chose (q05, q08, q09) and
+   no flash launch; then SF10's (generation and references timed) for the
+   three phase 15 runs under a limit, q01, q18 and q21 (the other 18 cut
+   from SF10 to keep the run inside its limit), each once at 8 workers with
+   the counts set to 0 just before: wall s, the plan's parse and
+   ``Optimizer.optimize`` s apart from it, rows per route and per join,
+   against the reference, no flash launch;
    q16 must raise naming ROADMAP A.3.5; the DataFrame forms of q03-q05,
-   q07-q10, q12-q14 and q19 over the same tables (timed, their join order
-   before and after the optimizer) equal to the SQL forms; q18 under
+   q07-q10, q12-q14 and q19 over SF1's tables (timed, their join order
+   before and after the optimizer) equal to the SQL forms there; q18 under
    ``torch.profiler``; the process's peak RSS;
-15. print the whole run's time and one JSON line of per-kernel numbers (with
+15. out of core (``phase_out_of_core``) on phase 14's SF10 tables and
+   answers, under ``memory_limit`` at 1/8 of the tables' in-memory bytes
+   (printed with the spill root's free bytes, which must be at least twice
+   the tables'): TPC-H q01, q18 and q21 in SQL, the sort of the 15M orders
+   by (``o_custkey``, ``o_orderdate`` desc) and ``SELECT DISTINCT
+   l_orderkey, l_suppkey FROM lineitem``, each at 8 workers with the counts
+   set to 0 just before. Each query equals phase 14's answer (keys exact,
+   floats within 1e-6); the sort's keys equal the in-memory sort's, every
+   row keeps its keys; the distinct equals numpy's ``unique``; q18, q21 and
+   the sort spill. After each: the ledger holds 0 bytes, every permit is
+   back, no spill directory remains. Printed beside the unlimited run: wall
+   s, spills, files and bytes, the best-effort permit waits, the ledger's
+   peak, charged bytes by operator and kind and stall seconds, RSS growth
+   (``RssSampler``), the device counters, the join routes and the pinned
+   staging. Last, q21 under the limit and a 2 s deadline must raise
+   ``DaftTimeoutError`` and leave the same three at zero;
+16. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -231,6 +252,7 @@ Exits non-zero, printing no result, when no CUDA device is visible.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -305,14 +327,20 @@ RESIZE_SIDE = 256
 RESIZE_CPU_ROWS = 64
 RESIZE_MAX_OFF, RESIZE_OFF_SHARE = 1, 0.01  # tests/test_torch_image.py's uint8 tolerance
 
-# Phase 10: TPC-H q03 and q04 over SF10's customer, orders and lineitem
+# Phase 10: TPC-H q03 and q04 over SF1's customer, orders and lineitem
 # (daft_tpu_torch/tools/tpch.py, clause 4.2.3's distributions), and a sort of
-# the orders; q03's host split and trace over SF1's tables.
-TPCH_SF = 10
+# the orders; q03's host split and trace over SF1's tables. Cut from SF10 (also
+# for phase 11's q03) to keep the run inside its limit: phase 14 runs q03 and
+# q04 in SQL over SF10, and phase 15 sorts SF10's orders.
+TPCH_SF = 1
 TPCH_PROFILE_SF = 1
 Q03_RTOL = 1e-6  # f32 line revenues summed in f64, rounded to f32, vs an f64 reference
 
-# Phase 11: the pipelined engine.
+# Phase 11: the pipelined engine, over half of SF10's lineitem. Phase 12:
+# scan and local files, over a quarter of it. Both cut from all of it to keep
+# the run inside its limit; q01 still outlasts the 0.5 s deadline in both.
+PIPELINED_ROWS = 29_993_026
+SCAN_ROWS = 14_996_513
 SQRT_VALUES = 1_000_000  # C.30's sqrt check on the card
 SCAN_FREE_FACTOR = 3     # free disk the scan phase needs, in multiples of the table
 SHARD_ROWS = 128         # rows per parquet shard of the photos
@@ -329,9 +357,11 @@ EXPR_CHECK_SF = 1   # the warm runs, and q19 / q12 with device_eval off
 EXPR_WORKERS = 8
 EXPR_RTOL = 1e-6    # f32 line revenues summed in f64, rounded to f32, vs an f64 reference
 EXPR_TRACED = "q14"
-# Phase 14: TPC-H q01-q22 in SQL.
+# Phase 14: TPC-H q01-q22 in SQL over SF1, each against its reference; over
+# SF10 the three queries phase 15 runs under a limit (the other 18 cut from
+# SF10 to keep the run inside its limit).
 SQL_SF = 10
-SQL_CHECK_SF = 1    # the warm runs, each query against its reference
+SQL_CHECK_SF = 1    # every query against its reference
 SQL_WORKERS = 8
 SQL_RTOL = 1e-6
 SQL_TRACED = "q18"
@@ -353,6 +383,36 @@ WORD_LIST = ("the a of and to in is was for on with as by at from it that this b
 
 class SmokeFailure(Exception):
     pass
+
+
+class PhaseSampler:
+    """The main thread's innermost line of this script, sampled every
+    ``period`` s, so that each phase's wall splits by line; the top lines are
+    printed at the phase's end."""
+
+    def __init__(self, period: float = 0.05):
+        import collections
+        import threading
+
+        self.period, self.counts = period, collections.Counter()
+        self.main = threading.get_ident()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="smoke-sampler", daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while not self.stop.wait(self.period):
+            f = sys._current_frames().get(self.main)
+            while f is not None and f.f_code.co_filename != __file__:
+                f = f.f_back
+            if f is not None:
+                self.counts[(f.f_code.co_name, f.f_lineno)] += 1
+
+    def report(self, number: int, top: int = 10) -> None:
+        lines = ", ".join(f"{name}:{line} {n * self.period:.1f} s"
+                          for (name, line), n in self.counts.most_common(top))
+        print(f"[sample] phase {number}, the main thread's top lines: {lines}", flush=True)
+        self.counts.clear()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1645,9 +1705,11 @@ def check_cosine_scan(card: str) -> None:
     import daft_tpu_torch as dt
     from daft_tpu_torch.ops import device_eval as de
 
-    rng = np.random.default_rng(8)
-    emb = rng.standard_normal((EMBED_ROWS, EMBED_DIM), dtype=np.float32)
-    query = rng.standard_normal(EMBED_DIM, dtype=np.float32)
+    # Drawn on the card from a seeded generator (numpy's took 15 s on the
+    # host for the 768 M values).
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    emb = torch.randn((EMBED_ROWS, EMBED_DIM), generator=gen, device="cuda").cpu().numpy()
+    query = torch.randn(EMBED_DIM, generator=gen, device="cuda").cpu().numpy()
     dtype = dt.DataType.embedding(dt.DataType.float32(), EMBED_DIM)
     df = dt.from_pydict({
         "id": np.arange(EMBED_ROWS, dtype=np.int64),
@@ -2052,6 +2114,13 @@ def phase_hf(card: str) -> dict:
 
 
 def make_encoded(n: int, seed: int) -> list:
+    """A fresh list of :func:`encoded_photos` (phases 9, 11 and 12 share one
+    encoding)."""
+    return list(encoded_photos(n, seed))
+
+
+@functools.lru_cache(maxsize=1)
+def encoded_photos(n: int, seed: int) -> tuple:
     """``n`` seeded encoded photos: the short side drawn from ``SIDES``, the
     aspect from ``ASPECTS``, smooth per-channel gradients plus noise (so the
     JPEG sizes are those of photos, not of flat or random images); JPEG at
@@ -2100,7 +2169,7 @@ def make_encoded(n: int, seed: int) -> list:
         return buf.getvalue()
 
     with ThreadPoolExecutor(8) as pool:
-        return list(pool.map(encode, range(n)))
+        return tuple(pool.map(encode, range(n)))
 
 
 def pil_decode_resize(raw: bytes):
@@ -2351,12 +2420,12 @@ def index_form(keys) -> str:
 
 
 def phase_relational_joins(card: str) -> dict:
-    """TPC-H q03 and q04 through the port on the card over SF10's tables,
+    """TPC-H q03 and q04 through the port on the card over ``TPCH_SF``'s tables,
     each warm and then timed with the counts set to 0 just before: rows/s,
     the rows on each side of each join and its route, the device counters
     and the chains' split; the results against the numpy references. Then
     q03's host split (cProfile) and a trace over SF1's tables, and a sort of
-    SF10's orders held against ``np.lexsort``. Returns the launch counts of
+    the orders held against ``np.lexsort``. Returns the launch counts of
     q03 and q04."""
     import gc
 
@@ -2472,7 +2541,7 @@ def phase_relational_joins(card: str) -> dict:
         del f
         gc.collect()
 
-    # The sort: SF10's orders by (o_custkey, o_orderdate desc); Arrow's sort
+    # The sort: the orders by (o_custkey, o_orderdate desc); Arrow's sort
     # and np.lexsort are both stable, so ties keep the input order in both.
     o = tables["orders"]
     odf = dt.from_pydict(o)
@@ -2584,8 +2653,8 @@ def phase_pipelined(card: str) -> dict:
     check(workers > 1, f"the default config runs {workers} worker(s): no pool to test")
     by_path = {}
 
-    # q06 and q01 over SF10's lineitem, at 1 and N threads.
-    rows = lineitem.SF10_LINEITEM_ROWS
+    # q06 and q01 over half of SF10's lineitem, at 1 and N threads.
+    rows = PIPELINED_ROWS
     t0 = time.perf_counter()
     cols = lineitem.lineitem_columns(rows, seed=0)
     q01_cols = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
@@ -2598,7 +2667,7 @@ def phase_pipelined(card: str) -> dict:
     chunk_rows = [sum(map(len, c)) for c in chunk_morsels(morsels, Executor.AGG_CHUNK_ROWS)]
     max_pad = max(de._bucket(n, cfg.device_batch_buckets) for n in chunk_rows + [morsel])
     set_bytes = 4 * max_pad * 4  # q06's four 4-byte columns; q01 stages l_shipdate alone
-    print(f"[pipelined] lineitem SF10 columns: {rows} rows in {time.perf_counter() - t0:.1f} s; "
+    print(f"[pipelined] lineitem columns: {rows} rows in {time.perf_counter() - t0:.1f} s; "
           f"{len(morsels)} morsels, {len(chunk_rows)} aggregation chunks", flush=True)
     de.reset_programs()
     results, most = {}, 1  # the most workers any run so far had
@@ -2717,7 +2786,7 @@ def phase_pipelined(card: str) -> dict:
     del pdf, sf1, outs
     gc.collect()
 
-    # q03 over SF10's tables.
+    # q03 over TPCH_SF's tables.
     tables = tpch.tpch_tables(TPCH_SF, seed=0)
     f = {t: dt.from_pydict({k: tables[t][k] for k in cs}) for t, cs in tpch.Q03_COLUMNS.items()}
     rows_in = sum(len(tables[t][next(iter(cs))]) for t, cs in tpch.Q03_COLUMNS.items())
@@ -2988,7 +3057,7 @@ def phase_scan(card: str, rows: int = 0) -> dict:
               f"in memory, q06 with f32 rate bounds gave {mem06_f32!r}, with Python floats "
               f"{mem06!r}")
 
-        # (1) Write SF10's lineitem with the port's writer. The select's stage
+        # (1) Write the lineitem with the port's writer. The select's stage
         # hands the writer morsels, so it rolls files at its target size.
         li_dir = os.path.join(tmp, "lineitem")
         dt.reset_io_stats()
@@ -3375,10 +3444,12 @@ def join_order(plan) -> str:
 
 
 def phase_sql(card: str) -> dict:
-    """Phase 14: TPC-H q01-q22 in SQL over SF1's and then SF10's seeded
-    tables, each of the 21 against its numpy reference, q16 raising, the
+    """Phase 14: TPC-H q01-q22 in SQL over SF1's seeded tables and q01, q18
+    and q21 over SF10's, each against its numpy reference, q16 raising, the
     DataFrame forms against the SQL forms, q18 traced. Returns each query's
-    flash launches (0)."""
+    flash launches (0) and, for phase 15, SF10's tables and frames, the
+    answers, and q01's, q18's and q21's wall s, counters, joins and RSS
+    growth."""
     import gc
     import resource
 
@@ -3387,17 +3458,23 @@ def phase_sql(card: str) -> dict:
     import daft_tpu_torch as dt
     from daft_tpu_torch.errors import DaftNotImplementedError
     from daft_tpu_torch.execution.join_index import join_counters
+    from daft_tpu_torch.execution.memledger import get_ledger, read_rss_bytes
     from daft_tpu_torch.logical.optimizer import Optimizer
     from daft_tpu_torch.ops import device_eval as de
     from daft_tpu_torch.ops.flash_attention import flash_attention
-    from daft_tpu_torch.tools import tpch, tpch_sql
+    from daft_tpu_torch.tools import out_of_core, tpch, tpch_sql
 
     phase_start = time.perf_counter()
     names = list(tpch_sql.RUNNABLE)
 
+    last = {}
+
     def run_sql(frames, name, sf):
-        """(rows, wall s, plan s, optimize s, the optimized plan)."""
+        """(rows, wall s, plan s, optimize s, the optimized plan); the
+        query's RSS growth (its ledger block's sampled high-water less the
+        RSS before it) in ``last``."""
         with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            rss0 = read_rss_bytes()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             df = dt.sql(tpch_sql.sql_text(name, sf), **frames)
@@ -3407,6 +3484,8 @@ def phase_sql(card: str) -> dict:
             out = df.to_pydict()
             torch.cuda.synchronize()
             t3 = time.perf_counter()
+        peak = (get_ledger().profile_for(df.query_id) or {}).get("rss_peak_bytes")
+        last["rss_growth"] = peak - rss0 if peak else None
         return out, t3 - t0, t1 - t0, t2 - t1, plan
 
     def host_literals(tables) -> bool:
@@ -3420,13 +3499,23 @@ def phase_sql(card: str) -> dict:
     small = tpch.tpch_tables(SQL_CHECK_SF, seed=0, sql=True)
     frames = tpch.sql_frames(dt, small)
     gen_s = time.perf_counter() - t0
-    walls = {}
+    walls, small_outs, chain_total, by_path = {}, {}, 0, {}
     for name in names:
         de.device_eval_counters.reset()
-        out, walls[name], _, _, _ = run_sql(frames, name, SQL_CHECK_SF)
+        flash_attention.launch_count = 0
+        out, walls[name], _, _, plan = run_sql(frames, name, SQL_CHECK_SF)
+        launches = flash_attention.launch_count
+        by_path[f"sql {name}"] = {"flash_attention": launches}
+        check(launches == 0, f"{name} over SF{SQL_CHECK_SF}: flash_attention launched "
+              f"{launches} times")
+        small_outs[name] = out
+        chain_total += sum(de.device_eval_counters.snapshot()["chain_rows"].values())
         ref = tpch.SQL_REFERENCES[name](small, SQL_CHECK_SF, host_literals(small))
         problems = tpch.sql_compare(name, out, ref, SQL_RTOL)
         check(not problems, f"{name} over SF{SQL_CHECK_SF} vs the numpy reference: {problems}")
+        if name in SQL_JOIN_ORDERS:
+            print(f"[sql] {name} join order over SF{SQL_CHECK_SF} (ReorderJoins): "
+                  f"{join_order(plan)} [{card}]", flush=True)
     print(f"[sql] SF{SQL_CHECK_SF}'s tables generated in {gen_s:.1f} s; the 21 queries equal "
           f"their references (warm runs): " + ", ".join(f"{n} {s:.3f} s" for n, s in walls.items())
           + f" [{card}]", flush=True)
@@ -3436,7 +3525,28 @@ def phase_sql(card: str) -> dict:
     except DaftNotImplementedError as e:
         check("A.3.5" in str(e), f"q16 must name ROADMAP A.3.5: {e}")
         print(f"[sql] q16 raises DaftNotImplementedError: {e} [{card}]", flush=True)
-    del small, frames
+    # The DataFrame forms over SF1's tables (cut from SF10 to keep the run
+    # inside its limit; phase 15 runs on SF10's).
+    for name in SQL_FRAME_FORMS:
+        gc.collect()
+        join_counters.reset()
+        df = tpch.frame_query(dt, small, name)
+        written = join_order(df._builder.plan)
+        chosen = join_order(Optimizer().optimize(df._builder.plan))
+        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = df.to_pydict()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        problems = tpch.frame_compare(name, small_outs[name], frame, SQL_RTOL)
+        check(not problems, f"{name}: the SQL form vs the DataFrame form: {problems}")
+        builds = [j["build_rows"] for j in join_counters.snapshot()]
+        print(f"[sql] {name} DataFrame form over SF{SQL_CHECK_SF}: {wall:.3f} s at "
+              f"{SQL_WORKERS} workers, equal to the SQL form; build rows {builds}; join order "
+              f"as written {written}, after the optimizer "
+              f"{chosen}{'' if chosen == written else ' (reordered)'} [{card}]", flush=True)
+    del small, frames, small_outs
     gc.collect()
 
     t0 = time.perf_counter()
@@ -3450,14 +3560,14 @@ def phase_sql(card: str) -> dict:
           + ", ".join(f"{t} {n}" for t, n in sizes.items())
           + f" rows, generated in {gen_s:.1f} s, date32 frames in {frames_s:.1f} s "
           f"[{card}]", flush=True)
-    by_path, outs, device_rows = {}, {}, {}
-    chain_total, ref_s = 0, 0.0
-    for name in names:
+    outs, device_rows, unlimited = {}, {}, {}
+    ref_s = 0.0
+    for name in out_of_core.QUERIES:
         gc.collect()
         de.device_eval_counters.reset()
         join_counters.reset()
         flash_attention.launch_count = 0
-        out, wall, plan_s, opt_s, plan = run_sql(frames, name, SQL_SF)
+        out, wall, plan_s, opt_s, _ = run_sql(frames, name, SQL_SF)
         launches = flash_attention.launch_count
         snap, joins = de.device_eval_counters.snapshot(), join_counters.snapshot()
         by_path[f"sql {name}"] = {"flash_attention": launches}
@@ -3470,44 +3580,26 @@ def phase_sql(card: str) -> dict:
         check(not problems, f"{name} over SF{SQL_SF} vs the numpy reference: {problems}")
         check(all(len(v) for v in out.values()), f"{name} over SF{SQL_SF}: an empty result")
         outs[name] = out
+        # Phase 15 reads these beside its own.
+        unlimited[name] = {"wall_s": wall, "counters": snap, "joins": joins,
+                           "rss_growth": last["rss_growth"]}
         chain_total += sum(snap["chain_rows"].values())
         device_rows[name] = snap["fused_rows"] + sum(snap["chain_rows"].values())
         rows = len(next(iter(out.values())))
         shown = {k: (v if len(v) <= 4 else v[:3] + ["..."]) for k, v in out.items()}
-        semantics = ("host (f64)" if host else "device (f32)") if name == "q06" else "n/a"
-        print(f"[sql] {name} at {SQL_WORKERS} workers: {wall:.3f} s wall, of it the plan "
-              f"{plan_s:.3f} s and Optimizer.optimize {opt_s:.3f} s timed alone (run again "
-              f"inside the wall); {rows} rows equal to the reference (tol {SQL_RTOL}; literal "
-              f"semantics {semantics}); {shown}; flash launches 0 [{card}]", flush=True)
+        print(f"[sql] {name} over SF{SQL_SF} at {SQL_WORKERS} workers: {wall:.3f} s wall, of it "
+              f"the plan {plan_s:.3f} s and Optimizer.optimize {opt_s:.3f} s timed alone (run "
+              f"again inside the wall); {rows} rows equal to the reference (tol {SQL_RTOL}); "
+              f"{shown}; flash launches 0 [{card}]", flush=True)
         print(f"[sql] {name} counters: chain_rows {snap['chain_rows']}, fused_rows "
               f"{snap['fused_rows']}, host_rows {snap['host_rows']}; joins: " + "; ".join(
                   f"{j['how']} on {j['on']}: build {j['build_rows']}, " + ", ".join(
                       f"{route} {r['rows_in']} in / {r['rows_out']} out"
                       for route, r in j["routes"].items()) for j in joins), flush=True)
-        if name in SQL_JOIN_ORDERS:
-            print(f"[sql] {name} join order (ReorderJoins): {join_order(plan)} [{card}]",
-                  flush=True)
-    check(chain_total > 0, "no device chain ran in the 21 queries")
-    print(f"[sql] the 21 numpy references took {ref_s:.1f} s [{card}]", flush=True)
-    for name in SQL_FRAME_FORMS:
-        gc.collect()
-        join_counters.reset()
-        df = tpch.frame_query(dt, tables, name)
-        written = join_order(df._builder.plan)
-        chosen = join_order(Optimizer().optimize(df._builder.plan))
-        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            frame = df.to_pydict()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        problems = tpch.frame_compare(name, outs[name], frame, SQL_RTOL)
-        check(not problems, f"{name}: the SQL form vs the DataFrame form: {problems}")
-        builds = [j["build_rows"] for j in join_counters.snapshot()]
-        print(f"[sql] {name} DataFrame form: {wall:.3f} s at {SQL_WORKERS} workers, equal to "
-              f"the SQL form; build rows {builds}; join order as written {written}, after "
-              f"the optimizer {chosen}{'' if chosen == written else ' (reordered)'} [{card}]",
-              flush=True)
+    check(chain_total > 0, "no device chain ran in the 21 queries over SF1 and the three "
+          "over SF10")
+    print(f"[sql] the numpy references over SF{SQL_SF} took {ref_s:.1f} s [{card}]",
+          flush=True)
     with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
         text = tpch_sql.sql_text(SQL_TRACED, SQL_SF)
         traced = trace_window(card, "sql", f"{SQL_TRACED} over SF{SQL_SF}'s tables",
@@ -3518,12 +3610,234 @@ def phase_sql(card: str) -> dict:
         print(f"[sql] {SQL_TRACED}'s idle share 1.0000: no device work in the window (the "
               f"profiler recorded no device event; the counters no device row) [{card}]",
               flush=True)
-    del tables, frames, outs
     gc.collect()
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     print(f"[sql] the process's peak RSS so far {peak:.2f} GB; phase 14 took "
           f"{time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path, {"tables": tables, "frames": frames, "outs": outs, "unlimited": unlimited}
+
+
+def rows_equal(a: dict, b: dict, rtol: float) -> list:
+    """The columns of two pydicts that differ: everything exactly but
+    floats, which must agree within ``rtol``."""
+    if list(a) != list(b):
+        return [f"columns {list(a)} vs {list(b)}"]
+    bad = []
+    for c in a:
+        x, y = a[c], b[c]
+        if len(x) != len(y):
+            bad.append(f"{c}: {len(x)} vs {len(y)} rows")
+        elif any(isinstance(v, float) for v in x):
+            if not all((u is None and v is None) or (u is not None and v is not None and
+                                                     math.isclose(u, v, rel_tol=rtol))
+                       for u, v in zip(x, y)):
+                bad.append(c)
+        elif x != y:
+            bad.append(c)
+    return bad
+
+
+def report_out_of_core(card: str, tag: str, held: dict, free: dict = None) -> None:
+    """Phase 15's lines for one run under the limit, beside the unlimited
+    run's numbers where there is one."""
+    mem, sp, snap = held["mem"], held["spill"], held["counters"]
+
+    def gb(n):
+        return "not sampled" if n is None else f"{n / 1e9:.3f} GB"
+
+    beside = "" if free is None else f" (unlimited: {free['wall_s']:.3f} s)"
+    print(f"[ooc] {tag}: {held['wall_s']:.3f} s wall under the limit{beside}; spills "
+          f"{sp['spills']}, files {sp['files']}, {sp['bytes_spilled'] / 1e9:.3f} GB spilled; "
+          f"best-effort reservations {sp['best_effort_reservations']} and permit gates off "
+          f"{sp['permit_gates_off']} (each after a 5 s wait); ledger peak "
+          f"{mem['peak_held_bytes'] / 1e9:.3f} GB, charged {mem['charged_bytes'] / 1e9:.3f} GB, "
+          f"stall {mem['stall_s']:.3f} s; RSS growth over the phase's start "
+          f"{gb(held['rss_growth'])}"
+          + ("" if free is None else f" (unlimited, over its own start: {gb(free['rss_growth'])})")
+          + f"; pinned staging {held['pinned_bytes'] / 1e6:.3f} MB (not charged) [{card}]",
+          flush=True)
+    ops = "; ".join(f"{op}: " + ", ".join(f"{kind} peak {k['peak'] / 1e6:.1f} MB charged "
+                                          f"{k['charged'] / 1e6:.1f} MB"
+                                          for kind, k in row["kinds"].items())
+                    for op, row in mem["by_operator"].items())
+    stalls = ", ".join(f"{op} {s:.3f} s" for op, s in held["stall_s_by_op"].items()) or "none"
+    print(f"[ooc] {tag} ledger by operator: {ops}; stalls by operator: {stalls}", flush=True)
+    routes = "; ".join(f"{j['how']} on {j['on']}: build {j['build_rows']}, " + ", ".join(
+        f"{route} {r['rows_in']} in / {r['rows_out']} out" for route, r in j["routes"].items())
+        for j in held["joins"]) or "none"
+    line = (f"[ooc] {tag} counters: chain_rows {snap['chain_rows']}, fused_rows "
+            f"{snap['fused_rows']}, host_rows {snap['host_rows']}")
+    if free is not None:
+        fs = free["counters"]
+        line += (f" (unlimited: chain_rows {fs['chain_rows']}, fused_rows {fs['fused_rows']}, "
+                 f"host_rows {fs['host_rows']})")
+    print(f"{line}; joins: {routes}", flush=True)
+
+
+def check_audit(tag: str, run: dict) -> None:
+    """After a query: the ledger holds nothing, every permit is back and no
+    spill directory remains."""
+    a = run["audit"]
+    check(a["held"] == 0, f"{tag}: the ledger still holds {a['held']} bytes")
+    check(a["permits_out"] == 0, f"{tag}: {a['permits_out']} bytes of permits not returned")
+    check(not a["spill_dirs"], f"{tag}: spill directories left: {a['spill_dirs']}")
+
+
+def phase_out_of_core(card: str, state: dict) -> dict:
+    """Phase 15: phase 14's SF10 database under a memory limit of 1/8 of its
+    in-memory bytes: TPC-H q01, q18 and q21 in SQL, the sort of the orders
+    and a distinct over lineitem, each against its unlimited answer, with the
+    spill, the ledger and the audit after each; q21 under a 2 s deadline.
+    Returns each path's flash launches (0)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.errors import DaftTimeoutError
+    from daft_tpu_torch.execution.memledger import read_rss_bytes
+    from daft_tpu_torch.execution.spill import sink_budget
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import out_of_core
+
+    phase_start = time.perf_counter()
+    frames, tables, outs = state["frames"], state["tables"], state["outs"]
+    total = out_of_core.tables_bytes(frames)
+    limit = out_of_core.limit_for(frames)
+    root = tempfile.gettempdir()
+    free_bytes = shutil.disk_usage(root).free
+    print(f"[ooc] SF{SQL_SF}'s tables {total / 1e9:.3f} GB in memory; the limit 1/8 = "
+          f"{limit / 1e9:.3f} GB (a sink's budget {sink_budget(limit) / 1e9:.3f} GB); the spill "
+          f"root {root} has {free_bytes / 1e9:.1f} GB free [{card}]", flush=True)
+    check(free_bytes >= 2 * total, f"the spill root {root} has {free_bytes} bytes free, fewer "
+          f"than twice the tables' {total} bytes")
+    rss0 = read_rss_bytes()
+    by_path = {}
+
+    def run(tag, df_fn, lim, arrow=False):
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        gc.collect()
+        gc_s = time.perf_counter() - t0
+        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            torch.cuda.synchronize()
+            r = out_of_core.run(df_fn, lim, arrow=arrow)
+            torch.cuda.synchronize()
+        print(f"[ooc] {tag}: {time.perf_counter() - t0:.3f} s for the call (gc {gc_s:.3f} s, "
+              f"the query's wall {r['wall_s']:.3f} s); {time.perf_counter() - phase_start:.1f} s "
+              f"into the phase", flush=True)
+        check(flash_attention.launch_count == 0,
+              f"{tag}: flash_attention launched {flash_attention.launch_count} times")
+        if lim is not None:
+            by_path[f"ooc {tag}"] = {"flash_attention": 0}
+        check_audit(tag, r)
+        if lim is not None and r["mem"].get("rss_peak_bytes"):
+            r["rss_growth"] = r["mem"]["rss_peak_bytes"] - rss0
+        return r
+
+    for name in out_of_core.QUERIES:
+        text = tpch_sql_text(name)
+        held = run(name, lambda: dt.sql(text, **frames), limit)
+        problems = rows_equal(held["rows"], outs[name], SQL_RTOL)
+        check(not problems, f"{name} under the limit vs phase 14's answer: {problems}")
+        if name != "q01":
+            check(held["spill"]["spills"] > 0, f"{name} did not spill at {limit} bytes")
+        report_out_of_core(card, name, held, state["unlimited"][name])
+
+    # The orders' sort (phase 10's keys): the unlimited run in memory, then
+    # the external sort; ties keep no fixed order across runs, so the keys
+    # must match in order and every row must carry its own keys.
+    keys, desc = ["o_custkey", "o_orderdate"], [False, True]
+    free = run("sort unlimited", lambda: frames["orders"].sort(keys, desc=desc), None, True)
+    held = run("sort", lambda: frames["orders"].sort(keys, desc=desc), limit, True)
+    check(held["spill"]["spills"] > 0, f"the sort did not spill at {limit} bytes")
+    for k in keys:
+        check(held["rows"][k].equals(free["rows"][k]),
+              f"the sort's {k} differs from the in-memory sort's")
+    # Each sorted row's order by its key, through a dense map of the sparse
+    # keys (a binary search per row costs seconds more at 15 M rows).
+    o, got_keys = tables["orders"], held["rows"]["o_orderkey"].to_numpy()
+    pos = np.full(int(o["o_orderkey"].max()) + 1, -1, dtype=np.int64)
+    pos[o["o_orderkey"]] = np.arange(len(o["o_orderkey"]))
+    check(len(got_keys) == 0 or (got_keys.min() >= 0 and got_keys.max() < len(pos)),
+          "the external sort returned an order key outside the table's")
+    at = pos[got_keys]
+    check(bool((at >= 0).all()), "the external sort returned an order key the table lacks")
+    check(np.array_equal(o["o_custkey"][at], held["rows"]["o_custkey"].to_numpy()),
+          "the external sort moved o_custkey apart from its rows")
+    check(len(at) == len(o["o_orderkey"])
+          and int(np.bincount(at, minlength=len(at)).max(initial=0)) <= 1,
+          "the external sort lost or repeated rows")
+    del pos
+    report_out_of_core(card, f"sort of {len(at)} orders", held, free)
+    print(f"[ooc] the sort checked; {time.perf_counter() - phase_start:.1f} s into the phase",
+          flush=True)
+    del free
+
+    # A grace distinct of (l_orderkey, l_suppkey) against numpy's unique.
+    text = "SELECT DISTINCT l_orderkey, l_suppkey FROM lineitem"
+    held = run("distinct", lambda: dt.sql(text, **frames), limit, True)
+    # numpy's unique through a stable sort: np.unique's default sort took
+    # 64 s on these pairs (nearly sorted, lineitem's order) on the H100's host.
+    li = tables["lineitem"]
+    want = np.sort((li["l_orderkey"].astype(np.int64) << 20)
+                   | li["l_suppkey"].astype(np.int64), kind="stable")
+    want = want[np.concatenate(([True], want[1:] != want[:-1]))]
+    got = np.sort((held["rows"]["l_orderkey"].to_numpy().astype(np.int64) << 20)
+                  | held["rows"]["l_suppkey"].to_numpy().astype(np.int64))
+    check(len(got) == len(want) and np.array_equal(got, want),
+          f"the distinct's {len(got)} pairs differ from numpy's {len(want)}")
+    report_out_of_core(card, f"distinct ({len(got)} pairs)", held)
+    print(f"[ooc] the distinct checked; {time.perf_counter() - phase_start:.1f} s into the phase",
+          flush=True)
+    del held, want, got
+
+    # q21 again under the limit with a deadline of 2 s.
+    text = tpch_sql_text("q21")
+    flash_attention.launch_count = 0
+    t0 = time.perf_counter()
+    try:
+        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            out_of_core.run(lambda: dt.sql(text, **frames), limit, timeout=2.0)
+        check(False, "q21 under a 2 s deadline did not raise DaftTimeoutError")
+    except DaftTimeoutError as e:
+        raised = time.perf_counter() - t0
+        a = wait_for_audit(limit)
+        check(a == {"held": 0, "permits_out": 0, "spill_dirs": []},
+              f"q21 after its deadline left {a}")
+        print(f"[ooc] q21 under the limit and a 2 s deadline raised DaftTimeoutError after "
+              f"{raised:.3f} s ({e}); then the ledger held 0 bytes, every permit was back "
+              f"and no spill directory remained; {time.perf_counter() - phase_start:.1f} s into "
+              f"the phase [{card}]", flush=True)
+    del state["tables"], state["frames"], state["outs"]
+    gc.collect()
+    print(f"[ooc] phase 15 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
     return by_path
+
+
+def tpch_sql_text(name: str) -> str:
+    from daft_tpu_torch.tools import tpch_sql
+
+    return tpch_sql.sql_text(name, SQL_SF)
+
+
+def wait_for_audit(limit: int, seconds: float = 10.0) -> dict:
+    """The audit once the side threads of a cut query have released (the
+    end state is exact, its instant is not)."""
+    from daft_tpu_torch.execution.resource_manager import get_memory_manager
+    from daft_tpu_torch.tools import out_of_core
+
+    mm = get_memory_manager()
+    deadline = time.monotonic() + seconds
+    while True:
+        a = out_of_core.audit(None, None)
+        a["permits_out"] = mm.used()
+        if a == {"held": 0, "permits_out": 0, "spill_dirs": []} or time.monotonic() > deadline:
+            return a
+        time.sleep(0.05)
 
 
 def result_table(df):
@@ -3567,25 +3881,36 @@ def main() -> int:
     print(card, flush=True)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
+    sampler = PhaseSampler()
+
+    def timed(number: int, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[run] phase {number} ({fn.__name__}) took {time.perf_counter() - t0:.1f} s; "
+              f"{time.perf_counter() - start:.1f} s since the start [{card}]", flush=True)
+        sampler.report(number)
+        return out
+
     try:
-        phase_build()
-        records = [phase_kernels(card)]
-        launches, wall_ms = phase_main_path(card)
-        phase_trace(card)
+        timed(1, phase_build)
+        records = [timed(2, phase_kernels, card)]
+        launches, wall_ms = timed(3, phase_main_path, card)
+        timed(4, phase_trace, card)
         by_path = {"embed_image": launches}
-        by_path.update(phase_text(card))
-        by_path.update(phase_generate(card))
-        by_path.update(phase_relational(card))
-        by_path.update(phase_hf(card))
-        by_path.update(phase_image(card))
-        by_path.update(phase_relational_joins(card))
-        by_path.update(phase_pipelined(card))
-        by_path.update(phase_scan(card))
-        by_path.update(phase_expressions(card))
-        by_path.update(phase_sql(card))
+        for number, phase in enumerate((phase_text, phase_generate, phase_relational, phase_hf,
+                                        phase_image, phase_relational_joins, phase_pipelined),
+                                       start=5):
+            by_path.update(timed(number, phase, card))
+        by_path.update(timed(12, phase_scan, card, SCAN_ROWS))
+        by_path.update(timed(13, phase_expressions, card))
+        sql_paths, sql_state = timed(14, phase_sql, card)
+        by_path.update(sql_paths)
+        by_path.update(timed(15, phase_out_of_core, card, sql_state))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        sampler.stop.set()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}

@@ -3,8 +3,9 @@
 
 This slice keeps the knobs the embedding path, the relational layer (the
 device layer and the grouped aggregation's cardinality switch), the stage
-pool, UDF batching, query deadlines, the scan's task sizing and the
-writers' target file sizes read. ``execution_config_ctx``
+pool, UDF batching, query deadlines, the scan's task sizing, the
+writers' target file sizes, the byte ledger and the spill files' digest check
+read. ``execution_config_ctx``
 changes them for a block of code. The per-query clock (``query_now``) freezes
 CURRENT_DATE / CURRENT_TIMESTAMP once per statement. Not ported yet: the
 planning config, the runner choice (the port runs the local executor only),
@@ -68,6 +69,13 @@ class ExecutionConfig:
     # Seconds a query may run before it fails with DaftTimeoutError, when
     # collect() names no timeout; None = unbounded.
     query_timeout_s: Optional[float] = None
+    # The per-query byte ledger (execution/memledger.py); False turns it off
+    # and drops what it held (daft_tpu/config.py's default).
+    memory_ledger_enabled: bool = True
+    # The spill files' digest check (integrity.py): verify before each read,
+    # and with verify_on_write also right after each write.
+    integrity_enabled: bool = True
+    integrity_verify_on_write: bool = False
 
     def with_changes(self, **kwargs) -> "ExecutionConfig":
         return dataclasses.replace(self, **kwargs)

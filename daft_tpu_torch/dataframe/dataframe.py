@@ -217,11 +217,21 @@ class DataFrame:
     def _run_iter(self, timeout: Optional[float] = None) -> Iterator[MicroPartition]:
         """Run the query under one cancel token, with a deadline of
         ``timeout`` seconds (``query_timeout_s`` when None; none when both
-        are None), as the JAX package's runner builds it."""
+        are None), as the JAX package's runner builds it. On every exit the
+        byte ledger closes the query (``get_ledger().profile_for(query_id)``
+        then holds its ``mem`` block)."""
         from daft_tpu_torch.execution.executor import Executor
+        from daft_tpu_torch.execution.memledger import get_ledger
         from daft_tpu_torch.physical.translate import translate
 
         cfg = get_context().execution_config
+        ledger = get_ledger()
+        # The configuration can only turn the ledger off, and doing so drops
+        # what it held, so no balance strands (as the JAX package's runner).
+        if not cfg.memory_ledger_enabled and ledger.enabled:
+            ledger.enabled = False
+            ledger.reset()
+        ledger.ensure_sampler()
         if timeout is None:
             timeout = cfg.query_timeout_s
         query_id = self.query_id = uuid.uuid4().hex[:16]
@@ -239,6 +249,7 @@ class DataFrame:
             if run is not None:
                 run.close()  # a failure or an abandoned iteration stops the pool now
             unregister_query_token(query_id)
+            ledger.finish_query(query_id)
 
     def collect(self, timeout: Optional[float] = None) -> "DataFrame":
         """Materialise the query. ``timeout`` (seconds) bounds the whole

@@ -15,8 +15,9 @@ AggOp decomposes into
 The port decomposes sum, mean, min, max, count, product, bool_and, bool_or,
 any_value, stddev and variance. The aggregations with list or sketch partials
 and ``skew`` are not ported yet (``AggOp.LEFT_OUT`` names their ROADMAP
-items); nor are the grace spill under a memory budget (with its state-size
-estimate) and the distributed partial stage.
+items), nor the distributed partial stage (A.8). ``approx_size_bytes`` is
+the state-size estimate the executor's grace aggregation spills on under a
+memory limit.
 """
 
 from __future__ import annotations
@@ -103,12 +104,14 @@ class AggState:
         self.input_schema = input_schema
         self._raw: List[RecordBatch] = []      # un-aggregated input morsels
         self._raw_rows = 0
+        self._approx_bytes = 0  # running total: size_bytes() once per batch
         # Partial-form batches. INVARIANT: each entry is the output of a
         # grouped aggregation (a flush, a merge, or an ingested partial), so
         # group keys are unique WITHIN a batch: a merge pass is needed exactly
         # when len(_buffers) > 1.
         self._buffers: List[RecordBatch] = []
         self._buffer_rows = 0
+        self._merged_rows = 0  # rows of the last merge's output (0: none yet)
         self._needs_merge = False  # set when an ingested batch may break the invariant
 
     def accumulate(self, mp: MicroPartition) -> None:
@@ -121,19 +124,33 @@ class AggState:
             return
         self._raw.append(rb)
         self._raw_rows += len(rb)
+        self._approx_bytes += rb.size_bytes()
         if self._raw_rows > self.MERGE_THRESHOLD_ROWS:
             self._flush_raw()
-            if self._buffer_rows > self.MERGE_THRESHOLD_ROWS:
+            if self._merge_due():
                 self._merge()
+
+    def _merge_due(self) -> bool:
+        """Merge once the partials pass the threshold and the rows added since
+        the last merge outnumber its output (C.38). The JAX package merges on
+        every flush past the threshold, so a state of G groups that barely
+        shrinks is re-merged whole each time: quadratic in the input. Waiting
+        for the new rows to match the merged ones costs at most twice the
+        input in merge work; a merge that shrinks the state (few groups) is
+        due exactly where the reference's is."""
+        return (self._buffer_rows > self.MERGE_THRESHOLD_ROWS
+                and self._buffer_rows - self._merged_rows > self._merged_rows)
 
     def _flush_raw(self) -> None:
         if not self._raw:
             return
         partial = RecordBatch.concat(self._raw).agg(self.plan.partial_exprs, self.plan.group_by)
+        self._approx_bytes -= sum(rb.size_bytes() for rb in self._raw)
         self._raw = []
         self._raw_rows = 0
         self._buffers.append(partial)
         self._buffer_rows += len(partial)
+        self._approx_bytes += partial.size_bytes()
 
     def _merge(self) -> None:
         self._flush_raw()
@@ -143,8 +160,10 @@ class AggState:
             return
         merged = RecordBatch.concat(self._buffers).agg(self.plan.merge_exprs,
                                                         self.plan.merge_group_by)
+        self._approx_bytes -= sum(rb.size_bytes() for rb in self._buffers)
         self._buffers = [merged]
-        self._buffer_rows = len(merged)
+        self._buffer_rows = self._merged_rows = len(merged)
+        self._approx_bytes += merged.size_bytes()
         self._needs_merge = False
 
     def fork(self) -> "AggState":
@@ -156,10 +175,18 @@ class AggState:
         clone.input_schema = self.input_schema
         clone._raw = list(self._raw)
         clone._raw_rows = self._raw_rows
+        clone._approx_bytes = self._approx_bytes
         clone._buffers = list(self._buffers)
         clone._buffer_rows = self._buffer_rows
+        clone._merged_rows = self._merged_rows
         clone._needs_merge = self._needs_merge
         return clone
+
+    def approx_size_bytes(self) -> int:
+        """Approximate resident bytes of the buffered raw and partial state
+        (the grace aggregation spills on it). Kept as a running total: it is
+        read per morsel."""
+        return self._approx_bytes
 
     def partial_batches(self) -> List[RecordBatch]:
         """The merged partial state."""
@@ -172,7 +199,8 @@ class AggState:
             return
         self._buffers.append(rb)
         self._buffer_rows += len(rb)
-        if self._buffer_rows > self.MERGE_THRESHOLD_ROWS:
+        self._approx_bytes += rb.size_bytes()
+        if self._merge_due():
             self._merge()
 
     def add_partial(self, rb: RecordBatch) -> None:
@@ -185,10 +213,12 @@ class AggState:
             return
         self._buffers.append(rb)
         self._buffer_rows += len(rb)
+        self._approx_bytes += rb.size_bytes()
 
     def accumulate_unmerged_partial(self, rb: RecordBatch) -> None:
-        """Ingest a partial batch that may hold DUPLICATE group keys: forces a
-        merge pass before finalize even if it ends up the only buffered batch."""
+        """Ingest a partial batch that may hold DUPLICATE group keys (a grace
+        bucket's batch coalesces fragments of several spills): forces a merge
+        pass before finalize even if it ends up the only buffered batch."""
         if len(rb) == 0:
             return
         self._needs_merge = True

@@ -61,6 +61,32 @@ Joins, sorts and dedupes run on the host, as in the JAX package; the
 Project/Filter chains on each side of them still run on the device, each
 pool worker on a CUDA stream of its own.
 
+Memory: the blocking sinks take byte permits from the process
+``MemoryManager`` (``execution/resource_manager.py``) for what they buffer
+(``_collect``; a shared subtree's cached morsels too), and every byte the
+executor holds is charged to the query in the byte ledger
+(``execution/memledger.py``): permits, the stages' queues, spill files.
+Under a memory limit (``memory_limit()``) each blocking sink works within
+``sink_budget`` (a quarter of the limit) under a ``budget_reservation`` and
+spills the rest (``execution/spill.py``), as the JAX package routes it:
+
+* ``Sort`` — an external sort (sorted runs, k-way merge);
+* ``Aggregate`` — a global one compresses its state in place (no chain
+  absorption); a grouped one accumulates serially and, past the budget,
+  hash-partitions its merged state into ``GRACE_BUCKETS`` disk buckets,
+  each then merged and finalised alone;
+* ``Distinct`` — per-morsel dedupe, then past the budget grace buckets;
+* ``HashJoin`` — no probe-side prefetch; each side in memory or, past the
+  budget, in grace buckets by its unified key; per bucket an inner / left /
+  semi / anti join streams the probe bucket against the build bucket, and a
+  right / outer join materialises both (``join_counters`` route ``grace``).
+
+A failure poisons the manager's current waiters of this query (an early
+close does not); on every exit of ``run`` the executor closes its operator
+iterators, removes its spill directory and returns its held permits and
+their ledger charges at once, so a late acquire on a side thread hands its
+permit straight back (``_add_held``).
+
 The determinism contract of ``pipeline.py`` holds: morsel, chunk and bucket
 boundaries are pure functions of the input, so results are the same bytes at
 ``num_compute_threads=1`` (every stage serial on the calling thread) and at
@@ -71,14 +97,14 @@ boundary (``_cancel_checked`` around each operator's stream, and each worker
 before its morsel); on every exit of ``run`` the pool is shut down and every
 operator iterator closed, which releases the feeders.
 
-Not ported yet: the per-stage byte accounting and memory permits with spill
-(the grouped aggregation's grace spill, the grace hash join, the external
-sort and the grace distinct under a memory budget go with them, A.3), the
-profiling spans and the ``timer=`` hook (A.9.5), replica slots for
-``chips_per_replica`` (A.10), the feedback plane with its join bucket counts
-(A.8), the scan-output cache tier in front of the scan
-(``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8), runtime
-stats, and the other operators (window, repartition, shuffle reads, ...).
+Not ported yet: the feedback plane with its join bucket counts and
+estimate-driven early spill (off by default in the JAX package) and the
+distributed two-phase aggregation nodes (A.8), the grace window and grace
+repartition (their nodes come with A.3.5), the profiling spans, the
+``timer=`` hook and runtime stats (A.9.5), replica slots for
+``chips_per_replica`` (A.10), the scan-output cache tier in front of the
+scan (``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8), and
+the other operators (window, repartition, shuffle reads, ...).
 
 Plans are DAGs: a decorrelated subquery references one subtree from several
 parents. A node that more than one parent references
@@ -88,9 +114,8 @@ materialises its output under a per-node fill event while any other puller
 its slot so the next puller fills again, and the Project/Filter chains and
 the global aggregation's chain absorption stop at it. ``shared_fills``
 counts the fills per node id and ``shared_hits`` the pulls served from the
-cache. The JAX package charges the cached morsels to its memory permits;
-the port has no permits yet, so that waits for A.3.4 (see
-``_shared_subtree``).
+cache. The cached morsels are held under memory permits until the query
+ends (``SharedSubtree`` in the byte ledger).
 """
 
 from __future__ import annotations
@@ -112,6 +137,16 @@ from daft_tpu_torch.datatype import unify_dtypes
 from daft_tpu_torch.errors import DaftExecutionError, DaftPlanError
 from daft_tpu_torch.execution.aggregation import AggState
 from daft_tpu_torch.execution.join_index import JoinIndex, _key_values, join_counters
+from daft_tpu_torch.execution.memledger import get_ledger
+from daft_tpu_torch.execution.resource_manager import get_memory_manager
+from daft_tpu_torch.execution.spill import (
+    ExternalSort,
+    GracePartitioner,
+    SpillDir,
+    budget_reservation,
+    sink_budget,
+    spill_metrics,
+)
 from daft_tpu_torch.execution.dynamic_batching import LatencyConstrainedBatching, dynamic_remorsel
 from daft_tpu_torch.execution.pipeline import (
     DEFAULT_MIN_MORSEL_ROWS,
@@ -152,6 +187,10 @@ class Executor:
     CLOSE_WAIT_S = 10.0
     #: Threads of a scan's IO pool (the JAX executor's default).
     NUM_IO_THREADS = 8
+    #: Disk buckets of a grace aggregation, distinct or join.
+    GRACE_BUCKETS = 32
+    #: Seconds a blocking sink waits for a permit before its gate disengages.
+    PERMIT_WAIT_S = 5.0
 
     def __init__(self, cfg: ExecutionConfig, cancel_token: Optional[CancelToken] = None):
         self.cfg = cfg
@@ -167,6 +206,36 @@ class Executor:
         self._shared_cache: dict = {}
         self.shared_fills: Dict[int, int] = {}
         self.shared_hits: Dict[int, int] = {}
+        self.memory = get_memory_manager()
+        # Permits this executor holds, in all and per operator: the teardown
+        # releases exactly what it charged (two executors may share a query
+        # id).
+        self._held_bytes = 0
+        self._held_by_op: Dict[str, int] = {}
+        # Set under _state_lock once run()'s teardown has returned the held
+        # permits: a side thread whose acquire succeeded just as the query
+        # unwound hands its permit straight back (_add_held).
+        self._permits_closed = False
+        self._ledger = get_ledger()
+        self._ledger_qid = getattr(cancel_token, "query_id", "") or ""
+        self._spill_dir: Optional[SpillDir] = None
+
+    def _spill(self) -> SpillDir:
+        """The query's spill directory, made on first use and removed when
+        ``run`` ends."""
+        with self._state_lock:
+            if self._spill_dir is None:
+                self._spill_dir = SpillDir(query_id=self._ledger_qid)
+            return self._spill_dir
+
+    def _stage_ledger(self, op: str) -> Optional[tuple]:
+        """The ``(query_id, operator)`` tag a stage charges its queue's
+        residency under; None when the ledger is off."""
+        return (self._ledger_qid, op) if self._ledger.enabled else None
+
+    def _sink_budget(self) -> Optional[int]:
+        """One blocking sink's working set; None without a memory limit."""
+        return sink_budget(self.memory.limit)
 
     def _pool(self) -> Optional[ThreadPoolExecutor]:
         """The executor-wide compute pool, shared by every stage so stacked
@@ -186,12 +255,48 @@ class Executor:
         with self._state_lock:
             self._shared_cache = {}
             self.shared_fills, self.shared_hits = {}, {}
+            self._permits_closed = False  # executors are re-runnable
         try:
             yield from self._run(plan)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            # A sink thread still blocked in a permit wait would sleep until
+            # its timeout: poison wakes this query's current waiters with the
+            # failure. GeneratorExit is an early close (a limit, an abandoned
+            # iteration), never a poison.
+            if not isinstance(e, GeneratorExit):
+                self.memory.poison(e, query_id=self._ledger_qid or None)
+            raise
         finally:
             self._shutdown()
             with self._state_lock:
                 self._shared_cache = {}
+                spill, self._spill_dir = self._spill_dir, None
+            if spill is not None:
+                spill.cleanup()
+            # Close the permit window ATOMICALLY with reading the held total:
+            # an acquire that lands after this point releases itself in
+            # _add_held instead of adding to a drained counter.
+            with self._state_lock:
+                held, self._held_bytes = self._held_bytes, 0
+                by_op, self._held_by_op = self._held_by_op, {}
+                self._permits_closed = True
+            if held:
+                self.memory.release(held)
+            for op, nbytes in by_op.items():
+                self._ledger.release(self._ledger_qid, op, nbytes, kind="permit")
+
+    def _add_held(self, nbytes: int, op: str = "") -> None:
+        """Book a granted permit of ``nbytes`` to ``op`` (and charge it in
+        the ledger); after the teardown, hand it straight back instead."""
+        with self._state_lock:
+            if not self._permits_closed:
+                self._held_bytes += nbytes
+                self._held_by_op[op] = self._held_by_op.get(op, 0) + nbytes
+                self._ledger.charge(self._ledger_qid, op, nbytes, kind="permit")
+                return
+        # The query already unwound and released its held total: this
+        # acquire raced the teardown. The ledger was never charged.
+        self.memory.release(nbytes)
 
     def _shutdown(self) -> None:
         """On every exit of ``run``: stop the pool (a later submit raises,
@@ -245,9 +350,26 @@ class Executor:
             # Loop: a failed filler clears the slot, and the next puller
             # fills instead of waiting on a stale marker.
         try:
-            # The JAX package charges these morsels to its memory permits
-            # (released at query end); the port has no permits yet (A.3.4).
-            cached = list(self._run_uncached(node))
+            cached: List[MicroPartition] = []
+            gate_on = True
+            for mp in self._run_uncached(node):
+                # The pinned output is buffered state, held under permits
+                # until the query ends. As in _collect, the only releaser is
+                # this executor at query end, so a failed acquire disengages
+                # the gate instead of waiting again.
+                if gate_on:
+                    nbytes = mp.size_bytes()
+                    if self.memory.acquire(nbytes, timeout=self.PERMIT_WAIT_S,
+                                           token=self.cancel_token):
+                        limit = self.memory.limit
+                        # What acquire granted (it clamps to the limit), so
+                        # the release is byte-symmetric with the grant.
+                        self._add_held(nbytes if limit is None else min(nbytes, limit),
+                                       op="SharedSubtree")
+                    else:
+                        gate_on = False
+                        spill_metrics.record_best_effort("permit_gates_off")
+                cached.append(mp)
         except BaseException:
             with self._state_lock:
                 self._shared_cache.pop(key, None)
@@ -291,7 +413,8 @@ class Executor:
         if split:
             source = morselize(source, self.min_morsel_rows, self.max_morsel_rows)
         yield from map_stage(source, fn, pool=self._pool(), workers=self.compute_threads,
-                             name=name, ordered=self.cfg.default_maintain_order)
+                             name=name, ordered=self.cfg.default_maintain_order,
+                             ledger=self._stage_ledger(name))
 
     def _run_InMemorySource(self, node: pp.InMemorySource) -> Iterator[MicroPartition]:
         yield from node.partitions
@@ -460,14 +583,80 @@ class Executor:
         # the shared relational pool.
         udf_pool = ThreadPoolExecutor(max_workers=concurrency, thread_name_prefix="daft-udf")
         yield from run_stage(child_iter, eval_mp, pool=udf_pool, workers=concurrency,
-                             name="UDFProject", owns_pool=True)
+                             name="UDFProject", owns_pool=True,
+                             ledger=self._stage_ledger("UDFProject"))
 
     def _run_Aggregate(self, node: pp.Aggregate) -> Iterator[MicroPartition]:
         def fresh_state() -> AggState:
             return AggState(node.agg_exprs, node.group_by, node.schema,
                             input_schema=node.children[0].schema)
 
-        yield from self._pipelined_agg(node, fresh_state)
+        budget = self._sink_budget()
+        if budget is None:
+            yield from self._pipelined_agg(node, fresh_state)
+            return
+        if not node.group_by:
+            # A global aggregation reduces to one row of merged state, but
+            # raw morsels buffer by rows: under a budget it compresses its
+            # state in place whenever the state passes it (no disk needed).
+            state = fresh_state()
+            for mp in self._run(node.children[0]):
+                state.accumulate(mp)
+                if state.approx_size_bytes() > budget:
+                    state.partial_batches()  # flush the raw rows, merge in place
+            yield MicroPartition(node.schema, [state.finalize()])
+            return
+        yield from self._grace_grouped_agg(self._run(node.children[0]), fresh_state, budget,
+                                           node.schema)
+
+    def _grace_grouped_agg(self, items: Iterator[MicroPartition], fresh_state, budget: int,
+                           schema: Schema) -> Iterator[MicroPartition]:
+        """Grace aggregation: whenever the merged partial state outgrows the
+        budget, hash-partition it by group key into disk buckets; each bucket
+        is then merged and finalised alone (a group's keys land in exactly
+        one bucket, so each bucket's finalize is exact)."""
+        state: AggState = fresh_state()
+        key_names = state.plan.key_names
+        grace: Optional[GracePartitioner] = None
+
+        def spill_state(st: AggState) -> None:
+            nonlocal grace
+            if grace is None:
+                grace = GracePartitioner(lambda rb: [rb.get_column(n) for n in key_names],
+                                         num_buckets=self.GRACE_BUCKETS, spill=self._spill(),
+                                         total_buffer_bytes=budget, op="Aggregate")
+            for partial in st.partial_batches():
+                grace.add(partial)
+
+        with budget_reservation(self.memory, budget, token=self.cancel_token, op="Aggregate"):
+            for mp in items:
+                state.accumulate(mp)
+                if state.approx_size_bytes() > budget:
+                    spill_state(state)
+                    state = fresh_state()
+            if grace is None:
+                yield MicroPartition(schema, [state.finalize()])
+                return
+            spill_state(state)
+            grace.finish()
+            for b in range(grace.num_buckets):
+                # Stream the bucket into the merge state, never whole: merged
+                # partial state has one row per group, so a skewed bucket
+                # stays within the budget.
+                bstate = fresh_state()
+                seen = False
+                for rb in grace.stream_bucket(b):
+                    seen = True
+                    # A bucket's batch coalesces fragments of several spills,
+                    # so group keys can repeat within it: force the merge.
+                    bstate.accumulate_unmerged_partial(rb)
+                    if bstate.approx_size_bytes() > budget:
+                        bstate.partial_batches()  # merge in place
+                if not seen:
+                    continue
+                out = bstate.finalize()
+                if len(out):
+                    yield MicroPartition(schema, [out])
 
     def _pipelined_agg(self, node: pp.Aggregate, fresh_state) -> Iterator[MicroPartition]:
         """In-memory aggregation with a cardinality-adaptive strategy:
@@ -544,7 +733,7 @@ class Executor:
         # soon as it outgrows the threshold. The partials come in chunk order.
         for partial in map_stage(itertools.chain([first], chunks), partial_of,
                                  pool=self._pool(), workers=self.compute_threads,
-                                 name="AggPartial"):
+                                 name="AggPartial", ledger=self._stage_ledger("Aggregate")):
             state.add_partial(partial)
         yield MicroPartition(node.schema, [state.finalize()])
 
@@ -671,19 +860,47 @@ class Executor:
                 break
 
     # -- blocking sinks ---------------------------------------------------
-    def _collect(self, node: pp.PhysicalPlan,
+    def _collect(self, node: pp.PhysicalPlan, op: str,
                  source: Optional[Iterator[MicroPartition]] = None) -> MicroPartition:
         """Materialise a blocking sink's input (``source`` in place of the
-        node's own stream, when given) in memory (the port has no memory
-        permits: A.3)."""
-        parts = list(self._run(node) if source is None else source)
+        node's own stream, when given) under memory permits, charged in the
+        ledger to ``op``, the sink.
+
+        Permits bound memory across concurrent executors; within one
+        oversized sink they degrade to best effort: after the first failed
+        acquire the gate disengages for this sink (counted), since the only
+        releaser is this executor at query end and further waits could only
+        stall."""
+        parts = []
+        limit = self.memory.limit
+        gate_on = limit is not None
+        for mp in (self._run(node) if source is None else source):
+            if gate_on and self._held_bytes < limit:
+                nbytes = mp.size_bytes()
+                if self.memory.acquire(nbytes, timeout=self.PERMIT_WAIT_S,
+                                       token=self.cancel_token):
+                    self._add_held(min(nbytes, limit), op=op)
+                else:
+                    gate_on = False
+                    spill_metrics.record_best_effort("permit_gates_off")
+            parts.append(mp)
         if not parts:
             return MicroPartition.empty(node.schema)
         return MicroPartition.concat(parts)
 
     def _run_Sort(self, node: pp.Sort) -> Iterator[MicroPartition]:
-        combined = self._collect(node.children[0])
-        yield combined.sort(node.sort_by, node.descending, node.nulls_first)
+        budget = self._sink_budget()
+        if budget is None:
+            combined = self._collect(node.children[0], "Sort")
+            yield combined.sort(node.sort_by, node.descending, node.nulls_first)
+            return
+        # Out of core: sorted runs, then a k-way streaming merge.
+        with budget_reservation(self.memory, budget, token=self.cancel_token, op="Sort"):
+            state = ExternalSort(node.sort_by, node.descending, node.nulls_first, node.schema,
+                                 budget, self._spill(), morsel_rows=self.cfg.default_morsel_size)
+            for mp in self._run(node.children[0]):
+                state.add(mp)
+            yield from state.results()
 
     def _run_TopN(self, node: pp.TopN) -> Iterator[MicroPartition]:
         k = node.limit + node.offset
@@ -707,12 +924,70 @@ class Executor:
         return rb.sort(keys, node.descending, node.nulls_first).head(k)
 
     def _run_Distinct(self, node: pp.Distinct) -> Iterator[MicroPartition]:
+        budget = self._sink_budget()
+        if budget is None:
+            yield from self._distinct(node, None)
+            return
+        with budget_reservation(self.memory, budget, token=self.cancel_token, op="Distinct"):
+            yield from self._distinct(node, budget)
+
+    def _distinct(self, node: pp.Distinct, budget: Optional[int]) -> Iterator[MicroPartition]:
+        """Per-morsel dedupe, then the whole input's; past ``budget`` the
+        deduped morsels go to grace buckets by key, deduped bucket by
+        bucket."""
         on = [e.name() for e in node.on] if node.on else None
-        buffer = [mp.combined().distinct(on) for mp in self._run(node.children[0])]
+        key_names = on or node.schema.column_names()
+        grace: Optional[GracePartitioner] = None
+        buffer: List[RecordBatch] = []
+        buf_bytes = 0
+        for mp in self._run(node.children[0]):
+            rb = mp.combined().distinct(on)
+            buffer.append(rb)
+            buf_bytes += rb.size_bytes()
+            if budget is not None and buf_bytes > budget:
+                if grace is None:
+                    grace = GracePartitioner(lambda b: [b.get_column(n) for n in key_names],
+                                             num_buckets=self.GRACE_BUCKETS,
+                                             spill=self._spill(), total_buffer_bytes=budget,
+                                             op="Distinct")
+                for b in buffer:
+                    grace.add(b)
+                buffer, buf_bytes = [], 0
+        if grace is not None:
+            for b in buffer:
+                grace.add(b)
+            grace.finish()
+            for i in range(grace.num_buckets):
+                acc = self._fold_distinct(grace.stream_bucket(i), on)
+                if acc is not None and len(acc):
+                    yield MicroPartition(node.schema, [acc])
+            return
         if not buffer:
             yield MicroPartition.empty(node.schema)
             return
         yield MicroPartition(node.schema, [RecordBatch.concat(buffer).distinct(on)])
+
+    @staticmethod
+    def _fold_distinct(batches: Iterator[RecordBatch], on) -> Optional[RecordBatch]:
+        """The distinct rows of a grace bucket as it streams, in first-seen
+        order. Batches wait until they hold as many rows as the rows kept so
+        far, then fold in at once: what is resident stays within twice the
+        bucket's distinct rows plus one batch, and each row is folded a
+        bounded number of times. The JAX package dedupes every batch and
+        folds it into everything kept so far, which is quadratic in a
+        bucket's batches (C.37); the rows and their order are the same."""
+        acc: Optional[RecordBatch] = None
+        pending: List[RecordBatch] = []
+        pending_rows = 0
+        for rb in batches:
+            pending.append(rb)
+            pending_rows += len(rb)
+            if acc is None or pending_rows >= len(acc):
+                acc = RecordBatch.concat(([] if acc is None else [acc]) + pending).distinct(on)
+                pending, pending_rows = [], 0
+        if pending:
+            acc = RecordBatch.concat([acc] + pending).distinct(on)
+        return acc
 
     # -- joins ------------------------------------------------------------
     @staticmethod
@@ -722,20 +997,85 @@ class Executor:
                 for k, dt in zip(keys, key_dtypes)]
 
     def _run_HashJoin(self, node: pp.HashJoin) -> Iterator[MicroPartition]:
+        budget = self._sink_budget()
+        if budget is not None:
+            # Under a budget the sides own their buffering: no look-ahead.
+            with budget_reservation(self.memory, budget, token=self.cancel_token,
+                                    op="HashJoin"):
+                yield from self._hash_join(node, budget, None)
+            return
         # While the build side collects, a bounded prefetch warms the probe
         # side's stages, so the probe starts on full queues. It is closed on
         # any exit, so a failed build cannot leave its thread pulling.
         prefetch = Prefetch(self._run(node.children[0]), capacity=4, name="probe-side") \
             if self.compute_threads > 1 else None
         try:
-            yield from self._hash_join(node, iter(prefetch) if prefetch is not None
+            yield from self._hash_join(node, None, iter(prefetch) if prefetch is not None
                                        else self._run(node.children[0]))
         finally:
             if prefetch is not None:
                 prefetch.close()
 
-    def _hash_join(self, node: pp.HashJoin,
-                   left_source: Iterator[MicroPartition]) -> Iterator[MicroPartition]:
+    def _collect_or_grace(self, child: pp.PhysicalPlan, key_exprs, budget: Optional[int],
+                          key_dtypes, source: Optional[Iterator[MicroPartition]] = None):
+        """A join side in memory, or, once it outgrows ``budget``, in grace
+        buckets by its join key: ``("mem", MicroPartition)`` or ``("grace",
+        GracePartitioner)``. The keys are cast to the UNIFIED key dtypes
+        first, since the row hash depends on the byte width and equal keys of
+        both sides must land in the same bucket. ``source`` stands in for the
+        child's own stream."""
+        if budget is None:
+            return "mem", self._collect(child, "HashJoin", source)
+        buffer: List[MicroPartition] = []
+        buf_bytes = 0
+        grace: Optional[GracePartitioner] = None
+        for mp in (self._run(child) if source is None else source):
+            if grace is not None:
+                for rb in mp.record_batches():
+                    grace.add(rb)
+                continue
+            buffer.append(mp)
+            buf_bytes += mp.size_bytes()
+            if buf_bytes > budget:
+                grace = GracePartitioner(
+                    lambda rb: self._unified_keys(rb, key_exprs, key_dtypes),
+                    self.GRACE_BUCKETS, self._spill(), total_buffer_bytes=budget,
+                    op="HashJoin")
+                for buffered in buffer:
+                    for rb in buffered.record_batches():
+                        grace.add(rb)
+                buffer = []
+        if grace is not None:
+            grace.finish()
+            return "grace", grace
+        if not buffer:
+            return "mem", MicroPartition.empty(child.schema)
+        return "mem", MicroPartition.concat(buffer)
+
+    @staticmethod
+    def _grace_bucket_rbs(side, b: int, schema: Schema) -> RecordBatch:
+        """Bucket ``b`` of a graced side (or of a side partitioned in
+        memory, a list) as one RecordBatch; empty when it has no rows."""
+        if isinstance(side, list):
+            return side[b]
+        bucket = side.read_bucket(b)
+        if bucket is None or len(bucket) == 0:
+            return RecordBatch.empty(schema)
+        return bucket.combined()
+
+    @staticmethod
+    def _grace_bucket_stream(side, b: int) -> Iterator[RecordBatch]:
+        if isinstance(side, list):
+            yield side[b]
+            return
+        yield from side.stream_bucket(b)
+
+    def _hash_join(self, node: pp.HashJoin, budget: Optional[int],
+                   left_source: Optional[Iterator[MicroPartition]]
+                   ) -> Iterator[MicroPartition]:
+        """The join over the build (right) side, collected or graced, and the
+        probe side's stream (``left_source``, else the left child's own,
+        started after the build)."""
         lschema, rschema = node.children[0].schema, node.children[1].schema
         # int32 against int64 keys (and the like) index and hash as one dtype.
         key_dtypes = [
@@ -743,19 +1083,26 @@ class Executor:
             for lt, rt in ((le.to_field(lschema).dtype, re.to_field(rschema).dtype)
                            for le, re in zip(node.left_on, node.right_on))
         ]
-        right = self._collect(node.children[1]).combined()
+        right_state, right_side = self._collect_or_grace(node.children[1], node.right_on,
+                                                         budget, key_dtypes)
         on = [e.name() for e in node.left_on]
-        if node.how in ("right", "outer"):
-            # Unmatched build rows are known only after the whole probe side:
-            # both sides materialise and join once.
-            left = self._collect(node.children[0], left_source).combined()
-            left_keys = [evaluate(e, left) for e in node.left_on]
-            right_keys = [evaluate(e, right) for e in node.right_on]
-            out = self._join_and_fix(left, right, left_keys, right_keys, node)
-            join_counters.record_probe(join_counters.start(node.how, on, len(right)), "acero",
-                                       len(left), len(out))
-            yield MicroPartition(node.schema, [out])
+        if right_state == "grace" or node.how in ("right", "outer"):
+            # Unmatched build rows are known only after the whole probe side,
+            # and an oversized build side forces grace for every join type.
+            left_state, left_side = self._collect_or_grace(
+                node.children[0], node.left_on, budget, key_dtypes, source=left_source)
+            if right_state == "mem" and left_state == "mem":
+                left, right = left_side.combined(), right_side.combined()
+                left_keys = [evaluate(e, left) for e in node.left_on]
+                right_keys = [evaluate(e, right) for e in node.right_on]
+                out = self._join_and_fix(left, right, left_keys, right_keys, node)
+                join_counters.record_probe(join_counters.start(node.how, on, len(right)),
+                                           "acero", len(left), len(out))
+                yield MicroPartition(node.schema, [out])
+                return
+            yield from self._grace_join(node, key_dtypes, on, left_side, right_side)
             return
+        right = right_side.combined()
         right_keys = [evaluate(e, right) for e in node.right_on]
         right_data, coalesce = self._prep_join_right(right, node)
         # Build once, probe many: an index over the build side where the
@@ -793,8 +1140,61 @@ class Executor:
 
         # Without an index each probe morsel re-hashes the build side, so the
         # probe keeps its natural (coarse) morsels.
+        if left_source is None:
+            left_source = self._run(node.children[0])
         yield from self._streaming_map(probe, left_source, name="HashJoin",
                                        split=index is not None)
+
+    def _grace_join(self, node: pp.HashJoin, key_dtypes, on, left_side,
+                    right_side) -> Iterator[MicroPartition]:
+        """Grace hash join: equal keys hash to the same bucket on both sides,
+        so each bucket joins alone with exact semantics (the unmatched rows
+        of outer joins included). A side held in memory is partitioned
+        there; ``join_counters`` records the buckets under route ``grace``."""
+        nb = self.GRACE_BUCKETS
+        sides = []
+        for side, key_exprs in ((right_side, node.right_on), (left_side, node.left_on)):
+            if isinstance(side, MicroPartition):
+                rb = side.combined()
+                side = rb.partition_by_hash(self._unified_keys(rb, key_exprs, key_dtypes), nb)
+            sides.append(side)
+        right_side, left_side = sides
+        build_rows = sum(len(p) for p in right_side) if isinstance(right_side, list) \
+            else sum(sf.rows for files in right_side.buckets for sf in files)
+        rec = join_counters.start(node.how, on, build_rows)
+        lschema, rschema = node.children[0].schema, node.children[1].schema
+        for b in range(nb):
+            right = self._grace_bucket_rbs(right_side, b, rschema)
+            if node.how in ("inner", "left", "semi", "anti"):
+                if len(right) == 0 and node.how in ("inner", "semi"):
+                    continue
+                # Left-driven joins stream the probe bucket batch by batch:
+                # only the build bucket must fit, so probe-side key skew
+                # never materialises a hot bucket whole.
+                right_keys = [evaluate(e, right) for e in node.right_on]
+                for left in self._grace_bucket_stream(left_side, b):
+                    if len(left) == 0:
+                        continue
+                    left_keys = [evaluate(e, left) for e in node.left_on]
+                    out = self._join_and_fix(left, right, left_keys, right_keys, node)
+                    join_counters.record_probe(rec, "grace", len(left), len(out))
+                    if len(out):
+                        yield MicroPartition(node.schema, [out])
+                continue
+            # Right / outer joins follow unmatched build rows across the whole
+            # probe bucket, so both buckets materialise (hot-KEY skew beyond
+            # one bucket's budget is the known limit of one-level grace).
+            left = self._grace_bucket_rbs(left_side, b, lschema)
+            if len(left) == 0 and len(right) == 0:
+                continue
+            if len(right) == 0 and node.how == "right":
+                continue
+            left_keys = [evaluate(e, left) for e in node.left_on]
+            right_keys = [evaluate(e, right) for e in node.right_on]
+            out = self._join_and_fix(left, right, left_keys, right_keys, node)
+            join_counters.record_probe(rec, "grace", len(left), len(out))
+            if len(out):
+                yield MicroPartition(node.schema, [out])
 
     @staticmethod
     def _conform_to_schema(rb: RecordBatch, schema: Schema) -> RecordBatch:
@@ -848,7 +1248,7 @@ class Executor:
         return self._finish_join(joined, coalesce, node)
 
     def _run_AsofJoin(self, node: pp.AsofJoin) -> Iterator[MicroPartition]:
-        right = self._collect(node.children[1]).combined()
+        right = self._collect(node.children[1], "AsofJoin").combined()
         right_on = evaluate(node.right_on, right)
         right_by = [evaluate(e, right) for e in node.right_by]
         for mp in self._run(node.children[0]):
@@ -860,7 +1260,7 @@ class Executor:
             yield MicroPartition(node.schema, [self._conform_to_schema(joined, node.schema)])
 
     def _run_CrossJoin(self, node: pp.CrossJoin) -> Iterator[MicroPartition]:
-        right = self._collect(node.children[1]).combined()
+        right = self._collect(node.children[1], "CrossJoin").combined()
         for mp in self._run(node.children[0]):
             joined = mp.combined().cross_join(right, node.suffix)
             yield MicroPartition(node.schema, [self._conform_to_schema(joined, node.schema)])

@@ -24,9 +24,14 @@ on the way out (the futures queue in submission order), so order-sensitive
 consumers see the serial sequence; unordered stages (``ordered=False``) yield
 in completion order and serve order-insensitive sinks only.
 
-Not ported yet: the per-stage byte account of the memory observatory
-(``_StageAccount`` and the ``ledger=`` hook, ROADMAP A.3.4) and the ``timer=``
-profiling hook (A.9.5).
+Byte account: a stage given ``ledger=(query_id, operator)`` charges the byte
+ledger (``execution/memledger.py``, kind ``queue``) for each morsel a worker
+has completed and the consumer has not yet taken (``_StageAccount``), and
+notes the time its feeder spends blocked on a full queue as a stall. The
+serial path charges and releases each morsel in turn, so the cumulative
+charged bytes per operator are the same at any worker count.
+
+Not ported yet: the ``timer=`` profiling hook (ROADMAP A.9.5).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import contextvars
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional
 
@@ -128,9 +134,124 @@ def _on_worker(fn: Callable) -> Callable:
     return run
 
 
+class _StageAccount:
+    """The byte account of one stage's bounded queue.
+
+    A morsel is CHARGED the moment a stage worker completes it (completed or
+    queued residency nobody downstream has taken) and RELEASED when the
+    consumer takes it, so the ledger's ``queue`` kind follows the real
+    occupancy of the backpressure buffer. ``drain()`` zeroes what is still
+    outstanding on any exit of the stage (abandonment, failure).
+
+    Sizes come from a template, not a walk of each morsel's buffers: a
+    stage's outputs share one schema, so the fixed-width columns count
+    ``rows x bit width`` (a pure function of schema and rows, so the charged
+    totals per operator do not depend on the worker count) and only the
+    variable-width columns (strings, lists, and the extension types whose
+    Arrow type has no bit width) are measured exactly."""
+
+    __slots__ = ("qid", "op", "outstanding", "closed", "lock", "ledger",
+                 "_fixed_bits", "_var", "_sizes")
+
+    def __init__(self, qid: str, op: str):
+        from daft_tpu_torch.execution.memledger import get_ledger
+
+        self.qid = qid
+        self.op = op
+        self.outstanding = 0
+        self.closed = False
+        self.lock = threading.Lock()
+        self.ledger = get_ledger()
+        self._fixed_bits = None  # per-row BITS of the fixed-width columns
+        self._var = ()           # indices of the variable-width columns
+        # id(morsel) -> bytes, written at produced() and popped at
+        # consumed(): one sizing per morsel. Popping keeps id reuse safe.
+        self._sizes: dict = {}
+
+    def _sized_batch(self, rb) -> int:
+        # Always the template, never a memoised exact size: whether a memo
+        # exists depends on who else sized the batch, and mixing the two
+        # would make the totals depend on that, not on the morsel stream.
+        cols = rb.columns()
+        if self._fixed_bits is None:
+            bits, var = 0, []
+            for i, c in enumerate(cols):
+                if c.dtype.is_python():
+                    bits += 64 * 8  # the engine's flat Python-object estimate
+                    continue
+                try:
+                    # In BITS, so packed types (bool, width 1) still count.
+                    bits += c.to_arrow().type.bit_width
+                except (ValueError, AttributeError):
+                    var.append(i)  # variable width: offsets make it data-bound
+            self._fixed_bits, self._var = bits, tuple(var)
+        total = (self._fixed_bits * len(rb)) // 8
+        for i in self._var:
+            total += cols[i].to_arrow().nbytes
+        return total
+
+    def measure(self, mp) -> int:
+        if hasattr(mp, "record_batches"):
+            return sum(self._sized_batch(rb) for rb in mp.record_batches())
+        if hasattr(mp, "columns"):
+            return self._sized_batch(mp)
+        return int(mp.size_bytes())  # batch-shaped stand-ins (tests)
+
+    def produced(self, mp) -> None:
+        try:
+            nbytes = self.measure(mp)
+        except (AttributeError, TypeError):
+            return
+        # Charge FIRST, book under the lock after: a morsel completed just as
+        # the consumer abandons the stage lands in ``outstanding`` (drained
+        # below) or is undone right here; the ledger never keeps it.
+        self.ledger.charge(self.qid, self.op, nbytes, kind="queue")
+        with self.lock:
+            if not self.closed:
+                self.outstanding += nbytes
+                self._sizes[id(mp)] = nbytes
+                return
+        self.ledger.release(self.qid, self.op, nbytes, kind="queue")
+
+    def consumed(self, mp) -> None:
+        with self.lock:
+            nbytes = self._sizes.pop(id(mp), None)
+            if nbytes is None:
+                return  # never produced here, or already drained
+            nbytes = min(nbytes, self.outstanding)
+            self.outstanding -= nbytes
+        if nbytes:
+            self.ledger.release(self.qid, self.op, nbytes, kind="queue")
+
+    def stalled(self, seconds: float) -> None:
+        self.ledger.note_stall(self.qid, self.op, seconds)
+
+    def drain(self) -> None:
+        with self.lock:
+            self.closed = True
+            leftover, self.outstanding = self.outstanding, 0
+            self._sizes.clear()
+        if leftover:
+            self.ledger.release(self.qid, self.op, leftover, kind="queue")
+
+
+def _stage_account(ledger: Optional[tuple], name: str) -> Optional[_StageAccount]:
+    """The stage's byte account from the executor's ``(query_id, op)`` tag;
+    None when untagged or the ledger is off (then no per-morsel work at
+    all)."""
+    if ledger is None:
+        return None
+    from daft_tpu_torch.execution.memledger import get_ledger
+
+    if not get_ledger().enabled:
+        return None
+    qid, op = ledger
+    return _StageAccount(qid, op or name)
+
+
 def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
               name: str = "stage", ordered: bool = True,
-              owns_pool: bool = False) -> Iterator:
+              owns_pool: bool = False, ledger: Optional[tuple] = None) -> Iterator:
     """Run ``fn`` over every item of ``child_iter`` on ``pool``'s workers,
     yielding the results: THE pipeline stage primitive.
 
@@ -141,19 +262,38 @@ def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
     completion order. Exceptions from the child iterator or from ``fn``
     reach the consumer unwrapped. The stop flag lets an abandoned consumer
     (a limit, a failure elsewhere) release the feeder without draining.
-    ``owns_pool`` shuts ``pool`` down when the stage ends."""
+    ``owns_pool`` shuts ``pool`` down when the stage ends. ``ledger``, a
+    ``(query_id, operator)`` tag, charges the queue's residency and the
+    feeder's stalls to the byte ledger."""
     inflight: "queue.Queue" = queue.Queue(maxsize=max(workers * 2, 2))
     stop = threading.Event()
     ambient = contextvars.copy_context()
     run_one = _on_worker(fn)
+    acct = _stage_account(ledger, name)
+    if acct is not None:
+        base_run = run_one
+
+        def run_one(item, _run=base_run):
+            out = _run(item)
+            acct.produced(out)
+            return out
 
     def put_or_stop(item) -> bool:
+        stall_t0 = None
         while not stop.is_set():
             try:
                 inflight.put(item, timeout=0.1)
+                if stall_t0 is not None and acct is not None:
+                    acct.stalled(time.monotonic() - stall_t0)
                 return True
             except queue.Full:
+                # A blocked producer: backpressure is engaged. Timed from the
+                # first Full, so the fast path reads no clock.
+                if stall_t0 is None:
+                    stall_t0 = time.monotonic()
                 continue
+        if stall_t0 is not None and acct is not None:
+            acct.stalled(time.monotonic() - stall_t0)
         return False
 
     if ordered:
@@ -176,7 +316,10 @@ def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
                     return
                 if isinstance(item, BaseException):
                     raise item  # the child iterator's failure, as raised
-                yield item.result()  # fn's failure: the future re-raises it
+                res = item.result()  # fn's failure: the future re-raises it
+                if acct is not None:
+                    acct.consumed(res)
+                yield res
     else:
         # Completions push results directly; a semaphore bounds the work in
         # flight (the queue alone cannot: results arrive out of order).
@@ -225,6 +368,8 @@ def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
                     return
                 if isinstance(item, BaseException):
                     raise item
+                if acct is not None:
+                    acct.consumed(item)
                 yield item
 
     feeder = threading.Thread(target=ambient.copy().run, args=(submit_all,), daemon=True,
@@ -234,25 +379,37 @@ def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
         yield from drain()
     finally:
         stop.set()
+        if acct is not None:
+            acct.drain()
         if owns_pool:
             pool.shutdown(wait=False, cancel_futures=True)
 
 
 def map_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
               name: str = "stage", ordered: bool = True,
-              owns_pool: bool = False) -> Iterator:
+              owns_pool: bool = False, ledger: Optional[tuple] = None) -> Iterator:
     """``run_stage`` when ``workers > 1``, an inline serial map on the
     consumer's thread otherwise: the same stream either way, since the stage
-    changes where morsels run, never what they contain."""
+    changes where morsels run, never what they contain. The serial map keeps
+    the ``ledger`` hook too (each morsel charged at production and released
+    at hand-off), so the charged bytes per operator are the same at 1 and N
+    workers; only the peaks differ."""
     if workers > 1:
         return run_stage(child_iter, fn, pool=pool, workers=workers, name=name,
-                         ordered=ordered, owns_pool=owns_pool)
+                         ordered=ordered, owns_pool=owns_pool, ledger=ledger)
+    acct = _stage_account(ledger, name)
 
     def serial():
         try:
             for item in child_iter:
-                yield fn(item)
+                out = fn(item)
+                if acct is not None:
+                    acct.produced(out)
+                    acct.consumed(out)
+                yield out
         finally:
+            if acct is not None:
+                acct.drain()
             if owns_pool:
                 pool.shutdown(wait=False, cancel_futures=True)
 

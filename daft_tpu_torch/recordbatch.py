@@ -666,11 +666,51 @@ def _explode_series(c: Series, out_counts: np.ndarray, exploded_len: int,
     return Series.from_arrow(taken, c.name, inner_dtype)
 
 
+def _packed_int_keys(keys: Sequence[Series]) -> Optional[np.ndarray]:
+    """Two or more null-free integer keys of at most 64 bits together, packed
+    into one int64 a row, else None. The packing is injective, so its dense
+    ids and first occurrences are those of the per-column codes' combination,
+    at one hash pass instead of one a column and one more for the combination."""
+    if len(keys) < 2:
+        return None
+    arrays = []
+    for k in keys:
+        arr = None if k.dtype.is_python() else k.to_arrow()
+        if (not isinstance(arr, pa.Array) or not pa.types.is_integer(arr.type)
+                or arr.null_count):
+            return None
+        arrays.append(arr)
+    if sum(a.type.bit_width for a in arrays) > 64:
+        return None
+    packed = np.zeros(len(arrays[0]), dtype=np.uint64)
+    for a in arrays:
+        w = a.type.bit_width
+        packed = (packed << np.uint64(w)) | np.asarray(a).view(f"uint{w}").astype(np.uint64)
+    return packed.view(np.int64)
+
+
 def _group_codes(keys: Sequence[Series]) -> Tuple[np.ndarray, np.ndarray]:
     """(group_ids per row, first-occurrence row index per group)."""
     n = len(keys[0]) if keys else 0
     if not keys:
         return np.zeros(n, dtype=np.int64), np.zeros(1 if n else 0, dtype=np.int64)
+
+    def _dense(combo: np.ndarray):
+        """Hash-based dense group ids via Arrow dictionary encoding: O(n),
+        ids numbered by first appearance (Arrow assigns dictionary slots in
+        encounter order — no sort needed)."""
+        enc = pc.dictionary_encode(
+            pa.chunked_array([pa.array(combo)])).combine_chunks()
+        inverse = np.asarray(enc.indices).astype(np.int64)
+        num = len(enc.dictionary)
+        first_idx = np.empty(num, dtype=np.int64)
+        first_idx[inverse[::-1]] = np.arange(n - 1, -1, -1)
+        return inverse, first_idx
+
+    packed = _packed_int_keys(keys)
+    if packed is not None:
+        inverse, first_idx = _dense(packed)
+        return inverse, first_idx
     codes = []
     radices = []
     for k in keys:
@@ -684,18 +724,6 @@ def _group_codes(keys: Sequence[Series]) -> Tuple[np.ndarray, np.ndarray]:
             idx = np.asarray(pc.dictionary_encode(reprs).indices).astype(np.int64)
         codes.append(idx)
         radices.append(int(idx.max()) + 1 if len(idx) else 1)
-
-    def _dense(combo: np.ndarray):
-        """Hash-based dense group ids via Arrow dictionary encoding: O(n),
-        ids numbered by first appearance (Arrow assigns dictionary slots in
-        encounter order — no sort needed)."""
-        enc = pc.dictionary_encode(
-            pa.chunked_array([pa.array(combo)])).combine_chunks()
-        inverse = np.asarray(enc.indices).astype(np.int64)
-        num = len(enc.dictionary)
-        first_idx = np.empty(num, dtype=np.int64)
-        first_idx[inverse[::-1]] = np.arange(n - 1, -1, -1)
-        return inverse, first_idx
 
     # Combine per-column dense codes exactly: a single mixed-radix combo when
     # the whole key-space product fits in int64, else fold columns in
