@@ -223,8 +223,8 @@ Phases, each of which fails the run on any error:
    from SF10 to keep the run inside its limit), each once at 8 workers with
    the counts set to 0 just before: wall s, the plan's parse and
    ``Optimizer.optimize`` s apart from it, rows per route and per join,
-   against the reference, no flash launch;
-   q16 must raise naming ROADMAP A.3.5; the DataFrame forms of q03-q05,
+   against the reference, no flash launch (q16's ``count(DISTINCT ...)``
+   among the 22 over SF1); the DataFrame forms of q03-q05,
    q07-q10, q12-q14 and q19 over SF1's tables (timed, their join order
    before and after the optimizer) equal to the SQL forms there; q18 under
    ``torch.profiler``; the process's peak RSS;
@@ -244,7 +244,26 @@ Phases, each of which fails the run on any error:
    (``RssSampler``), the device counters, the join routes and the pinned
    staging. Last, q21 under the limit and a 2 s deadline must raise
    ``DaftTimeoutError`` and leave the same three at zero;
-16. print the whole run's time and one JSON line of per-kernel numbers (with
+16. windows and the remaining operators (``phase_windows``,
+   ``daft_tpu_torch/tools/windows.py``) on phase 14's tables, each at 8
+   workers with the counts set to 0 just before (wall s, the window
+   evaluation's host s, rows per route, no flash launch): over SF10's orders
+   with ``o_orderdate`` as int32 days behind a filter that runs as a device
+   chain (its ``chain_rows`` must be non-zero), the running
+   ``sum(o_totalprice)`` per ``o_custkey`` by date, ``lag(o_orderdate, 1)``
+   and ``rank()`` per ``o_orderpriority`` by ``o_totalprice`` desc against a
+   numpy reference (keys, lags and ranks exact, sums within 1e-6); over
+   SF1's lineitem, TPC-DS q98's whole-partition ratio over 200,000
+   partitions (1e-5), ``row_number()`` per order, ``repartition(8,
+   l_orderkey)`` (each row in the bucket its hash names, the input's rows),
+   ``explode`` of ``agg_list`` per order (the input's multiset),
+   ``monotonically_increasing_id`` (0..n-1), the ``pivot`` of q01's groups
+   and ``INTERSECT ALL`` / ``EXCEPT ALL`` on ``l_suppkey``, each exact
+   against numpy; TPC-H q16 in SQL over SF1 against its reference; then
+   under 1/8 of SF1 lineitem's bytes the grace window and the grace hash
+   repartition, each spilling and equal to its in-memory answer, the ledger,
+   permits and spill directory at zero after each;
+17. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -367,6 +386,10 @@ SQL_RTOL = 1e-6
 SQL_TRACED = "q18"
 SQL_JOIN_ORDERS = ("q05", "q08", "q09")
 SQL_FRAME_FORMS = ("q03", "q04", "q05", "q07", "q08", "q09", "q10", "q12", "q13", "q14", "q19")
+# Phase 16.
+WINDOW_RTOL = 1e-6  # f32 window sums (sequential f64 rounded to f32) vs f64 numpy
+RATIO_RTOL = 1e-5   # an f32 price over its f32 partition sum vs the f64 quotient
+REPARTITIONS = 8
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -3445,18 +3468,17 @@ def join_order(plan) -> str:
 
 def phase_sql(card: str) -> dict:
     """Phase 14: TPC-H q01-q22 in SQL over SF1's seeded tables and q01, q18
-    and q21 over SF10's, each against its numpy reference, q16 raising, the
-    DataFrame forms against the SQL forms, q18 traced. Returns each query's
-    flash launches (0) and, for phase 15, SF10's tables and frames, the
-    answers, and q01's, q18's and q21's wall s, counters, joins and RSS
-    growth."""
+    and q21 over SF10's, each against its numpy reference, the DataFrame
+    forms against the SQL forms, q18 traced. Returns each query's flash
+    launches (0) and, for phases 15 and 16, SF10's tables and frames, the
+    answers, q01's, q18's and q21's wall s, counters, joins and RSS growth,
+    and SF1's tables and frames."""
     import gc
     import resource
 
     import torch
 
     import daft_tpu_torch as dt
-    from daft_tpu_torch.errors import DaftNotImplementedError
     from daft_tpu_torch.execution.join_index import join_counters
     from daft_tpu_torch.execution.memledger import get_ledger, read_rss_bytes
     from daft_tpu_torch.logical.optimizer import Optimizer
@@ -3516,15 +3538,13 @@ def phase_sql(card: str) -> dict:
         if name in SQL_JOIN_ORDERS:
             print(f"[sql] {name} join order over SF{SQL_CHECK_SF} (ReorderJoins): "
                   f"{join_order(plan)} [{card}]", flush=True)
-    print(f"[sql] SF{SQL_CHECK_SF}'s tables generated in {gen_s:.1f} s; the 21 queries equal "
+    print(f"[sql] SF{SQL_CHECK_SF}'s tables generated in {gen_s:.1f} s; the 22 queries equal "
           f"their references (warm runs): " + ", ".join(f"{n} {s:.3f} s" for n, s in walls.items())
           + f" [{card}]", flush=True)
-    try:
-        dt.sql(tpch_sql.sql_text("q16", SQL_CHECK_SF), **frames)
-        check(False, "q16's count(DISTINCT ...) must raise DaftNotImplementedError")
-    except DaftNotImplementedError as e:
-        check("A.3.5" in str(e), f"q16 must name ROADMAP A.3.5: {e}")
-        print(f"[sql] q16 raises DaftNotImplementedError: {e} [{card}]", flush=True)
+    check("q16" in walls, "q16 must run in SQL (count(DISTINCT ...))")
+    print(f"[sql] q16 over SF{SQL_CHECK_SF} ({len(small_outs['q16']['supplier_cnt'])} groups, "
+          f"count(DISTINCT ps_suppkey) through the list partials) equals its reference in "
+          f"{walls['q16']:.3f} s [{card}]", flush=True)
     # The DataFrame forms over SF1's tables (cut from SF10 to keep the run
     # inside its limit; phase 15 runs on SF10's).
     for name in SQL_FRAME_FORMS:
@@ -3546,7 +3566,9 @@ def phase_sql(card: str) -> dict:
               f"{SQL_WORKERS} workers, equal to the SQL form; build rows {builds}; join order "
               f"as written {written}, after the optimizer "
               f"{chosen}{'' if chosen == written else ' (reordered)'} [{card}]", flush=True)
-    del small, frames, small_outs
+    # Phase 16 runs on SF1's tables and frames too.
+    small_frames = frames
+    del small_outs
     gc.collect()
 
     t0 = time.perf_counter()
@@ -3596,7 +3618,7 @@ def phase_sql(card: str) -> dict:
                   f"{j['how']} on {j['on']}: build {j['build_rows']}, " + ", ".join(
                       f"{route} {r['rows_in']} in / {r['rows_out']} out"
                       for route, r in j["routes"].items()) for j in joins), flush=True)
-    check(chain_total > 0, "no device chain ran in the 21 queries over SF1 and the three "
+    check(chain_total > 0, "no device chain ran in the 22 queries over SF1 and the three "
           "over SF10")
     print(f"[sql] the numpy references over SF{SQL_SF} took {ref_s:.1f} s [{card}]",
           flush=True)
@@ -3614,7 +3636,8 @@ def phase_sql(card: str) -> dict:
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     print(f"[sql] the process's peak RSS so far {peak:.2f} GB; phase 14 took "
           f"{time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
-    return by_path, {"tables": tables, "frames": frames, "outs": outs, "unlimited": unlimited}
+    return by_path, {"tables": tables, "frames": frames, "outs": outs, "unlimited": unlimited,
+                     "small": small, "small_frames": small_frames}
 
 
 def rows_equal(a: dict, b: dict, rtol: float) -> list:
@@ -3812,9 +3835,186 @@ def phase_out_of_core(card: str, state: dict) -> dict:
               f"{raised:.3f} s ({e}); then the ledger held 0 bytes, every permit was back "
               f"and no spill directory remained; {time.perf_counter() - phase_start:.1f} s into "
               f"the phase [{card}]", flush=True)
-    del state["tables"], state["frames"], state["outs"]
     gc.collect()
     print(f"[ooc] phase 15 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
+def phase_windows(card: str, state: dict) -> dict:
+    """Phase 16: windows over SF10's orders and the remaining operators over
+    SF1's lineitem (``daft_tpu_torch/tools/windows.py``), TPC-H q16 in SQL
+    over SF1, and the grace window and grace repartition under 1/8 of SF1
+    lineitem's bytes, each against its numpy reference or its in-memory
+    answer. Returns each path's flash launches (0)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution import window_eval
+    from daft_tpu_torch.kernels.hashing import hash_series
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.series import Series
+    from daft_tpu_torch.tools import out_of_core, tpch, tpch_sql
+    from daft_tpu_torch.tools import windows as W
+
+    phase_start = time.perf_counter()
+    tables, small, small_frames = state["tables"], state["small"], state["small_frames"]
+    by_path = {}
+    host = [0.0]
+    eval_windows = window_eval.eval_windows
+
+    def timed_eval(*args, **kwargs):
+        # The window's own host time: the executor looks eval_windows up on
+        # the module at each call.
+        t0 = time.perf_counter()
+        try:
+            return eval_windows(*args, **kwargs)
+        finally:
+            host[0] += time.perf_counter() - t0
+
+    def run(tag, build, rows_in):
+        """One query at SQL_WORKERS with the counts set to 0 just before:
+        (its rows as one Arrow table, the device counters)."""
+        gc.collect()
+        de.device_eval_counters.reset()
+        flash_attention.launch_count = 0
+        host[0] = 0.0
+        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table = result_table(build())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = flash_attention.launch_count
+        by_path[f"windows {tag}"] = {"flash_attention": launches}
+        check(launches == 0, f"{tag}: flash_attention launched {launches} times")
+        snap = de.device_eval_counters.snapshot()
+        print(f"[win] {tag}: {wall:.3f} s wall at {SQL_WORKERS} workers over {rows_in} rows, of "
+              f"it the window evaluation's host s {host[0]:.3f}; {table.num_rows} rows out; "
+              f"chain_rows {snap['chain_rows']}, fused_rows {snap['fused_rows']}, host_rows "
+              f"{snap['host_rows']}; flash launches 0 [{card}]", flush=True)
+        return table, snap
+
+    window_eval.eval_windows = timed_eval
+    try:
+        # SF10's orders, o_orderdate as int32 days: the filter is a device chain.
+        o = tables["orders"]
+        since = int(np.percentile(o["o_orderdate"], 20))
+        frame = W.orders_frame(dt, tables)
+        table, snap = run(f"orders SF{SQL_SF}", lambda: W.orders_windows(dt, frame, since),
+                          len(o["o_orderkey"]))
+        check(sum(snap["chain_rows"].values()) > 0,
+              f"the orders' filter ran no device chain: {snap['chain_rows']}")
+        t0 = time.perf_counter()
+        ref = W.orders_windows_reference(tables, since)
+        ref_s = time.perf_counter() - t0
+        problems = W.orders_windows_compare(table, ref, WINDOW_RTOL)
+        check(not problems, f"the orders' windows vs the numpy reference: {problems}")
+        print(f"[win] the orders' windows (running sum(o_totalprice) per o_custkey by "
+              f"o_orderdate, lag(o_orderdate, 1), rank() per o_orderpriority by o_totalprice "
+              f"desc) over the {table.num_rows} orders since day {since} equal the numpy "
+              f"reference (keys, lags and ranks exact, sums within {WINDOW_RTOL}; reference "
+              f"{ref_s:.1f} s) [{card}]", flush=True)
+        del frame, table, ref
+
+        # SF1's lineitem.
+        li = small["lineitem"]
+        n = len(li["l_orderkey"])
+        lf = W.lineitem_frame(dt, small)
+        table, _ = run(f"ratio SF{SQL_CHECK_SF}", lambda: dt.sql(
+            W.RATIO_SQL, lineitem=small_frames["lineitem"]), n)
+        ratio, want = table.column("ratio").to_numpy(), W.ratio_reference(small)
+        err = float(np.max(np.abs(ratio - want) / want))
+        check(err <= RATIO_RTOL, f"q98's ratio: max rel err {err:.3e} > {RATIO_RTOL}")
+        print(f"[win] q98's ratio over {len(np.unique(li['l_partkey']))} partitions equals numpy "
+              f"(max rel err {err:.3e}) [{card}]", flush=True)
+        table, _ = run("row_number", lambda: W.lineitem_row_number(dt, lf), n)
+        check(np.array_equal(table.column("rn").to_numpy(), W.row_number_reference(small)),
+              "row_number() per l_orderkey differs from numpy")
+        gc.collect()
+        parts = []
+        with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+            t0 = time.perf_counter()
+            flash_attention.launch_count = 0
+            for mp in lf.select("l_orderkey", "l_partkey").repartition(
+                    REPARTITIONS, "l_orderkey").iter_partitions():
+                parts.append(mp.to_arrow_table())
+            wall = time.perf_counter() - t0
+        by_path["windows repartition"] = {"flash_attention": flash_attention.launch_count}
+        check(flash_attention.launch_count == 0, "the repartition launched flash_attention")
+        check(len(parts) == REPARTITIONS, f"repartition gave {len(parts)} partitions")
+        for i, part in enumerate(parts):
+            keys = Series.from_arrow(part.column("l_orderkey").combine_chunks(), "k")
+            at = hash_series(keys).to_numpy() % np.uint64(REPARTITIONS)
+            check(bool((at == i).all()), f"partition {i} holds rows whose hash names another")
+        got = W.pairs(np.concatenate([p.column("l_orderkey").to_numpy() for p in parts]),
+                      np.concatenate([p.column("l_partkey").to_numpy() for p in parts]))
+        check(np.array_equal(got, W.pairs(li["l_orderkey"], li["l_partkey"])),
+              "the repartition's rows differ from the input's")
+        print(f"[win] repartition({REPARTITIONS}, l_orderkey): {wall:.3f} s, partitions of "
+              f"{[p.num_rows for p in parts]} rows, each row in the bucket its hash names, the "
+              f"input's rows [{card}]", flush=True)
+        del parts, got
+        table, _ = run("explode of agg_list", lambda: W.exploded_lists(dt, lf), n)
+        check(np.array_equal(W.pairs(table.column("l_orderkey").to_numpy(),
+                                     table.column("l_partkey").to_numpy()),
+                             W.pairs(li["l_orderkey"], li["l_partkey"])),
+              "explode(agg_list) does not round-trip to lineitem's (order, part) multiset")
+        table, _ = run("monotonically_increasing_id", lambda: W.with_ids(dt, lf), n)
+        check(np.array_equal(table.column("id").to_numpy(), np.arange(n, dtype=np.uint64))
+              and np.array_equal(table.column("l_orderkey").to_numpy(), li["l_orderkey"]),
+              "monotonically_increasing_id is not 0..n-1 in the input's order")
+        table, _ = run("pivot", lambda: W.q01_pivot(dt, lf), n)
+        pivot = table.to_pydict()
+        check(pivot == W.q01_pivot_reference(small), f"q01's pivot {pivot} differs from numpy")
+        print(f"[win] pivot of q01's groups by l_linestatus: {pivot} [{card}]", flush=True)
+        want_i, want_e = W.suppkey_sets_reference(small)
+        for tag, k, want in (("intersect_all", 0, want_i), ("except_all", 1, want_e)):
+            table, _ = run(tag, lambda k=k: W.suppkey_sets(dt, lf)[k], n)
+            got = np.sort(table.column("l_suppkey").to_numpy())
+            check(np.array_equal(got, want), f"{tag} on l_suppkey: {len(got)} rows vs numpy's "
+                  f"{len(want)}")
+        q16 = tpch_sql.sql_text("q16", SQL_CHECK_SF)
+        table, _ = run(f"q16 SF{SQL_CHECK_SF}", lambda: dt.sql(q16, **small_frames),
+                       len(small["partsupp"]["ps_partkey"]))
+        problems = tpch.sql_compare("q16", table.to_pydict(), tpch.SQL_REFERENCES["q16"](
+            small, SQL_CHECK_SF, True), SQL_RTOL)
+        check(not problems, f"q16 vs the numpy reference: {problems}")
+
+        # The grace window and the grace hash repartition at 1/8 of lineitem.
+        limit = max(out_of_core.tables_bytes({"lineitem": lf}) // 8, out_of_core.MIN_LIMIT_BYTES)
+        for tag, build, kw in (
+                ("grace window", lambda: W.order_window(dt, lf), {"arrow": True}),
+                ("grace repartition", lambda: lf.select("l_orderkey", "l_partkey").repartition(
+                    REPARTITIONS, "l_orderkey"), {"parts": True})):
+            with dt.execution_config_ctx(num_compute_threads=SQL_WORKERS):
+                free = out_of_core.run(build, None, **kw)
+                flash_attention.launch_count = 0
+                held = out_of_core.run(build, limit, **kw)
+            by_path[f"windows {tag}"] = {"flash_attention": flash_attention.launch_count}
+            check(flash_attention.launch_count == 0, f"{tag}: flash_attention launched")
+            check_audit(tag, held)
+            check(held["spill"]["spills"] > 0, f"the {tag} did not spill at {limit} bytes")
+            if kw.get("parts"):
+                same = len(held["rows"]) == len(free["rows"]) == REPARTITIONS and all(
+                    W.sorted_by(a, ["l_orderkey", "l_partkey"]).equals(
+                        W.sorted_by(b, ["l_orderkey", "l_partkey"]))
+                    for a, b in zip(held["rows"], free["rows"]))
+            else:
+                keys = ["l_orderkey", "rn"]
+                same = W.sorted_by(held["rows"], keys).equals(W.sorted_by(free["rows"], keys))
+            check(same, f"the {tag} under the limit differs from its in-memory answer")
+            report_out_of_core(card, f"{tag} at 1/8 of SF{SQL_CHECK_SF} lineitem "
+                               f"({limit / 1e9:.3f} GB)", held, free)
+            del free, held
+    finally:
+        window_eval.eval_windows = eval_windows
+    del state["tables"], state["frames"], state["outs"], state["small"], state["small_frames"]
+    gc.collect()
+    print(f"[win] phase 16 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
     return by_path
 
 
@@ -3906,6 +4106,7 @@ def main() -> int:
         sql_paths, sql_state = timed(14, phase_sql, card)
         by_path.update(sql_paths)
         by_path.update(timed(15, phase_out_of_core, card, sql_state))
+        by_path.update(timed(16, phase_windows, card, sql_state))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,9 +13,11 @@ and generation paths, and the relational device layer (``where``,
 ``read_csv`` / ``read_json`` / ``read_text`` / ``read_warc`` /
 ``from_glob_path`` and the ``DataFrame.write_*`` writers, and the expression
 library (``.str``, ``.dt``, ``.binary``, ``url.parse``, ``is_in``,
-``fill_null`` and ``daft_tpu_torch.functions``) on the host, and SQL
-(``sql``, ``sql_expr``) through the optimizer's full rule set. ``ROADMAP.md``
-lists what is still to port.
+``fill_null`` and ``daft_tpu_torch.functions``) on the host, SQL (``sql``,
+``sql_expr``) through the optimizer's full rule set, windows (``Window``,
+``Expression.over``), the remaining operators (``explode``, ``pivot``,
+``unpivot``, ``sample``, ``repartition``) and the ``.list`` / ``.struct`` /
+``.map`` namespaces. ``ROADMAP.md`` lists what is still to port.
 """
 
 from daft_tpu_torch.context import execution_config_ctx, get_context
@@ -23,7 +25,7 @@ from daft_tpu_torch.dataframe import DataFrame
 from daft_tpu_torch.dataframe.creation import from_pydict
 from daft_tpu_torch.datatype import DataType, ImageFormat, ImageMode, TimeUnit
 from daft_tpu_torch.errors import DaftError
-from daft_tpu_torch.expressions import Expression, col, interval, lit
+from daft_tpu_torch.expressions import Expression, col, element, interval, lit
 from daft_tpu_torch.io.config import IOConfig
 from daft_tpu_torch.io.iostats import chunked_upload, io_stats, read_range, reset_io_stats
 from daft_tpu_torch.io.reads import (
@@ -41,6 +43,7 @@ from daft_tpu_torch.recordbatch import RecordBatch
 from daft_tpu_torch.schema import Field, Schema
 from daft_tpu_torch.series import Series
 from daft_tpu_torch.sql import sql, sql_expr
+from daft_tpu_torch.window import Window
 
 __all__ = [
     "DataFrame",
@@ -59,8 +62,10 @@ __all__ = [
     "Schema",
     "Series",
     "TimeUnit",
+    "Window",
     "chunked_upload",
     "col",
+    "element",
     "execution_config_ctx",
     "from_glob_path",
     "from_pydict",

@@ -3,24 +3,29 @@
 Reference: daft/dataframe/dataframe.py. A DataFrame wraps an immutable
 LogicalPlanBuilder; transformations return new DataFrames; materialisation
 optimizes the plan, translates it and runs it on the local executor. The port
-has ``select``, ``with_column``/``with_columns``, ``with_columns_renamed``,
-``exclude``, ``where``/``filter``, ``limit``, ``offset``, the global ``agg``
-and ``sum``/``mean``/``min``/``max``/``count``, ``groupby`` (``dataframe/groupby.py``), ``sort``, ``distinct`` (``unique``,
+has ``select``, ``with_column``/``with_columns`` (window expressions among
+them, ``Expression.over``), ``with_columns_renamed``, ``exclude``,
+``where``/``filter``, ``limit``, ``offset``, ``sample``, ``explode``,
+``unpivot`` (``melt``), ``pivot``, ``drop_nan``, ``drop_null``, ``pipe``,
+``shuffle``, the global ``agg`` and its shorthands (``sum``, ``mean``,
+``min``, ``max``, ``count``, ``stddev``, ``any_value``, ``var``, ``skew``,
+``product``, ``count_distinct``, ``string_agg``, ``agg_list``, ``agg_set``,
+``agg_concat``), ``map_groups``, ``groupby``
+(``dataframe/groupby.py``), ``sort``, ``distinct`` (``unique``,
 ``drop_duplicates``), ``join``, ``join_asof``, ``cross_join``, ``concat``
-(``union``), ``intersect``, ``except_distinct``, ``collect``,
-``iter_partitions``, ``to_pydict``, the file writers (``write_parquet``,
-``write_csv``, ``write_json``, ``write_ipc``, hive-partitioned by
-``partition_cols``) and ``write_sink``; ``collect(timeout=)`` and
-``iter_partitions`` (under ``query_timeout_s``) run under the query's cancel
-token, whose id is ``df.query_id`` while it runs
-(``cancellation.cancel_query``). ``intersect_all`` and ``except_all`` build
-their plans and raise when run (they need ``Window``, ROADMAP A.3.5). Not
-ported yet: the runner layer (native/distributed runners, admission, plan
-caches, query log, profiling), ``union_all`` and the ``*_by_name`` unions,
-``explode``/``unpivot``/``pivot``/``sample``, the table-format and
-database writers (A.8), the writers' ``checkpoint=`` (A.2) and their
-invalidation of cached reads (the plan cache, A.8), the preview and notebook
-display, and the pandas/arrow/torch/ray exporters.
+(``union``, ``union_all``), ``union_by_name``, ``union_all_by_name``,
+``intersect``, ``intersect_all``, ``except_distinct``, ``except_all``,
+``repartition``, ``into_partitions``, ``collect``, ``iter_partitions``,
+``to_pydict``, the file writers (``write_parquet``, ``write_csv``,
+``write_json``, ``write_ipc``, hive-partitioned by ``partition_cols``) and
+``write_sink``; ``collect(timeout=)`` and ``iter_partitions`` (under
+``query_timeout_s``) run under the query's cancel token, whose id is
+``df.query_id`` while it runs (``cancellation.cancel_query``). Not ported
+yet: the runner layer (native/distributed runners, admission, plan caches,
+query log, profiling), ``shard``, the table-format and database writers
+(A.8), the writers' ``checkpoint=`` (A.2) and their invalidation of cached
+reads (the plan cache, A.8), the preview and notebook display, and the
+pandas/arrow/torch/ray exporters.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from daft_tpu_torch.cancellation import (
 from daft_tpu_torch.context import get_context, iter_with_frozen_clock
 from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
 from daft_tpu_torch.expressions.expr import ColumnRef
-from daft_tpu_torch.expressions.expression import Expression, col
+from daft_tpu_torch.expressions.expression import Expression, col, lit
 from daft_tpu_torch.logical.builder import LogicalPlanBuilder
 from daft_tpu_torch.micropartition import MicroPartition
 from daft_tpu_torch.schema import Schema
@@ -129,6 +134,33 @@ class DataFrame:
     def distinct(self, *on: ColumnInput) -> "DataFrame":
         return DataFrame(self._builder.distinct(_inner(on) if on else None))
 
+    def sample(self, fraction: Optional[float] = None, *, size: Optional[int] = None,
+               with_replacement: bool = False, seed: Optional[int] = None) -> "DataFrame":
+        return DataFrame(self._builder.sample(fraction, size, with_replacement, seed))
+
+    def explode(self, *columns: ColumnInput) -> "DataFrame":
+        return DataFrame(self._builder.explode(_inner(columns)))
+
+    def unpivot(self, ids: Sequence[ColumnInput], values: Sequence[ColumnInput] = (),
+                variable_name: str = "variable", value_name: str = "value") -> "DataFrame":
+        ids_e = _inner(ids)
+        if not values:
+            id_names = {e.name() for e in ids_e}
+            values = [f.name for f in self.schema if f.name not in id_names]
+        return DataFrame(self._builder.unpivot(ids_e, _inner(values), variable_name, value_name))
+
+    melt = unpivot
+
+    def pivot(self, group_by: Union[ColumnInput, List[ColumnInput]], pivot_col: ColumnInput,
+              value_col: ColumnInput, agg_fn: str, names: Optional[List[str]] = None) -> "DataFrame":
+        group_by = group_by if isinstance(group_by, list) else [group_by]
+        if names is None:
+            distinct_vals = self.select(pivot_col).distinct().to_pydict()
+            names = [str(v) for v in next(iter(distinct_vals.values()))]
+        return DataFrame(self._builder.pivot(
+            _inner(group_by), _to_expr(pivot_col)._expr, _to_expr(value_col)._expr, agg_fn,
+            names))
+
     unique = distinct
     drop_duplicates = distinct
 
@@ -180,7 +212,46 @@ class DataFrame:
         return DataFrame(self._builder.except_(other._builder))
 
     def except_all(self, other: "DataFrame") -> "DataFrame":
+        """Multiset difference keeping duplicates (reference:
+        dataframe.py except_all)."""
         return DataFrame(self._builder.except_(other._builder, is_all=True))
+
+    def union_all(self, other: "DataFrame") -> "DataFrame":
+        return self.concat(other)
+
+    def _align_by_name(self, other: "DataFrame") -> "DataFrame":
+        """Project `other` onto self's column set by name; columns missing on
+        either side surface as nulls (reference: union_by_name semantics)."""
+        mine = [f.name for f in self.schema]
+        mine_set = set(mine)
+        names = mine + [c for c in other.column_names if c not in mine_set]
+        self_schema = {f.name: f.dtype for f in self.schema}
+        other_schema = {f.name: f.dtype for f in other.schema}
+
+        def side(df, have, other_types):
+            return df.select(*[col(n) if n in have else lit(None).cast(other_types[n]).alias(n)
+                               for n in names])
+
+        left = side(self, mine_set, other_schema)
+        right = side(other, set(other.column_names), self_schema)
+        return left.concat(right)
+
+    def union_by_name(self, other: "DataFrame") -> "DataFrame":
+        """Distinct union aligning columns by name."""
+        return self._align_by_name(other).distinct()
+
+    def union_all_by_name(self, other: "DataFrame") -> "DataFrame":
+        """Union-all aligning columns by name."""
+        return self._align_by_name(other)
+
+    # -- partitioning ---------------------------------------------------
+    def repartition(self, num: int, *partition_by: ColumnInput) -> "DataFrame":
+        if partition_by:
+            return DataFrame(self._builder.repartition_hash(_inner(partition_by), num))
+        return DataFrame(self._builder.repartition_random(num))
+
+    def into_partitions(self, num: int) -> "DataFrame":
+        return DataFrame(self._builder.into_partitions(num))
 
     # -- aggregation ----------------------------------------------------
     def agg(self, *exprs: Expression) -> "DataFrame":
@@ -212,6 +283,87 @@ class DataFrame:
 
     def count(self, *cols: ColumnInput) -> "DataFrame":
         return self.agg(*[_to_expr(c).count() for c in cols]) if cols else self._agg_all("count")
+
+    def stddev(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).stddev() for c in cols]) if cols else self._agg_all("stddev")
+
+    def any_value(self, *cols: ColumnInput) -> "DataFrame":
+        return (self.agg(*[_to_expr(c).any_value() for c in cols]) if cols
+                else self._agg_all("any_value"))
+
+    def agg_list(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).agg_list() for c in cols])
+
+    list_agg = agg_list
+
+    def agg_set(self, *cols: ColumnInput) -> "DataFrame":
+        """Global set (distinct-list) agg, ignoring nulls (reference:
+        dataframe.py agg_set)."""
+        return self.agg(*[_to_expr(c).agg_set() for c in cols])
+
+    list_agg_distinct = agg_set
+
+    def agg_concat(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).agg_concat() for c in cols])
+
+    def var(self, *cols: ColumnInput) -> "DataFrame":
+        return (self.agg(*[_to_expr(c).variance() for c in cols]) if cols
+                else self._agg_all("variance"))
+
+    def skew(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).skew() for c in cols]) if cols else self._agg_all("skew")
+
+    def product(self, *cols: ColumnInput) -> "DataFrame":
+        return (self.agg(*[_to_expr(c).product() for c in cols]) if cols
+                else self._agg_all("product"))
+
+    def count_distinct(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).count_distinct() for c in cols])
+
+    def string_agg(self, *cols: ColumnInput, sep: str = ",") -> "DataFrame":
+        return self.agg(*[_to_expr(c).string_agg(sep) for c in cols])
+
+    def map_groups(self, udf) -> "DataFrame":
+        """Apply a UDF over the whole frame as one group (reference:
+        dataframe.py map_groups; the grouped form lives on GroupedDataFrame)."""
+        return self.groupby().map_groups(udf)
+
+    # -- hygiene filters ------------------------------------------------
+    def drop_nan(self, *cols: ColumnInput) -> "DataFrame":
+        """Drop rows with NaN in the given (default: all float) columns;
+        nulls are NOT dropped (reference: dataframe.py drop_nan)."""
+        targets = ([_to_expr(c) for c in cols] if cols else
+                   [col(f.name) for f in self.schema if f.dtype.is_floating()])
+        if not targets:
+            return self
+        pred = None
+        for e in targets:
+            keep = ~e.float.is_nan() | e.is_null()
+            pred = keep if pred is None else (pred & keep)
+        return self.where(pred)
+
+    def drop_null(self, *cols: ColumnInput) -> "DataFrame":
+        """Drop rows with nulls in the given (default: all) columns
+        (reference: dataframe.py drop_null)."""
+        targets = [_to_expr(c) for c in cols] if cols else [col(f.name) for f in self.schema]
+        pred = None
+        for e in targets:
+            pred = e.not_null() if pred is None else (pred & e.not_null())
+        return self.where(pred)
+
+    def pipe(self, function, *args, **kwargs):
+        """Apply ``function(self, *args, **kwargs)`` (reference: pipe)."""
+        return function(self, *args, **kwargs)
+
+    def shuffle(self, seed: Optional[int] = None) -> "DataFrame":
+        """Randomly reorder rows (reference: dataframe.py shuffle)."""
+        from daft_tpu_torch.functions import random_int
+
+        order = "__shuffle_order"
+        while order in self.schema:
+            order += "_"
+        return (self.with_column(order, random_int(lit(0), seed=seed))
+                .sort(order).exclude(order))
 
     # -- materialisation ------------------------------------------------
     def _run_iter(self, timeout: Optional[float] = None) -> Iterator[MicroPartition]:

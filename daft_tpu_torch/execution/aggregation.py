@@ -12,10 +12,12 @@ AggOp decomposes into
 * merge aggs — re-aggregate the partial columns by the group keys (associative),
 * a final expr — computes the user-visible value from the merged columns.
 
-The port decomposes sum, mean, min, max, count, product, bool_and, bool_or,
-any_value, stddev and variance. The aggregations with list or sketch partials
-and ``skew`` are not ported yet (``AggOp.LEFT_OUT`` names their ROADMAP
-items), nor the distributed partial stage (A.8). ``approx_size_bytes`` is
+The port decomposes every aggregation of the JAX package but the UDAFs
+(``AggOp.LEFT_OUT``, ROADMAP A.2): the moments, the list partials
+(``median``, ``string_agg``, ``list``, ``concat``, ``count_distinct``,
+``approx_count_distinct``, merged by ``concat`` and finished by a list kernel),
+the DDSketch partials of ``approx_percentile`` and ``skew`` with its
+``pow_3_2`` final. The distributed partial stage is not ported (A.8). ``approx_size_bytes`` is
 the state-size estimate the executor's grace aggregation spills on under a
 memory limit.
 """
@@ -34,6 +36,7 @@ from daft_tpu_torch.expressions.expr import (
     ColumnRef,
     Expr,
     FunctionCall,
+    Literal,
 )
 from daft_tpu_torch.micropartition import MicroPartition
 from daft_tpu_torch.recordbatch import RecordBatch
@@ -65,6 +68,14 @@ class TwoPhasePlan:
 
             if op in ("sum", "min", "max", "bool_and", "bool_or", "product"):
                 return add("v", AggOp(op, child), op)
+            if op == "median":
+                lst = add("l", AggOp("list", Cast(child, DataType.float64())), "concat")
+                return FunctionCall("list_quantile", [lst], {"percentiles": 0.5})
+            if op == "string_agg":
+                lst = add("l", AggOp("list", child), "concat")
+                sep = agg.kwargs.get("sep", ",")
+                return FunctionCall("list_join", [FunctionCall("list_compact", [lst]),
+                                                  Literal(sep)])
             if op == "any_value":
                 return add("v", agg, "any_value", agg.kwargs)
             if op == "count":
@@ -73,6 +84,13 @@ class TwoPhasePlan:
                 s = add("s", AggOp("sum", Cast(child, DataType.float64())), "sum")
                 c = add("c", AggOp("count", child), "sum")
                 return BinaryOp("truediv", s, Cast(c, DataType.float64()))
+            if op == "list":
+                return add("l", AggOp("list", child), "concat")
+            if op == "concat":
+                return add("l", AggOp("concat", child), "concat")
+            if op in ("count_distinct", "approx_count_distinct"):
+                lst = add("l", AggOp("list", child), "concat")
+                return FunctionCall("list_count_distinct", [lst])
             if op in ("stddev", "variance"):
                 cf = Cast(child, DataType.float64())
                 s = add("s", AggOp("sum", cf), "sum")
@@ -83,6 +101,34 @@ class TwoPhasePlan:
                 var = BinaryOp("sub", BinaryOp("truediv", s2, c_f), BinaryOp("mul", mean, mean))
                 var = FunctionCall("clip", [var], {"min": 0.0, "max": None})
                 return var if op == "variance" else FunctionCall("sqrt", [var])
+            if op == "skew":
+                cf = Cast(child, DataType.float64())
+                s = add("s", AggOp("sum", cf), "sum")
+                s2 = add("s2", AggOp("sum", BinaryOp("mul", cf, cf)), "sum")
+                s3 = add("s3", AggOp("sum", BinaryOp("mul", BinaryOp("mul", cf, cf), cf)), "sum")
+                c = add("c", AggOp("count", child), "sum")
+                c_f = Cast(c, DataType.float64())
+                m = BinaryOp("truediv", s, c_f)
+                m2 = BinaryOp("sub", BinaryOp("truediv", s2, c_f), BinaryOp("mul", m, m))
+                m3 = BinaryOp(
+                    "add",
+                    BinaryOp("sub", BinaryOp("truediv", s3, c_f),
+                             BinaryOp("mul", BinaryOp("mul", m, BinaryOp("truediv", s2, c_f)),
+                                      Cast(Literal(3.0), DataType.float64()))),
+                    BinaryOp("mul", Cast(Literal(2.0), DataType.float64()),
+                             BinaryOp("mul", BinaryOp("mul", m, m), m)),
+                )
+                return BinaryOp("truediv", m3, FunctionCall("pow_3_2", [m2]))
+            if op == "dd_sketch":
+                # Re-decomposition of an already-partial plan: sketches are
+                # their own partial form and merge in sketch space.
+                return add("v", agg, "dd_merge")
+            if op == "approx_percentile":
+                # Bounded-memory two-phase: DDSketch partials merged in
+                # sketch space (reference: src/daft-sketch).
+                sk = add("sk", AggOp("dd_sketch", Cast(child, DataType.float64())), "dd_merge")
+                return FunctionCall("dd_quantile", [sk],
+                                    {"percentiles": agg.kwargs.get("percentiles")})
             raise DaftValueError(f"Cannot decompose agg op {op}")
 
         self.final_exprs: List[Expr] = [

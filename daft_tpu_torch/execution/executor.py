@@ -55,7 +55,14 @@ default; ``execution/pipeline.py``). The port has these operators:
   ``Concat`` — its children's streams one after another;
 * ``Write`` — streams its input into the writer (``io/writers.make_writer``)
   and yields one row per written file; under ``write_mode="overwrite"`` it
-  then deletes every other file under the root directory.
+  then deletes every other file under the root directory;
+* ``Explode`` / ``Unpivot`` / ``Sample`` (by fraction) /
+  ``MonotonicallyIncreasingId`` — per morsel, in input order; ``Sample`` by
+  size and ``Pivot`` collect their input first;
+* ``Window`` — collects its input and evaluates the window expressions
+  (``execution/window_eval.py``) in linear work;
+* ``Repartition`` — hash, random, into and range_bound: collects its input
+  and yields the parts, every part even an empty one.
 
 Joins, sorts and dedupes run on the host, as in the JAX package; the
 Project/Filter chains on each side of them still run on the device, each
@@ -76,6 +83,11 @@ spills the rest (``execution/spill.py``), as the JAX package routes it:
   hash-partitions its merged state into ``GRACE_BUCKETS`` disk buckets,
   each then merged and finalised alone;
 * ``Distinct`` — per-morsel dedupe, then past the budget grace buckets;
+* ``Window`` — when every window partitions by the same keys, the input
+  buffers until the budget, then goes to grace buckets by those keys, each
+  bucket evaluated alone (a window of no partition keys collects);
+* ``Repartition`` by hash — buffers until the budget, then streams into one
+  disk bucket per output partition (every bucket yields, an empty one too);
 * ``HashJoin`` — no probe-side prefetch; each side in memory or, past the
   budget, in grace buckets by its unified key; per bucket an inner / left /
   semi / anti join streams the probe bucket against the build bucket, and a
@@ -98,13 +110,12 @@ before its morsel); on every exit of ``run`` the pool is shut down and every
 operator iterator closed, which releases the feeders.
 
 Not ported yet: the feedback plane with its join bucket counts and
-estimate-driven early spill (off by default in the JAX package) and the
-distributed two-phase aggregation nodes (A.8), the grace window and grace
-repartition (their nodes come with A.3.5), the profiling spans, the
-``timer=`` hook and runtime stats (A.9.5), replica slots for
-``chips_per_replica`` (A.10), the scan-output cache tier in front of the
-scan (``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8), and
-the other operators (window, repartition, shuffle reads, ...).
+estimate-driven early spill (off by default in the JAX package), the
+distributed nodes (two-phase aggregation, sort sampling, shuffle reads) and
+the ``shard`` repartition (A.8), the profiling spans, the ``timer=`` hook
+and runtime stats (A.9.5), replica slots for ``chips_per_replica`` (A.10),
+and the scan-output cache tier in front of the scan
+(``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8).
 
 Plans are DAGs: a decorrelated subquery references one subtree from several
 parents. A node that more than one parent references
@@ -550,6 +561,43 @@ class Executor:
         yield from self._streaming_map(composed, self._run(nodes[-1].children[0]),
                                        name=type(head).__name__)
 
+    def _run_Explode(self, node: pp.Explode) -> Iterator[MicroPartition]:
+        names = [e.name() for e in node.to_explode]
+        for mp in self._run(node.children[0]):
+            yield mp.explode(names, ignore_empty_and_null=node.ignore_empty_and_null)
+
+    def _run_Unpivot(self, node: pp.Unpivot) -> Iterator[MicroPartition]:
+        id_names = [e.name() for e in node.ids]
+        val_names = [e.name() for e in node.values]
+        for mp in self._run(node.children[0]):
+            out = [b.unpivot(id_names, val_names, node.variable_name, node.value_name)
+                   for b in mp.record_batches()]
+            yield MicroPartition(node.schema, out)
+
+    def _run_Sample(self, node: pp.Sample) -> Iterator[MicroPartition]:
+        if node.size is not None:
+            combined = self._collect(node.children[0], "Sample")
+            yield combined.sample(size=node.size, with_replacement=node.with_replacement,
+                                  seed=node.seed)
+            return
+        seed = node.seed
+        for i, mp in enumerate(self._run(node.children[0])):
+            yield mp.sample(fraction=node.fraction, with_replacement=node.with_replacement,
+                            seed=None if seed is None else seed + i)
+
+    def _run_MonotonicallyIncreasingId(self, node: pp.MonotonicallyIncreasingId
+                                       ) -> Iterator[MicroPartition]:
+        # id = (partition_index << 36) | row_in_partition (reference:
+        # ops/monotonically_increasing_id.rs bit layout).
+        offset = 0
+        part_hi = np.uint64(node.partition_offset << 36)
+        for mp in self._run(node.children[0]):
+            rb = mp.combined()
+            ids = part_hi | np.arange(offset, offset + len(rb), dtype=np.uint64)
+            offset += len(rb)
+            cols = [Series.from_numpy(ids, node.column_name)] + rb.columns()
+            yield MicroPartition(node.schema, [RecordBatch(node.schema, cols, len(rb))])
+
     def _run_UDFProject(self, node: pp.UDFProject) -> Iterator[MicroPartition]:
         udf = next(n.udf for n in node.udf_expr.walk() if isinstance(n, UdfCall))
         concurrency = max(1, getattr(udf, "max_concurrency", None) or 1)
@@ -989,10 +1037,99 @@ class Executor:
             acc = RecordBatch.concat([acc] + pending).distinct(on)
         return acc
 
+    def _run_Pivot(self, node: pp.Pivot) -> Iterator[MicroPartition]:
+        from daft_tpu_torch.expressions.expr import AggOp, Alias
+
+        # Pre-aggregate (group_by + pivot) then pivot to columns.
+        agg = Alias(AggOp(node.agg_fn, node.value_col), "__pivot_value")
+        combined = self._collect(node.children[0], "Pivot").combined()
+        pre = combined.agg([agg], node.group_by + [node.pivot_col])
+        group_keys = [pre.get_column(g.name()) for g in node.group_by]
+        out = pre.pivot(group_keys, pre.get_column(node.pivot_col.name()),
+                        pre.get_column("__pivot_value"), node.names)
+        cols = []
+        for f in node.schema:
+            c = out.get_column(f.name)
+            cols.append(c.cast(f.dtype) if c.dtype != f.dtype else c)
+        yield MicroPartition(node.schema, [RecordBatch(node.schema, cols, len(out))])
+
+    def _run_Window(self, node: pp.Window) -> Iterator[MicroPartition]:
+        from daft_tpu_torch.execution.window_eval import eval_windows
+
+        budget = self._sink_budget()
+        part_keys = self._common_window_partition_keys(node.window_exprs)
+        if budget is None or part_keys is None:
+            # Unpartitioned windows (or no memory limit) need the whole
+            # input in one batch.
+            combined = self._collect(node.children[0], "Window").combined()
+            yield MicroPartition(node.schema,
+                                 [eval_windows(combined, node.window_exprs, node.schema)])
+            return
+        # Grace windows: every window spec partitions by the same keys, so the
+        # rows of one window partition land in one disk bucket and each bucket
+        # evaluates alone (row order across buckets is unspecified, as
+        # everywhere outside Sort).
+        with budget_reservation(self.memory, budget, token=self.cancel_token, op="Window"):
+            grace: Optional[GracePartitioner] = None
+            buffer: List[RecordBatch] = []
+            buf_bytes = 0
+            for mp in self._run(node.children[0]):
+                rb = mp.combined()
+                buffer.append(rb)
+                buf_bytes += rb.size_bytes()
+                if grace is None and buf_bytes > budget:
+                    grace = GracePartitioner(
+                        lambda b: [evaluate(k, b) for k in part_keys],
+                        num_buckets=self.GRACE_BUCKETS, spill=self._spill(),
+                        total_buffer_bytes=budget, op="Window")
+                if grace is not None:
+                    for b in buffer:
+                        grace.add(b)
+                    buffer, buf_bytes = [], 0
+            if grace is None:
+                if not buffer:
+                    yield MicroPartition.empty(node.schema)
+                    return
+                yield MicroPartition(node.schema, [eval_windows(
+                    RecordBatch.concat(buffer), node.window_exprs, node.schema)])
+                return
+            grace.finish()
+            for b in range(grace.num_buckets):
+                # Each window partition must be whole, so one BUCKET (about
+                # input / 32, or a skew-hot key) must fit in memory: the
+                # single-level grace bound of right and outer joins.
+                batches = list(grace.stream_bucket(b))
+                if batches:
+                    yield MicroPartition(node.schema, [eval_windows(
+                        RecordBatch.concat(batches), node.window_exprs, node.schema)])
+
+    @staticmethod
+    def _common_window_partition_keys(window_exprs):
+        """The shared partition_by exprs when EVERY window spec in the
+        projection partitions by the same non-empty key set; None otherwise
+        (those windows are global and cannot bucket)."""
+        from daft_tpu_torch.expressions.expr import WindowExpr
+
+        common_key = None
+        keys = None
+        for e in window_exprs:
+            for n in e.walk():
+                if isinstance(n, WindowExpr):
+                    if not n.partition_by:
+                        return None
+                    k = frozenset(p.key() for p in n.partition_by)
+                    if common_key is None:
+                        common_key, keys = k, list(n.partition_by)
+                    elif k != common_key:
+                        return None
+        return keys
+
     # -- joins ------------------------------------------------------------
     @staticmethod
     def _unified_keys(rb: RecordBatch, key_exprs, key_dtypes) -> List[Series]:
         keys = [evaluate(e, rb) for e in key_exprs]
+        if key_dtypes is None:
+            return keys
         return [k.cast(dt) if dt is not None and k.dtype != dt else k
                 for k, dt in zip(keys, key_dtypes)]
 
@@ -1017,15 +1154,17 @@ class Executor:
                 prefetch.close()
 
     def _collect_or_grace(self, child: pp.PhysicalPlan, key_exprs, budget: Optional[int],
-                          key_dtypes, source: Optional[Iterator[MicroPartition]] = None):
+                          key_dtypes=None, source: Optional[Iterator[MicroPartition]] = None,
+                          num_buckets: Optional[int] = None, op: str = "HashJoin"):
         """A join side in memory, or, once it outgrows ``budget``, in grace
         buckets by its join key: ``("mem", MicroPartition)`` or ``("grace",
         GracePartitioner)``. The keys are cast to the UNIFIED key dtypes
         first, since the row hash depends on the byte width and equal keys of
         both sides must land in the same bucket. ``source`` stands in for the
-        child's own stream."""
+        child's own stream; ``num_buckets`` and ``op`` default to the hash
+        join's."""
         if budget is None:
-            return "mem", self._collect(child, "HashJoin", source)
+            return "mem", self._collect(child, op, source)
         buffer: List[MicroPartition] = []
         buf_bytes = 0
         grace: Optional[GracePartitioner] = None
@@ -1039,8 +1178,8 @@ class Executor:
             if buf_bytes > budget:
                 grace = GracePartitioner(
                     lambda rb: self._unified_keys(rb, key_exprs, key_dtypes),
-                    self.GRACE_BUCKETS, self._spill(), total_buffer_bytes=budget,
-                    op="HashJoin")
+                    num_buckets or self.GRACE_BUCKETS, self._spill(),
+                    total_buffer_bytes=budget, op=op)
                 for buffered in buffer:
                     for rb in buffered.record_batches():
                         grace.add(rb)
@@ -1271,6 +1410,54 @@ class Executor:
             yield from self._run(child)
 
     # -- write ------------------------------------------------------------
+    def _run_Repartition(self, node: pp.Repartition) -> Iterator[MicroPartition]:
+        scheme = node.scheme
+        kind = scheme[0]
+        if kind == "hash":
+            _, exprs, n = scheme
+            budget = self._sink_budget()
+            if budget is not None:
+                # Buffer in memory until the sink budget trips, THEN stream
+                # into n disk buckets with the hash the in-memory partitioner
+                # uses: a small repartition never pays a disk round trip.
+                # Every bucket yields, an empty one too (n partitions).
+                with budget_reservation(self.memory, budget, token=self.cancel_token,
+                                        op="Repartition"):
+                    state, side = self._collect_or_grace(
+                        node.children[0], exprs, budget, num_buckets=max(n, 1),
+                        op="Repartition")
+                    if state == "mem":
+                        yield from side.partition_by_hash(exprs, n)
+                        return
+                    for b in range(max(n, 1)):
+                        yield MicroPartition(node.schema, list(side.stream_bucket(b)))
+                return
+            yield from self._collect(node.children[0], "Repartition").partition_by_hash(exprs, n)
+            return
+        combined = self._collect(node.children[0], "Repartition")
+        if kind == "range_bound":
+            # Range partition against precomputed boundary rows.
+            _, exprs, descending, nulls_first, boundaries = scheme
+            rb = combined.combined()
+            keys = [evaluate(e, rb) for e in exprs]
+            for part in rb.partition_by_range(keys, boundaries, list(descending),
+                                              list(nulls_first)):
+                yield MicroPartition(node.schema, [part])
+        elif kind == "random":
+            _, n = scheme
+            yield from combined.partition_by_random(n, seed=42)
+        elif kind == "into":
+            _, n = scheme
+            rb = combined.combined()
+            base, extra = divmod(len(rb), max(n, 1))
+            start = 0
+            for i in range(n):
+                size = base + (1 if i < extra else 0)
+                yield MicroPartition(node.schema, [rb.slice(start, size)])
+                start += size
+        else:
+            raise DaftPlanError(f"Unknown repartition scheme {kind}")
+
     def _run_Write(self, node: pp.Write) -> Iterator[MicroPartition]:
         from daft_tpu_torch.io.writers import make_writer, overwrite_files
 

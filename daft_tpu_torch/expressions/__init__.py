@@ -1,3 +1,3 @@
-from daft_tpu_torch.expressions.expression import Expression, col, interval, lit
+from daft_tpu_torch.expressions.expression import Expression, col, element, interval, lit
 
-__all__ = ["Expression", "col", "interval", "lit"]
+__all__ = ["Expression", "col", "element", "interval", "lit"]

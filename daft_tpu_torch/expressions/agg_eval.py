@@ -10,7 +10,9 @@ evaluated over their results, as the reference's planner extracts AggExprs
 from projections.
 
 Both paths evaluate the aggregations' children on the host, as the JAX
-package does.
+package does. The aggregations Acero lacks (the list merge, the sketches,
+``median``, ``string_agg``, ``skew``) run per group over one stable sort by
+group, in linear work (ROADMAP C.39).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from daft_tpu_torch.series import Series, _sum_dtype
 
 _ARROW_AGGS = {
     "sum": "sum", "mean": "mean", "min": "min", "max": "max", "product": "product",
-    "count": "count", "stddev": "stddev", "variance": "variance",
+    "count": "count", "count_distinct": "count_distinct", "list": "list",
+    "stddev": "stddev", "variance": "variance",
     "any_value": "first", "bool_and": "all", "bool_or": "any",
 }
 
@@ -128,11 +131,22 @@ def eval_aggregation(rb, agg_exprs: Sequence[Expr], group_by: Sequence[Expr] = (
             for colname, arrow_agg, _opts, name, agg in acero_targets:
                 out_col = agged.column(f"{colname}_{arrow_agg}").combine_chunks().take(perm)
                 results[name] = _fix_agg_dtype(Series.from_arrow(out_col, name), agg)
-        # Python / logical children: one global aggregation per group.
-        for name, agg, child in slots:
-            if name in results:
+        # The rest (Python / logical children, list and sketch partials): one
+        # global aggregation per group over the group's rows in input order,
+        # read from ONE stable sort by group. The JAX package selects each
+        # group's rows with a full-length mask, O(rows x groups) (ROADMAP
+        # C.39); the rows, their order and the results are the same. A list
+        # ``concat`` (the merge of every list partial) runs vectorised.
+        rest = [(name, agg, child) for name, agg, child in slots if name not in results]
+        if rest:
+            order = np.argsort(group_ids, kind="stable").astype(np.uint64)
+            bounds = np.zeros(num_groups + 1, dtype=np.int64)
+            np.cumsum(np.bincount(group_ids, minlength=num_groups), out=bounds[1:])
+        for name, agg, child in rest:
+            if agg.op == "concat" and child.dtype.is_list():
+                results[name] = _grouped_list_concat(child, group_ids, num_groups, name)
                 continue
-            parts = [_global_agg(child.take(np.nonzero(group_ids == g)[0].astype(np.uint64)), agg)
+            parts = [_global_agg(child.take(order[bounds[g]:bounds[g + 1]]), agg)
                      for g in range(num_groups)]
             results[name] = (Series.concat(parts).rename(name) if parts
                              else Series.null(name, child.dtype, 0))
@@ -150,8 +164,9 @@ def eval_aggregation(rb, agg_exprs: Sequence[Expr], group_by: Sequence[Expr] = (
 def _fix_agg_dtype(res: Series, agg: AggOp) -> Series:
     """Acero's output types where they differ from the JAX package's partial
     types: counts are uint64, the moments f64. A float32 ``hash_sum`` stays a
-    double, as there; the final cast brings it to the resolved type."""
-    if agg.op == "count":
+    double and ``hash_list`` a list, as there; the final cast brings each to
+    the resolved type."""
+    if agg.op in ("count", "count_distinct"):
         return res.cast(DataType.uint64())
     if agg.op in ("stddev", "variance", "mean"):
         return res.cast(DataType.float64())
@@ -169,6 +184,15 @@ def _global_agg(child: Series, agg: AggOp) -> Series:
             return Series.from_pylist([None], child.name, out_dt)
         out = np.prod(v.astype(out_dt.to_numpy(), copy=False))
         return Series.from_pylist([out.item()], child.name, out_dt)
+    if op == "median":
+        v = child.drop_null().cast(DataType.float64()).to_numpy()
+        return Series.from_pylist([float(np.median(v)) if len(v) else None],
+                                  child.name, DataType.float64())
+    if op == "string_agg":
+        sep = agg.kwargs.get("sep", ",")
+        vals = [v for v in child.to_pylist() if v is not None]
+        return Series.from_pylist([sep.join(str(v) for v in vals) if vals else None],
+                                  child.name, DataType.string())
     if op == "mean":
         return child.mean()
     if op == "min":
@@ -177,14 +201,66 @@ def _global_agg(child: Series, agg: AggOp) -> Series:
         return child.max()
     if op == "count":
         return child.count(agg.kwargs.get("mode", "valid"))
+    if op == "count_distinct":
+        return child.count_distinct()
     if op == "any_value":
         return child.any_value(agg.kwargs.get("ignore_nulls", False))
+    if op == "list":
+        return child.agg_list()
+    if op == "concat":
+        return child.agg_concat()
     if op == "stddev":
         return child.stddev()
     if op == "variance":
         return child.variance()
+    if op == "skew":
+        return child.skew()
+    if op == "approx_count_distinct":
+        return child.approx_count_distinct()
+    if op == "approx_percentile":
+        # DDSketch-backed so the one-pass and two-phase answers agree
+        # (reference: src/daft-sketch DDSketch for approx percentiles).
+        from daft_tpu_torch.kernels.sketches import DDSketch
+
+        sk = DDSketch.from_series(child.cast(DataType.float64()))
+        q = agg.kwargs["percentiles"]
+        if isinstance(q, (list, tuple)):
+            out = [[sk.quantile(float(x)) for x in q]] if sk.count else [None]
+            return Series.from_pylist(out, child.name, DataType.list(DataType.float64()))
+        return Series.from_pylist([sk.quantile(float(q))], child.name, DataType.float64())
+    if op == "dd_sketch":
+        from daft_tpu_torch.kernels.sketches import DDSketch
+
+        sk = DDSketch.from_series(child.cast(DataType.float64()))
+        return Series.from_pylist([sk.to_bytes()], child.name, DataType.binary())
+    if op == "dd_merge":
+        from daft_tpu_torch.kernels.sketches import DDSketch
+
+        blobs = [b for b in child.to_pylist() if b is not None]
+        sk = DDSketch.from_bytes(blobs[0]) if blobs else DDSketch()
+        for b in blobs[1:]:
+            sk = sk.merge(DDSketch.from_bytes(b))
+        return Series.from_pylist([sk.to_bytes()], child.name, DataType.binary())
     if op in ("bool_and", "bool_or"):
         v = child.drop_null().to_numpy()
         out = (bool(v.all()) if op == "bool_and" else bool(v.any())) if len(v) else None
         return Series.from_pylist([out], child.name, DataType.bool())
     raise DaftValueError(f"Unknown agg op {op}")
+
+
+def _grouped_list_concat(child: Series, group_ids: np.ndarray, num_groups: int,
+                         name: str) -> Series:
+    """Each group's lists concatenated in row order (``Series.agg_concat``
+    per group, as the JAX package computes it), for all groups at once: the
+    elements of the valid lists, stably sorted by their row's group."""
+    arr = child.to_arrow()
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    lengths = np.asarray(pc.fill_null(pc.list_value_length(arr), 0)).astype(np.int64)
+    elem_group = np.repeat(group_ids, lengths)
+    order = np.argsort(elem_group, kind="stable")
+    offsets = np.zeros(num_groups + 1, dtype=np.int64)
+    np.cumsum(np.bincount(elem_group, minlength=num_groups), out=offsets[1:])
+    out_dtype = DataType.list(child.dtype.inner)
+    out = pa.LargeListArray.from_arrays(pa.array(offsets), arr.flatten().take(pa.array(order)))
+    return Series.from_arrow(out.cast(out_dtype.to_arrow()), name, out_dtype)

@@ -27,6 +27,7 @@ from daft_tpu_torch.expressions.expr import (
     Literal,
     UdfCall,
     UnaryOp,
+    WindowExpr,
 )
 from daft_tpu_torch.schema import Field, Schema
 from daft_tpu_torch.series import Series
@@ -101,6 +102,8 @@ def evaluate(expr: Expr, rb) -> Series:
         return expr.udf.evaluate(args, expr.kwargs).rename(expr.name())
     if isinstance(expr, AggOp):
         raise DaftValueError("Aggregation expression evaluated outside an aggregation context")
+    if isinstance(expr, WindowExpr):
+        raise DaftValueError("Window expression evaluated outside a Window plan node")
     raise DaftValueError(f"Cannot evaluate expression node {type(expr).__name__}")
 
 

@@ -8,10 +8,10 @@ immutable and structurally hashable; ``to_field`` binds a node to a schema
 The port has the nodes of the embedding path, of the relational device
 layer and of the expression library: ``ColumnRef``, ``Literal``, ``Alias``,
 ``Cast``, ``BinaryOp`` (with ``eq_null_safe`` and the shifts), ``UnaryOp``,
-``IsIn``, ``IfElse``, ``FunctionCall`` (the kernel registry), ``AggOp`` and
-``UdfCall``, and the subquery nodes ``Subquery``, ``InSubquery`` and
-``Exists``, which the optimizer's ``UnnestSubqueries`` rewrites into joins
-before execution. Not ported yet: ``WindowExpr`` (ROADMAP A.3.5).
+``IsIn``, ``IfElse``, ``FunctionCall`` (the kernel registry), ``AggOp``,
+``UdfCall`` and ``WindowExpr``, and the subquery nodes ``Subquery``,
+``InSubquery`` and ``Exists``, which the optimizer's ``UnnestSubqueries``
+rewrites into joins before execution.
 """
 
 from __future__ import annotations
@@ -458,6 +458,14 @@ class FunctionCall(Expr):
     def with_children(self, children: Sequence[Expr]) -> "FunctionCall":
         return FunctionCall(self.fn_name, children, self.kwargs)
 
+    def name(self) -> str:
+        # Field-extraction functions adopt the extracted field's name.
+        if self.fn_name == "struct_get":
+            return self.kwargs["name"]
+        if self.fn_name == "map_get":
+            return "value"
+        return super().name()
+
     def to_field(self, schema: Schema) -> Field:
         from daft_tpu_torch.kernels.registry import get_kernel
 
@@ -477,21 +485,17 @@ class AggOp(Expr):
     """Aggregation over a (possibly computed) child expression.
 
     Reference: ``AggExpr`` (src/daft-dsl/src/expr/mod.rs AggExpr enum). The
-    port has the aggregations in ``OPS``, global and grouped; those in
-    ``LEFT_OUT`` raise ``DaftNotImplementedError`` naming the ROADMAP item
-    that ports them.
+    port has the aggregations in ``OPS``, global and grouped; the user-defined
+    ones in ``LEFT_OUT`` raise ``DaftNotImplementedError`` naming ROADMAP A.2.
     """
 
-    OPS = {"sum", "mean", "min", "max", "count", "product", "any_value", "bool_and",
-           "bool_or", "stddev", "variance"}
-    _LIST = "ROADMAP A.3.5 (list partials, with the .list namespace)"
+    OPS = {
+        "sum", "mean", "min", "max", "count", "count_distinct", "any_value",
+        "list", "concat", "stddev", "variance", "skew", "approx_count_distinct",
+        "approx_percentile", "bool_and", "bool_or", "product", "median", "string_agg",
+        "dd_sketch", "dd_merge",
+    }
     LEFT_OUT = {
-        "median": _LIST, "string_agg": _LIST, "list": _LIST, "concat": _LIST,
-        "count_distinct": _LIST, "approx_count_distinct": _LIST,
-        "approx_percentile": "ROADMAP A.3.5 (sketch partials, with the .list namespace)",
-        "dd_sketch": "ROADMAP A.3.5 (sketch partials, with the .list namespace)",
-        "dd_merge": "ROADMAP A.3.5 (sketch partials, with the .list namespace)",
-        "skew": "ROADMAP A.3.5 (its pow_3_2 final, with the list aggregations)",
         "udaf": "ROADMAP A.2 (udaf)", "udaf_partial": "ROADMAP A.2 (udaf)",
         "udaf_merge": "ROADMAP A.2 (udaf)",
     }
@@ -521,12 +525,29 @@ class AggOp(Expr):
         op = self.op
         if op in ("sum", "product"):
             return f.with_dtype(_sum_dtype(f.dtype))
-        if op in ("mean", "stddev", "variance"):
+        if op == "median":
             return f.with_dtype(DataType.float64())
-        if op == "count":
+        if op == "string_agg":
+            return f.with_dtype(DataType.string())
+        if op in ("mean", "stddev", "variance", "skew"):
+            return f.with_dtype(DataType.float64())
+        if op in ("count", "count_distinct", "approx_count_distinct"):
             return f.with_dtype(DataType.uint64())
+        if op == "list":
+            return f.with_dtype(DataType.list(f.dtype))
+        if op == "concat":
+            if not f.dtype.is_list() and not f.dtype.is_string():
+                raise DaftTypeError(f"agg_concat needs list/string, got {f.dtype!r}")
+            return f
         if op in ("bool_and", "bool_or"):
             return f.with_dtype(DataType.bool())
+        if op == "approx_percentile":
+            q = self.kwargs.get("percentiles")
+            if isinstance(q, (list, tuple)):
+                return f.with_dtype(DataType.list(DataType.float64()))
+            return f.with_dtype(DataType.float64())
+        if op in ("dd_sketch", "dd_merge"):
+            return f.with_dtype(DataType.binary())
         return f  # min, max, any_value
 
     def _attrs_key(self) -> tuple:
@@ -579,6 +600,68 @@ _INT_RANGES = {
     TypeId.UINT8: (0, (1 << 8) - 1), TypeId.UINT16: (0, (1 << 16) - 1),
     TypeId.UINT32: (0, (1 << 32) - 1), TypeId.UINT64: (0, (1 << 64) - 1),
 }
+
+
+class WindowExpr(Expr):
+    """A window function over a partition/order spec.
+
+    Reference: ``Expr::Over`` / ``WindowExpr`` (src/daft-dsl/src/expr/mod.rs,
+    window variants) + daft/window.py.
+    """
+
+    __slots__ = ("func", "child", "partition_by", "order_by", "descending", "frame", "kwargs")
+
+    def __init__(self, func: str, child: Optional[Expr], partition_by: Tuple[Expr, ...],
+                 order_by: Tuple[Expr, ...], descending: Tuple[bool, ...], frame: Optional[tuple] = None,
+                 kwargs: Optional[Dict[str, Any]] = None):
+        self.func = func
+        self.child = child
+        self.partition_by = tuple(partition_by)
+        self.order_by = tuple(order_by)
+        self.descending = tuple(descending)
+        self.frame = frame
+        self.kwargs = dict(kwargs or {})
+
+    def children(self) -> Tuple[Expr, ...]:
+        base = (self.child,) if self.child is not None else ()
+        return base + self.partition_by + self.order_by
+
+    def with_children(self, children: Sequence[Expr]) -> "WindowExpr":
+        children = list(children)
+        child = children.pop(0) if self.child is not None else None
+        np_ = len(self.partition_by)
+        return WindowExpr(self.func, child, tuple(children[:np_]), tuple(children[np_:]),
+                          self.descending, self.frame, self.kwargs)
+
+    def name(self) -> str:
+        if self.child is not None:
+            return self.child.name()
+        return self.func
+
+    def to_field(self, schema: Schema) -> Field:
+        if self.func in ("row_number", "rank", "dense_rank"):
+            return Field(self.name(), DataType.uint64())
+        if self.func == "percent_rank":
+            return Field(self.name(), DataType.float64())
+        if self.func in ("lag", "lead", "first_value", "last_value"):
+            assert self.child is not None
+            return self.child.to_field(schema).rename(self.name())
+        assert self.child is not None
+        inner = self.child.to_field(schema)
+        if self.func in ("sum",):
+            return AggOp("sum", self.child).to_field(schema).rename(self.name())
+        if self.func in ("mean", "stddev"):
+            return inner.with_dtype(DataType.float64())
+        if self.func in ("count",):
+            return inner.with_dtype(DataType.uint64())
+        return inner
+
+    def _attrs_key(self) -> tuple:
+        return (self.func, self.descending, self.frame,
+                tuple(sorted((k, repr(v)) for k, v in self.kwargs.items())))
+
+    def __repr__(self) -> str:
+        return f"window[{self.func}]({self.child!r})"
 
 
 def _literal_aware_unify(left: "Expr", right: "Expr", lt: DataType, rt: DataType) -> DataType:

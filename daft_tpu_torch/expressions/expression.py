@@ -5,14 +5,14 @@ daft/expressions/expressions.py:138): operators, casts, ``is_in``,
 ``fill_null``, ``eq_null_safe``, ``try_cast``, the shifts, the numeric and
 long-tail functions, the aggregations and the ``.str`` / ``.dt`` /
 ``.float`` / ``.binary`` / ``.url`` (``parse``) / ``.partitioning`` /
-``.image`` / ``.embedding`` namespaces, with the reference's flat aliases of
-the namespaced methods. Each lowers onto the port's Expr IR
-(``expressions/expr.py``) and the kernel registry (``kernels/registry.py``).
-Left out, each raising ``DaftNotImplementedError`` with its ROADMAP item: the
-``.list`` / ``.struct`` / ``.map`` namespaces and windows (A.3.5) and ``apply``
-(A.2); the aggregations with list or sketch
-partials raise through ``AggOp.LEFT_OUT`` and the kernels the port leaves
-out through ``registry.LEFT_OUT``.
+``.image`` / ``.embedding`` / ``.list`` / ``.struct`` / ``.map`` namespaces,
+with the reference's flat aliases of the namespaced methods, and windows
+(``over``, ``lag`` / ``lead``, ``first_value`` / ``last_value``). Each lowers
+onto the port's Expr IR (``expressions/expr.py``) and the kernel registry
+(``kernels/registry.py``). Left out, each raising ``DaftNotImplementedError``
+with its ROADMAP item: ``apply`` (A.2); the user-defined aggregations raise
+through ``AggOp.LEFT_OUT`` and the kernels the port leaves out through
+``registry.LEFT_OUT``.
 """
 
 from __future__ import annotations
@@ -48,8 +48,10 @@ def lit(value: Any, dtype: Optional[DataType] = None) -> "Expression":
     return Expression(Literal(value, dtype))
 
 
-_WINDOWS = "ROADMAP A.3.5 (windows)"
-_NESTED = "ROADMAP A.3.5 (the .list, .struct and .map namespaces)"
+def element() -> "Expression":
+    """Placeholder for the current list element inside ``.list.eval`` /
+    ``.list.map`` style expressions (reference: daft.element)."""
+    return Expression(ColumnRef(""))
 
 
 def _left_out(what: str, item: str):
@@ -388,8 +390,25 @@ class Expression:
 
     # -- window -----------------------------------------------------------
     def over(self, window) -> "Expression":
-        _left_out("Expression.over", _WINDOWS)
+        from daft_tpu_torch.expressions.expr import AggOp, WindowExpr
 
+        inner = self._expr
+        if isinstance(inner, WindowExpr):
+            # e.g. row_number().over(w): bind the window spec.
+            return Expression(WindowExpr(
+                inner.func, inner.child, tuple(e._expr for e in window._partition_by),
+                tuple(e._expr for e in window._order_by), tuple(window._descending),
+                window._frame, inner.kwargs,
+            ))
+        if isinstance(inner, AggOp):
+            func, child = inner.op, inner.child
+        else:
+            raise DaftValueError("over() requires an aggregation or window function expression")
+        return Expression(WindowExpr(
+            func, child, tuple(e._expr for e in window._partition_by),
+            tuple(e._expr for e in window._order_by), tuple(window._descending),
+            window._frame,
+        ))
 
     # -- long-tail flat methods (reference: daft/expressions/expressions.py
     # exposes the function library as flat Expression methods too) ---------
@@ -491,16 +510,26 @@ class Expression:
         return self.variance()
 
     def lag(self, offset: int = 1, default=None) -> "Expression":
-        _left_out("Expression.lag", _WINDOWS)
+        from daft_tpu_torch.expressions.expr import WindowExpr
+
+        return Expression(WindowExpr("lag", self._expr, (), (), (),
+                                     kwargs={"offset": offset, "default": default}))
 
     def lead(self, offset: int = 1, default=None) -> "Expression":
-        _left_out("Expression.lead", _WINDOWS)
+        from daft_tpu_torch.expressions.expr import WindowExpr
+
+        return Expression(WindowExpr("lead", self._expr, (), (), (),
+                                     kwargs={"offset": offset, "default": default}))
 
     def first_value(self) -> "Expression":
-        _left_out("Expression.first_value", _WINDOWS)
+        from daft_tpu_torch.expressions.expr import WindowExpr
+
+        return Expression(WindowExpr("first_value", self._expr, (), (), ()))
 
     def last_value(self) -> "Expression":
-        _left_out("Expression.last_value", _WINDOWS)
+        from daft_tpu_torch.expressions.expr import WindowExpr
+
+        return Expression(WindowExpr("last_value", self._expr, (), (), ()))
 
     def length(self) -> "Expression":
         return self._fn("str_length")
@@ -549,16 +578,16 @@ class Expression:
         return TemporalNamespace(self)
 
     @property
-    def list(self):
-        _left_out("the .list namespace", _NESTED)
+    def list(self) -> "ListNamespace":
+        return ListNamespace(self)
 
     @property
-    def struct(self):
-        _left_out("the .struct namespace", _NESTED)
+    def struct(self) -> "StructNamespace":
+        return StructNamespace(self)
 
     @property
-    def map(self):
-        _left_out("the .map namespace", _NESTED)
+    def map(self) -> "MapNamespace":
+        return MapNamespace(self)
 
     @property
     def float(self) -> "FloatNamespace":
@@ -882,6 +911,107 @@ class TemporalNamespace(_Namespace):
 
     def replace_time_zone(self, timezone=None):
         return self._fn("replace_time_zone", timezone=timezone)
+
+
+class ListNamespace(_Namespace):
+    def join(self, delimiter):
+        return self._fn("list_join", delimiter)
+
+    def value_counts(self):
+        return self._fn("list_value_counts")
+
+    def count(self, mode: str = "valid"):
+        return self._fn("list_count", mode=mode)
+
+    def lengths(self):
+        return self._fn("list_length")
+
+    def length(self):
+        return self._fn("list_length")
+
+    def get(self, idx, default=None):
+        return self._fn("list_get", idx, default=default)
+
+    def slice(self, start, end=None):
+        return self._fn("list_slice", start, end=end)
+
+    def chunk(self, size: int):
+        return self._fn("list_chunk", size=size)
+
+    def sum(self):
+        return self._fn("list_sum")
+
+    def mean(self):
+        return self._fn("list_mean")
+
+    def min(self):
+        return self._fn("list_min")
+
+    def max(self):
+        return self._fn("list_max")
+
+    def sort(self, desc: bool = False):
+        return self._fn("list_sort", desc=desc)
+
+    def distinct(self):
+        return self._fn("list_distinct")
+
+    def contains(self, value):
+        return self._fn("list_contains", value)
+
+    def explode(self):
+        from daft_tpu_torch.errors import DaftValueError
+
+        raise DaftValueError(
+            "explode is a plan-level operation: use DataFrame.explode(col) "
+            "(one row per list element changes the row count)"
+        )
+
+    def flatten(self):
+        return self._fn("list_flatten")
+
+    def bool_and(self):
+        return self._fn("list_bool_and")
+
+    def bool_or(self):
+        return self._fn("list_bool_or")
+
+    def append(self, other):
+        return self._fn("list_append", other)
+
+    def map(self, expr):
+        mapper = expr._expr if isinstance(expr, Expression) else expr
+        return self._fn("list_map", expr=mapper)
+
+    def filter(self, expr):
+        pred = expr._expr if isinstance(expr, Expression) else expr
+        return self._fn("list_filter", expr=pred)
+
+    def quantile(self, percentiles):
+        return self._fn("list_quantile", percentiles=percentiles)
+
+    def count_distinct(self):
+        return self._fn("list_count_distinct")
+
+
+class StructNamespace(_Namespace):
+    def get(self, name: str):
+        if name == "*":
+            # Wildcard expands at projection binding (reference:
+            # Expression.unnest == .get("*")).
+            return self._fn("unnest")
+        return self._fn("struct_get", name=name)
+
+
+class MapNamespace(_Namespace):
+    def get(self, key):
+        return self._fn("map_get", key)
+
+    def keys(self):
+        return self._fn("map_keys")
+
+    def values(self):
+        return self._fn("map_values")
 
 
 class FloatNamespace(_Namespace):

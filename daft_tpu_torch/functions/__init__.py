@@ -4,10 +4,9 @@ Reference: daft/functions. Most functions are thin wrappers over registry
 kernels (``kernels/registry.py``); the AI functions live in
 ``functions/ai.py`` and the file functions in ``functions/media.py``. What the
 port leaves out raises ``DaftNotImplementedError`` naming its ROADMAP item:
-the window functions when called, the list, struct and map functions and the
-media kernels when a plan resolves them (``registry.LEFT_OUT``), the
-aggregations with list or sketch partials when built (``AggOp.LEFT_OUT``),
-and ``download`` / ``upload`` (remote IO) when resolved.
+the media functions when called and their kernels when a plan resolves them
+(``registry.LEFT_OUT``), the user-defined aggregations when built
+(``AggOp.LEFT_OUT``), and ``download`` / ``upload`` (remote IO) when resolved.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ def _fn(_fn_name: str, *args, **kwargs) -> Expression:
     return Expression(FunctionCall(_fn_name, [ensure_expr(a) for a in args], kwargs))
 
 
-_WINDOWS = "ROADMAP A.3.5 (windows)"
 _MEDIA = "ROADMAP A.3.5 (the rest of functions/media.py)"
 
 
@@ -177,21 +175,27 @@ def great_circle_distance(lat1, lon1, lat2, lon2, radius: float = 6371000.0) -> 
 
 # -- window ----------------------------------------------------------------
 def row_number() -> Expression:
-    _left_out("row_number()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr
+
+    return Expression(WindowExpr("row_number", None, (), (), ()))
 
 
 def rank() -> Expression:
-    _left_out("rank()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr
+
+    return Expression(WindowExpr("rank", None, (), (), ()))
 
 
 def dense_rank() -> Expression:
-    _left_out("dense_rank()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr
+
+    return Expression(WindowExpr("dense_rank", None, (), (), ()))
 
 
 def monotonically_increasing_id() -> Expression:
-    """Marker expression, rewritten by the optimizer into its plan operator
-    in the JAX package; the port's registry names the ROADMAP item that
-    brings it when a plan resolves it."""
+    """Marker expression; the optimizer's DetectMonotonicId rule rewrites the
+    containing projection into a MonotonicallyIncreasingId plan op
+    (reference: optimization/rules/detect_monotonic_id.rs)."""
     return Expression(FunctionCall("monotonically_increasing_id", []))
 
 
@@ -1099,23 +1103,35 @@ def jaccard_similarity(a, b):
 
 # -- window long tail ------------------------------------------------------
 def percent_rank() -> Expression:
-    _left_out("percent_rank()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr
+
+    return Expression(WindowExpr("percent_rank", None, (), (), ()))
 
 
 def lag(e, offset: int = 1, default=None):
-    _left_out("lag()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr, ensure_expr
+
+    return Expression(WindowExpr("lag", ensure_expr(e), (), (), (),
+                                 kwargs={"offset": offset, "default": default}))
 
 
 def lead(e, offset: int = 1, default=None):
-    _left_out("lead()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr, ensure_expr
+
+    return Expression(WindowExpr("lead", ensure_expr(e), (), (), (),
+                                 kwargs={"offset": offset, "default": default}))
 
 
 def first_value(e):
-    _left_out("first_value()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr, ensure_expr
+
+    return Expression(WindowExpr("first_value", ensure_expr(e), (), (), ()))
 
 
 def last_value(e):
-    _left_out("last_value()", _WINDOWS)
+    from daft_tpu_torch.expressions.expr import WindowExpr, ensure_expr
+
+    return Expression(WindowExpr("last_value", ensure_expr(e), (), (), ()))
 
 
 # -- aggregation free functions --------------------------------------------
@@ -1431,7 +1447,8 @@ def extract_month_uuid7(expr):
 
 # -- window ----------------------------------------------------------------
 def over(expr, window):
-    _left_out("over()", _WINDOWS)
+    """Apply a Window spec to an expression (reference: window.py over)."""
+    return ensure_expr_wrap(expr).over(window)
 
 
 # -- typed files / hdf5 / video / process ----------------------------------

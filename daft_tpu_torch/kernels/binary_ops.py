@@ -1,7 +1,6 @@
 """Binary kernels (port of ``daft_tpu/kernels/binary_ops.py``; reference:
-src/daft-functions-binary). Host Arrow compute, as in the JAX package. The
-``monotonically_increasing_id`` marker of that module comes with its plan
-operator (``registry.LEFT_OUT``)."""
+src/daft-functions-binary). Host Arrow compute, as in the JAX package, and the
+``monotonically_increasing_id`` marker that ``DetectMonotonicId`` rewrites."""
 
 from __future__ import annotations
 
@@ -34,3 +33,18 @@ def _binary_slice(args, length=None, **kwargs):
     stop = None if length is None else start + int(length)
     out = [None if v is None else v[start:stop] for v in args[0].to_pylist()]
     return Series.from_pylist(out, args[0].name, _BIN)
+
+
+def _monotonic_id_field(fields, kwargs):
+    from daft_tpu_torch.schema import Field
+
+    return Field("id", DataType.uint64())  # zero-arg: no input field to rename
+
+
+@register_kernel("monotonically_increasing_id", _monotonic_id_field)
+def _monotonic_id_marker(args, **kwargs):
+    from daft_tpu_torch.errors import DaftPlanError
+
+    raise DaftPlanError(
+        "monotonically_increasing_id() must be rewritten by the optimizer "
+        "(DetectMonotonicId); it cannot be evaluated as a row expression")

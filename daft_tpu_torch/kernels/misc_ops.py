@@ -5,9 +5,10 @@ src/daft-functions, src/daft-minhash, src/daft-geo).
 Host numpy and Arrow, as in the JAX package. ``minhash`` takes the numpy path
 that sits beside the JAX package's native ``minhash_rows``
 (``daft_tpu/_native.py``): the same wrapping uint64 arithmetic, so every
-non-null row's signature equals the native path's bit for bit. The
-list, sketch and UDAF finalizers of that module come with their aggregations
-(``registry.LEFT_OUT``).
+non-null row's signature equals the native path's bit for bit. The list and
+sketch finalizers (``list_count_distinct``, ``list_quantile``, ``pow_3_2``,
+``dd_quantile``) serve the aggregations' two-phase finals; the UDAF ones come
+with the UDAFs (``registry.LEFT_OUT``).
 """
 
 from __future__ import annotations
@@ -53,6 +54,55 @@ def _coalesce(args, **kwargs):
     for a in args[1:]:
         out = out.fill_null(a.cast(dt))
     return out
+
+
+@register_kernel("list_count_distinct", lambda f, k: Field(f[0].name, DataType.uint64()))
+def _list_count_distinct(args, **kwargs):
+    """Distinct-element count per list row (used by two-phase count_distinct)."""
+    s = args[0]
+    out = []
+    for v in s.to_pylist():
+        if v is None:
+            out.append(0)
+        else:
+            out.append(len({x for x in v if x is not None}))
+    return Series.from_pylist(out, s.name, DataType.uint64())
+
+
+def _quantile_resolver(fields, kwargs):
+    q = kwargs.get("percentiles")
+    if isinstance(q, (list, tuple)):
+        return Field(fields[0].name, DataType.list(DataType.float64()))
+    return Field(fields[0].name, DataType.float64())
+
+
+@register_kernel("list_quantile", _quantile_resolver)
+def _list_quantile(args, percentiles=0.5, **kwargs):
+    """Quantile(s) of each list row (two-phase approx_percentile finalizer)."""
+    s = args[0]
+    multi = isinstance(percentiles, (list, tuple))
+    qs = list(percentiles) if multi else [percentiles]
+    out = []
+    for v in s.to_pylist():
+        vals = [x for x in (v or []) if x is not None]
+        if not vals:
+            out.append(None)
+        else:
+            # One conversion and one vectorised quantile call per row.
+            arr = np.asarray(vals, dtype=np.float64)
+            res = [float(x) for x in np.atleast_1d(np.quantile(arr, qs))]
+            out.append(res if multi else res[0])
+    dt = DataType.list(DataType.float64()) if multi else DataType.float64()
+    return Series.from_pylist(out, s.name, dt)
+
+
+@register_kernel("pow_3_2", lambda f, k: Field(f[0].name, DataType.float64()))
+def _pow_3_2(args, **kwargs):
+    s = args[0]
+    vals, mask = s.to_numpy_masked()
+    with np.errstate(all="ignore"):
+        out = np.power(vals.astype(np.float64), 1.5)
+    return Series.from_numpy(out, s.name)._with_mask(mask)
 
 
 @register_kernel("minhash", lambda f, k: Field(
@@ -147,3 +197,27 @@ def _great_circle_distance(args, radius: float = 6371000.0, **kwargs):
         out = 2.0 * radius * np.arcsin(np.sqrt(np.clip(h, 0.0, 1.0)))
     out = np.where(mask, 0.0, out) if mask.any() else out
     return Series.from_numpy(out, args[0].name)._with_mask(mask if mask.any() else None)
+
+
+@register_kernel("dd_quantile", lambda f, k: Field(
+    f[0].name,
+    DataType.list(DataType.float64())
+    if isinstance(k.get("percentiles"), (list, tuple)) else DataType.float64()))
+def _dd_quantile(args, percentiles=0.5, **kwargs):
+    """Finalize DDSketch two-phase approx_percentile (reference: daft-sketch)."""
+    from daft_tpu_torch.kernels.sketches import DDSketch
+
+    multi = isinstance(percentiles, (list, tuple))
+    out = []
+    for blob in args[0].to_pylist():
+        if blob is None:
+            out.append(None)
+            continue
+        sk = DDSketch.from_bytes(bytes(blob))
+        if multi:
+            out.append([sk.quantile(float(q)) for q in percentiles]
+                       if sk.count else None)
+        else:
+            out.append(sk.quantile(float(percentiles)))
+    dt = DataType.list(DataType.float64()) if multi else DataType.float64()
+    return Series.from_pylist(out, args[0].name, dt)

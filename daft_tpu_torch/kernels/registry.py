@@ -7,7 +7,7 @@ run also carry a torch lowering (``torch_fn``) that the relational device layer
 calls on device tensors. The registry holds the kernels of ``numeric.py``,
 ``float_ops.py``, ``embedding_ops.py``, ``extended_ops.py``, ``string_ops.py``,
 ``temporal_ops.py``, ``binary_ops.py``, ``uri_ops.py``, ``misc_ops.py``,
-``image_ops.py`` and ``file_ops.py``. A name of the JAX package's registry
+``image_ops.py``, ``file_ops.py``, ``list_ops.py`` and ``struct_map_ops.py``. A name of the JAX package's registry
 that the port leaves out is in ``LEFT_OUT`` with the ROADMAP item that ports
 it, and ``get_kernel`` raises ``DaftNotImplementedError`` naming that item.
 """
@@ -66,8 +66,6 @@ def register_kernel(name: str, resolver, torch_fn=None, torch_same_rules=False):
     return deco
 
 
-_LIST = "ROADMAP A.3.5 (the .list, .struct and .map namespaces)"
-_SKETCH = "ROADMAP A.3.5 (the aggregations with list or sketch partials)"
 _MEDIA = "ROADMAP A.3.5 (the rest of functions/media.py)"
 _UDAF = "ROADMAP A.2 (udaf)"
 _REMOTE = "ROADMAP A.8 (remote IO)"
@@ -75,18 +73,9 @@ _REMOTE = "ROADMAP A.8 (remote IO)"
 #: Every kernel of the JAX package's registry that the port does not hold,
 #: with the ROADMAP item that brings it.
 LEFT_OUT: Dict[str, str] = {
-    **{n: _LIST for n in (
-        "list_length", "list_count", "list_get", "list_slice", "list_chunk", "list_join",
-        "list_sum", "list_mean", "list_min", "list_max", "list_sort", "list_distinct",
-        "list_contains", "list_value_counts", "list_flatten", "list_bool_and",
-        "list_bool_or", "list_append", "list_map", "list_filter", "list_compact",
-        "list_seq", "list_pack", "struct_get", "map_get", "map_keys", "map_values",
-        "pack_struct", "unnest", "explode")},
-    **{n: _SKETCH for n in ("list_count_distinct", "list_quantile", "dd_quantile", "pow_3_2")},
     **{n: _MEDIA for n in ("audio_metadata", "audio_resample", "video_metadata")},
     "udaf_apply": _UDAF,
     "udaf_finalize": _UDAF,
-    "monotonically_increasing_id": "ROADMAP A.3.5 (the MonotonicallyIncreasingId operator)",
     "url_download": _REMOTE,
     "url_upload": _REMOTE,
 }
@@ -133,9 +122,11 @@ def _ensure_loaded() -> None:
             file_ops,
             float_ops,
             image_ops,
+            list_ops,
             misc_ops,
             numeric,
             string_ops,
+            struct_map_ops,
             temporal_ops,
             uri_ops,
         )

@@ -2,10 +2,7 @@
 src/daft-logical-plan/src/builder/mod.rs:61-1240).
 
 Thin, immutable builder over LogicalPlan nodes; the DataFrame API wraps this.
-Not ported yet: the unnest/explode markers and window hoisting in ``project``,
-and every builder step whose plan node is not ported (see ``logical/plan.py``).
-``intersect`` / ``except_`` build their ``ALL`` form, which translation
-refuses until ``Window`` is ported (ROADMAP A.3.5).
+Not ported yet: ``shard`` (its node, ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -38,7 +35,83 @@ class LogicalPlanBuilder:
         return LogicalPlanBuilder(lp.ScanSource(scan_info, scan_info.schema))
 
     def project(self, exprs: Sequence[Expr]) -> "LogicalPlanBuilder":
-        return LogicalPlanBuilder(lp.Project(self._plan, exprs))
+        from daft_tpu_torch.expressions.expr import Alias, FunctionCall, WindowExpr
+
+        # Top-level unnest(struct_col) markers expand into one struct_get per
+        # field (reference: Expression.unnest == .get("*"), expanded by the
+        # Rust builder's wildcard resolution). Top-level explode(list_col)
+        # markers project the inner expression and append an Explode node
+        # (reference: daft/functions/list.py explode usable in select).
+        def _is_marker(e: Expr, name: str) -> bool:
+            return isinstance(e, FunctionCall) and e.fn_name == name
+
+        explode_names = []
+        explode_ignore = False
+        if any(_is_marker(e, "unnest") or _is_marker(e, "explode") or
+               (isinstance(e, Alias) and
+                (_is_marker(e.child, "explode") or _is_marker(e.child, "unnest")))
+               for e in exprs):
+            from daft_tpu_torch.errors import DaftTypeError
+
+            expanded = []
+            for e in exprs:
+                if _is_marker(e, "unnest"):
+                    inner = e.args[0]
+                    dt = inner.to_field(self.schema).dtype
+                    if not dt.is_struct():
+                        raise DaftTypeError(f"unnest expects a struct column, got {dt!r}")
+                    for fname in dt.fields:
+                        expanded.append(Alias(
+                            FunctionCall("struct_get", [inner], {"name": fname}), fname))
+                elif isinstance(e, Alias) and _is_marker(e.child, "unnest"):
+                    raise DaftTypeError(
+                        "unnest expands to multiple columns and cannot be "
+                        "aliased; select(unnest(col)) without .alias()")
+                elif _is_marker(e, "explode"):
+                    expanded.append(e.args[0])
+                    explode_names.append(e.args[0].name())
+                    explode_ignore |= bool(e.kwargs.get("ignore_empty_and_null"))
+                elif isinstance(e, Alias) and _is_marker(e.child, "explode"):
+                    expanded.append(Alias(e.child.args[0], e.name()))
+                    explode_names.append(e.name())
+                    explode_ignore |= bool(e.child.kwargs.get("ignore_empty_and_null"))
+                else:
+                    expanded.append(e)
+            exprs = expanded
+
+        # Projections containing window expressions plan a Window node that
+        # appends the window columns, then a final Project re-shapes
+        # (reference: window extraction in the logical builder, daft/window.py).
+        window_aliases = []
+
+        def hoist(n: Expr):
+            if isinstance(n, WindowExpr):
+                name = f"__window_{len(window_aliases)}"
+                window_aliases.append(Alias(n, name))
+                return ColumnRef(name)
+            return None
+
+        rewritten = []
+        for e in exprs:
+            r = e.transform(hoist)
+            rewritten.append(Alias(r, e.name()) if r is not e and r.name() != e.name() else r)
+        if window_aliases:
+            # One Window node per distinct partition_by spec: keeps each node
+            # shuffle-able by a single key set in the distributed planner.
+            groups: dict = {}
+            for alias in window_aliases:
+                key = tuple(pb.key() for pb in alias.child.partition_by)
+                groups.setdefault(key, []).append(alias)
+            windowed = self._plan
+            for group in groups.values():
+                windowed = lp.Window(windowed, group)
+            out = LogicalPlanBuilder(lp.Project(windowed, rewritten))
+        else:
+            out = LogicalPlanBuilder(lp.Project(self._plan, exprs))
+        if explode_names:
+            out = out.explode([ColumnRef(n) for n in explode_names],
+                              ignore_empty_and_null=explode_ignore)
+        return out
 
     def select(self, exprs: Sequence[Expr]) -> "LogicalPlanBuilder":
         return self.project(exprs)
@@ -60,6 +133,34 @@ class LogicalPlanBuilder:
 
     def limit(self, n: int, offset: int = 0) -> "LogicalPlanBuilder":
         return LogicalPlanBuilder(lp.Limit(self._plan, n, offset))
+
+    def sample(self, fraction=None, size=None, with_replacement=False, seed=None) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Sample(self._plan, fraction, size, with_replacement, seed))
+
+    def explode(self, exprs: Sequence[Expr],
+                ignore_empty_and_null: bool = False) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Explode(self._plan, exprs, ignore_empty_and_null))
+
+    def unpivot(self, ids, values, variable_name="variable", value_name="value") -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Unpivot(self._plan, ids, values, variable_name, value_name))
+
+    def add_monotonically_increasing_id(self, column_name: str = "id") -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.MonotonicallyIncreasingId(self._plan, column_name))
+
+    def pivot(self, group_by, pivot_col, value_col, agg_fn, names) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Pivot(self._plan, group_by, pivot_col, value_col, agg_fn, names))
+
+    def window(self, window_exprs: Sequence[Expr]) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Window(self._plan, window_exprs))
+
+    def repartition_hash(self, exprs: Sequence[Expr], num_partitions: int) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Repartition(self._plan, ("hash", list(exprs), num_partitions)))
+
+    def repartition_random(self, num_partitions: int) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Repartition(self._plan, ("random", num_partitions)))
+
+    def into_partitions(self, num_partitions: int) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(lp.Repartition(self._plan, ("into", num_partitions)))
 
     # -- blocking ---------------------------------------------------------
     def sort(self, sort_by: Sequence[Expr], descending: Sequence[bool],

@@ -5,18 +5,22 @@ ordered list of rule batches, each run to fixed point, then a final column
 pruning pass. The batches are the JAX package's, in its order:
 
 * UnnestSubqueries — IN / EXISTS / scalar subqueries, correlated or not,
-  into semi / anti / left / cross joins and grouped aggregates (reference:
-  rules/unnest_subquery.rs);
+  into semi / anti / left / cross joins and grouped aggregates, and a
+  subquery with non-equi correlation through the row-id technique
+  (``MonotonicallyIncreasingId``) (reference: rules/unnest_subquery.rs);
+* DetectMonotonicId — ``monotonically_increasing_id()`` in a projection into
+  the MonotonicallyIncreasingId plan op (rules/detect_monotonic_id.rs);
 * SimplifyExpressions — constant folding, boolean and numeric identities,
   null propagation (reference: rules/simplify_expressions.rs + daft-algebra);
 * SplitUDFs — isolates UDF calls into UDFProject nodes (rules/split_udfs.rs);
 * SimplifyNullFilteredJoin, EliminateCrossJoin, PushDownFilter and
-  PushDownSemiAnti (top-down) — outer joins whose padded side a filter
-  rejects become inner, a filtered cross join with cross-side equalities
-  becomes an inner join, filters and semi / anti joins move toward the
-  relations that own their columns (rules/push_down_filter.rs,
+  PushDownSemiAnti (top-down), DropRepartition — outer joins whose padded
+  side a filter rejects become inner, a filtered cross join with cross-side
+  equalities becomes an inner join, filters and semi / anti joins move
+  toward the relations that own their columns, a repartition over a
+  repartition drops the inner one (rules/push_down_filter.rs,
   push_down_anti_semi_join.rs, eliminate_cross_join.rs,
-  simplify_null_filtered_join.rs);
+  simplify_null_filtered_join.rs, drop_repartition.rs);
 * PushDownLimit — composes limits, Sort + Limit into TopN, a scan's limit;
 * EnrichWithStats — parquet footers into the scan's row counts and column
   stats (rules/enrich_with_stats.rs);
@@ -29,13 +33,10 @@ pruning pass. The batches are the JAX package's, in its order:
   (rules/reorder_joins/);
 * PushDownProjection — a scan's columns pruned to what the plan reads;
 
-and ``prune_columns`` last. Left out of the batches, each with the plan node
-it rewrites: DetectMonotonicId (``MonotonicallyIncreasingId``, ROADMAP
-A.3.5), PushDownShard (``Shard``, A.8) and DropRepartition (``Repartition``,
-A.8). The node types the port lacks (``Sample``, ``Repartition``, ``Shard``,
-``Explode``) are left out of the rules' type lists, and the feedback plane's
-observed cardinalities that override the join-order estimates in the JAX
-package are not ported (A.8).
+and ``prune_columns`` last. Left out of the batches: PushDownShard, with the
+``Shard`` node it rewrites (ROADMAP A.8), which is left out of the rules'
+type lists too; and the feedback plane's observed cardinalities that
+override the join-order estimates in the JAX package are not ported (A.8).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from __future__ import annotations
 import logging
 from typing import List, Optional, Sequence
 
-from daft_tpu_torch.errors import DaftError, DaftNotImplementedError
+from daft_tpu_torch.errors import DaftError
 from daft_tpu_torch.expressions.expr import (
     AggOp,
     Alias,
@@ -121,10 +122,11 @@ class Optimizer:
         self.cfg = cfg or get_context().execution_config
         self.batches: List[List[Rule]] = [
             [UnnestSubqueries()],
+            [DetectMonotonicId()],
             [SimplifyExpressions()],
             [SplitUDFs()],
             [SimplifyNullFilteredJoin(), EliminateCrossJoin(), PushDownFilter(),
-             PushDownSemiAnti()],
+             PushDownSemiAnti(), DropRepartition()],
             [PushDownLimit()],
             [EnrichWithStats()],
             [PushDownAggregation()],
@@ -141,8 +143,6 @@ class Optimizer:
                     rewriter = _rewrite_top_down if rule.top_down else _rewrite_bottom_up
                     try:
                         new_plan = rewriter(plan, rule)
-                    except DaftNotImplementedError:
-                        raise  # what the port lacks is named, never skipped
                     except Exception:
                         # A crashing rewrite rule must be DIAGNOSABLE, never a
                         # silent skip: log the rule and the plan root, keep
@@ -387,7 +387,9 @@ class PushDownFilter(Rule):
                 except (DaftError, KeyError, TypeError, NotImplementedError):
                     return None  # predicate does not type below the project
                 return lp.Project(lp.Filter(child.children()[0], new_pred), child.exprs)
-        if isinstance(child, lp.Sort):
+        # NOTE: MonotonicallyIncreasingId is NOT pass-through — filtering before
+        # id assignment would renumber the surviving rows.
+        if isinstance(child, (lp.Sort, lp.Repartition)):
             grand = child.children()[0]
             if all(n in grand.schema for n in pred.column_refs()):
                 return child.with_children([lp.Filter(grand, pred)])
@@ -540,6 +542,17 @@ class PushDownLimit(Rule):
         return None
 
 
+class DropRepartition(Rule):
+    name = "DropRepartition"
+
+    def rewrite(self, node):
+        if isinstance(node, lp.Repartition):
+            child = node.children()[0]
+            if isinstance(child, lp.Repartition):
+                return node.with_children(child.children())
+        return None
+
+
 class PushDownSemiAnti(Rule):
     """Push semi/anti joins toward the relation producing their keys
     (reference: rules/push_down_anti_semi_join.rs). A semi/anti join only
@@ -677,6 +690,40 @@ class SimplifyNullFilteredJoin(Rule):
         if isinstance(c, BinaryOp) and c.op in ("eq", "ne", "lt", "le", "gt", "ge"):
             return propagating(c.left) and propagating(c.right)
         return False
+
+
+class DetectMonotonicId(Rule):
+    """Rewrite projections containing ``monotonically_increasing_id()`` into
+    the MonotonicallyIncreasingId plan op (reference:
+    optimization/rules/detect_monotonic_id.rs)."""
+
+    name = "DetectMonotonicId"
+
+    @staticmethod
+    def _has_call(e: Expr) -> bool:
+        from daft_tpu_torch.expressions.expr import FunctionCall
+
+        return any(isinstance(n, FunctionCall)
+                   and n.fn_name == "monotonically_increasing_id"
+                   for n in e.walk())
+
+    def rewrite(self, node):
+        from daft_tpu_torch.expressions.expr import FunctionCall
+
+        if not isinstance(node, lp.Project):
+            return None
+        if not any(self._has_call(e) for e in node.exprs):
+            return None
+        tmp = "__mono_id"
+        child = lp.MonotonicallyIncreasingId(node.children()[0], tmp)
+
+        def sub(n: Expr):
+            if isinstance(n, FunctionCall) and \
+                    n.fn_name == "monotonically_increasing_id":
+                return ColumnRef(tmp)
+            return None
+
+        return lp.Project(child, [e.transform(sub) for e in node.exprs])
 
 
 class EnrichWithStats(Rule):
@@ -909,7 +956,7 @@ class PushDownProjection(Rule):
         # we only act at the root-most call per pass by pruning scans reachable
         # without passing another pruning barrier. Simplest correct approach:
         # apply locally — Project directly above a ScanSource prunes it.
-        if isinstance(node, (lp.Project, lp.UDFProject, lp.Aggregate, lp.Filter)):
+        if isinstance(node, (lp.Project, lp.UDFProject, lp.Aggregate, lp.Filter, lp.Explode)):
             child = node.children()[0]
             required = self._required_columns(node)
             if required is None:
@@ -917,7 +964,7 @@ class PushDownProjection(Rule):
             target = child
             # Walk through pass-through nodes that don't change the column set.
             passthrough: List[lp.LogicalPlan] = []
-            while isinstance(target, (lp.Filter, lp.Sort, lp.Limit)):
+            while isinstance(target, (lp.Filter, lp.Sort, lp.Limit, lp.Sample, lp.Repartition)):
                 if isinstance(target, lp.Filter):
                     required = required | target.predicate.column_refs()
                 if isinstance(target, lp.Sort):
@@ -952,6 +999,8 @@ class PushDownProjection(Rule):
                 req |= e.column_refs()
         elif isinstance(node, lp.Filter):
             return None  # handled when walking from a projecting ancestor
+        elif isinstance(node, lp.Explode):
+            return None
         return req
 
 
@@ -1023,7 +1072,7 @@ def _already_filtering(side, expr: Expr) -> bool:
                 return False  # unmappable through the project: not filtered
             node = node.children()[0]
             continue
-        if isinstance(node, lp.Sort):
+        if isinstance(node, (lp.Sort, lp.Repartition)):
             node = node.children()[0]
             continue
         if isinstance(node, lp.Concat):
@@ -1071,8 +1120,10 @@ class UnnestSubqueries(Rule):
         original_cols = [f.name for f in base.schema]
         conjuncts: List[Expr] = []
         _flatten_and(node.predicate, conjuncts)
-        # Plain conjuncts filter the base BEFORE any subquery join, so the
-        # semi/anti matching never runs over the unfiltered input.
+        # Plain conjuncts filter the base BEFORE any subquery join: the
+        # row-id technique wraps base in MonotonicallyIncreasingId, which
+        # blocks later filter pushdown, so filtering afterwards would run
+        # the semi/anti matching over the full unfiltered input.
         plain = [c for c in conjuncts if not c.has_subquery()]
         conjuncts = [c for c in conjuncts if c.has_subquery()]
         if plain:
@@ -1134,14 +1185,31 @@ class UnnestSubqueries(Rule):
                                                 negated, extra)
             if rewritten is not None:
                 return rewritten
-            # The general form (the row-id technique: tag the outer rows,
-            # inner-join on the equi keys, filter the non-equi predicates,
-            # semi / anti join back on the row ids) needs the
-            # MonotonicallyIncreasingId node.
-            raise DaftNotImplementedError(
-                "an IN / EXISTS subquery whose non-equi correlation is not a single "
-                "`<>` tags the outer rows with MonotonicallyIncreasingId, which the "
-                "port has not yet (ROADMAP A.3.5)")
+            # Inner columns referenced by the non-equi predicates travel
+            # through the join under their reserved __in_<name> aliases.
+            inner_refs = sorted({ref[5:] for e in extra for ref in e.column_refs()
+                                 if ref.startswith("__in_")})
+            proj.extend(Alias(ColumnRef(r), f"__in_{r}") for r in inner_refs)
+            rowid = self._uniq("rowid")
+            base_id = lp.MonotonicallyIncreasingId(base, rowid)
+            # The matching join only needs the row id, the equi keys, and the
+            # outer columns the extra predicates read — never the full base
+            # row (wide payload columns would be duplicated per inner match).
+            needed = {rowid}
+            for e in left_on:
+                needed |= e.column_refs()
+            for e in extra:
+                needed |= {r for r in e.column_refs() if not r.startswith("__in_")}
+            narrow = lp.Project(base_id, [ColumnRef(n) for n in sorted(needed)
+                                          if n in base_id.schema])
+            right = lp.Project(plan, proj)
+            if left_on:
+                joined = lp.Join(narrow, right, left_on, right_on, "inner")
+            else:
+                joined = lp.Join(narrow, right, [], [], "cross")
+            matched = lp.Filter(joined, _and_all(list(extra)))
+            return lp.Join(base_id, matched, [ColumnRef(rowid)], [ColumnRef(rowid)],
+                           "anti" if negated else "semi")
         return self._semi_anti_tail(base, plan, proj, left_on, right_on,
                                     in_value, negated)
 
@@ -1633,16 +1701,20 @@ def prune_columns(plan: lp.LogicalPlan) -> lp.LogicalPlan:
             child = node.children()[0]
             new_child = rec(child, required | refs(node.sort_by))
             return node if new_child is child else node.with_children([new_child])
-        if isinstance(node, (lp.Limit, lp.Distinct)):
+        if isinstance(node, (lp.Limit, lp.Sample, lp.Distinct)):
             child = node.children()[0]
             new_child = rec(child, required)
+            return node if new_child is child else node.with_children([new_child])
+        if isinstance(node, lp.Repartition):
+            child = node.children()[0]
+            new_child = rec(child, required | refs(getattr(node, "partition_by", []) or []))
             return node if new_child is child else node.with_children([new_child])
         if isinstance(node, (lp.Concat, lp.Intersect, lp.Except)):
             new_children = [rec(c, set(c.schema.column_names())) for c in node.children()]
             if all(a is b for a, b in zip(new_children, node.children())):
                 return node
             return node.with_children(new_children)
-        # Conservative default (AsofJoin, Sink, ...):
+        # Conservative default (Explode/Unpivot/Window/Pivot/AsofJoin/Sink/...):
         # children keep their full column sets, but keep descending so joins
         # below still benefit.
         new_children = [rec(c, set(c.schema.column_names())) for c in node.children()]

@@ -6,9 +6,9 @@ errors surface at build time. The port has ``InMemorySource``, ``Project``,
 ``UDFProject``, ``Filter``, ``Limit``, ``Aggregate`` (global and grouped),
 ``Sort``, ``TopN``, ``Distinct``, ``Concat``, ``Intersect``/``Except``,
 ``Join``, ``AsofJoin``, ``ScanSource`` (file scans and ``DataSource``
-plugins, with their pushdowns) and ``Sink`` (file writes). Not ported yet:
-``Sample``, ``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``,
-``Pivot``, ``Window``, ``Repartition`` and ``Shard`` (ROADMAP A.3.5 / A.8).
+plugins, with their pushdowns), ``Sink`` (file writes), ``Sample``,
+``Explode``, ``Unpivot``, ``MonotonicallyIncreasingId``, ``Pivot``,
+``Window`` and ``Repartition``. Not ported yet: ``Shard`` (ROADMAP A.8).
 Every node has ``approx_stats``, the cardinality estimate that the
 optimizer's join ordering reads; the feedback plane's observed
 cardinalities, which override it in the JAX package, are not ported (A.8).
@@ -16,9 +16,9 @@ cardinalities, which override it in the JAX package, are not ported (A.8).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
-from daft_tpu_torch.datatype import unify_dtypes
+from daft_tpu_torch.datatype import DataType, unify_dtypes
 from daft_tpu_torch.errors import (
     DaftPlanError,
     DaftSchemaError,
@@ -26,7 +26,7 @@ from daft_tpu_torch.errors import (
     DaftValueError,
 )
 from daft_tpu_torch.expressions.evaluator import resolve_schema
-from daft_tpu_torch.expressions.expr import ColumnRef, Expr, UdfCall
+from daft_tpu_torch.expressions.expr import AggOp, ColumnRef, Expr, UdfCall
 from daft_tpu_torch.schema import Field, Schema
 from daft_tpu_torch.stats import ApproxStats
 
@@ -199,6 +199,77 @@ class Limit(LogicalPlan):
         return s
 
 
+class Sample(LogicalPlan):
+    def __init__(self, input: LogicalPlan, fraction: Optional[float] = None,
+                 size: Optional[int] = None, with_replacement: bool = False,
+                 seed: Optional[int] = None):
+        self.fraction = fraction
+        self.size = size
+        self.with_replacement = with_replacement
+        self.seed = seed
+        super().__init__([input], input.schema)
+
+    def with_children(self, children):
+        return Sample(children[0], self.fraction, self.size, self.with_replacement, self.seed)
+
+
+class Explode(LogicalPlan):
+    def __init__(self, input: LogicalPlan, to_explode: Sequence[Expr],
+                 ignore_empty_and_null: bool = False):
+        self.to_explode = list(to_explode)
+        self.ignore_empty_and_null = ignore_empty_and_null
+        explode_names = {e.name() for e in self.to_explode}
+        fields = []
+        for f in input.schema:
+            if f.name in explode_names:
+                if not f.dtype.is_list():
+                    raise DaftTypeError(f"Cannot explode non-list column {f.name!r} ({f.dtype!r})")
+                fields.append(Field(f.name, f.dtype.inner))
+            else:
+                fields.append(f)
+        super().__init__([input], Schema(fields))
+
+    def with_children(self, children):
+        return Explode(children[0], self.to_explode, self.ignore_empty_and_null)
+
+    def multiline_display(self):
+        return [f"Explode: {[e.name() for e in self.to_explode]}"]
+
+
+class Unpivot(LogicalPlan):
+    def __init__(self, input: LogicalPlan, ids: Sequence[Expr], values: Sequence[Expr],
+                 variable_name: str = "variable", value_name: str = "value"):
+        self.ids = list(ids)
+        self.values = list(values)
+        self.variable_name = variable_name
+        self.value_name = value_name
+        if not self.values:
+            raise DaftValueError("unpivot requires at least one value column")
+        val_dtype = DataType.null()
+        for v in self.values:
+            val_dtype = unify_dtypes(val_dtype, v.to_field(input.schema).dtype)
+        fields = [e.to_field(input.schema) for e in self.ids]
+        fields.append(Field(variable_name, DataType.string()))
+        fields.append(Field(value_name, val_dtype))
+        super().__init__([input], Schema(fields))
+
+    def with_children(self, children):
+        return Unpivot(children[0], self.ids, self.values, self.variable_name, self.value_name)
+
+
+class MonotonicallyIncreasingId(LogicalPlan):
+    """Adds a 64-bit id column: high bits = partition index, low bits = row
+    index within partition (reference: ops/monotonically_increasing_id.rs)."""
+
+    def __init__(self, input: LogicalPlan, column_name: str = "id"):
+        self.column_name = column_name
+        fields = [Field(column_name, DataType.uint64())] + input.schema.fields()
+        super().__init__([input], Schema(fields))
+
+    def with_children(self, children):
+        return MonotonicallyIncreasingId(children[0], self.column_name)
+
+
 class Filter(LogicalPlan):
     def __init__(self, input: LogicalPlan, predicate: Expr):
         pf = predicate.to_field(input.schema)
@@ -247,6 +318,24 @@ class Aggregate(LogicalPlan):
         return s.scaled(0.1)
 
 
+class Pivot(LogicalPlan):
+    def __init__(self, input: LogicalPlan, group_by: Sequence[Expr], pivot_col: Expr,
+                 value_col: Expr, agg_fn: str, names: Sequence[str]):
+        self.group_by = list(group_by)
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.agg_fn = agg_fn
+        self.names = list(names)
+        fields = [g.to_field(input.schema) for g in self.group_by]
+        vf = AggOp(agg_fn, value_col).to_field(input.schema)
+        fields += [Field(n, vf.dtype) for n in self.names]
+        super().__init__([input], Schema(fields))
+
+    def with_children(self, children):
+        return Pivot(children[0], self.group_by, self.pivot_col, self.value_col, self.agg_fn,
+                     self.names)
+
+
 class Sort(LogicalPlan):
     def __init__(self, input: LogicalPlan, sort_by: Sequence[Expr],
                  descending: Sequence[bool], nulls_first: Optional[Sequence[bool]] = None):
@@ -289,6 +378,16 @@ class Distinct(LogicalPlan):
 
     def with_children(self, children):
         return Distinct(children[0], self.on)
+
+
+class Window(LogicalPlan):
+    def __init__(self, input: LogicalPlan, window_exprs: Sequence[Expr]):
+        self.window_exprs = list(window_exprs)
+        out_fields = input.schema.fields() + [e.to_field(input.schema) for e in self.window_exprs]
+        super().__init__([input], Schema(out_fields))
+
+    def with_children(self, children):
+        return Window(children[0], self.window_exprs)
 
 
 class Concat(LogicalPlan):
@@ -427,6 +526,21 @@ class AsofJoin(LogicalPlan):
     def with_children(self, children):
         return AsofJoin(children[0], children[1], self.left_on, self.right_on,
                         self.left_by, self.right_by, self.direction, self.suffix)
+
+
+class Repartition(LogicalPlan):
+    """scheme: ("hash", exprs, n) | ("random", n) | ("range", exprs, desc, n)
+    | ("into", n) (reference: ops/repartition.rs + RepartitionSpec)."""
+
+    def __init__(self, input: LogicalPlan, scheme: Tuple):
+        self.scheme = scheme
+        super().__init__([input], input.schema)
+
+    def with_children(self, children):
+        return Repartition(children[0], self.scheme)
+
+    def multiline_display(self):
+        return [f"Repartition: {self.scheme[0]}"]
 
 
 class Sink(LogicalPlan):

@@ -5,8 +5,8 @@ a list of RecordBatches + metadata + optional statistics. Morsels streamed
 through the execution engine are MicroPartitions; shuffle writes/reads move
 MicroPartitions; scan tasks produce them.
 
-Port of ``daft_tpu/micropartition.py``; ``agg`` and ``partition_by_hash`` are not
-ported yet.
+Port of ``daft_tpu/micropartition.py``; ``agg`` is not ported (the executor
+aggregates RecordBatches).
 """
 
 from __future__ import annotations
@@ -149,6 +149,14 @@ class MicroPartition:
         out = [b.explode(columns, ignore_empty_and_null) for b in self._batches]
         schema = out[0].schema if out else self._schema
         return MicroPartition(schema, out)
+
+    def partition_by_hash(self, key_exprs, num_partitions: int) -> List["MicroPartition"]:
+        from daft_tpu_torch.expressions.evaluator import evaluate
+
+        rb = self.combined()
+        keys = [evaluate(k, rb) for k in key_exprs]
+        parts = rb.partition_by_hash(keys, num_partitions)
+        return [MicroPartition(self._schema, [p]) for p in parts]
 
     def partition_by_random(self, num_partitions: int, seed: int) -> List["MicroPartition"]:
         parts = self.combined().partition_by_random(num_partitions, seed)

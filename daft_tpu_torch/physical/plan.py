@@ -2,16 +2,17 @@
 
 Reference: ``LocalPhysicalPlan`` (src/daft-local-plan/src/plan.rs:74-133). Each
 node maps 1:1 onto an operator of ``execution/executor.py``. The port has
-``InMemorySource``, ``Project``, ``UDFProject``, ``Filter``, ``Limit``,
-``Aggregate`` (global and grouped), ``TopN``, ``Sort``, ``Distinct``,
-``HashJoin``, ``AsofJoin``, ``CrossJoin``, ``Concat``, ``PhysicalScan`` and
-``Write``; the other nodes wait for their logical counterparts (see
-``logical/plan.py``).
+``InMemorySource``, ``Project``, ``UDFProject``, ``Filter``, ``Explode``,
+``Unpivot``, ``Sample``, ``MonotonicallyIncreasingId``, ``Limit``,
+``Aggregate`` (global and grouped), ``Pivot``, ``Window``, ``TopN``,
+``Sort``, ``Distinct``, ``HashJoin``, ``AsofJoin``, ``CrossJoin``, ``Concat``,
+``Repartition``, ``PhysicalScan`` and ``Write``; the distributed nodes
+(shuffle reads, two-phase aggregation, sort sampling) are not ported (A.8).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 from daft_tpu_torch.schema import Schema
 
@@ -83,6 +84,67 @@ class Filter(PhysicalPlan):
     def __init__(self, child: PhysicalPlan, predicate):
         super().__init__([child], child.schema)
         self.predicate = predicate
+
+
+class Explode(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, to_explode, schema: Schema,
+                 ignore_empty_and_null: bool = False):
+        super().__init__([child], schema)
+        self.to_explode = to_explode
+        self.ignore_empty_and_null = ignore_empty_and_null
+
+
+class Unpivot(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, ids, values, variable_name, value_name,
+                 schema: Schema):
+        super().__init__([child], schema)
+        self.ids = ids
+        self.values = values
+        self.variable_name = variable_name
+        self.value_name = value_name
+
+
+class Sample(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, fraction, size, with_replacement, seed):
+        super().__init__([child], child.schema)
+        self.fraction = fraction
+        self.size = size
+        self.with_replacement = with_replacement
+        self.seed = seed
+
+
+class MonotonicallyIncreasingId(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, column_name: str, schema: Schema,
+                 partition_offset: int = 0):
+        super().__init__([child], schema)
+        self.column_name = column_name
+        self.partition_offset = partition_offset
+
+
+class Pivot(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, group_by, pivot_col, value_col, agg_fn, names,
+                 schema: Schema):
+        super().__init__([child], schema)
+        self.group_by = group_by
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.agg_fn = agg_fn
+        self.names = names
+
+
+class Window(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, window_exprs, schema: Schema):
+        super().__init__([child], schema)
+        self.window_exprs = window_exprs
+
+
+class Repartition(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, scheme: Tuple):
+        super().__init__([child], child.schema)
+        self.scheme = scheme
+
+    def describe(self):
+        return f"Repartition[{self.scheme[0]}]"
 
 
 class Aggregate(PhysicalPlan):

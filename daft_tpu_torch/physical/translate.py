@@ -5,14 +5,14 @@ Translation is memoized on the logical node's identity, so a subtree that
 two parents share (a decorrelated subquery's) becomes ONE physical node,
 which the executor runs once (``physical/plan.shared_subtree_ids``).
 Intersect/Except lower to distinct + semi/anti joins, matching the
-reference's logical rewrites; their ``ALL`` form needs ``Window`` and raises.
-Not ported yet: the feedback plane's estimate stamping (A.8) and every node
-the port leaves out (see ``logical/plan.py``).
+reference's logical rewrites; their ``ALL`` form tags each row with its
+occurrence number through a ``row_number`` window first. Not ported yet: the
+feedback plane's estimate stamping and ``Shard`` (A.8).
 """
 
 from __future__ import annotations
 
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftPlanError
+from daft_tpu_torch.errors import DaftPlanError
 from daft_tpu_torch.expressions.expr import ColumnRef
 from daft_tpu_torch.logical import plan as lp
 from daft_tpu_torch.physical import plan as pp
@@ -49,9 +49,24 @@ def _translate_one(node: lp.LogicalPlan, _memo) -> pp.PhysicalPlan:
                              node.passthrough, node.schema)
     if isinstance(node, lp.Filter):
         return pp.Filter(t(node.children()[0]), node.predicate)
+    if isinstance(node, lp.Explode):
+        return pp.Explode(t(node.children()[0]), node.to_explode, node.schema,
+                          node.ignore_empty_and_null)
+    if isinstance(node, lp.Unpivot):
+        return pp.Unpivot(t(node.children()[0]), node.ids, node.values,
+                          node.variable_name, node.value_name, node.schema)
+    if isinstance(node, lp.Sample):
+        return pp.Sample(t(node.children()[0]), node.fraction, node.size,
+                         node.with_replacement, node.seed)
+    if isinstance(node, lp.MonotonicallyIncreasingId):
+        return pp.MonotonicallyIncreasingId(t(node.children()[0]), node.column_name,
+                                            node.schema)
     if isinstance(node, lp.Aggregate):
         return pp.Aggregate(t(node.children()[0]), node.agg_exprs, node.group_by,
                             node.schema)
+    if isinstance(node, lp.Pivot):
+        return pp.Pivot(t(node.children()[0]), node.group_by, node.pivot_col,
+                        node.value_col, node.agg_fn, node.names, node.schema)
     if isinstance(node, lp.Limit):
         return pp.Limit(t(node.children()[0]), node.limit, node.offset)
     if isinstance(node, lp.TopN):
@@ -62,6 +77,8 @@ def _translate_one(node: lp.LogicalPlan, _memo) -> pp.PhysicalPlan:
                        node.nulls_first)
     if isinstance(node, lp.Distinct):
         return pp.Distinct(t(node.children()[0]), node.on)
+    if isinstance(node, lp.Window):
+        return pp.Window(t(node.children()[0]), node.window_exprs, node.schema)
     if isinstance(node, lp.Concat):
         return pp.Concat([t(c) for c in node.children()], node.schema)
     if isinstance(node, lp.Join):
@@ -82,15 +99,32 @@ def _translate_one(node: lp.LogicalPlan, _memo) -> pp.PhysicalPlan:
                            node.schema, node.suffix)
     if isinstance(node, (lp.Intersect, lp.Except)):
         # Distinct form: (semi|anti) join of the deduplicated left against
-        # the right.
+        # the right. ALL form (SQL INTERSECT ALL / EXCEPT ALL multiset
+        # semantics): tag every row on both sides with its occurrence number
+        # within its value group, then (semi|anti) join on (values, occ) —
+        # per value v, min(l,r) copies match and max(l-r, 0) don't.
         how = "semi" if isinstance(node, lp.Intersect) else "anti"
-        if node.is_all:
-            raise DaftNotImplementedError(
-                f"{node.name().upper()} ALL tags each row with its occurrence number through "
-                f"a row_number Window, which the port has not yet (ROADMAP A.3.5)")
         left, right = node.children()
         keys = [ColumnRef(n) for n in left.schema.column_names()]
-        return t(lp.Join(lp.Distinct(left), right, keys, keys, how))
+        if not node.is_all:
+            return t(lp.Join(lp.Distinct(left), right, keys, keys, how))
+        from daft_tpu_torch.expressions.expr import Alias, WindowExpr
+
+        occ = "__occurrence"
+        names = set(left.schema.column_names())
+        while occ in names:
+            occ += "_"
+
+        def tagged(side):
+            rn = WindowExpr("row_number", None, tuple(keys), (), ())
+            return lp.Window(side, [Alias(rn, occ)])
+
+        join_keys = keys + [ColumnRef(occ)]
+        join = lp.Join(tagged(left), lp.Project(tagged(right), join_keys),
+                       join_keys, join_keys, how)
+        return t(lp.Project(join, keys))
+    if isinstance(node, lp.Repartition):
+        return pp.Repartition(t(node.children()[0]), node.scheme)
     if isinstance(node, lp.Sink):
         return pp.Write(t(node.children()[0]), node.write_info, node.schema)
     raise DaftPlanError(f"Cannot translate logical node {node.name()}")

@@ -6,8 +6,7 @@ Arrow array (Arrow C++ buffers via pyarrow) whose Arrow type is exactly
 Fixed-width columns reach the GPU as dense numpy batches that the AI providers
 copy to the device themselves.
 
-Not ported yet: the device seam (``from_jax``/``to_jax``) and
-``approx_count_distinct`` (it needs the sketch kernels).
+Not ported yet: the device seam (``from_jax``/``to_jax``).
 
 CPU kernels delegate to ``pyarrow.compute`` (Arrow C++ SIMD kernels — the
 native-code analogue of the reference's arrow-rs + hand-rolled kernels in
@@ -609,6 +608,11 @@ class Series:
         out_dtype = DataType.list(self._dtype.inner)
         lst = pa.LargeListArray.from_arrays(offsets, flat)
         return Series(self._name, out_dtype, lst.cast(out_dtype.to_arrow()))
+
+    def approx_count_distinct(self) -> "Series":
+        from daft_tpu_torch.kernels.sketches import hll_count_distinct
+
+        return self._agg_scalar(hll_count_distinct(self), DataType.uint64())
 
     def approx_percentile(self, q: Union[float, List[float]]) -> "Series":
         qs = [q] if isinstance(q, float) else list(q)

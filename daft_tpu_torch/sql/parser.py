@@ -3,11 +3,9 @@
 Reference: src/daft-sql (~9.1k LoC, sqlparser-rs based). A hand-written
 tokenizer + Pratt expression parser + recursive-descent statement parser
 producing an AST that ``sql/planner.py`` lowers to LogicalPlanBuilder ops,
-with the JAX package's keyword table, precedence and error messages. Window
-functions (``row_number``, ``rank``, ``lag`` / ``lead``, ``first_value`` /
-``last_value`` and any ``... OVER (...)``) raise ``DaftNotImplementedError``
-naming ROADMAP A.3.5, where ``WindowExpr`` is ported; so does
-``count(DISTINCT ...)``, through ``AggOp``.
+with the JAX package's keyword table, precedence and error messages, window
+functions (``... OVER ([PARTITION BY ...] [ORDER BY ...] [ROWS BETWEEN
+...])``), ``count(DISTINCT ...)`` and ``ARRAY[...]`` included.
 """
 
 from __future__ import annotations
@@ -17,7 +15,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple, Union
 
 from daft_tpu_torch.datatype import DataType
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.expressions.expr import (
     AggOp,
     BinaryOp,
@@ -34,12 +32,6 @@ from daft_tpu_torch.expressions.expr import (
 
 class SQLParseError(DaftValueError):
     pass
-
-
-def _windows_left_out(what: str):
-    raise DaftNotImplementedError(
-        f"{what} is a window function, and WindowExpr is not ported to "
-        f"daft_tpu_torch yet: ROADMAP A.3.5")
 
 
 _TOKEN_RE = re.compile(r"""
@@ -986,9 +978,38 @@ class Parser:
                     )
                 op = "count_distinct"
             return AggOp(op, args[0] if args else Literal(1))
-        if name_l in ("row_number", "rank", "dense_rank", "percent_rank", "lag", "lead",
-                      "first_value", "last_value"):
-            _windows_left_out(f"{name_l}()")
+        if name_l in ("row_number", "rank", "dense_rank", "percent_rank"):
+            from daft_tpu_torch.expressions.expr import WindowExpr
+
+            return WindowExpr(name_l, None, (), (), ())
+        if name_l in ("lag", "lead"):
+            from daft_tpu_torch.expressions.expr import WindowExpr
+
+            def _int_lit(e, what):
+                if isinstance(e, Literal) and isinstance(e.value, int):
+                    return e.value
+                if isinstance(e, UnaryOp) and e.op in ("neg", "negate") \
+                        and isinstance(e.child, Literal) \
+                        and isinstance(e.child.value, int):
+                    return -e.child.value
+                raise SQLParseError(f"{name_l} {what} must be an integer literal")
+
+            offset = _int_lit(args[1], "offset") if len(args) > 1 else 1
+            fn = name_l
+            if offset < 0:  # lag(v, -n) == lead(v, n)
+                fn = "lead" if name_l == "lag" else "lag"
+                offset = -offset
+            default = None
+            if len(args) > 2:
+                if not isinstance(args[2], Literal):
+                    raise SQLParseError(f"{name_l} default must be a literal")
+                default = args[2].value
+            kwargs = {"offset": offset, "default": default}
+            return WindowExpr(fn, args[0], (), (), (), None, kwargs)
+        if name_l in ("first_value", "last_value"):
+            from daft_tpu_torch.expressions.expr import WindowExpr
+
+            return WindowExpr(name_l, args[0], (), (), ())
         if name_l == "abs":
             return UnaryOp("abs", args[0])
         if name_l in ("pow", "power"):
@@ -1015,12 +1036,78 @@ class Parser:
         return FunctionCall(kernel, args)
 
     def _maybe_over(self, e: Expr) -> Expr:
-        """``fn(...) OVER (...)`` is a window (reference: daft-sql
-        window-function planning over Expr::Over)."""
+        """``fn(...) OVER ([PARTITION BY ...] [ORDER BY ...] [ROWS BETWEEN
+        ...])`` → WindowExpr (reference: daft-sql window-function planning
+        over Expr::Over)."""
         p = self.peek()
         if not (p.kind == "ident" and p.value.lower() == "over"):
             return e
-        _windows_left_out(f"{e!r} OVER (...)")
+        from daft_tpu_torch.expressions.expr import WindowExpr
+
+        self.next()
+        self.expect("op", "(")
+        partition: List[Expr] = []
+        order: List[Expr] = []
+        desc: List[bool] = []
+        frame = None
+        if self.peek().kind == "ident" and self.peek().value.lower() == "partition":
+            self.next()
+            self.expect("kw", "by")
+            partition.append(self.parse_expr())
+            while self.accept("op", ","):
+                partition.append(self.parse_expr())
+        if self.accept_kw("order"):
+            self.expect("kw", "by")
+            while True:
+                order.append(self.parse_expr())
+                d = False
+                if self.accept_kw("desc"):
+                    d = True
+                else:
+                    self.accept_kw("asc")
+                desc.append(d)
+                if not self.accept("op", ","):
+                    break
+        if self.peek().kind == "ident" and self.peek().value.lower() == "rows":
+            self.next()
+            self.expect("kw", "between")
+            start = self._parse_frame_bound()
+            self.expect("kw", "and")
+            end = self._parse_frame_bound()
+            frame = ("rows", start, end)
+        self.expect("op", ")")
+        if isinstance(e, WindowExpr):
+            return WindowExpr(e.func, e.child, tuple(partition), tuple(order),
+                              tuple(desc), frame, e.kwargs)
+        if isinstance(e, AggOp):
+            if frame is None and order:
+                # SQL default for an ordered aggregate window is a running
+                # frame (standard: RANGE UNBOUNDED PRECEDING..CURRENT ROW;
+                # lowered as ROWS — identical except on order-key ties).
+                from daft_tpu_torch.window import Window
+
+                frame = ("rows", Window.unbounded_preceding, Window.current_row)
+            return WindowExpr(e.op, e.child, tuple(partition), tuple(order),
+                              tuple(desc), frame)
+        raise SQLParseError("OVER requires an aggregate or window function")
+
+    def _parse_frame_bound(self):
+        from daft_tpu_torch.window import Window
+
+        t = self.peek()
+        word = t.value.lower() if t.kind in ("ident", "kw") else ""
+        if word == "unbounded":
+            self.next()
+            direction = self._ident_like().lower()
+            return (Window.unbounded_preceding if direction == "preceding"
+                    else Window.unbounded_following)
+        if word == "current":
+            self.next()
+            self._ident_like()  # ROW
+            return Window.current_row
+        v = self._literal_value()
+        direction = self._ident_like().lower()
+        return -int(v) if direction == "preceding" else int(v)
 
     def _parse_type(self) -> DataType:
         name = self._ident_like().lower()

@@ -1,5 +1,5 @@
-"""Queries under a memory limit, for ``chip_smoke.py``'s phase 15 and the
-tests: TPC-H q01, q18 and q21 in SQL (``tools/tpch_sql.py``) with the limit
+"""Queries under a memory limit, for ``chip_smoke.py``'s phases 15 and 16
+and the tests: TPC-H q01, q18 and q21 in SQL (``tools/tpch_sql.py``) with the limit
 at 1/8 of the tables' in-memory bytes, floored at 1 MiB, as the JAX
 package's out-of-core benchmark sets it
 (``tests/benchmarks/test_tpch_out_of_core.py``).
@@ -36,10 +36,11 @@ def limit_for(frames: dict) -> int:
 
 
 def run(df_fn: Callable, limit: Optional[int], timeout: Optional[float] = None,
-        arrow: bool = False) -> dict:
+        arrow: bool = False, parts: bool = False) -> dict:
     """Run ``df_fn()``'s query once under ``memory_limit(limit)``; its rows
     as a pydict, or with ``arrow`` as one Arrow table (for results of
-    millions of rows)."""
+    millions of rows), or with ``parts`` as one Arrow table per result
+    partition (a repartition's)."""
     from daft_tpu_torch.micropartition import MicroPartition
     from daft_tpu_torch.execution.join_index import join_counters
     from daft_tpu_torch.execution.memledger import get_ledger, read_rss_bytes
@@ -58,9 +59,13 @@ def run(df_fn: Callable, limit: Optional[int], timeout: Optional[float] = None,
         t0 = time.perf_counter()
         try:
             df.collect(timeout=timeout)
-            rows = df.to_pydict() if not arrow else \
-                MicroPartition.concat(df._result).to_arrow_table() if df._result \
-                else MicroPartition.empty(df.schema).to_arrow_table()
+            if parts:
+                rows = [mp.to_arrow_table() for mp in df._result]
+            elif arrow:
+                rows = (MicroPartition.concat(df._result) if df._result
+                        else MicroPartition.empty(df.schema)).to_arrow_table()
+            else:
+                rows = df.to_pydict()
         finally:
             wall = time.perf_counter() - t0
             available = mm.available_permits()

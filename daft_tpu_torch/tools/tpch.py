@@ -1025,6 +1025,7 @@ def sql_frames(pkg, tables: dict) -> dict:
 Q02_SIZE, Q02_TYPE, Q02_REGION = 15, "BRASS", "EUROPE"
 Q11_NATION = "GERMANY"
 Q15_DATE = _day(1996, 1, 1)
+Q16_BRAND, Q16_TYPE, Q16_SIZES = "Brand#45", "MEDIUM POLISHED", (49, 14, 23, 45, 19, 3, 36, 9)
 Q17_BRAND, Q17_CONTAINER = "Brand#23", "MED BOX"
 Q18_QUANTITY = 300
 Q20_COLOR, Q20_NATION, Q20_DATE = "forest", "CANADA", _day(1994, 1, 1)
@@ -1217,6 +1218,26 @@ def q21_reference(t: dict) -> dict:
     return {"s_name": [names[i] for i in order], "numwait": [int(counts[i]) for i in order]}
 
 
+def q16_reference(t: dict) -> dict:
+    """Per (brand, type, size) of the parts q16 keeps, the distinct suppliers
+    of their partsupp rows, less those with ``Customer ... Complaints``
+    comments, by count descending, then brand, type and size."""
+    p, ps, su = t["part"], t["partsupp"], t["supplier"]
+    part_ok = (~_np(pc.equal(p["p_brand"], Q16_BRAND))
+               & ~_np(pc.starts_with(p["p_type"], Q16_TYPE))
+               & np.isin(p["p_size"], Q16_SIZES))
+    prow = _by_key(p["p_partkey"], np.arange(len(p["p_partkey"])), -1)[ps["ps_partkey"]]
+    complaints = su["s_suppkey"][_np(pc.match_like(su["s_comment"], "%Customer%Complaints%"))]
+    ok = np.flatnonzero(part_ok[prow] & ~np.isin(ps["ps_suppkey"], complaints))
+    groups: dict = {}
+    for b, ty, sz, supp in zip(_pylist(p["p_brand"], prow[ok]), _pylist(p["p_type"], prow[ok]),
+                               p["p_size"][prow[ok]].tolist(), ps["ps_suppkey"][ok].tolist()):
+        groups.setdefault((b, ty, sz), set()).add(supp)
+    order = sorted(groups, key=lambda k: (-len(groups[k]), k))
+    return {"p_brand": [k[0] for k in order], "p_type": [k[1] for k in order],
+            "p_size": [k[2] for k in order], "supplier_cnt": [len(groups[k]) for k in order]}
+
+
 def q22_reference(t: dict) -> dict:
     """Per country code of the seven, the customers without orders whose
     balance is above the codes' average positive balance (f64)."""
@@ -1251,6 +1272,7 @@ SQL_REFERENCES = {
     "q13": lambda t, sf, host: q13_reference(t),
     "q14": lambda t, sf, host: q14_reference(t),
     "q15": lambda t, sf, host: q15_reference(t),
+    "q16": lambda t, sf, host: q16_reference(t),
     "q17": lambda t, sf, host: q17_reference(t),
     "q18": lambda t, sf, host: q18_reference(t),
     "q19": lambda t, sf, host: q19_reference(t),

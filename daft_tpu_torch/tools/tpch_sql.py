@@ -8,9 +8,6 @@ factor) and q18's QUANTITY 300, and q19's ship modes as the specification
 writes them (``'AIR', 'AIR REG'``). The tables are ``tools/tpch.sql_frames``:
 each date column a ``date32``, so the ``DATE '...'`` literals compare as
 dates.
-
-q16 counts ``DISTINCT ps_suppkey``, which needs the list partials of ROADMAP
-A.3.5: ``daft_tpu_torch.sql`` raises ``DaftNotImplementedError`` on it.
 """
 
 QUERIES = {
@@ -261,8 +258,8 @@ SELECT cntrycode, count(*) AS numcust, sum(c_acctbal) AS totacctbal FROM (
 GROUP BY cntrycode ORDER BY cntrycode""",
 }
 
-#: The queries ``daft_tpu_torch.sql`` runs (every one but q16).
-RUNNABLE = tuple(q for q in QUERIES if q != "q16")
+#: The queries ``daft_tpu_torch.sql`` runs: all 22.
+RUNNABLE = tuple(QUERIES)
 
 
 def sql_text(name: str, scale_factor: float) -> str:

@@ -2,8 +2,8 @@
 ``is_in``, ``fill_null``, ``eq_null_safe``, ``try_cast``, the shifts and the
 host kernels behind them) against the JAX package, on the CPU.
 
-Mirrors tests/test_expressions.py, leaving out its ``.list`` and struct
-cases (ROADMAP A.3.5). Then one case per kernel of the port's
+Mirrors tests/test_expressions.py; its ``.list`` and struct cases are in
+tests/test_torch_nested.py. Then one case per kernel of the port's
 ``string_ops``, ``temporal_ops``, ``binary_ops``, ``uri_ops``, ``misc_ops``
 and ``extended_ops``: the same seeded columns (nulls, empty strings,
 non-ASCII text, NaN, dates around leap days, time zones) go through the JAX
@@ -249,6 +249,7 @@ def _columns() -> dict:
         "u7": pick([_uuid7(ms, t) for ms, t in ((1_700_000_000_123, 5), (86_400_000, 77),
                                                 (1_582_934_400_000, 1234))]),
         "path": pick([HERE, HERE + ".missing.png", str(pathlib.Path(HERE).parent)]),
+        "lf": pick([[1.5, -2.0, None], [], [3.25], [0.0, 7.5, 1.0, -4.0]]),
         "emb": emb, "emb2": emb2,
     }
 
@@ -450,10 +451,23 @@ CASES = {
     "guess_mime_type": [("", lambda p, c, F: F.guess_mime_type(c("path")))],
     "try_cast": [("int", lambda p, c, F: c("num").try_cast(p.DataType.int64())),
                  ("float", lambda p, c, F: c("num").try_cast(p.DataType.float64()))],
+    "list_count_distinct": [("", lambda p, c, F: c("la").list.count_distinct())],
+    "list_quantile": [("one", lambda p, c, F: c("lf").list.quantile(0.5)),
+                      ("many", lambda p, c, F: c("lf").list.quantile([0.1, 0.9]))],
+    "pow_3_2": [("", lambda p, c, F: _call(p, "pow_3_2", c("f")))],
 }
+
+
+def _call(pkg, name, *args, **kwargs):
+    """The registry kernel ``name`` over ``args`` as ``pkg``'s Expression."""
+    call = import_module(f"{pkg.__name__}.expressions.expr").FunctionCall
+    return pkg.Expression(call(name, [a._expr for a in args], kwargs))
 #: Kernels whose output is not a function of the inputs, checked on their own
-#: below, and the nodes that are no kernel.
-SPECIAL = {"uuid", "today", "now"}
+#: below, and the nodes that are no kernel: ``monotonically_increasing_id`` is
+#: a marker the optimizer rewrites (``test_left_out_kernels_raise_through_a_plan_with_their_item``
+#: and tests/test_torch_optimizer.py), ``dd_quantile`` reads the sketches of
+#: ``approx_percentile`` (tests/test_torch_nested.py).
+SPECIAL = {"uuid", "today", "now", "monotonically_increasing_id", "dd_quantile"}
 _PARAMS = [pytest.param(name, build, id=f"{name}-{cid}" if cid else name)
            for name, cases in CASES.items() for cid, build in cases]
 
@@ -556,30 +570,52 @@ def test_every_kernel_is_ported_with_a_case_or_left_out_with_its_item():
     assert not set(ported) - set(jreg.all_kernels())
 
 
+#: Each kernel's input column for the cases this slice brought.
+_BROUGHT = {"list_sum": {"a": [[1, 2, None], None, []]}, "pow_3_2": {"a": [4.0, None, 2.25]},
+            "monotonically_increasing_id": {"a": ["x", "y", None]}}
+
+
 @pytest.mark.parametrize("name", ["url_download", "url_upload", "list_sum", "monotonically_increasing_id",
                                   "udaf_apply", "pow_3_2", "audio_metadata"])
 def test_left_out_kernels_raise_through_a_plan_with_their_item(name):
-    from daft_tpu_torch.expressions.expr import FunctionCall
+    """A kernel the port leaves out raises through a plan naming its ROADMAP
+    item; the three that ROADMAP A.3.5 brought (``list_sum``, ``pow_3_2`` and
+    the ``monotonically_increasing_id`` marker, which ``DetectMonotonicId``
+    rewrites) run through the same plan as in the JAX package."""
+    data = _BROUGHT.get(name, {"a": ["x"]})
 
-    df = daft_tpu_torch.from_pydict({"a": ["x"]})
-    expr = daft_tpu_torch.Expression(FunctionCall(name, [daft_tpu_torch.col("a")._expr]))
-    with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.(3\.5|2|8)"):
-        df.select(expr.alias("o")).to_pydict()
+    def run(pkg):
+        return pkg.from_pydict(data).select(_call(pkg, name, pkg.col("a")).alias("o")).to_pydict()
+
+    if name not in _BROUGHT:
+        assert name in preg.LEFT_OUT
+        with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.(3\.5|2|8)"):
+            run(daft_tpu_torch)
+        return
+    assert run(daft_tpu) == run(daft_tpu_torch) and name not in preg.LEFT_OUT
 
 
 def test_left_out_namespaces_raise_with_their_item():
+    """``apply`` still raises naming A.2; the ``.list`` / ``.struct`` /
+    ``.map`` namespaces, ``[]``, ``over``, ``lag`` and ``median`` that A.3.5
+    brought build the JAX package's expressions."""
     c = daft_tpu_torch.col("a")
-    for get in (lambda: c.list, lambda: c.struct, lambda: c.map, lambda: c[0],
-                lambda: c.over(None), lambda: c.lag(), lambda: c.apply(abs, None)):
-        with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.(3\.5|2)"):
-            get()
+    with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.2"):
+        c.apply(abs, None)
+    w = [pkg.Window().partition_by("g").order_by("a") for pkg in PKGS]
+    builds = (lambda p, i: p.col("a").list.sum(), lambda p, i: p.col("a").struct.get("x"),
+              lambda p, i: p.col("a").map.get("k"), lambda p, i: p.col("a")[0],
+              lambda p, i: p.col("a").sum().over(w[i]), lambda p, i: p.col("a").lag().over(w[i]),
+              lambda p, i: p.col("a").median())
+    for build in builds:
+        jax_expr, port_expr = (build(pkg, i)._expr for i, pkg in enumerate(PKGS))
+        assert repr(port_expr) == repr(jax_expr) and port_expr.name() == jax_expr.name()
+        assert type(port_expr).__name__ == type(jax_expr).__name__
     # An IN subquery over a DataFrame is ported: it builds the InSubquery
     # node that the optimizer unnests into a semi join.
     from daft_tpu_torch.expressions.expr import InSubquery
 
     assert isinstance(c.is_in(daft_tpu_torch.from_pydict({"a": [1]}))._expr, InSubquery)
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        c.median()
 
 
 # -- nodes: is_in, eq_null_safe, the shifts -------------------------------------

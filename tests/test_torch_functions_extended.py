@@ -1,13 +1,15 @@
 """The port's free-function library (``daft_tpu_torch.functions``) and the
 flat ``Expression`` aliases against the JAX package, on the CPU.
 
-Mirrors tests/test_functions_extended.py, leaving out its ``.list``, audio
-and new-aggregation cases (ROADMAP A.3.5). Each check runs the same inputs
+Mirrors tests/test_functions_extended.py, leaving out its ``.list`` and
+new-aggregation cases (tests/test_torch_nested.py) and its audio cases
+(ROADMAP A.3.5). Each check runs the same inputs
 through the JAX package's ``daft_tpu.functions`` and the port's
 (``device="cpu"``): the results must be equal, floats bit for bit, and the
 reference's expected values must hold in the port. Then the functions the
-port leaves out raise ``DaftNotImplementedError`` naming their ROADMAP item,
-and every public function of the JAX package's library has a namesake in
+port leaves out raise ``DaftNotImplementedError`` naming their ROADMAP item
+(the window, list, struct, map and aggregation functions that A.3.5 brought
+run as in the JAX package), and every public function of the JAX package's library has a namesake in
 the port's.
 """
 
@@ -268,44 +270,78 @@ def test_every_public_function_of_the_reference_has_a_namesake():
     assert not missing
 
 
+#: ``None``: ROADMAP A.3.5 brought it, and it builds the JAX package's expression.
 @pytest.mark.parametrize("call, item", [
-    (lambda F, c: F.row_number(), r"A\.3\.5"),
-    (lambda F, c: F.rank(), r"A\.3\.5"),
-    (lambda F, c: F.lag(c("i")), r"A\.3\.5"),
-    (lambda F, c: F.over(c("i"), None), r"A\.3\.5"),
-    (lambda F, c: F.median(c("i")), r"A\.3\.5"),
-    (lambda F, c: F.string_agg(c("s")), r"A\.3\.5"),
-    (lambda F, c: F.approx_percentiles(c("i"), 0.5), r"A\.3\.5"),
+    (lambda F, c: F.row_number(), None),
+    (lambda F, c: F.rank(), None),
+    (lambda F, c: F.lag(c("i")), None),
+    (lambda F, c: F.over(c("i").sum(), F.Window().partition_by("g") if hasattr(F, "Window")
+                         else None), None),
+    (lambda F, c: F.median(c("i")), None),
+    (lambda F, c: F.string_agg(c("s")), None),
+    (lambda F, c: F.approx_percentiles(c("i"), 0.5), None),
     (lambda F, c: F.video_frames(c("s")), r"A\.3\.5"),
     (lambda F, c: F.run_process(c("s")), r"A\.3\.5"),
     (lambda F, c: F.hdf5_keys(c("s")), r"A\.3\.5"),
 ], ids=["row_number", "rank", "lag", "over", "median", "string_agg", "approx_percentiles",
         "video_frames", "run_process", "hdf5_keys"])
 def test_left_out_functions_raise_when_called(call, item):
-    with pytest.raises(DaftNotImplementedError, match=item):
-        call(PF, daft_tpu_torch.col)
+    if item is not None:
+        with pytest.raises(DaftNotImplementedError, match=item):
+            call(PF, daft_tpu_torch.col)
+        return
+    window = {JF: daft_tpu.Window(), PF: daft_tpu_torch.Window()}
+
+    class _F:  # the library, with its package's Window for ``over``
+        def __init__(self, F):
+            self._F, self.Window = F, lambda: window[F]
+
+        def __getattr__(self, n):
+            return getattr(self._F, n)
+
+    jax_expr = call(_F(JF), daft_tpu.col)._expr
+    port_expr = call(_F(PF), daft_tpu_torch.col)._expr
+    assert type(port_expr).__name__ == type(jax_expr).__name__
+    assert repr(port_expr) == repr(jax_expr)
+
+
+#: Each case's frame (the same data for both packages) and, where the JAX
+#: package's own function cannot build the call (ROADMAP C.35), its builder.
+_PLAN_DATA = {"l": [[1, 2], None, [3]], "s": ["a", "b", None],
+              "st": [{"x": 1}, None, {"x": 3}]}
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda F, c: F.list_sum(c("l")), r"A\.3\.5"),
-    (lambda F, c: F.struct_get(c("l"), "x"), r"A\.3\.5"),
-    (lambda F, c: F.map_keys(c("l")), r"A\.3\.5"),
+    (lambda F, c: F.list_sum(c("l")), None),
+    (lambda F, c: (c("st").struct.get("x") if F is JF else F.struct_get(c("st"), "x")), None),
+    (lambda F, c: F.map_keys(c("m")), None),
     (lambda F, c: F.download(c("s")), r"A\.8"),
     (lambda F, c: F.upload(c("s"), "file:///tmp/never"), r"A\.8"),
     (lambda F, c: F.audio_metadata(c("s")), r"A\.3\.5"),
-    (lambda F, c: F.monotonically_increasing_id(), r"A\.3\.5"),
+    (lambda F, c: F.monotonically_increasing_id(), None),
 ], ids=["list_sum", "struct_get", "map_keys", "download", "upload", "audio_metadata",
         "monotonically_increasing_id"])
 def test_left_out_functions_raise_when_a_plan_resolves_them(call, item):
-    df = daft_tpu_torch.from_pydict({"l": [[1, 2]], "s": ["a"]})
-    with pytest.raises(DaftNotImplementedError, match=item):
-        df.select(call(PF, daft_tpu_torch.col).alias("o")).to_pydict()
+    import pyarrow as pa
+
+    maps = pa.array([[("k", 1), ("j", 2)], None, []], pa.map_(pa.string(), pa.int64()))
+    if item is not None:
+        df = daft_tpu_torch.from_pydict({"l": [[1, 2]], "s": ["a"]})
+        with pytest.raises(DaftNotImplementedError, match=item):
+            df.select(call(PF, daft_tpu_torch.col).alias("o")).to_pydict()
+        return
+    outs = []
+    for pkg, F in PAIRS:
+        df = pkg.from_pydict({**_PLAN_DATA, "m": maps})
+        outs.append(df.select(pkg.col("s"), call(F, pkg.col).alias("o")).to_pydict())
+    assert outs[0] == outs[1]
 
 
 def test_struct_get_builds_its_expression_where_the_jax_package_raises():
     """ROADMAP C.35: the JAX package's ``functions.struct_get`` passes
     ``name=`` to its ``_fn(name, ...)`` and raises TypeError; the port's
-    builds the call, which raises naming A.3.5 until structs are ported."""
+    builds the call (``test_left_out_functions_raise_when_a_plan_resolves_them``
+    runs it)."""
     with pytest.raises(TypeError, match="multiple values for argument 'name'"):
         JF.struct_get(daft_tpu.col("st"), "x")
     e = PF.struct_get(daft_tpu_torch.col("st"), "x")

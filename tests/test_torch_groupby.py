@@ -20,7 +20,6 @@ import daft_tpu
 import daft_tpu_torch
 from daft_tpu.execution import aggregation as jagg
 from daft_tpu.execution.executor import Executor as JExecutor
-from daft_tpu_torch.errors import DaftNotImplementedError
 from daft_tpu_torch.execution import aggregation as tagg
 from daft_tpu_torch.execution.executor import Executor as TExecutor
 from daft_tpu_torch.ops import device_eval as tde
@@ -180,7 +179,8 @@ def test_grouped_empty_input(keys):
 
 def test_grouped_dataframe_shorthands():
     """sum / mean / min / max / count / stddev / any_value over the non-key
-    columns; agg_list, agg_concat and map_groups raise naming ROADMAP A.3."""
+    columns; agg_list, agg_concat and map_groups (which ROADMAP A.3.5
+    brought; they raised naming A.3 before) as in the JAX package."""
     data = {k: v for k, v in _data().items() if k in ("ki", "v", "w")}
     with _configs(HOST):
         for op in ("sum", "mean", "min", "max", "count", "stddev", "any_value"):
@@ -190,10 +190,29 @@ def test_grouped_dataframe_shorthands():
         got, want = [pkg.from_pydict(data).groupby(pkg.col("ki")).sum("v").to_pydict()
                      for pkg in (daft_tpu_torch, daft_tpu)]
         _assert_rows(want, got, ("ki",))
-    grouped = daft_tpu_torch.from_pydict(data).groupby("ki")
-    for call in (grouped.agg_list, grouped.agg_concat, lambda: grouped.map_groups(None)):
-        with pytest.raises(DaftNotImplementedError, match="ROADMAP A.3"):
-            call()
+        got, want = [pkg.from_pydict(data).groupby("ki").agg_list().sort("ki").to_pydict()
+                     for pkg in (daft_tpu_torch, daft_tpu)]
+        assert got == want
+        lists = {"ki": data["ki"],
+                 "l": [[x] if x is not None else None for x in data["w"].to_pylist()]}
+        got, want = [pkg.from_pydict(lists).groupby("ki").agg_concat("l").sort("ki").to_pydict()
+                     for pkg in (daft_tpu_torch, daft_tpu)]
+        assert got == want
+    from daft_tpu.udf import func
+    from daft_tpu_torch.udf import Udf
+
+    def centered(v):
+        arr = v.to_numpy().astype(float)
+        return arr - arr.mean()
+
+    jdf = daft_tpu.from_pydict({"ki": [1, 1, 2], "v": [1.0, 3.0, 5.0]})
+    jout = jdf.groupby("ki").map_groups(func.batch(
+        return_dtype=daft_tpu.DataType.float64())(centered)(daft_tpu.col("v"))).sort("ki")
+    pdf = daft_tpu_torch.from_pydict({"ki": [1, 1, 2], "v": [1.0, 3.0, 5.0]})
+    with _configs(HOST):
+        pout = pdf.groupby("ki").map_groups(Udf(centered, daft_tpu_torch.DataType.float64())(
+            daft_tpu_torch.col("v"))).sort("ki").to_pydict()
+    assert pout == jout.to_pydict() == {"ki": [1, 1, 2], "v": [-1.0, 1.0, 0.0]}
 
 
 # -- the cardinality switch -------------------------------------------------------

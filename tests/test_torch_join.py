@@ -27,7 +27,6 @@ import daft_tpu
 import daft_tpu_torch
 from daft_tpu.execution.join_index import JoinIndex as JJoinIndex
 from daft_tpu.recordbatch import RecordBatch as JRecordBatch
-from daft_tpu_torch.errors import DaftNotImplementedError
 from daft_tpu_torch.execution.join_index import JoinIndex as TJoinIndex
 from daft_tpu_torch.execution.join_index import join_counters
 from daft_tpu_torch.recordbatch import RecordBatch as TRecordBatch
@@ -311,16 +310,24 @@ def test_set_operations_match_the_jax_package(op, cols):
 
 @pytest.mark.parametrize("op", ["intersect_all", "except_all"])
 def test_set_operations_all_raise_in_the_port(op):
-    """The ALL form tags rows through a row_number Window, which the port
-    has not yet: it raises when run, naming ROADMAP A.3."""
-    df = daft_tpu_torch.from_pydict({"k": [1, 1, 2]})
-    q = getattr(df, op)(daft_tpu_torch.from_pydict({"k": [1]}))
-    with _configs(), pytest.raises(DaftNotImplementedError, match="A.3"):
-        q.to_pydict()
+    """The ALL form tags rows through a row_number Window (ROADMAP A.3.5
+    brought it; it raised naming A.3 before): the JAX package's multiset,
+    through its plan, at 1 and 4 workers."""
+    rng = np.random.default_rng(31 if op == "intersect_all" else 32)
+    left = {"k": rng.integers(0, 6, 300).tolist(), "s": rng.choice(["a", "b"], 300).tolist()}
+    right = {"k": rng.integers(0, 6, 200).tolist(), "s": rng.choice(["a", "b"], 200).tolist()}
+    outs = []
+    for threads in (1, 4):
+        with _configs(), daft_tpu_torch.execution_config_ctx(num_compute_threads=threads):
+            q = getattr(daft_tpu_torch.from_pydict(left), op)(daft_tpu_torch.from_pydict(right))
+            outs.append(sorted(zip(*q.to_pydict().values())))
     with _configs():
-        jdf = daft_tpu.from_pydict({"k": [1, 1, 2]})
-        assert sorted(getattr(jdf, op)(daft_tpu.from_pydict({"k": [1]})).to_pydict()["k"]) \
-            == ([1] if op == "intersect_all" else [1, 2])
+        jq = getattr(daft_tpu.from_pydict(left), op)(daft_tpu.from_pydict(right))
+        jax = sorted(zip(*jq.to_pydict().values()))
+    assert outs[0] == outs[1] == jax and jax
+    small = [sorted(getattr(pkg.from_pydict({"k": [1, 1, 2]}), op)(
+        pkg.from_pydict({"k": [1]})).to_pydict()["k"]) for pkg in (daft_tpu, daft_tpu_torch)]
+    assert small[0] == small[1] == ([1] if op == "intersect_all" else [1, 2])
 
 
 @pytest.mark.parametrize("case", ["unknown column", "unequal keys", "unknown how", "no keys",

@@ -2,9 +2,9 @@
 JAX package's, on the CPU.
 
 Mirrors ``tests/test_optimizer.py`` case for case through
-``daft_tpu_torch`` with ``device="cpu"``; the case that needs
-``monotonically_increasing_id`` asserts that the port raises naming ROADMAP
-A.3.5. For every rule, the same seeded plan goes through both packages'
+``daft_tpu_torch`` with ``device="cpu"``, ``DetectMonotonicId``,
+``DropRepartition`` and the row-id path of ``UnnestSubqueries`` included
+(ROADMAP A.3.5; C.36 closed). For every rule, the same seeded plan goes through both packages'
 ``Optimizer``: the optimized plans must have the same tree of node types,
 join types, join keys and build sides, and the same pushed-down filters and
 columns (``plan_signature``), and the rows must be the JAX package's.
@@ -20,7 +20,6 @@ import daft_tpu
 import daft_tpu_torch
 from daft_tpu.logical.optimizer import Optimizer as JOptimizer
 from daft_tpu_torch import col, lit
-from daft_tpu_torch.errors import DaftNotImplementedError
 from daft_tpu_torch.logical import optimizer as topt
 from daft_tpu_torch.logical import plan as lp
 from daft_tpu_torch.logical.optimizer import Optimizer, simplify_expr
@@ -65,6 +64,10 @@ def plan_signature(plan) -> tuple:
             d += [[repr(e) for e in n.sort_by], list(n.descending)]
         elif kind == "Limit":
             d += [n.limit, n.offset]
+        elif kind == "MonotonicallyIncreasingId":
+            d.append(n.column_name)
+        elif kind == "Repartition":
+            d.append(repr(n.scheme))
         return (tuple(map(str, d)), tuple(rec(c) for c in n.children()))
 
     return rec(plan)
@@ -91,14 +94,13 @@ def _nodes(plan):
 
 # -- the engine ----------------------------------------------------------------
 def test_batches_are_the_jax_packages_less_the_left_out_rules():
-    left_out = {"DetectMonotonicId", "PushDownShard", "DropRepartition"}
+    left_out = {"PushDownShard"}
     want = [[r.name for r in b if r.name not in left_out] for b in JOptimizer().batches]
     want = [b for b in want if b]
     assert [[r.name for r in b] for b in Optimizer().batches] == want
-    for name, item in (("DetectMonotonicId", "A.3.5"), ("PushDownShard", "A.8"),
-                       ("DropRepartition", "A.8")):
-        assert name in topt.__doc__ and item in topt.__doc__
-        assert not hasattr(topt, name)
+    assert "PushDownShard" in topt.__doc__ and "A.8" in topt.__doc__
+    assert not hasattr(topt, "PushDownShard")
+    assert hasattr(topt, "DetectMonotonicId") and hasattr(topt, "DropRepartition")
     assert Optimizer().cfg is daft_tpu_torch.get_context().execution_config
 
 
@@ -135,11 +137,23 @@ def test_rewriters_keep_a_shared_subtree_shared():
 
 
 def test_a_missing_node_raises_naming_its_item():
-    li = daft_tpu_torch.from_pydict({"ok": [1, 1, 2], "sk": [10, 20, 30], "q": [1, 2, 3]})
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        daft_tpu_torch.sql("""SELECT sk FROM li l1 WHERE EXISTS (
-            SELECT 1 FROM li l2 WHERE l2.ok = l1.ok AND l2.sk <> l1.sk AND l2.q > l1.q)""",
-                           li=li).collect()
+    """C.36 closed: the row-id path of ``UnnestSubqueries`` (a non-equi
+    correlation beyond one ``<>``) tags the outer rows with
+    ``MonotonicallyIncreasingId``, plans node for node as the JAX package's
+    and returns its rows; no rule raises ``DaftNotImplementedError`` any
+    more, so every exception a rule raises is logged and skipped."""
+    data = {"ok": [1, 1, 2, 2, 3], "sk": [10, 20, 30, 40, 50], "q": [1, 2, 3, 1, 5]}
+    query = """SELECT sk FROM li l1 WHERE EXISTS (
+            SELECT 1 FROM li l2 WHERE l2.ok = l1.ok AND l2.sk <> l1.sk AND l2.q > l1.q)"""
+    jdf = daft_tpu.sql(query, li=daft_tpu.from_pydict(data))
+    pdf = daft_tpu_torch.sql(query, li=daft_tpu_torch.from_pydict(data))
+    plan = _optimized(pdf)
+    assert plan_signature(plan) == plan_signature(JOptimizer().optimize(jdf._builder.plan))
+    assert any(isinstance(n, lp.MonotonicallyIncreasingId) for n in _nodes(plan))
+    assert sorted(pdf.to_pydict()["sk"]) == sorted(jdf.to_pydict()["sk"]) == [10, 40]
+    import inspect
+
+    assert "DaftNotImplementedError" not in inspect.getsource(Optimizer.optimize)
 
 
 # -- tests/test_optimizer.py, case for case ---------------------------------------
@@ -311,14 +325,34 @@ def test_correlated_complex_subquery_rejected():
                            cust=cust, orders=orders).collect()
 
 
-def test_detect_monotonic_id_expression():
-    """DetectMonotonicId waits for the MonotonicallyIncreasingId node
-    (A.3.5): the function raises naming it, and no rule rewrites it."""
-    from daft_tpu_torch.functions import monotonically_increasing_id
+def test_drop_repartition_and_filter_through_it():
+    """DropRepartition drops a repartition under another, and a filter moves
+    below a repartition, as in the JAX package: the same plan, the same rows."""
+    outs, sigs = [], []
+    for pkg in (daft_tpu, daft_tpu_torch):
+        df = pkg.from_pydict({"k": [1, 2, 3, 4, 5], "v": [5.0, 4.0, 3.0, 2.0, 1.0]})
+        q = df.repartition(3, "k").repartition(2).where(pkg.col("v") > 1.5)
+        opt = JOptimizer() if pkg is daft_tpu else Optimizer()
+        sigs.append(plan_signature(opt.optimize(q._builder.plan)))
+        outs.append(sorted(q.to_pydict()["k"]))
+    assert sigs[0] == sigs[1] and str(sigs[1]).count("'Repartition'") == 1
+    assert outs[0] == outs[1] == [1, 2, 3, 4]
 
-    df = daft_tpu_torch.from_pydict({"a": [10, 20, 30]})
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        df.select(col("a"), (monotonically_increasing_id() + 1).alias("rid")).collect()
+
+def test_detect_monotonic_id_expression():
+    """DetectMonotonicId rewrites the projection into the
+    MonotonicallyIncreasingId node, as the JAX package does: the same plan
+    and the same ids."""
+    outs, sigs = [], []
+    for pkg in (daft_tpu, daft_tpu_torch):
+        F = __import__(f"{pkg.__name__}.functions", fromlist=["x"])
+        df = pkg.from_pydict({"a": [10, 20, 30]})
+        q = df.select(pkg.col("a"), (F.monotonically_increasing_id() + 1).alias("rid"))
+        opt = JOptimizer() if pkg is daft_tpu else Optimizer()
+        sigs.append(plan_signature(opt.optimize(q._builder.plan)))
+        outs.append(q.to_pydict())
+    assert sigs[0] == sigs[1] and "MonotonicallyIncreasingId" in str(sigs[1])
+    assert outs[0] == outs[1] == {"a": [10, 20, 30], "rid": [1, 2, 3]}
 
 
 def test_enrich_with_stats_and_count_pushdown(tmp_path):

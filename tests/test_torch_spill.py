@@ -3,7 +3,7 @@ limit (``daft_tpu_torch/execution/spill.py`` and the executor's budget
 paths), on the CPU, held against the JAX package under the same limit.
 
 Mirrors ``tests/test_spill.py`` less the grace window and grace repartition
-(their nodes come with ROADMAP A.3.5): each query runs in the port without a
+(``tests/test_torch_spill_windows.py`` holds those): each query runs in the port without a
 limit and under ``LIMIT`` (a sink budget of 64 KiB against about 1 MB of
 data) and in the JAX package under ``LIMIT``; the limited rows must equal the
 unlimited ones and the JAX package's, bit for bit (both packages compute on

@@ -3,10 +3,11 @@ JAX package's ``daft_tpu.sql``, on the CPU.
 
 Mirrors ``tests/test_sql.py`` case for case: each query runs through both
 packages on the same tables (``device="cpu"`` for the port) and must give
-the JAX package's rows and the value that the JAX test asserts. The cases
-that need what the port lacks assert that it raises
-``DaftNotImplementedError`` naming the item: window functions (A.3.5),
-sessions, catalogs, ``SET`` and ``USE`` (A.8), ``EXPLAIN ANALYZE`` (A.9.5).
+the JAX package's rows and the value that the JAX test asserts, window
+functions, ``count(DISTINCT ...)``, ``INTERSECT ALL`` and ``ARRAY[...]``
+included (ROADMAP A.3.5). The cases that need what the port lacks assert
+that it raises ``DaftNotImplementedError`` naming the item: sessions,
+catalogs, ``SET`` and ``USE`` (A.8), ``EXPLAIN ANALYZE`` (A.9.5).
 The connector cases (``read_sql``) are not SQL-planner cases and stay with
 the JAX package (A.8).
 """
@@ -230,9 +231,12 @@ def test_distinct_in_sum_rejected():
 
 
 def test_count_distinct_raises_naming_its_item():
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        daft_tpu_torch.sql("SELECT count(DISTINCT age) FROM people",
-                           people=daft_tpu_torch.from_pydict(PEOPLE))
+    """``count(DISTINCT ...)`` runs (A.3.5 brought its list partials), global
+    and grouped, with the JAX package's rows."""
+    people = {**PEOPLE, "age": [25, 32, 25, None]}
+    assert _both("SELECT count(DISTINCT age) AS n FROM people", people=people) == {"n": [2]}
+    assert _both("SELECT dept, count(DISTINCT age) AS n FROM people GROUP BY dept "
+                 "ORDER BY dept", people=people) == {"dept": ["eng", "ops"], "n": [2, 1]}
 
 
 def test_correlated_complex_subquery_rejected():
@@ -278,14 +282,22 @@ def test_values_width_mismatch():
 
 
 def test_intersect_all_raises_naming_its_item():
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        daft_tpu_torch.sql("SELECT x FROM (VALUES (1),(1),(2)) a(x) INTERSECT ALL "
-                           "SELECT x FROM (VALUES (1),(1),(3)) b(x)").to_pydict()
+    """``INTERSECT ALL`` / ``EXCEPT ALL`` run through the row_number window
+    (A.3.5), as multisets, with the JAX package's rows."""
+    got = _both("SELECT x FROM (VALUES (1),(1),(1),(2)) a(x) INTERSECT ALL "
+                "SELECT x FROM (VALUES (1),(1),(3)) b(x)")
+    assert sorted(got["x"]) == [1, 1]
+    got = _both("SELECT x FROM (VALUES (1),(1),(1),(2)) a(x) EXCEPT ALL "
+                "SELECT x FROM (VALUES (1),(3)) b(x)")
+    assert sorted(got["x"]) == [1, 1, 2]
 
 
 def test_array_literal_raises_naming_its_item():
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        daft_tpu_torch.sql("SELECT ARRAY[1,2,3] AS a").to_pydict()
+    """``ARRAY[...]`` packs its items into a list (A.3.5), as in the JAX
+    package."""
+    assert _both("SELECT ARRAY[1,2,3] AS a") == {"a": [[1, 2, 3]]}
+    assert _both("SELECT ARRAY[v, v * 2] AS a FROM t", t={"v": [1, None]}) == \
+        {"a": [[1, 2], [None, None]]}
 
 
 def test_wide_greatest_stays_linear():
@@ -322,11 +334,9 @@ WINDOW_QUERIES = [
 
 @pytest.mark.parametrize("query", WINDOW_QUERIES)
 def test_window_functions_raise_naming_their_item(query):
-    t = daft_tpu_torch.from_pydict({"g": ["a", "a", "a", "b"], "v": [1, 2, 3, 5]})
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        daft_tpu_torch.sql(query, t=t)
-    jt = daft_tpu.from_pydict({"g": ["a", "a", "a", "b"], "v": [1, 2, 3, 5]})
-    assert daft_tpu.sql(query, t=jt).to_pydict()  # the JAX package runs it
+    """Window functions in SQL (A.3.5): the JAX package's rows and order, the
+    running-frame default of an ordered aggregate included."""
+    assert _both(query, t={"g": ["a", "a", "a", "b", "b"], "v": [1, 2, 3, 5, 2]})
 
 
 SESSION_STATEMENTS = [

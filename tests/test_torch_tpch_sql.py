@@ -8,8 +8,8 @@ package's (node types, join types and keys, the build side of every join,
 pushed-down filters and columns, shared subtrees), and its rows must equal
 the JAX package's at 1 and at 4 compute workers: keys, strings and counts
 exactly, floats bit for bit (both packages run these f64 columns on the host
-with the same Arrow calls). q16's ``count(DISTINCT ...)`` raises naming
-ROADMAP A.3.5. A shared subtree runs once, by the executor's counters, for
+with the same Arrow calls); q16's ``count(DISTINCT ...)`` included (ROADMAP
+A.3.5 brought its list partials). A shared subtree runs once, by the executor's counters, for
 q15, q17 and q02. On the port's own seeded tables (``tools/tpch.py``, f32
 prices, ``date32`` dates), each query equals its numpy reference within
 ``RTOL`` (1e-6), the SQL form equals the DataFrame form where both exist,
@@ -26,7 +26,6 @@ import pytest
 import daft_tpu
 import daft_tpu_torch
 from daft_tpu.logical.optimizer import Optimizer as JOptimizer
-from daft_tpu_torch.errors import DaftNotImplementedError
 from daft_tpu_torch.execution.executor import Executor
 from daft_tpu_torch.logical.optimizer import Optimizer as TOptimizer
 from daft_tpu_torch.ops import device_eval as tde
@@ -144,10 +143,14 @@ def test_query_equals_the_jax_package_at_1_and_4_workers(name, dbgen):
 
 
 def test_q16_raises_naming_its_item(dbgen):
-    with pytest.raises(DaftNotImplementedError, match=r"A\.3\.5"):
-        daft_tpu_torch.sql(tpch_sql.sql_text("q16", DBGEN_SF), **_frames(daft_tpu_torch, dbgen))
-    # The JAX package runs it.
-    assert daft_tpu.sql(tpch_sql.sql_text("q16", DBGEN_SF), **_frames(daft_tpu, dbgen)).to_pydict()
+    """q16 runs (it raised naming A.3.5 until the list partials came): every
+    query of q01-q22 is runnable, and q16's supplier counts over the JAX
+    package's tables are that package's, group for group."""
+    assert tpch_sql.RUNNABLE == tuple(tpch_sql.QUERIES) and len(RUNNABLE) == 22
+    text = tpch_sql.sql_text("q16", DBGEN_SF)
+    port = daft_tpu_torch.sql(text, **_frames(daft_tpu_torch, dbgen)).to_pydict()
+    jax = daft_tpu.sql(text, **_frames(daft_tpu, dbgen)).to_pydict()
+    assert port["supplier_cnt"] and port == jax
 
 
 @pytest.mark.parametrize("name", ["q15", "q17", "q02"])
