@@ -263,7 +263,21 @@ Phases, each of which fails the run on any error:
    under 1/8 of SF1 lineitem's bytes the grace window and the grace hash
    repartition, each spilling and equal to its in-memory answer, the ledger,
    permits and spill directory at zero after each;
-17. print the whole run's time and one JSON line of per-kernel numbers (with
+17. the DataFrame surface (``phase_surface``) on phase 14's tables, each path
+   with the counts set to 0 just before (no flash launch): the first
+   1,048,576 rows of SF10 lineitem's ``l_quantity``, ``l_extendedprice``,
+   ``l_discount`` and ``l_tax`` through ``to_torch_dataloader(batch_size=4096,
+   pin_memory=True)``, each pinned batch copied to the card with
+   ``non_blocking=True`` (rows/s; the concatenated CUDA tensors equal the
+   columns bit for bit); ``from_arrow(orders.to_arrow())`` over SF10's orders
+   equal to ``orders.to_arrow()`` (``pa.Table.equals``); TPC-H q01 in SQL over
+   SF1 through ``to_pylist``, ``to_arrow`` and ``to_pandas``, each equal to its
+   ``to_pydict``, which equals the numpy reference (floats within 1e-6), with
+   ``show()`` of the answer and ``explain()`` of the query printed; and
+   ``summarize()`` over SF1's orders on the card's route, equal row for row to
+   the host route (``device_eval=False, compiled_eval_enabled=False``), with
+   both walls and the device layer's counters;
+18. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -390,6 +404,10 @@ SQL_FRAME_FORMS = ("q03", "q04", "q05", "q07", "q08", "q09", "q10", "q12", "q13"
 WINDOW_RTOL = 1e-6  # f32 window sums (sequential f64 rounded to f32) vs f64 numpy
 RATIO_RTOL = 1e-5   # an f32 price over its f32 partition sum vs the f64 quotient
 REPARTITIONS = 8
+# Phase 17.
+SURFACE_ROWS = 1 << 20  # lineitem rows through the torch loader (the JAX package's is per row)
+SURFACE_BATCH = 4096
+SURFACE_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -4012,9 +4030,142 @@ def phase_windows(card: str, state: dict) -> dict:
             del free, held
     finally:
         window_eval.eval_windows = eval_windows
-    del state["tables"], state["frames"], state["outs"], state["small"], state["small_frames"]
     gc.collect()
     print(f"[win] phase 16 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
+def phase_surface(card: str, state: dict) -> dict:
+    """Phase 17: the DataFrame surface on phase 14's tables: the torch
+    loader into CUDA tensors over SF10's lineitem, ``from_arrow`` /
+    ``to_arrow`` of SF10's orders, q01's answer over SF1 through ``to_pylist``
+    / ``to_arrow`` / ``to_pandas``, ``show`` and ``explain``, and ``summarize``
+    of SF1's orders on the card's route against the host route. Returns each
+    path's flash launches (0)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import tpch, tpch_sql
+
+    phase_start = time.perf_counter()
+    by_path = {}
+
+    def run(tag, build, main=True):
+        """``build()`` with the counts set to 0 just before: (its value, wall
+        s, the device counters). A ``main`` path's flash launches go into the
+        kernels line."""
+        gc.collect()
+        de.device_eval_counters.reset()
+        flash_attention.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launch_count
+        if main:
+            by_path[f"surface {tag}"] = {"flash_attention": launches}
+        check(launches == 0, f"{tag}: flash_attention launched {launches} times")
+        return out, wall, de.device_eval_counters.snapshot()
+
+    # SF10 lineitem's numeric columns through the torch loader onto the card.
+    li = state["tables"]["lineitem"]
+    cols = {c: np.asarray(li[c][:SURFACE_ROWS]) for c in SURFACE_COLUMNS}
+    frame = dt.from_pydict(cols)
+    pinned = []
+
+    def load():
+        got = {c: [] for c in SURFACE_COLUMNS}
+        for batch in frame.to_torch_dataloader(batch_size=SURFACE_BATCH, pin_memory=True):
+            pinned.append(all(batch[c].is_pinned() for c in SURFACE_COLUMNS))
+            for c in SURFACE_COLUMNS:
+                got[c].append(batch[c].to("cuda", non_blocking=True))
+        return {c: torch.cat(parts) for c, parts in got.items()}
+
+    loaded, wall, _ = run("to_torch_dataloader", load)
+    check(all(pinned), f"{pinned.count(False)} of {len(pinned)} loader batches not pinned")
+    for c in SURFACE_COLUMNS:
+        t = loaded[c]
+        host, want = t.cpu().numpy(), cols[c]
+        wide = want.astype(host.dtype)
+        check(t.is_cuda and host.shape == want.shape and np.array_equal(
+            host.view(np.uint64 if host.itemsize == 8 else np.uint32),
+            wide.view(np.uint64 if host.itemsize == 8 else np.uint32)),
+              f"the loader's {c} on the card differs from the column (bit for bit)")
+    nbytes = sum(t.numel() * t.element_size() for t in loaded.values())
+    print(f"[surface] to_torch_dataloader(batch_size={SURFACE_BATCH}, pin_memory=True) over "
+          f"{SURFACE_ROWS} rows of SF{SQL_SF} lineitem's {', '.join(SURFACE_COLUMNS)} into "
+          f"CUDA tensors (non_blocking copies): {wall:.3f} s, {SURFACE_ROWS / wall:.0f} rows/s, "
+          f"{len(pinned)} pinned batches, {nbytes / 1e6:.1f} MB on the card as "
+          f"{sorted({str(t.dtype) for t in loaded.values()})}; equal to the columns bit for bit "
+          f"[{card}]", flush=True)
+    del loaded, frame, cols
+
+    # from_arrow(orders.to_arrow()) over SF10's orders.
+    sf10_orders = state["frames"]["orders"]
+    (table, back), wall, _ = run("from_arrow", lambda: (
+        lambda t: (t, dt.from_arrow(t).to_arrow()))(sf10_orders.to_arrow()))
+    check(back.equals(table), "from_arrow(orders.to_arrow()).to_arrow() differs from the orders")
+    print(f"[surface] from_arrow(orders.to_arrow()) over SF{SQL_SF}'s {table.num_rows} orders "
+          f"({table.nbytes / 1e9:.3f} GB, {table.num_columns} columns): {wall:.3f} s, equal to "
+          f"orders.to_arrow() (pa.Table.equals) [{card}]", flush=True)
+    del table, back
+
+    # q01's answer through the exporters, show() and explain(), over SF1's
+    # tables (cut from SF10 to keep the phase inside its 20 s: the query
+    # alone took 3.8 s there).
+    small, frames = state["small"], state["small_frames"]
+    text = tpch_sql.sql_text("q01", SQL_CHECK_SF)
+    q01, wall, snap = run("q01", lambda: dt.sql(text, **frames).collect())
+    answer = q01.to_pydict()
+    host = tpch.filter_on_host(snap["chain_rows"], len(small["lineitem"]["l_orderkey"]))
+    problems = tpch.sql_compare("q01", answer, tpch.SQL_REFERENCES["q01"](
+        small, SQL_CHECK_SF, host), SQL_RTOL)
+    check(not problems, f"q01 over SF{SQL_CHECK_SF} vs the numpy reference: {problems}")
+    names = list(answer)
+    check(q01.to_pylist() == [dict(zip(names, vals)) for vals in zip(*answer.values())],
+          "q01's to_pylist differs from its to_pydict")
+    check(q01.to_arrow().to_pydict() == answer, "q01's to_arrow differs from its to_pydict")
+    pdf = q01.to_pandas()
+    check(list(pdf.columns) == names and {c: [v.item() if hasattr(v, "item") else v
+                                             for v in pdf[c].tolist()] for c in names} == answer,
+          "q01's to_pandas differs from its to_pydict")
+    print(f"[surface] q01 over SF{SQL_CHECK_SF}: {wall:.3f} s; to_pylist, to_arrow and "
+          f"to_pandas (pandas {__import__('pandas').__version__}) equal its to_pydict, which "
+          f"equals the numpy reference (tol {SQL_RTOL}); chain_rows {snap['chain_rows']}, "
+          f"host_rows {snap['host_rows']} [{card}]", flush=True)
+    print(f"[surface] show() of q01's answer [{card}]:", flush=True)
+    dt.from_pydict(answer).show()
+    print(f"[surface] explain() of q01 [{card}]:", flush=True)
+    dt.sql(text, **frames).explain()
+
+    # summarize() over SF1's orders (cut from SF10: a run over 15,000,000
+    # orders would take about 20 s), on the card's route and the host route.
+    orders = frames["orders"]
+    rows = len(small["orders"]["o_orderkey"])
+    card_rows, card_wall, card_snap = run("summarize", lambda: orders.summarize().to_pydict())
+    with dt.execution_config_ctx(device_eval=False, compiled_eval_enabled=False):
+        host_rows, host_wall, host_snap = run("summarize host", lambda: orders.summarize()
+                                              .to_pydict(), main=False)
+    check(card_rows == host_rows, "summarize() on the card's route differs from the host route")
+    check(card_rows["count"] == [rows] * len(card_rows["column"]),
+          f"summarize()'s counts {card_rows['count']} are not the {rows} orders")
+    print(f"[surface] summarize() over SF{SQL_CHECK_SF}'s {rows} orders: {card_wall:.3f} s on the "
+          f"card's route (device counters: fused_rows {card_snap['fused_rows']}, chain_rows "
+          f"{card_snap['chain_rows']}, host_rows {card_snap['host_rows']}, program misses "
+          f"{card_snap['program_misses']}), {host_wall:.3f} s on the host route (host_rows "
+          f"{host_snap['host_rows']}); equal row for row; approx_count_distinct "
+          f"{dict(zip(card_rows['column'], card_rows['approx_count_distinct']))} [{card}]",
+          flush=True)
+    del state["tables"], state["frames"], state["outs"], state["small"], state["small_frames"]
+    gc.collect()
+    print(f"[surface] phase 17 took {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
     return by_path
 
 
@@ -4107,6 +4258,7 @@ def main() -> int:
         by_path.update(sql_paths)
         by_path.update(timed(15, phase_out_of_core, card, sql_state))
         by_path.update(timed(16, phase_windows, card, sql_state))
+        by_path.update(timed(17, phase_surface, card, sql_state))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

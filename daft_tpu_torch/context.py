@@ -4,12 +4,14 @@
 This slice keeps the knobs the embedding path, the relational layer (the
 device layer and the grouped aggregation's cardinality switch), the stage
 pool, UDF batching, query deadlines, the scan's task sizing, the
-writers' target file sizes, the byte ledger and the spill files' digest check
-read. ``execution_config_ctx``
-changes them for a block of code. The per-query clock (``query_now``) freezes
-CURRENT_DATE / CURRENT_TIMESTAMP once per statement. Not ported yet: the
-planning config, the runner choice (the port runs the local executor only),
-tenants and subscribers.
+writers' target file sizes, the byte ledger, the spill files' digest check and
+the preview read, and the planning config (``default_io_config``).
+``set_execution_config`` / ``set_planning_config`` change them for the
+process, ``execution_config_ctx`` / ``planning_config_ctx`` for a block of
+code. The per-query clock (``query_now``) freezes CURRENT_DATE /
+CURRENT_TIMESTAMP once per statement. Not ported yet: ``ExecutionConfig.
+from_env`` (the port reads no ``DAFT_*`` variable), the runner choice (the
+port runs the local executor only), tenants and subscribers (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -23,6 +25,14 @@ from typing import Iterator, Optional, Tuple
 
 
 @dataclass(frozen=True)
+class PlanningConfig:
+    default_io_config: Optional[object] = None
+
+    def with_changes(self, **kwargs) -> "PlanningConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclass(frozen=True)
 class ExecutionConfig:
     # Scan task sizing (io/scan.py ScanInfo.to_scan_tasks): files are packed
     # into tasks of at least min and at most max bytes, at most
@@ -30,6 +40,8 @@ class ExecutionConfig:
     scan_tasks_min_size_bytes: int = 96 * 1024 * 1024
     scan_tasks_max_size_bytes: int = 384 * 1024 * 1024
     max_sources_per_scan_task: int = 10
+    # Rows a collected DataFrame's repr and the notebook table show.
+    num_preview_rows: int = 8
     # Writers roll to a new file past these in-memory bytes (io/writers.py).
     parquet_target_filesize: int = 512 * 1024 * 1024
     csv_target_filesize: int = 512 * 1024 * 1024
@@ -83,6 +95,7 @@ class ExecutionConfig:
 
 class DaftContext:
     def __init__(self) -> None:
+        self.planning_config = PlanningConfig()
         self.execution_config = ExecutionConfig()
 
 
@@ -91,6 +104,18 @@ _CONTEXT = DaftContext()
 
 def get_context() -> DaftContext:
     return _CONTEXT
+
+
+def set_execution_config(config: Optional[ExecutionConfig] = None, **kwargs) -> None:
+    ctx = get_context()
+    base = config or ctx.execution_config
+    ctx.execution_config = base.with_changes(**kwargs) if kwargs else base
+
+
+def set_planning_config(config: Optional[PlanningConfig] = None, **kwargs) -> None:
+    ctx = get_context()
+    base = config or ctx.planning_config
+    ctx.planning_config = base.with_changes(**kwargs) if kwargs else base
 
 
 @contextlib.contextmanager
@@ -102,6 +127,17 @@ def execution_config_ctx(**kwargs) -> Iterator[None]:
         yield
     finally:
         ctx.execution_config = old
+
+
+@contextlib.contextmanager
+def planning_config_ctx(**kwargs) -> Iterator[None]:
+    ctx = get_context()
+    old = ctx.planning_config
+    try:
+        ctx.planning_config = old.with_changes(**kwargs)
+        yield
+    finally:
+        ctx.planning_config = old
 
 
 # -- per-query clock --------------------------------------------------------

@@ -20,18 +20,27 @@ them, ``Expression.over``), ``with_columns_renamed``, ``exclude``,
 ``write_json``, ``write_ipc``, hive-partitioned by ``partition_cols``) and
 ``write_sink``; ``collect(timeout=)`` and ``iter_partitions`` (under
 ``query_timeout_s``) run under the query's cancel token, whose id is
-``df.query_id`` while it runs (``cancellation.cancel_query``). Not ported
-yet: the runner layer (native/distributed runners, admission, plan caches,
-query log, profiling), ``shard``, the table-format and database writers
-(A.8), the writers' ``checkpoint=`` (A.2) and their invalidation of cached
-reads (the plan cache, A.8), the preview and notebook display, and the
-pandas/arrow/torch/ray exporters.
+``df.query_id`` while it runs (``cancellation.cancel_query``). The surface
+around them: ``columns``, ``in`` and ``df[...]``, ``explain``, the preview
+(``repr`` of a collected frame, ``show``, the notebook table),
+``with_column_renamed``, ``describe``, ``summarize``, ``into_batches``,
+``transform``, ``add_monotonically_increasing_id``, ``count_rows`` /
+``len``, ``num_partitions``, ``skip_existing`` and the exporters
+(``iter_rows``, ``to_pylist``, ``to_arrow``, ``to_arrow_iter``,
+``to_pandas``, ``to_torch_map_dataset``, ``to_torch_iter_dataset``,
+``to_torch_dataloader``; ``to_dask_dataframe`` and ``to_ray_dataset`` raise
+as in the JAX package). Not ported yet: the runner layer (native and
+distributed runners, admission, plan caches, the query log; A.8), and, each
+raising ``DaftNotImplementedError`` naming its ROADMAP item (``_LEFT_OUT``),
+``shard``, the table-format, database and connector writers (A.8),
+``with_checkpoint`` and the writers' ``checkpoint=`` (A.2), and profiling:
+``explain(analyze=True)``, ``collect(profile=...)`` and ``metrics`` (A.9.5).
 """
 
 from __future__ import annotations
 
 import uuid
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
 from daft_tpu_torch.cancellation import (
     CancelToken,
@@ -41,7 +50,7 @@ from daft_tpu_torch.cancellation import (
     unregister_query_token,
 )
 from daft_tpu_torch.context import get_context, iter_with_frozen_clock
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftIOError, DaftNotImplementedError, DaftValueError
 from daft_tpu_torch.expressions.expr import ColumnRef
 from daft_tpu_torch.expressions.expression import Expression, col, lit
 from daft_tpu_torch.logical.builder import LogicalPlanBuilder
@@ -89,9 +98,50 @@ class DataFrame:
     def column_names(self) -> List[str]:
         return self._builder.schema.column_names()
 
+    @property
+    def columns(self) -> List[Expression]:
+        return [col(n) for n in self.column_names]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._builder.schema
+
+    def __getitem__(self, key) -> Expression:
+        if isinstance(key, str):
+            if key not in self._builder.schema:
+                raise DaftValueError(f"Column {key!r} not in schema")
+            return col(key)
+        if isinstance(key, int):
+            return col(self.column_names[key])
+        raise DaftValueError(f"Cannot index DataFrame with {key!r}")
+
+    def explain(self, show_all: bool = False, analyze: bool = False) -> None:
+        """Print the plan (with ``show_all``: the unoptimized, optimized and
+        physical plans)."""
+        if analyze:
+            raise DaftNotImplementedError(
+                "explain(analyze=True) needs the profiler's operator spans, which are not "
+                "ported to daft_tpu_torch yet: ROADMAP A.9.5")
+        print(self._builder.explain_string(show_all))
+
     def __repr__(self) -> str:
+        if self._result is not None:
+            return self._preview_str()
         names = ", ".join(f"{f.name}: {f.dtype!r}" for f in self.schema)
-        return f"DataFrame({names})"
+        return f"DataFrame({names})\n(unmaterialized — call .collect() or .show())"
+
+    def _repr_html_(self) -> str:
+        """The notebook's preview table (the JAX package's interactive
+        display): ``num_preview_rows`` rows, fetched with one more so the
+        '... more rows' line is right without running the unlimited plan."""
+        from daft_tpu_torch.subscribers.dashboard import (
+            DataFrameDisplay,
+            generate_interactive_html,
+        )
+
+        reg = DataFrameDisplay()
+        df_id = reg.register(self, "DataFrame",
+                             max_rows=get_context().execution_config.num_preview_rows)
+        return generate_interactive_html(reg.get(df_id))
 
     # -- transformations ------------------------------------------------
     def select(self, *columns: ColumnInput) -> "DataFrame":
@@ -104,6 +154,9 @@ class DataFrame:
         exprs = [_to_expr(e).alias(n)._expr for n, e in columns.items()]
         return DataFrame(self._builder.with_columns(exprs))
 
+    def with_column_renamed(self, existing: str, new: str) -> "DataFrame":
+        return self.with_columns_renamed({existing: new})
+
     def with_columns_renamed(self, mapping: Dict[str, str]) -> "DataFrame":
         exprs = [col(f.name).alias(mapping[f.name])._expr if f.name in mapping
                  else ColumnRef(f.name) for f in self.schema]
@@ -112,7 +165,11 @@ class DataFrame:
     def exclude(self, *names: str) -> "DataFrame":
         return DataFrame(self._builder.exclude(list(names)))
 
-    def where(self, predicate: Expression) -> "DataFrame":
+    def where(self, predicate: Union[Expression, str]) -> "DataFrame":
+        if isinstance(predicate, str):
+            from daft_tpu_torch.sql.sql import sql_expr
+
+            predicate = sql_expr(predicate)
         return DataFrame(self._builder.filter(predicate._expr))
 
     filter = where
@@ -163,6 +220,71 @@ class DataFrame:
 
     unique = distinct
     drop_duplicates = distinct
+
+    def describe(self) -> "DataFrame":
+        """The schema: one row per column, its name and type."""
+        from daft_tpu_torch.dataframe import creation
+
+        return creation.from_pydict({
+            "column": [f.name for f in self.schema],
+            "type": [repr(f.dtype) for f in self.schema],
+        })
+
+    def summarize(self) -> "DataFrame":
+        """Per-column statistics from one global aggregation: count, nulls,
+        and for a comparable column its min, max (as strings) and approximate
+        distinct count."""
+        from daft_tpu_torch.dataframe import creation
+
+        rows = {"column": [], "type": [], "min": [], "max": [], "count": [],
+                "count_nulls": [], "approx_count_distinct": []}
+        aggs = []
+        for f in self.schema:
+            c = col(f.name)
+            aggs.append(c.count().alias(f"{f.name}__count"))
+            aggs.append(c.count("null").alias(f"{f.name}__nulls"))
+            if f.dtype.is_comparable() and not f.dtype.is_null():
+                aggs.append(c.min().alias(f"{f.name}__min"))
+                aggs.append(c.max().alias(f"{f.name}__max"))
+                aggs.append(c.approx_count_distinct().alias(f"{f.name}__acd"))
+        stats = self.agg(*aggs).to_pydict()
+
+        def render(key):
+            v = stats[key][0]
+            return None if v is None else str(v)
+
+        for f in self.schema:
+            name = f.name
+            rows["column"].append(name)
+            rows["type"].append(repr(f.dtype))
+            rows["count"].append(stats[f"{name}__count"][0])
+            rows["count_nulls"].append(stats[f"{name}__nulls"][0])
+            has = f"{name}__min" in stats
+            rows["min"].append(render(f"{name}__min") if has else None)
+            rows["max"].append(render(f"{name}__max") if has else None)
+            rows["approx_count_distinct"].append(stats[f"{name}__acd"][0] if has else None)
+        return creation.from_pydict(rows)
+
+    def into_batches(self, batch_size: int) -> "DataFrame":
+        """Partitions of about ``batch_size`` rows: the query runs once and
+        its result is repartitioned."""
+        if batch_size <= 0:
+            raise DaftValueError(f"batch_size must be positive, got {batch_size}")
+        parts = self.collect()._result or []
+        total = sum(len(p) for p in parts)
+        n = max(1, (total + batch_size - 1) // batch_size)
+        mat = DataFrame(LogicalPlanBuilder.in_memory(
+            parts or [MicroPartition.empty(self.schema)], self.schema))
+        return mat.into_partitions(n)
+
+    def transform(self, func, *args, **kwargs) -> "DataFrame":
+        out = func(self, *args, **kwargs)
+        if not isinstance(out, DataFrame):
+            raise DaftValueError("transform function must return a DataFrame")
+        return out
+
+    def add_monotonically_increasing_id(self, column_name: str = "id") -> "DataFrame":
+        return DataFrame(self._builder.add_monotonically_increasing_id(column_name))
 
     # -- joins and set operations ---------------------------------------
     def join(self, other: "DataFrame", on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
@@ -253,10 +375,14 @@ class DataFrame:
     def into_partitions(self, num: int) -> "DataFrame":
         return DataFrame(self._builder.into_partitions(num))
 
+    def num_partitions(self) -> int:
+        return max(1, len(self.collect()._result))
+
     # -- aggregation ----------------------------------------------------
     def agg(self, *exprs: Expression) -> "DataFrame":
-        """A global aggregation: one row of ``exprs`` over every row."""
-        return DataFrame(self._builder.aggregate([e._expr for e in exprs], []))
+        """A global aggregation: one row of ``exprs`` (or lists of them)
+        over every row."""
+        return DataFrame(self._builder.aggregate(_inner(_flatten(exprs)), []))
 
     def groupby(self, *group_by: ColumnInput) -> "GroupedDataFrame":
         from daft_tpu_torch.dataframe.groupby import GroupedDataFrame
@@ -267,7 +393,8 @@ class DataFrame:
 
     def _agg_all(self, op: str) -> "DataFrame":
         return self.agg(*[getattr(col(f.name), op)() for f in self.schema
-                          if op in ("min", "max", "count") or f.dtype.is_numeric()])
+                          if op in ("min", "max", "count", "any_value")
+                          or f.dtype.is_numeric()])
 
     def sum(self, *cols: ColumnInput) -> "DataFrame":
         return self.agg(*[_to_expr(c).sum() for c in cols]) if cols else self._agg_all("sum")
@@ -282,7 +409,18 @@ class DataFrame:
         return self.agg(*[_to_expr(c).max() for c in cols]) if cols else self._agg_all("max")
 
     def count(self, *cols: ColumnInput) -> "DataFrame":
-        return self.agg(*[_to_expr(c).count() for c in cols]) if cols else self._agg_all("count")
+        """The non-null count of each of ``cols``; with none, the rows as one
+        ``count`` column."""
+        if cols:
+            return self.agg(*[_to_expr(c).count() for c in cols])
+        return self.agg(lit(1).count().alias("count"))
+
+    def count_rows(self) -> int:
+        result = self.count().to_pydict()
+        return int(next(iter(result.values()))[0])
+
+    def __len__(self) -> int:
+        return self.count_rows()
 
     def stddev(self, *cols: ColumnInput) -> "DataFrame":
         return self.agg(*[_to_expr(c).stddev() for c in cols]) if cols else self._agg_all("stddev")
@@ -403,13 +541,30 @@ class DataFrame:
             unregister_query_token(query_id)
             ledger.finish_query(query_id)
 
-    def collect(self, timeout: Optional[float] = None) -> "DataFrame":
+    def collect(self, timeout: Optional[float] = None, profile=None) -> "DataFrame":
         """Materialise the query. ``timeout`` (seconds) bounds the whole
         query: on expiry it fails with ``DaftTimeoutError`` at the next morsel
         boundary; None falls back to ``query_timeout_s``."""
+        if profile:
+            raise DaftNotImplementedError(
+                "collect(profile=...) needs the profiler's operator spans, which are not "
+                "ported to daft_tpu_torch yet: ROADMAP A.9.5")
         if self._result is None:
             self._result = list(self._run_iter(timeout))
         return self
+
+    def show(self, n: int = 8) -> None:
+        print(self.limit(n)._materialize_preview(n))
+
+    def _materialize_preview(self, n: int) -> str:
+        parts = self.collect()._result
+        mp = MicroPartition.concat(parts) if parts else MicroPartition.empty(self.schema)
+        return mp.combined().preview_string(n)
+
+    def _preview_str(self) -> str:
+        parts = self._result or []
+        mp = MicroPartition.concat(parts) if parts else MicroPartition.empty(self.schema)
+        return mp.combined().preview_string(get_context().execution_config.num_preview_rows)
 
     def iter_partitions(self) -> Iterator[MicroPartition]:
         if self._result is not None:
@@ -417,11 +572,107 @@ class DataFrame:
             return
         yield from self._run_iter()
 
+    def iter_rows(self) -> Iterator[Dict[str, Any]]:
+        for part in self.iter_partitions():
+            rb = part.combined()
+            names = [c.name for c in rb.columns()]
+            if not names:
+                yield from ({} for _ in range(len(rb)))
+                continue
+            for values in zip(*[c.to_pylist() for c in rb.columns()]):
+                yield dict(zip(names, values))
+
     def to_pydict(self) -> Dict[str, list]:
         parts = self.collect()._result
         if not parts:
             return {f.name: [] for f in self.schema}
         return MicroPartition.concat(parts).to_pydict()
+
+    def to_pylist(self) -> List[Dict[str, Any]]:
+        return list(self.iter_rows())
+
+    def to_arrow(self):
+        parts = self.collect()._result
+        if not parts:
+            return self.schema.to_arrow().empty_table()
+        return MicroPartition.concat(parts).to_arrow_table()
+
+    def to_pandas(self):
+        parts = self.collect()._result
+        if not parts:
+            import pandas as pd
+
+            return pd.DataFrame({f.name: [] for f in self.schema})
+        return MicroPartition.concat(parts).combined().to_pandas()
+
+    def to_arrow_iter(self):
+        """The result as Arrow record batches, partition by partition."""
+        for part in self.iter_partitions():
+            yield from part.to_arrow_table().to_batches()
+
+    def to_torch_map_dataset(self):
+        """A map-style torch ``Dataset`` over the result's rows, each a dict
+        of Python values (as ``iter_rows`` gives them)."""
+        import torch.utils.data as tud
+
+        rows = list(self.iter_rows())
+
+        class _MapDataset(tud.Dataset):
+            def __len__(self):
+                return len(rows)
+
+            def __getitem__(self, idx):
+                return rows[idx]
+
+        return _MapDataset()
+
+    def to_torch_iter_dataset(self):
+        """An iterable torch ``Dataset`` streaming the rows (``iter_rows``)."""
+        import torch.utils.data as tud
+
+        df = self
+
+        class _IterDataset(tud.IterableDataset):
+            def __iter__(self):
+                return df.iter_rows()
+
+        return _IterDataset()
+
+    def to_torch_dataloader(self, batch_size: int = 1, **kwargs):
+        """A torch ``DataLoader`` over ``to_torch_map_dataset``; ``kwargs``
+        (``pin_memory``, ``num_workers``, ...) go to the ``DataLoader``."""
+        import torch.utils.data as tud
+
+        return tud.DataLoader(self.to_torch_map_dataset(), batch_size=batch_size, **kwargs)
+
+    def to_dask_dataframe(self, *a, **kw):
+        raise DaftIOError("to_dask_dataframe requires the dask integration, "
+                          "which is not available in this environment")
+
+    def to_ray_dataset(self, *a, **kw):
+        raise DaftIOError("to_ray_dataset requires the ray integration, "
+                          "which is not available in this environment")
+
+    def skip_existing(self, existing_path, on: Union[ColumnInput, List[ColumnInput]],
+                      file_format: str = "parquet") -> "DataFrame":
+        """Drop the rows whose key(s) already stand in the data at
+        ``existing_path`` (an anti join on them); a missing or empty path
+        passes every row, any other error raises."""
+        from daft_tpu_torch.io import reads
+        from daft_tpu_torch.io.scan import glob_paths
+
+        on = on if isinstance(on, list) else [on]
+        names = [_to_expr(c).name() for c in on]
+        paths = [str(p) for p in (existing_path if isinstance(existing_path, list)
+                                  else [existing_path])]
+        try:
+            files = glob_paths(paths)
+        except Exception:
+            files = []
+        if not files:
+            return self
+        existing = getattr(reads, f"read_{file_format}")(paths).select(*names).distinct()
+        return self.join(existing, left_on=names, right_on=names, how="anti")
 
     # -- writes ---------------------------------------------------------
     def _write(self, file_format: str, root_dir: str, partition_cols=None,
@@ -461,3 +712,34 @@ class DataFrame:
         results = [sink.write(part) for part in self.iter_partitions()]
         final = sink.finalize(results)
         return creation.from_pydict(final if isinstance(final, dict) else {"result": [repr(final)]})
+
+
+#: The JAX package's DataFrame methods the port leaves out, by ROADMAP item.
+_LEFT_OUT = {
+    "shard": "A.8 (Shard and PushDownShard)",
+    "with_checkpoint": "A.2 (pipeline-progress checkpoints)",
+    "metrics": "A.9.5 (RuntimeStats)",
+    "write_deltalake": "A.8 (the table formats)",
+    "write_iceberg": "A.8 (the table formats)",
+    "write_sql": "A.8 (the database writers)",
+    "write_clickhouse": "A.8 (the connectors)",
+    "write_turbopuffer": "A.8 (the connectors)",
+    "write_bigtable": "A.8 (the connectors)",
+    "write_lance": "A.8 (the connectors)",
+    "write_paimon": "A.8 (the connectors)",
+    "write_huggingface": "A.8 (the connectors)",
+    "set_storage_option": "A.8 (remote IO)",
+}
+
+
+def _left_out(name: str, item: str):
+    def method(self, *args, **kwargs):
+        raise DaftNotImplementedError(
+            f"DataFrame.{name} is not ported to daft_tpu_torch yet: ROADMAP {item}")
+
+    method.__name__ = name
+    return method
+
+
+for _name, _item in _LEFT_OUT.items():
+    setattr(DataFrame, _name, _left_out(_name, _item))

@@ -99,16 +99,21 @@ class SpillMetrics:
 spill_metrics = SpillMetrics()
 
 
+#: Seconds a sink's reservation waits for its permits before it goes on at
+#: best effort (the JAX package's 5 s).
+PERMIT_WAIT_S = 5.0
+
+
 @contextmanager
 def budget_reservation(memory, budget: int, token=None, op: str = ""):
     """Reserve a spilling sink's working set against the permit gate, so
     concurrent executors under one limit coordinate (at most limit/budget
-    sinks hold reservations at once). An acquire that times out after 5 s
-    degrades to best effort (counted) instead of deadlocking, as the
+    sinks hold reservations at once). An acquire that times out after
+    ``PERMIT_WAIT_S`` degrades to best effort (counted) instead of deadlocking, as the
     reference's permits do (resource_manager.rs:44); a cancel ``token``
     wakes the wait when the query dies. ``op`` names the reservation in the
     byte ledger (kind ``permit``), charged and released with the permit."""
-    ok = memory.acquire(budget, timeout=5.0, token=token)
+    ok = memory.acquire(budget, timeout=PERMIT_WAIT_S, token=token)
     if not ok:
         spill_metrics.record_best_effort("best_effort_reservations")
     ledger = None

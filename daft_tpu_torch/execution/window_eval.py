@@ -20,17 +20,18 @@ whole-array passes:
   a cumulative count of changes);
 * lag / lead / first_value / last_value from positions within a segment;
 * whole-partition aggregates through one grouped reduction
-  (``expressions/agg_eval.py``);
+  (``expressions/agg_eval.py``), but a float sum or mean and the moments,
+  which take Arrow's pairwise summation order per partition
+  (``_arrow_sums``);
 * ``rows_between`` frames through per-segment prefix sums; min and max through
   per-segment running extrema (a frame unbounded on one side) or a sparse
   table (a frame bounded on both sides).
 
 Ranks, counts, integer sums, min, max and the navigation functions equal the
-JAX package's bit for bit, and so do a frame's float sums and means: each
-segment's prefix sums are taken in the same sequential order. A
-whole-partition float sum or mean comes from a grouped (sequential) sum where
-the JAX package takes Arrow's ``sum`` per partition, so it agrees within the
-tolerance of two summation orders.
+JAX package's bit for bit, and so do a frame's float sums and means (each
+segment's prefix sums are taken in the same sequential order) and a
+whole-partition float sum, mean, stddev or variance (Arrow's order, ROADMAP
+C.41).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
-from daft_tpu_torch.datatype import DataType
+from daft_tpu_torch.datatype import DataType, TypeId
 from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.expressions.evaluator import evaluate
 from daft_tpu_torch.expressions.expr import Alias, AggOp, ColumnRef, Expr, WindowExpr
@@ -173,11 +174,13 @@ def _numeric_rank(key: Series, descending: bool) -> Optional[tuple]:
         k = len(uniq)
         codes = codes.astype(np.int64)
     else:
-        v = vals[real].astype(np.int64)
+        # Offsets from the minimum in the key's own signedness: a uint64 at
+        # or above 2^63 would wrap negative as an int64 (ROADMAP C.40).
+        v = vals[real].astype(np.uint64 if vals.dtype.kind == "u" else np.int64)
         lo, hi = (int(v.min()), int(v.max())) if len(v) else (0, 0)
         if hi - lo >= (1 << 40):
             return None
-        codes, k = v - lo, hi - lo + 1
+        codes, k = (v - v.dtype.type(lo)).astype(np.int64), hi - lo + 1
     if descending:
         codes = (k - 1) - codes
     rank = np.empty(len(vals), dtype=np.int64)
@@ -284,6 +287,8 @@ def _eval_one(rb: RecordBatch, w: WindowExpr, cache: Dict[tuple, "_Segments"]) -
         return _eval_rows_frame(w, child, seg, n)
     if n == 0:
         return Series.null(w.func, child.dtype, 0)
+    if child.dtype.id in _ARROW_ORDER_AGGS.get(w.func, ()):
+        return _whole_partition_arrow_order(w.func, child, seg)
     # One grouped reduction over the partition ids, spread back to the rows.
     gb = RecordBatch(Schema([Field("__g", DataType.int64()), Field("__v", child.dtype)]),
                      [Series.from_numpy(seg.group_ids, "__g"), child.rename("__v")], n)
@@ -292,6 +297,107 @@ def _eval_one(rb: RecordBatch, w: WindowExpr, cache: Dict[tuple, "_Segments"]) -
     slot = np.empty(len(per), dtype=np.int64)
     slot[per.get_column("__g").to_numpy().astype(np.int64)] = np.arange(len(per))
     return per.get_column("__r").take(slot[seg.group_ids].astype(np.uint64)).rename(child.name)
+
+
+#: The whole-partition aggregates whose Arrow kernel (the JAX package's
+#: ``pc.sum`` / ``pc.mean`` / ``pc.stddev`` / ``pc.variance`` per partition)
+#: sums doubles in Arrow's pairwise order, by input type: floats, and for the
+#: moments 64-bit integers too (Arrow takes integer arithmetic for narrower
+#: ones). ``_whole_partition_arrow_order`` takes that order (ROADMAP C.41).
+_FLOATS = (TypeId.FLOAT32, TypeId.FLOAT64)
+_ARROW_ORDER_AGGS = {"sum": _FLOATS, "mean": _FLOATS,
+                     "stddev": _FLOATS + (TypeId.INT64, TypeId.UINT64),
+                     "variance": _FLOATS + (TypeId.INT64, TypeId.UINT64)}
+
+#: Values Arrow's ``SumArray`` adds left to right into one block sum.
+_ARROW_BLOCK = 16
+
+
+def _arrow_sums(vals: np.ndarray, valid: np.ndarray, seg_of: np.ndarray,
+                num_segments: int) -> np.ndarray:
+    """Each segment's sum of its valid ``vals`` (f64, segments laid out back
+    to back in row order; ``seg_of`` is each position's segment) in the order
+    of Arrow's floating ``SumArray``, bit for bit: every run of valid values
+    splits into blocks of 16, each summed left to right from +0.0; the block
+    sums climb a binary counter, where a level's value and the next one that
+    reaches it add as ``level + new``; last the occupied levels add from the
+    lowest up. So a level holds a pairwise sum of an aligned group of 2^l
+    blocks, built here level by level for every segment at once. An empty
+    segment sums to 0.0."""
+    pos = np.nonzero(valid)[0]
+    v, s = vals[pos], seg_of[pos]
+    m = len(pos)
+    # Runs of valid values: a run starts after a null or at a segment's start.
+    starts = np.ones(m, dtype=bool)
+    if m:
+        starts[1:] = (pos[1:] != pos[:-1] + 1) | (s[1:] != s[:-1])
+    run_first = np.nonzero(starts)[0]
+    in_run = np.arange(m, dtype=np.int64) - run_first[np.cumsum(starts) - 1]
+    col = in_run % _ARROW_BLOCK
+    block = np.cumsum(col == 0) - 1
+    nblocks = int(block[-1]) + 1 if m else 0
+    cells = np.zeros((nblocks, _ARROW_BLOCK), dtype=np.float64)
+    cells[block, col] = v
+    level = np.zeros(nblocks, dtype=np.float64)
+    for j in range(_ARROW_BLOCK):  # left to right; padding adds +0.0, exactly
+        level = level + cells[:, j]
+    window_work.add(4 * m)
+    counts = np.bincount(s[col == 0], minlength=num_segments).astype(np.int64)
+    out = np.zeros(num_segments, dtype=np.float64)
+    while True:
+        offsets = np.zeros(num_segments, dtype=np.int64)
+        np.cumsum(counts[:-1], out=offsets[1:])
+        odd = np.nonzero(counts & 1)[0]  # this level is occupied: its last group
+        out[odd] = level[offsets[odd] + counts[odd] - 1] + out[odd]
+        half = counts >> 1
+        total = int(half.sum())
+        if total == 0:
+            return out
+        owner = np.repeat(np.arange(num_segments, dtype=np.int64), half)
+        up_offsets = np.zeros(num_segments, dtype=np.int64)
+        np.cumsum(half[:-1], out=up_offsets[1:])
+        left = offsets[owner] + 2 * (np.arange(total, dtype=np.int64) - up_offsets[owner])
+        level = level[left] + level[left + 1]
+        counts = half
+
+
+def _whole_partition_arrow_order(func: str, child: Series, seg: "_Segments") -> Series:
+    """A whole-partition float ``sum`` / ``mean`` (and ``stddev`` /
+    ``variance`` over floats and 64-bit integers) with the JAX package's
+    bits: its Arrow kernel over each partition's rows in row order, as
+    ``_arrow_sums`` orders the additions; the moments as Arrow's ``VarStd``
+    takes them (the mean, then the squared deviations' sum)."""
+    n = len(child)
+    num_groups = len(seg.sizes)
+    if seg.order_keys:
+        rows = np.argsort(seg.group_ids, kind="stable")
+        window_work.add(n)
+    else:
+        rows = seg.perm  # already (partition, row)
+    vals, mask = child.take(rows.astype(np.uint64)).to_numpy_masked()
+    vals = vals.astype(np.float64)
+    valid = ~mask if mask is not None else np.ones(n, dtype=bool)
+    seg_of = seg.group_ids[rows]
+    total = _arrow_sums(vals, valid, seg_of, num_groups)
+    count = np.bincount(seg_of[valid], minlength=num_groups).astype(np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        if func == "sum":
+            per = total
+        else:
+            mean = total / count
+            if func == "mean":
+                per = mean
+            else:
+                dev = vals - mean[seg_of]
+                per = _arrow_sums(dev * dev, valid, seg_of, num_groups) / count
+                if func == "stddev":
+                    per = np.sqrt(per)
+    window_work.add(3 * n)
+    out_dtype = DataType.float32() if func == "sum" and child.dtype.id == TypeId.FLOAT32 \
+        else DataType.float64()
+    result = Series.from_numpy(per.astype(out_dtype.to_numpy())[seg.group_ids], child.name)
+    empty = (count == 0)[seg.group_ids]
+    return result._with_mask(empty) if empty.any() else result
 
 
 def _frame_bound(bound, n: int):

@@ -99,6 +99,9 @@ class Expr:
     def has_column_ref(self) -> bool:
         return any(isinstance(e, ColumnRef) for e in self.walk())
 
+    def is_literal(self) -> bool:
+        return isinstance(self, Literal)
+
 
 class ColumnRef(Expr):
     __slots__ = ("name_",)

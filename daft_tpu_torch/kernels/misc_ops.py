@@ -14,8 +14,10 @@ with the UDAFs (``registry.LEFT_OUT``).
 from __future__ import annotations
 
 import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
 
-from daft_tpu_torch.datatype import DataType, unify_dtypes
+from daft_tpu_torch.datatype import DataType, TypeId, unify_dtypes
 from daft_tpu_torch.errors import DaftTypeError
 from daft_tpu_torch.kernels.registry import register_kernel, same_dtype
 from daft_tpu_torch.schema import Field
@@ -56,10 +58,44 @@ def _coalesce(args, **kwargs):
     return out
 
 
+#: List element types whose distinct values Arrow's dictionary encoding
+#: tells apart as a Python set of ``to_pylist`` values does, with the
+#: integers; floats too where they hold no NaN and no -0.0 (a set holds every
+#: NaN apart and -0.0 with 0.0).
+_ARROW_DISTINCT = (TypeId.BOOL, TypeId.STRING, TypeId.BINARY, TypeId.DATE, TypeId.TIMESTAMP)
+
+
 @register_kernel("list_count_distinct", lambda f, k: Field(f[0].name, DataType.uint64()))
 def _list_count_distinct(args, **kwargs):
-    """Distinct-element count per list row (used by two-phase count_distinct)."""
+    """Distinct-element count per list row, nulls left out (used by
+    two-phase count_distinct). Lists of integers, strings, dates, ... (and
+    floats without NaN or -0.0) count their (row, dictionary code) pairs, the
+    same counts as the JAX package's set per row; other elements take that
+    set."""
     s = args[0]
+    inner = s.dtype.inner if s.dtype.id == TypeId.LIST else None
+    if inner is not None and (inner.is_integer() or inner.id in _ARROW_DISTINCT
+                              or inner.id in (TypeId.FLOAT32, TypeId.FLOAT64)):
+        arr = s.to_arrow()
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        flat = pc.list_flatten(arr)
+        keep = pc.is_valid(flat)
+        values = flat.filter(keep)
+        if inner.is_floating():
+            v = values.to_numpy()
+            if np.isnan(v).any() or np.signbit(v[v == 0]).any():
+                return _count_distinct_by_set(s)  # NaN or -0.0: the set's semantics
+        enc = pc.dictionary_encode(values)
+        k = max(len(enc.dictionary), 1)
+        rows = pc.list_parent_indices(arr).filter(keep).to_numpy().astype(np.int64)
+        pairs = np.unique(rows * k + enc.indices.to_numpy().astype(np.int64))
+        counts = np.bincount(pairs // k, minlength=len(arr))
+        return Series.from_numpy(counts.astype(np.uint64), s.name)
+    return _count_distinct_by_set(s)
+
+
+def _count_distinct_by_set(s: Series) -> Series:
     out = []
     for v in s.to_pylist():
         if v is None:

@@ -141,6 +141,10 @@ class MicroPartition:
         keys = [evaluate(k, rb) for k in sort_keys]
         return MicroPartition(self._schema, [rb.sort(keys, descending, nulls_first)])
 
+    def agg(self, agg_exprs, group_by=()) -> "MicroPartition":
+        rb = self.combined().agg(agg_exprs, group_by)
+        return MicroPartition(rb.schema, [rb])
+
     def distinct(self, on=None) -> "MicroPartition":
         rb = self.combined().distinct(on)
         return MicroPartition(rb.schema, [rb])

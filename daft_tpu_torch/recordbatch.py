@@ -251,6 +251,16 @@ class RecordBatch:
     # ------------------------------------------------------------------ #
     # Hashing / partitioning                                              #
     # ------------------------------------------------------------------ #
+    def hash_rows(self, columns: Optional[Sequence[str]] = None) -> np.ndarray:
+        """Each row's hash over ``columns`` (all by default), combined as
+        ``partition_by_hash`` combines its keys'; zeros with no column."""
+        from daft_tpu_torch.kernels.hashing import combine_hashes
+
+        cols = [self.get_column(c) for c in columns] if columns else self._columns
+        if not cols:
+            return np.zeros(self._num_rows, dtype=np.uint64)
+        return combine_hashes([c.hash().to_numpy() for c in cols])
+
     def partition_by_hash(self, key_series: Sequence[Series], num_partitions: int) -> List["RecordBatch"]:
         """Split by the combined row hash of ``key_series``: every row of a
         key lands in one part, in input order (``_split_by_ids`` is stable)."""

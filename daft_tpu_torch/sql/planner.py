@@ -7,10 +7,13 @@ LogicalPlanBuilder the DataFrame API uses. Subqueries become ``Subquery`` /
 optimizer's ``UnnestSubqueries`` turns into joins.
 
 The port has no sessions or catalogs (ROADMAP A.8): ``CREATE TABLE``,
-``DROP TABLE``, ``INSERT``, ``SHOW TABLES``, ``USE`` and ``SET`` raise
-``DaftNotImplementedError`` naming A.8, and a table name resolves only
-against the bound DataFrames and the query's CTEs. ``EXPLAIN ANALYZE`` raises
-naming A.9.5 (the profiler); plain ``EXPLAIN`` and ``DESCRIBE`` work.
+``DROP TABLE``, ``INSERT``, ``SHOW TABLES``, ``USE`` and a ``SET`` of a
+session variable raise ``DaftNotImplementedError`` naming A.8, and a table
+name resolves only
+against the bound DataFrames and the query's CTEs. ``SET`` of an execution or
+planning config key applies it live, as in the JAX package. ``EXPLAIN
+ANALYZE`` raises naming A.9.5 (the profiler); plain ``EXPLAIN`` and
+``DESCRIBE`` work.
 """
 
 from __future__ import annotations
@@ -69,17 +72,19 @@ def plan_sql(query: str, bindings: Dict[str, object]):
 #: The session statements, which need the sessions and catalogs of A.8.
 _SESSION_STATEMENTS = {"CreateTableStmt": "CREATE TABLE", "DropTableStmt": "DROP TABLE",
                        "InsertStmt": "INSERT", "ShowTablesStmt": "SHOW TABLES",
-                       "UseStmt": "USE", "SetStmt": "SET"}
+                       "UseStmt": "USE"}
 
 
 def _execute_statement(stmt, bindings: Dict[str, object]):
     """Dispatch a statement (reference: src/daft-sql/src/exec.rs): SELECT
     returns its DataFrame, EXPLAIN and DESCRIBE small DataFrames of text."""
     from daft_tpu_torch.dataframe.creation import from_pydict
-    from daft_tpu_torch.sql.parser import DescribeStmt, ExplainStmt
+    from daft_tpu_torch.sql.parser import DescribeStmt, ExplainStmt, SetStmt
 
     if isinstance(stmt, SelectStmt):
         return _plan_select(stmt, bindings, dict(stmt.ctes))
+    if isinstance(stmt, SetStmt):
+        return _set(stmt)
     kind = type(stmt).__name__
     if kind in _SESSION_STATEMENTS:
         raise DaftNotImplementedError(
@@ -109,6 +114,28 @@ def _execute_statement(stmt, bindings: Dict[str, object]):
             "type": [repr(f.dtype) for f in schema],
         })
     raise DaftValueError(f"Unsupported SQL statement {type(stmt).__name__}")
+
+
+def _set(stmt):
+    """``SET key = value``: an execution or planning config key applies
+    live and the statement returns its one-row frame (the JAX package's
+    planner); any other key is a session variable (A.8)."""
+    import dataclasses
+
+    from daft_tpu_torch import context
+    from daft_tpu_torch.dataframe.creation import from_pydict
+
+    key = stmt.name.lower()
+    ctx = context.get_context()
+    if key in {f.name for f in dataclasses.fields(type(ctx.execution_config))}:
+        context.set_execution_config(**{key: stmt.value})
+    elif key in {f.name for f in dataclasses.fields(type(ctx.planning_config))}:
+        context.set_planning_config(**{key: stmt.value})
+    else:
+        raise DaftNotImplementedError(
+            f"SET {key}: {key!r} is no execution or planning config key, so it is a session "
+            f"variable, and sessions are not ported to daft_tpu_torch yet: ROADMAP A.8")
+    return from_pydict({"name": [key], "value": [str(stmt.value)]})
 
 
 def _rename_positional(df, cols):

@@ -7,7 +7,8 @@ runs in the port without a limit and under ``LIMIT`` (a sink budget of 64 KiB
 against about 1 MB of data) and in the JAX package under ``LIMIT``. The
 limited rows must equal the unlimited ones and the JAX package's (ranks,
 keys and row placement exactly; a whole-partition float sum within
-``WHOLE_PARTITION_RTOL``, as ``tests/test_torch_window.py`` states), with the
+``WHOLE_PARTITION_RTOL``, which is 0, as ``tests/test_torch_window.py``
+states), with the
 JAX package's spill events, files and bytes, and every limited run leaves the
 byte ledger at zero, every permit back and no spill directory.
 """
@@ -30,7 +31,7 @@ pytestmark = pytest.mark.filterwarnings("ignore:Specifying null_placement:Future
 N = 50_000
 LIMIT = 256 * 1024
 SPILL_KEYS = ("spills", "files", "bytes_spilled")
-WHOLE_PARTITION_RTOL = 1e-12
+WHOLE_PARTITION_RTOL = 0.0
 
 
 @pytest.fixture(autouse=True)

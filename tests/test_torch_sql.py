@@ -7,7 +7,9 @@ the JAX package's rows and the value that the JAX test asserts, window
 functions, ``count(DISTINCT ...)``, ``INTERSECT ALL`` and ``ARRAY[...]``
 included (ROADMAP A.3.5). The cases that need what the port lacks assert
 that it raises ``DaftNotImplementedError`` naming the item: sessions,
-catalogs, ``SET`` and ``USE`` (A.8), ``EXPLAIN ANALYZE`` (A.9.5).
+catalogs, a ``SET`` of a session variable and ``USE`` (A.8), ``EXPLAIN
+ANALYZE`` (A.9.5). A ``SET`` of an execution or planning config key applies
+live, as in the JAX package.
 The connector cases (``read_sql``) are not SQL-planner cases and stay with
 the JAX package (A.8).
 """
@@ -349,7 +351,7 @@ SESSION_STATEMENTS = [
     "SHOW TABLES",
     "SHOW TABLES LIKE 'bar%'",
     "USE cat2",
-    "SET default_morsel_size = 4096",
+    "SET my_session_variable = 4096",
     "EXPLAIN CREATE TABLE nope AS SELECT * FROM people",
 ]
 
@@ -358,6 +360,25 @@ SESSION_STATEMENTS = [
 def test_session_statements_raise_naming_their_item(statement):
     with pytest.raises(DaftNotImplementedError, match=r"A\.8"):
         daft_tpu_torch.sql(statement, people=daft_tpu_torch.from_pydict(PEOPLE))
+
+
+def test_set_applies_a_config_key_live_as_in_the_jax_package():
+    """``SET`` of an execution or planning config key changes the context's
+    config at once and returns its one-row frame, in both packages."""
+    outs = []
+    for pkg in (daft_tpu, daft_tpu_torch):
+        ctx = pkg.get_context()
+        with pkg.execution_config_ctx(), pkg.planning_config_ctx():
+            rows = [pkg.sql(q).to_pydict() for q in (
+                "SET default_morsel_size = 4096", "SET num_preview_rows = 3",
+                "SET default_io_config = 'cfg'")]
+            outs.append((rows, ctx.execution_config.default_morsel_size,
+                         ctx.execution_config.num_preview_rows,
+                         ctx.planning_config.default_io_config))
+        assert ctx.execution_config.default_morsel_size == 256 * 1024
+    assert outs[1] == outs[0]
+    assert outs[1][0][0] == {"name": ["default_morsel_size"], "value": ["4096"]}
+    assert outs[1][1:] == (4096, 3, "cfg")
 
 
 def test_explain():

@@ -8,17 +8,20 @@ and the values that the JAX test asserts. Then seeded tables (nulls, ties,
 NaN, strings) go through every window function, frame and aggregate in both
 packages: the rows and their order must be equal; ranks, counts, integer
 sums, min, max and the navigation functions bit for bit, and so the float
-sums and means over a ``rows_between`` frame; a whole-partition float sum or
-mean within ``WHOLE_PARTITION_RTOL`` (1e-12), since the JAX package sums each
-partition with Arrow's ``sum`` where the port takes one grouped sum
-(ROADMAP C.39). Last, C.39 itself: the port's window evaluation does linear
-work, by its pass counter and by its time at 10x the rows.
+sums and means over a ``rows_between`` frame; a whole-partition float sum,
+mean or stddev within ``WHOLE_PARTITION_RTOL``, which is 0: the port sums each
+partition in the order of Arrow's ``sum`` as the JAX package does (ROADMAP
+C.41; it was 1e-12 while the port took one grouped sum). Then C.40: uint64
+order keys on both sides of 2^63. Last, C.39 itself: the port's window
+evaluation does linear work, by its pass counter and by its time at 10x the
+rows.
 """
 
 import time
 import warnings
 
 import numpy as np
+import pyarrow as pa
 import pytest
 
 import daft_tpu
@@ -26,7 +29,7 @@ import daft_tpu_torch
 from daft_tpu_torch.execution.window_eval import window_work
 
 PKGS = (daft_tpu, daft_tpu_torch)
-WHOLE_PARTITION_RTOL = 1e-12
+WHOLE_PARTITION_RTOL = 0.0
 
 
 @pytest.fixture(autouse=True)
@@ -267,6 +270,110 @@ def test_range_between_raises_as_in_the_jax_package():
             p.from_pydict(_table(0, 20)).select(p.col("i").sum().over(w).alias("x")).to_pydict()
         msgs.append(str(e.value))
     assert "range" in msgs[1] and msgs[0] == msgs[1]
+
+
+# -- C.40: uint64 order keys ----------------------------------------------------
+def _c40(p, F):
+    """ROADMAP C.40's input and its four expressions."""
+    data = {"u": np.array([1, 2**64 - 1, 3], dtype=np.uint64), "k": [1, 1, 1], "x": [10, 20, 30]}
+    W = p.Window
+    w = W().partition_by("k").order_by("u")
+    out = p.from_pydict(data).select(
+        F.rank().over(w).alias("r"),
+        p.col("x").sum().over(w.rows_between(W.unbounded_preceding, W.current_row)).alias("s"),
+        p.col("x").lag(1).over(w).alias("l")).to_pydict()
+    out["sql_desc"] = p.sql("SELECT rank() OVER (ORDER BY u DESC) AS r FROM t",
+                            t=p.from_pydict(data)).to_pydict()["r"]
+    return out
+
+
+def test_uint64_order_keys_above_2_63_rank_as_in_the_jax_package():
+    """ROADMAP C.40: a uint64 order key at or above 2^63 wrapped negative in
+    the port's integer ranking; the JAX package sorts it with Arrow."""
+    assert _both(_c40) == {"r": [1, 3, 2], "s": [10, 60, 40], "l": [None, 30, 10],
+                           "sql_desc": [3, 1, 2]}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_uint64_keys_on_both_sides_of_2_63_equal_the_jax_package(seed):
+    """Seeded uint64 keys near 0 and near 2^64 (``near``: the offset
+    ranking) and keys on both sides of 2^63 (``wide``: the argsort), with
+    nulls and ties, through the ranks, ``lag`` and a running sum, ascending
+    and descending, in both packages."""
+    rng = np.random.default_rng(seed)
+    n = 300
+    # Near 0 and near 2^64: as int64 they would wrap to a span under 2^40.
+    near = rng.integers(-50, 50, n).astype(np.int64).astype(np.uint64)
+    wide = rng.choice(np.array([0, 7, 2**63 - 1, 2**63, 2**63 + 5, 2**64 - 1], dtype=np.uint64), n)
+    data = {"g": rng.integers(0, 6, n).tolist(),
+            "near": pa.array([None if i % 17 == 3 else int(v) for i, v in enumerate(near)],
+                             pa.uint64()),
+            "wide": pa.array([None if i % 19 == 4 else int(v) for i, v in enumerate(wide)],
+                             pa.uint64()),
+            "x": rng.integers(-1000, 1000, n).tolist()}
+
+    def run(p, F):
+        W = p.Window
+        df = p.from_pydict(data)
+        exprs = []
+        for key in ("near", "wide"):
+            for desc in (False, True):
+                w = W().partition_by("g").order_by(key, desc=desc)
+                tag = f"{key}_{'desc' if desc else 'asc'}"
+                exprs += [F.rank().over(w).alias(f"rank_{tag}"),
+                          F.dense_rank().over(w).alias(f"dense_{tag}"),
+                          F.row_number().over(w).alias(f"rn_{tag}"),
+                          p.col("x").lag(1).over(w).alias(f"lag_{tag}"),
+                          p.col("x").sum().over(w.rows_between(
+                              W.unbounded_preceding, W.current_row)).alias(f"run_{tag}")]
+        return df.select("g", *exprs).to_pydict()
+
+    _both(run)
+
+
+# -- C.41: whole-partition float sums in Arrow's order ---------------------------
+def _c41_table(seed: int) -> dict:
+    """Partitions of 1-1000 rows interleaved in row order, values over nine
+    decades with nulls, NaN and -0.0."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 1001, 120)
+    g = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    n = len(g)
+    f = rng.standard_normal(n) * 10.0 ** rng.integers(-4, 5, n)
+    f[rng.random(n) < 0.002] = np.nan
+    f[rng.random(n) < 0.01] = -0.0
+    null = rng.random(n) < 0.15
+    null[np.isin(g, np.arange(5))] = True  # a few partitions with no value
+    return {"g": g.tolist(), "o": rng.integers(0, 50, n).tolist(),
+            "f": [None if m else float(x) for m, x in zip(null, f)],
+            "i": [None if m else int(x) for m, x in zip(null, rng.integers(-10**12, 10**12, n))]}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_whole_partition_float_sums_are_bit_equal_to_the_jax_package(seed):
+    """ROADMAP C.41: a whole-partition ``sum`` / ``mean`` over f64 and f32,
+    and ``stddev`` over f64 and int64, held to 0 against the JAX package's
+    Arrow kernels per partition, with and without an order key."""
+    data = _c41_table(seed)
+
+    def run(p, F):
+        W = p.Window
+        df = p.from_pydict(data).with_column("f32", p.col("f").cast(p.DataType.float32()))
+        exprs = []
+        for tag, w in (("plain", W().partition_by("g")),
+                       ("ordered", W().partition_by("g").order_by("o"))):
+            exprs += [p.col("f").sum().over(w).alias(f"sum_f_{tag}"),
+                      p.col("f").mean().over(w).alias(f"mean_f_{tag}"),
+                      p.col("f").stddev().over(w).alias(f"std_f_{tag}"),
+                      p.col("f32").sum().over(w).alias(f"sum_f32_{tag}"),
+                      p.col("f32").mean().over(w).alias(f"mean_f32_{tag}"),
+                      p.col("i").stddev().over(w).alias(f"std_i_{tag}")]
+        return df.select("g", *exprs).to_pydict()
+
+    jax, port = (run(p, _F(p)) for p in PKGS)
+    assert WHOLE_PARTITION_RTOL == 0.0
+    _assert_rows_equal(jax, port, set(jax))
+    assert {n: type(v[5]) for n, v in jax.items()} == {n: type(v[5]) for n, v in port.items()}
 
 
 # -- C.39: linear work --------------------------------------------------------
