@@ -19,7 +19,10 @@ library (``.str``, ``.dt``, ``.binary``, ``url.parse``, ``is_in``,
 ``unpivot``, ``sample``, ``repartition``) and the ``.list`` / ``.struct`` /
 ``.map`` namespaces, and the DataFrame surface: the constructors
 (``from_pylist``, ``from_arrow``, ``from_pandas``, ``range``), the preview
-and the exporters (``to_arrow``, ``to_pandas``, ``to_torch_*``). Names of the
+and the exporters (``to_arrow``, ``to_pandas``, ``to_torch_*``), the UDF
+decorators (``func``, ``func.batch``, ``cls``, ``method``) and the UDAFs
+(``udf.udaf``), the media functions and the media sources (``read_mcap``,
+``read_video_frames``, ``from_files``). Names of the
 JAX package's top level that the port lacks raise ``AttributeError`` naming
 their ROADMAP item. ``ROADMAP.md`` lists what is still to port.
 """
@@ -68,11 +71,11 @@ _IO_CONFIGS = ("S3Config", "S3Credentials", "GCSConfig", "AzureConfig", "HTTPCon
                "CosConfig", "TosConfig", "GooseFSConfig", "GravitinoConfig", "UnityConfig",
                "HuggingFaceConfig")
 
+#: The sources of ``io/media_sources.py``, resolved lazily.
+_MEDIA_SOURCES = ("read_mcap", "read_kafka", "read_paimon", "read_video_frames", "from_files")
+
 #: Names of the JAX package's top level that the port lacks, by ROADMAP item.
 _NOT_PORTED = {
-    **dict.fromkeys(("func", "cls", "method"), "A.2 (the UDF decorators)"),
-    **dict.fromkeys(("read_mcap", "read_kafka", "read_paimon", "read_video_frames",
-                     "from_files"), "A.3.5 (io/media_sources.py)"),
     **dict.fromkeys(("read_iceberg", "read_deltalake", "read_lance", "read_hudi", "read_sql",
                      "read_huggingface"), "A.8 (the table formats and connectors)"),
     **dict.fromkeys(("Session", "current_session", "Catalog", "set_runner_native",
@@ -100,10 +103,14 @@ def __getattr__(name: str):
         from daft_tpu_torch.io import config as io_config
 
         return getattr(io_config, name)
-    if name == "udf":
+    if name in ("func", "cls", "method", "udf"):
         import daft_tpu_torch.udf as udf
 
-        return udf
+        return udf if name == "udf" else getattr(udf, name)
+    if name in _MEDIA_SOURCES:
+        from daft_tpu_torch.io import media_sources
+
+        return getattr(media_sources, name)
     if name == "functions":
         import daft_tpu_torch.functions as functions
 

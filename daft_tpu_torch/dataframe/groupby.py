@@ -104,7 +104,8 @@ class GroupedDataFrame:
                 outs.append(u.evaluate(flat, kwargs).to_pylist())
             return outs
 
-        wrapper = Udf(per_group, DataType.list(u.return_dtype), name=out_name)
+        wrapper = Udf(per_group, DataType.list(u.return_dtype), batch=True,
+                      name=out_name)
         keys = [g.name() for g in self._group_by]
         out = agged.with_column(out_name, wrapper(*[col(nm) for nm in tmp]))
         out = out.select(*(keys + [out_name])) if keys else out.select(out_name)

@@ -12,12 +12,14 @@ AggOp decomposes into
 * merge aggs — re-aggregate the partial columns by the group keys (associative),
 * a final expr — computes the user-visible value from the merged columns.
 
-The port decomposes every aggregation of the JAX package but the UDAFs
-(``AggOp.LEFT_OUT``, ROADMAP A.2): the moments, the list partials
-(``median``, ``string_agg``, ``list``, ``concat``, ``count_distinct``,
-``approx_count_distinct``, merged by ``concat`` and finished by a list kernel),
-the DDSketch partials of ``approx_percentile`` and ``skew`` with its
-``pow_3_2`` final. The distributed partial stage is not ported (A.8). ``approx_size_bytes`` is
+The port decomposes every aggregation of the JAX package: the moments, the
+list partials (``median``, ``string_agg``, ``list``, ``concat``,
+``count_distinct``, ``approx_count_distinct``, merged by ``concat`` and
+finished by a list kernel), the DDSketch partials of ``approx_percentile``,
+``skew`` with its ``pow_3_2`` final, and the UDAFs: a class with ``merge``
+keeps a pickled partial state per group (``udaf_partial`` / ``udaf_merge`` /
+``udaf_finalize``), any other collects a list and applies (``udaf_apply``).
+The distributed partial stage is not ported (A.8). ``approx_size_bytes`` is
 the state-size estimate the executor's grace aggregation spills on under a
 memory limit.
 """
@@ -123,12 +125,27 @@ class TwoPhasePlan:
                 # Re-decomposition of an already-partial plan: sketches are
                 # their own partial form and merge in sketch space.
                 return add("v", agg, "dd_merge")
+            if op == "udaf_partial":
+                # Same: a UDAF's partial state is its own partial form.
+                return add("st", agg, "udaf_merge", agg.kwargs)
             if op == "approx_percentile":
                 # Bounded-memory two-phase: DDSketch partials merged in
                 # sketch space (reference: src/daft-sketch).
                 sk = add("sk", AggOp("dd_sketch", Cast(child, DataType.float64())), "dd_merge")
                 return FunctionCall("dd_quantile", [sk],
                                     {"percentiles": agg.kwargs.get("percentiles")})
+            if op == "udaf":
+                u = agg.kwargs["udaf"]
+                if u.supports_partial():
+                    # Incremental two-phase: accumulate per partition, merge
+                    # states, finalize once — bounded memory per group
+                    # (reference: daft/udf/udaf.py partial aggregation).
+                    st = add("st", AggOp("udaf_partial", child, {"udaf": u}),
+                             "udaf_merge", {"udaf": u})
+                    return FunctionCall("udaf_finalize", [st], {"udaf": u})
+                # Exact fallback for function UDAFs: collect -> concat -> apply.
+                lst = add("l", AggOp("list", child), "concat")
+                return FunctionCall("udaf_apply", [lst], {"udaf": u})
             raise DaftValueError(f"Cannot decompose agg op {op}")
 
         self.final_exprs: List[Expr] = [

@@ -241,6 +241,18 @@ def _global_agg(child: Series, agg: AggOp) -> Series:
         for b in blobs[1:]:
             sk = sk.merge(DDSketch.from_bytes(b))
         return Series.from_pylist([sk.to_bytes()], child.name, DataType.binary())
+    if op == "udaf_partial":
+        u = agg.kwargs["udaf"]
+        vals = [v for v in child.to_pylist() if v is not None]
+        return Series.from_pylist([u.partial_state(vals)], child.name, DataType.binary())
+    if op == "udaf_merge":
+        u = agg.kwargs["udaf"]
+        blobs = [b for b in child.to_pylist() if b is not None]
+        return Series.from_pylist([u.merge_states(blobs)], child.name, DataType.binary())
+    if op == "udaf":
+        u = agg.kwargs["udaf"]
+        vals = [v for v in child.to_pylist() if v is not None]
+        return Series.from_pylist([u.apply(vals)], child.name, u.return_dtype)
     if op in ("bool_and", "bool_or"):
         v = child.drop_null().to_numpy()
         out = (bool(v.all()) if op == "bool_and" else bool(v.any())) if len(v) else None

@@ -488,27 +488,21 @@ class AggOp(Expr):
     """Aggregation over a (possibly computed) child expression.
 
     Reference: ``AggExpr`` (src/daft-dsl/src/expr/mod.rs AggExpr enum). The
-    port has the aggregations in ``OPS``, global and grouped; the user-defined
-    ones in ``LEFT_OUT`` raise ``DaftNotImplementedError`` naming ROADMAP A.2.
+    port has every aggregation of the JAX package, global and grouped; a
+    ``udaf``'s partial state (``udaf_partial`` / ``udaf_merge``) is binary.
     """
 
     OPS = {
         "sum", "mean", "min", "max", "count", "count_distinct", "any_value",
         "list", "concat", "stddev", "variance", "skew", "approx_count_distinct",
-        "approx_percentile", "bool_and", "bool_or", "product", "median", "string_agg",
-        "dd_sketch", "dd_merge",
-    }
-    LEFT_OUT = {
-        "udaf": "ROADMAP A.2 (udaf)", "udaf_partial": "ROADMAP A.2 (udaf)",
-        "udaf_merge": "ROADMAP A.2 (udaf)",
+        "approx_percentile", "bool_and", "bool_or", "udaf",
+        "product", "median", "string_agg",
+        "dd_sketch", "dd_merge", "udaf_partial", "udaf_merge",
     }
 
     __slots__ = ("op", "child", "kwargs")
 
     def __init__(self, op: str, child: Expr, kwargs: Optional[Dict[str, Any]] = None):
-        if op in self.LEFT_OUT:
-            raise DaftNotImplementedError(
-                f"aggregation {op!r} is not ported to daft_tpu_torch: {self.LEFT_OUT[op]}")
         if op not in self.OPS:
             raise DaftValueError(f"Unknown aggregation op: {op}")
         self.op = op
@@ -549,7 +543,9 @@ class AggOp(Expr):
             if isinstance(q, (list, tuple)):
                 return f.with_dtype(DataType.list(DataType.float64()))
             return f.with_dtype(DataType.float64())
-        if op in ("dd_sketch", "dd_merge"):
+        if op == "udaf":
+            return f.with_dtype(self.kwargs["udaf"].return_dtype)
+        if op in ("dd_sketch", "dd_merge", "udaf_partial", "udaf_merge"):
             return f.with_dtype(DataType.binary())
         return f  # min, max, any_value
 

@@ -9,10 +9,11 @@ long-tail functions, the aggregations and the ``.str`` / ``.dt`` /
 with the reference's flat aliases of the namespaced methods, and windows
 (``over``, ``lag`` / ``lead``, ``first_value`` / ``last_value``). Each lowers
 onto the port's Expr IR (``expressions/expr.py``) and the kernel registry
-(``kernels/registry.py``). Left out, each raising ``DaftNotImplementedError``
-with its ROADMAP item: ``apply`` (A.2); the user-defined aggregations raise
-through ``AggOp.LEFT_OUT`` and the kernels the port leaves out through
-``registry.LEFT_OUT``.
+(``kernels/registry.py``); ``apply`` is a row-wise UDF over the expression.
+The kernels the port leaves out raise ``DaftNotImplementedError`` with their
+ROADMAP item through ``registry.LEFT_OUT``. The flat media methods
+(``hdf5_keys``, ``video_frames``, ...) raise ``DaftIOError`` as in the JAX
+package: the free functions of ``functions`` are what decode media.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 from typing import Any, Iterable, Iterator, List, Optional, Sequence, Union
 
 from daft_tpu_torch.datatype import DataType
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftIOError, DaftValueError
 from daft_tpu_torch.expressions.expr import (
     AggOp,
     Alias,
@@ -52,10 +53,6 @@ def element() -> "Expression":
     """Placeholder for the current list element inside ``.list.eval`` /
     ``.list.map`` style expressions (reference: daft.element)."""
     return Expression(ColumnRef(""))
-
-
-def _left_out(what: str, item: str):
-    raise DaftNotImplementedError(f"{what} is not ported to daft_tpu_torch: {item}")
 
 
 def interval(**kwargs: int) -> "Expression":
@@ -244,7 +241,10 @@ class Expression:
         return Expression(FunctionCall(_fn_name, [self._expr, *(ensure_expr(a) for a in args)], kwargs))
 
     def apply(self, func, return_dtype: DataType) -> "Expression":
-        _left_out("Expression.apply (a row-wise UDF)", "ROADMAP A.2 (row-wise UDFs)")
+        from daft_tpu_torch.udf import func as make_udf
+
+        udf = make_udf(func, return_dtype=return_dtype)
+        return udf(self)
 
     # -- numeric functions ------------------------------------------------
     def ceil(self):
@@ -1320,8 +1320,8 @@ _FLAT_KERNEL_DELEGATES = {
     "video_metadata": "video_metadata",
 }
 
-#: The media surfaces of the reference, which come with the rest of
-#: functions/media.py.
+#: Surfaces present for parity but gated on media/HDF5 integrations, as in
+#: the JAX package (the free functions in ``functions`` decode media).
 _FLAT_GATED = {
     "hdf5_attrs": "h5py", "hdf5_keys": "h5py", "hdf5_metadata": "h5py",
     "video_frames": "av", "video_keyframes": "av",
@@ -1350,12 +1350,15 @@ def _install_flat_surface() -> None:
 
     def gated(flat: str, dep: str):
         def f(self, *args, **kwargs):
-            _left_out(f"Expression.{flat} (on {dep})",
-                      "ROADMAP A.3.5 (the rest of functions/media.py)")
+            raise DaftIOError(
+                f"Expression.{flat} requires the {dep} integration, which is "
+                f"not available in this environment; the surface is reserved "
+                f"for parity with the reference and activates when the "
+                f"dependency is present")
 
         f.__name__ = flat
         f.__qualname__ = f"Expression.{flat}"
-        f.__doc__ = f"Left out with its {dep} integration (reference: daft Expression.{flat})."
+        f.__doc__ = f"Gated on {dep} (reference: daft Expression.{flat})."
         return f
 
     for flat, (ns, meth) in _FLAT_NS_DELEGATES.items():

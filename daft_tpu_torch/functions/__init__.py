@@ -2,11 +2,10 @@
 
 Reference: daft/functions. Most functions are thin wrappers over registry
 kernels (``kernels/registry.py``); the AI functions live in
-``functions/ai.py`` and the file functions in ``functions/media.py``. What the
-port leaves out raises ``DaftNotImplementedError`` naming its ROADMAP item:
-the media functions when called and their kernels when a plan resolves them
-(``registry.LEFT_OUT``), the user-defined aggregations when built
-(``AggOp.LEFT_OUT``), and ``download`` / ``upload`` (remote IO) when resolved.
+``functions/ai.py`` and the file, HDF5, video and process functions in
+``functions/media.py``. What the port leaves out raises
+``DaftNotImplementedError`` naming its ROADMAP item when a plan resolves it
+(``registry.LEFT_OUT``): ``download`` / ``upload`` (remote IO).
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from __future__ import annotations
 from typing import Any, Optional, Sequence, Union
 
 from daft_tpu_torch.datatype import DataType
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.expressions.expr import FunctionCall, ensure_expr
 from daft_tpu_torch.expressions.expression import Expression, col, lit
 
@@ -24,13 +23,6 @@ def _fn(_fn_name: str, *args, **kwargs) -> Expression:
     # ``name=`` keyword (``struct_get``), which the JAX package's ``_fn(name,
     # ...)`` refuses with a TypeError (ROADMAP C.35).
     return Expression(FunctionCall(_fn_name, [ensure_expr(a) for a in args], kwargs))
-
-
-_MEDIA = "ROADMAP A.3.5 (the rest of functions/media.py)"
-
-
-def _left_out(what: str, item: str):
-    raise DaftNotImplementedError(f"{what} is not ported to daft_tpu_torch: {item}")
 
 
 # -- general ---------------------------------------------------------------
@@ -1453,30 +1445,20 @@ def over(expr, window):
 
 # -- typed files / hdf5 / video / process ----------------------------------
 from daft_tpu_torch.functions.media import (  # noqa: E402
+    audio_file,
     decode_image_file,
     file,
+    hdf5_attrs,
+    hdf5_file,
+    hdf5_keys,
+    hdf5_metadata,
     image_file,
     image_file_metadata,
+    run_process,
+    video_file,
+    video_frames,
+    video_keyframes,
 )
-
-
-def _media_left_out(name: str):
-    def f(*args, **kwargs):
-        _left_out(f"{name}()", _MEDIA)
-
-    f.__name__ = name
-    return f
-
-
-audio_file = _media_left_out("audio_file")
-video_file = _media_left_out("video_file")
-hdf5_file = _media_left_out("hdf5_file")
-hdf5_keys = _media_left_out("hdf5_keys")
-hdf5_metadata = _media_left_out("hdf5_metadata")
-hdf5_attrs = _media_left_out("hdf5_attrs")
-video_frames = _media_left_out("video_frames")
-video_keyframes = _media_left_out("video_keyframes")
-run_process = _media_left_out("run_process")
 
 _AI_LAZY = ("embed_text", "embed_image", "classify_text", "classify_image",
             "prompt", "llm_generate")

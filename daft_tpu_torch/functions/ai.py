@@ -45,7 +45,8 @@ class _ProtocolUdf(Udf):
             return self._call(self._get_instance(), *series)
 
         fn.__name__ = name
-        super().__init__(fn, return_dtype, name=name, batch_size=udf_opts.batch_size,
+        super().__init__(fn, return_dtype, batch=True, name=name,
+                         batch_size=udf_opts.batch_size,
                          max_concurrency=udf_opts.max_concurrency)
 
     def _get_instance(self):

@@ -7,8 +7,8 @@ that sits beside the JAX package's native ``minhash_rows``
 (``daft_tpu/_native.py``): the same wrapping uint64 arithmetic, so every
 non-null row's signature equals the native path's bit for bit. The list and
 sketch finalizers (``list_count_distinct``, ``list_quantile``, ``pow_3_2``,
-``dd_quantile``) serve the aggregations' two-phase finals; the UDAF ones come
-with the UDAFs (``registry.LEFT_OUT``).
+``dd_quantile``) serve the aggregations' two-phase finals, and ``udaf_apply`` /
+``udaf_finalize`` the UDAFs' (over a list of values, or a merged partial state).
 """
 
 from __future__ import annotations
@@ -257,3 +257,22 @@ def _dd_quantile(args, percentiles=0.5, **kwargs):
             out.append(sk.quantile(float(percentiles)))
     dt = DataType.list(DataType.float64()) if multi else DataType.float64()
     return Series.from_pylist(out, args[0].name, dt)
+
+
+@register_kernel("udaf_apply", lambda f, k: Field(f[0].name, k["udaf"].return_dtype))
+def _udaf_apply(args, udaf=None, **kwargs):
+    """Apply a UDAF to each list row (two-phase UDAF finalizer)."""
+    s = args[0]
+    out = []
+    for v in s.to_pylist():
+        vals = [x for x in (v or []) if x is not None]
+        out.append(udaf.apply(vals))
+    return Series.from_pylist(out, s.name, udaf.return_dtype)
+
+
+@register_kernel("udaf_finalize", lambda f, k: Field(f[0].name, k["udaf"].return_dtype))
+def _udaf_finalize(args, udaf=None, **kwargs):
+    """Finalize each merged partial state of a UDAF with ``merge``."""
+    out = [None if blob is None else udaf.finalize_state(bytes(blob))
+           for blob in args[0].to_pylist()]
+    return Series.from_pylist(out, args[0].name, udaf.return_dtype)

@@ -7,7 +7,8 @@ run also carry a torch lowering (``torch_fn``) that the relational device layer
 calls on device tensors. The registry holds the kernels of ``numeric.py``,
 ``float_ops.py``, ``embedding_ops.py``, ``extended_ops.py``, ``string_ops.py``,
 ``temporal_ops.py``, ``binary_ops.py``, ``uri_ops.py``, ``misc_ops.py``,
-``image_ops.py``, ``file_ops.py``, ``list_ops.py`` and ``struct_map_ops.py``. A name of the JAX package's registry
+``image_ops.py``, ``file_ops.py``, ``media_ops.py``, ``list_ops.py`` and
+``struct_map_ops.py``. A name of the JAX package's registry
 that the port leaves out is in ``LEFT_OUT`` with the ROADMAP item that ports
 it, and ``get_kernel`` raises ``DaftNotImplementedError`` naming that item.
 """
@@ -66,16 +67,11 @@ def register_kernel(name: str, resolver, torch_fn=None, torch_same_rules=False):
     return deco
 
 
-_MEDIA = "ROADMAP A.3.5 (the rest of functions/media.py)"
-_UDAF = "ROADMAP A.2 (udaf)"
 _REMOTE = "ROADMAP A.8 (remote IO)"
 
 #: Every kernel of the JAX package's registry that the port does not hold,
 #: with the ROADMAP item that brings it.
 LEFT_OUT: Dict[str, str] = {
-    **{n: _MEDIA for n in ("audio_metadata", "audio_resample", "video_metadata")},
-    "udaf_apply": _UDAF,
-    "udaf_finalize": _UDAF,
     "url_download": _REMOTE,
     "url_upload": _REMOTE,
 }
@@ -123,6 +119,7 @@ def _ensure_loaded() -> None:
             float_ops,
             image_ops,
             list_ops,
+            media_ops,
             misc_ops,
             numeric,
             string_ops,

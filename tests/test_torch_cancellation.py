@@ -109,7 +109,7 @@ def test_collect_timeout_raises_at_a_morsel_boundary():
         time.sleep(0.4)
         return s
 
-    udf = Udf(slow, daft_tpu_torch.DataType.int64())
+    udf = Udf(slow, daft_tpu_torch.DataType.int64(), batch=True)
     parts = [daft_tpu_torch.from_pydict({"x": list(range(i, i + 3))}) for i in (0, 3, 6)]
     df = parts[0].concat(parts[1]).concat(parts[2]).select(udf(daft_tpu_torch.col("x")))
     t0 = time.monotonic()
@@ -124,7 +124,7 @@ def test_query_timeout_s_applies_without_a_timeout_argument():
         time.sleep(0.3)
         return s
 
-    udf = Udf(slow, daft_tpu_torch.DataType.int64())
+    udf = Udf(slow, daft_tpu_torch.DataType.int64(), batch=True)
     df = daft_tpu_torch.from_pydict({"x": list(range(20))}).select(udf(daft_tpu_torch.col("x")))
     with daft_tpu_torch.execution_config_ctx(device="cpu", query_timeout_s=0.2,
                                              udf_dynamic_batching=False, default_morsel_size=2):
@@ -144,7 +144,7 @@ def test_cancel_query_by_id():
         time.sleep(0.05)
         return s
 
-    udf = Udf(slow, daft_tpu_torch.DataType.int64())
+    udf = Udf(slow, daft_tpu_torch.DataType.int64(), batch=True)
     df = daft_tpu_torch.from_pydict({"x": list(range(400))}).select(udf(daft_tpu_torch.col("x")))
 
     def cancel_soon():
@@ -173,7 +173,7 @@ def test_cancel_mid_pipeline_unwinds_stage_workers(concurrency):
         time.sleep(0.0008 * len(s))  # about 0.2 s per 256-row morsel
         return s
 
-    udf = Udf(slow, daft_tpu_torch.DataType.int64(), max_concurrency=concurrency)
+    udf = Udf(slow, daft_tpu_torch.DataType.int64(), batch=True, max_concurrency=concurrency)
     n = 32_000
     c = daft_tpu_torch.col
     df = daft_tpu_torch.from_pydict({"a": np.arange(n, dtype=np.int64)})
@@ -199,7 +199,7 @@ def test_join_probe_cancelled_mid_stream_unwinds_the_prefetch():
         return s
 
     c = daft_tpu_torch.col
-    udf = Udf(slow, daft_tpu_torch.DataType.int64())
+    udf = Udf(slow, daft_tpu_torch.DataType.int64(), batch=True)
     left = daft_tpu_torch.from_pydict({"k": np.arange(20_000) % 50}).with_column("k2", udf(c("k")))
     right = daft_tpu_torch.from_pydict({"k2": np.arange(50), "w": np.arange(50) * 2})
     before = {t.ident for t in threading.enumerate()}

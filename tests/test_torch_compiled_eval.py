@@ -423,10 +423,8 @@ def test_global_agg_over_no_rows_and_composite_exprs():
 def test_grouped_aggregation_is_not_ported():
     """The slice that named this test had every group-by raise. Grouped
     aggregation is ported now: ``aggregate`` resolves the key fields, then the
-    aggregation fields, as the JAX package does; what stays unported (the
-    aggregations with list or sketch partials, skew, udaf) raises at
-    construction, naming its ROADMAP item."""
-    from daft_tpu_torch.errors import DaftNotImplementedError
+    aggregation fields, as the JAX package does, the user-defined ones (which
+    ROADMAP A.2 brought last) included, with their partial states' types."""
     from daft_tpu_torch.expressions.expr import AggOp
     from daft_tpu_torch.logical.builder import LogicalPlanBuilder
 
@@ -437,6 +435,16 @@ def test_grouped_aggregation_is_not_ported():
     jplan = jdf._builder.aggregate([daft_tpu.col("x").sum()._expr], [daft_tpu.col("k")._expr])
     assert [(f.name, repr(f.dtype)) for f in plan.schema] == \
         [(f.name, repr(f.dtype)) for f in jplan.schema] == [("k", "Int64"), ("x", "Float64")]
-    for op in sorted(AggOp.LEFT_OUT):
-        with pytest.raises(DaftNotImplementedError, match="ROADMAP A"):
-            AggOp(op, daft_tpu_torch.col("x")._expr)
+    from daft_tpu.expressions.expr import AggOp as JAggOp
+
+    assert AggOp.OPS == JAggOp.OPS
+    schemas = []
+    for pkg, df, agg_op, plans in ((daft_tpu_torch, df, AggOp, LogicalPlanBuilder(
+            df._builder.plan)), (daft_tpu, jdf, JAggOp, jdf._builder)):
+        udaf = pkg.udf.udaf(pkg.DataType.int64())(len)
+        aggs = [agg_op(op, pkg.col("x")._expr, {"udaf": udaf})
+                for op in ("udaf", "udaf_partial", "udaf_merge")]
+        schemas.append([(f.name, repr(f.dtype)) for f in plans.aggregate(
+            [pkg.Expression(a).alias(a.op)._expr for a in aggs], [pkg.col("k")._expr]).schema])
+    assert schemas[0] == schemas[1] == [("k", "Int64"), ("udaf", "Int64"),
+                                        ("udaf_partial", "Binary"), ("udaf_merge", "Binary")]

@@ -114,7 +114,7 @@ def _udf(pkg, fn, dtype):
     """``fn`` as a batch UDF of ``pkg`` returning ``dtype``."""
     if pkg is daft_tpu:
         return func.batch(return_dtype=dtype(daft_tpu.DataType))(fn)
-    return Udf(fn, dtype(daft_tpu_torch.DataType))
+    return Udf(fn, dtype(daft_tpu_torch.DataType), batch=True)
 
 
 def _demeaned(v):

@@ -3,11 +3,11 @@ package, on the CPU.
 
 Mirrors ``tests/test_dataframe.py`` case for case: each case runs the same
 data through both packages (``device="cpu"`` for the port) and must give the
-JAX package's rows and the value that the JAX test asserts. Left with the
-JAX package: the UDF and UDAF cases (``test_udf_rowwise``,
-``test_udf_batch``, ``test_stateful_cls_udf``, ``test_udaf_function_and_class``,
-``test_udaf_incremental_partials``: ROADMAP A.2), ``test_shard`` and the
-distributed half of the DDSketch case (A.8).
+JAX package's rows and the value that the JAX test asserts. The UDF and UDAF
+cases run through the local engine: ``test_udaf_incremental_partials`` takes
+its partials from small aggregation chunks, where the JAX test takes them
+from its distributed runner. Left with the JAX package: ``test_shard`` and
+the distributed half of the DDSketch case (A.8).
 
 Then every method this slice adds, each through both packages on the same
 seeded input: the constructors (``from_pylist``, ``from_arrow``,
@@ -189,6 +189,44 @@ def test_into_partitions():
     assert _both(lambda p: _df(p).into_partitions(4).count_rows()) == 10
 
 
+def test_udf_rowwise():
+    def run(p):
+        @p.udf.func(return_dtype=p.DataType.int64())
+        def add_one(x):
+            return x + 1
+
+        return _df(p).select(add_one(p.col("a")).alias("a1")).limit(3).to_pydict()
+
+    assert _both(run)["a1"] == [1, 2, 3]
+
+
+def test_udf_batch():
+    def run(p):
+        @p.udf.func.batch(return_dtype=p.DataType.float64())
+        def double(s):
+            return s.to_numpy() * 2.0
+
+        return _df(p).select(double(p.col("c")).alias("c2")).limit(2).to_pydict()
+
+    assert _both(run)["c2"] == [0.0, 2.0]
+
+
+def test_stateful_cls_udf():
+    def run(p):
+        @p.udf.cls(max_concurrency=2)
+        class Scaler:
+            def __init__(self, k):
+                self.k = k
+
+            @p.udf.method(return_dtype=p.DataType.int64())
+            def scale(self, x):
+                return x * self.k
+
+        return _df(p).select(Scaler(3).scale(p.col("a")).alias("s")).limit(3).to_pydict()
+
+    assert _both(run)["s"] == [0, 3, 6]
+
+
 def test_limit_offset_composition():
     assert _both(lambda p: p.from_pydict({"a": list(range(20))}).limit(10).offset(5)
                  .to_pydict()["a"]) == [5, 6, 7, 8, 9]
@@ -238,6 +276,86 @@ def test_join_asof_null_keys_never_match():
                 left.join_asof(right, on="t", direction="backward").to_pydict()["r"])
 
     assert _both(run) == ([None, "r2", None], [None, None, "r2"])
+
+
+def test_udaf_function_and_class():
+    def run(p):
+        @p.udf.udaf(p.DataType.float64())
+        def geo_mean(values):
+            import math
+
+            return math.exp(sum(math.log(v) for v in values) / len(values)) if values else None
+
+        @p.udf.udaf(p.DataType.int64())
+        class RangeWidth:
+            def __init__(self):
+                self.vals = []
+
+            def accumulate(self, values):
+                self.vals.extend(values)
+
+            def finalize(self):
+                return int(max(self.vals) - min(self.vals)) if self.vals else None
+
+        df = p.from_pydict({"g": ["a", "a", "b"], "x": [1.0, 4.0, 9.0]})
+        return (df.agg(geo_mean(p.col("x")).alias("gm")).to_pydict()["gm"][0],
+                df.groupby("g").agg(geo_mean(p.col("x")).alias("gm")).sort("g").to_pydict(),
+                p.from_pydict({"x": [3, 9, 1]}).agg(RangeWidth(p.col("x")).alias("w"))
+                .to_pydict()["w"])
+
+    gm, grouped, width = _both(run)
+    assert gm == pytest.approx((1.0 * 4.0 * 9.0) ** (1 / 3))
+    assert grouped["gm"] == [pytest.approx(2.0), pytest.approx(9.0)] and width == [8]
+
+
+def test_udaf_incremental_partials(monkeypatch):
+    """Class UDAFs with merge() run incrementally through the two-phase
+    planner: accumulate per chunk, merge states, finalize once, counted by
+    merges (>= 1: no collect-all). The JAX test's distributed runner is A.8:
+    here aggregation chunks of 500 rows in both packages give the partials,
+    at one worker and at four."""
+    from daft_tpu.execution.executor import Executor as JExecutor
+    from daft_tpu_torch.execution.executor import Executor as PExecutor
+
+    for executor in (JExecutor, PExecutor):
+        monkeypatch.setattr(executor, "AGG_CHUNK_ROWS", 500)
+
+    def run(p, threads):
+        @p.udf.udaf(p.DataType.struct({"mean": p.DataType.float64(),
+                                       "merges": p.DataType.int64()}))
+        class RunningMean:
+            def __init__(self):
+                self.n = 0
+                self.total = 0.0
+                self.merges = 0
+
+            def accumulate(self, values):
+                self.n += len(values)
+                self.total += sum(values)
+
+            def merge(self, other):
+                self.n += other.n
+                self.total += other.total
+                self.merges += other.merges + 1
+
+            def finalize(self):
+                return {"mean": self.total / self.n if self.n else None,
+                        "merges": self.merges}
+
+        df = p.from_pydict({"g": [i % 3 for i in range(3000)],
+                            "v": [float(i) for i in range(3000)]})
+        with p.execution_config_ctx(num_compute_threads=threads, default_morsel_size=250):
+            return (df.into_partitions(6).groupby("g").agg(RunningMean(p.col("v")).alias("r"))
+                    .sort("g").to_pydict(),
+                    df.agg(RunningMean(p.col("v")).alias("r")).to_pydict())
+
+    for threads in (1, 4):
+        out, whole = _both(lambda p: run(p, threads))
+        for g, r in zip(out["g"], out["r"]):
+            np.testing.assert_allclose(r["mean"], np.mean([float(i) for i in range(3000)
+                                                           if i % 3 == g]))
+            assert r["merges"] >= 1, "partial path not taken"
+        assert whole["r"][0]["mean"] == 1499.5 and whole["r"][0]["merges"] >= 1
 
 
 def test_approx_percentile_ddsketch_error_bound():
@@ -603,7 +721,9 @@ def test_expr_is_literal():
 LAZY_NAMES = ["File", "functions", "udf", "cancel_query", "from_pylist", "from_arrow",
               "from_pandas", "range", "set_execution_config", "set_planning_config",
               "planning_config_ctx", "Window", "DataSource", "DataSink", "IOConfig",
-              "S3Config", "read_parquet", "DaftCancelledError", "DaftTimeoutError", "sql"]
+              "S3Config", "read_parquet", "DaftCancelledError", "DaftTimeoutError", "sql",
+              "func", "cls", "method", "read_mcap", "read_video_frames", "from_files",
+              "read_kafka", "read_paimon"]
 
 
 @pytest.mark.parametrize("name", LAZY_NAMES)
@@ -631,9 +751,10 @@ def test_every_top_level_name_of_the_jax_package_resolves_or_names_its_item():
             assert re.search(r"ROADMAP A\.\d", str(e)), (name, str(e))
             assert not hasattr(daft_tpu_torch, name)
             missing[name] = str(e)
-    assert {"Session", "Catalog", "read_iceberg", "read_mcap", "recent_queries", "set_tenant",
-            "register_view", "func"} <= set(missing)
-    assert not {"File", "functions", "udf", "from_pylist", "range", "Window"} & set(missing)
+    assert {"Session", "Catalog", "read_iceberg", "recent_queries", "set_tenant",
+            "register_view"} <= set(missing)
+    assert not {"File", "functions", "udf", "from_pylist", "range", "Window", "read_mcap",
+                "func"} & set(missing)
     for name in daft_tpu_torch.__all__:
         assert getattr(daft_tpu_torch, name) is not None, name
     with pytest.raises(AttributeError, match="no attribute 'not_a_name'$"):

@@ -109,7 +109,7 @@ def test_udf_project_remorsels_to_sixteen_device_batches():
         seen.append(len(s))
         return np.asarray(s.to_pylist()) * 2
 
-    udf = Udf(double, daft_tpu_torch.DataType.int64(), batch_size=2)
+    udf = Udf(double, daft_tpu_torch.DataType.int64(), batch=True, batch_size=2)
     df = daft_tpu_torch.from_pydict({"a": list(range(50))})
     with daft_tpu_torch.execution_config_ctx(default_morsel_size=100):
         out = df.with_column("d", udf(daft_tpu_torch.col("a"))).to_pydict()
@@ -125,7 +125,7 @@ def test_split_udfs_isolates_the_udf():
     from daft_tpu_torch.logical import plan as lp
 
     df = daft_tpu_torch.from_pydict({"a": [1, 2]})
-    udf = Udf(lambda s: s, daft_tpu_torch.DataType.int64())
+    udf = Udf(lambda s: s, daft_tpu_torch.DataType.int64(), batch=True)
     plan = df.with_column("u", udf(daft_tpu_torch.col("a")))._builder.optimize().plan
     assert isinstance(plan, lp.Project)
     assert isinstance(plan.children()[0], lp.UDFProject)
@@ -189,6 +189,8 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch.logical.plan, daft_tpu_torch.logical.builder\n"
         "import daft_tpu_torch.logical.optimizer, daft_tpu_torch.physical.plan\n"
         "import daft_tpu_torch.physical.translate, daft_tpu_torch.dataframe.dataframe\n"
+        "import daft_tpu_torch.udf, daft_tpu_torch.udf.udaf, daft_tpu_torch.io.media_sources\n"
+        "import daft_tpu_torch.kernels.media_ops\n"
         "daft_tpu_torch.kernels.registry.get_kernel('cosine_distance')\n"
         "daft_tpu_torch.kernels.registry.get_kernel('image_resize')\n"
         "new = set(sys.modules) - before\n"

@@ -455,7 +455,49 @@ CASES = {
     "list_quantile": [("one", lambda p, c, F: c("lf").list.quantile(0.5)),
                       ("many", lambda p, c, F: c("lf").list.quantile([0.1, 0.9]))],
     "pow_3_2": [("", lambda p, c, F: _call(p, "pow_3_2", c("f")))],
+    # The UDAF finalizers: over each row's list, and over each row's
+    # pickled partial state (made by a row-wise UDF from the same list).
+    "udaf_apply": [("", lambda p, c, F: _call(p, "udaf_apply", c("lf"), udaf=_udaf(p)))],
+    "udaf_finalize": [("", lambda p, c, F: _call(
+        p, "udaf_finalize", c("lf").apply(_pickled_state, p.DataType.binary()),
+        udaf=_udaf(p, _SumState)))],
 }
+
+
+def _list_sum(values):
+    return float(sum(values)) if values else None
+
+
+class _SumState:
+    """A UDAF class with ``merge``: the sum of the values it accumulated."""
+
+    def __init__(self):
+        self.total, self.n = 0.0, 0
+
+    def accumulate(self, values):
+        self.total += sum(values)
+        self.n += len(values)
+
+    def merge(self, other):
+        self.total += other.total
+        self.n += other.n
+
+    def finalize(self):
+        return self.total if self.n else None
+
+
+def _udaf(pkg, fn_or_cls=_list_sum):
+    return pkg.udf.udaf(pkg.DataType.float64())(fn_or_cls)
+
+
+def _pickled_state(values):
+    import cloudpickle
+
+    if values is None:
+        return None
+    state = _SumState()
+    state.accumulate([v for v in values if v is not None])
+    return cloudpickle.dumps(state)
 
 
 def _call(pkg, name, *args, **kwargs):
@@ -570,38 +612,61 @@ def test_every_kernel_is_ported_with_a_case_or_left_out_with_its_item():
     assert not set(ported) - set(jreg.all_kernels())
 
 
-#: Each kernel's input column for the cases this slice brought.
+def _wav(rate: int = 8000, frames: int = 400) -> bytes:
+    import io
+    import wave
+
+    pcm = np.random.default_rng(rate).integers(-32768, 32767, frames, dtype=np.int16)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+#: Each kernel's input column for the cases that ROADMAP A.3.5 and A.2
+#: brought, and its keywords for ``pkg``.
 _BROUGHT = {"list_sum": {"a": [[1, 2, None], None, []]}, "pow_3_2": {"a": [4.0, None, 2.25]},
-            "monotonically_increasing_id": {"a": ["x", "y", None]}}
+            "monotonically_increasing_id": {"a": ["x", "y", None]},
+            "udaf_apply": {"a": [[1.0, 2.5, None], None, []]},
+            "audio_metadata": {"a": [_wav(), None]}}
+_BROUGHT_KWARGS = {"udaf_apply": lambda pkg: {"udaf": _udaf(pkg)}}
 
 
 @pytest.mark.parametrize("name", ["url_download", "url_upload", "list_sum", "monotonically_increasing_id",
                                   "udaf_apply", "pow_3_2", "audio_metadata"])
 def test_left_out_kernels_raise_through_a_plan_with_their_item(name):
     """A kernel the port leaves out raises through a plan naming its ROADMAP
-    item; the three that ROADMAP A.3.5 brought (``list_sum``, ``pow_3_2`` and
+    item; those that ROADMAP A.3.5 and A.2 brought (``list_sum``, ``pow_3_2``,
     the ``monotonically_increasing_id`` marker, which ``DetectMonotonicId``
-    rewrites) run through the same plan as in the JAX package."""
+    rewrites, ``udaf_apply`` and ``audio_metadata``) run through the same plan
+    as in the JAX package."""
     data = _BROUGHT.get(name, {"a": ["x"]})
 
     def run(pkg):
-        return pkg.from_pydict(data).select(_call(pkg, name, pkg.col("a")).alias("o")).to_pydict()
+        kwargs = _BROUGHT_KWARGS.get(name, lambda p: {})(pkg)
+        return pkg.from_pydict(data).select(
+            _call(pkg, name, pkg.col("a"), **kwargs).alias("o")).to_pydict()
 
     if name not in _BROUGHT:
         assert name in preg.LEFT_OUT
-        with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.(3\.5|2|8)"):
+        with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.8"):
             run(daft_tpu_torch)
         return
     assert run(daft_tpu) == run(daft_tpu_torch) and name not in preg.LEFT_OUT
 
 
 def test_left_out_namespaces_raise_with_their_item():
-    """``apply`` still raises naming A.2; the ``.list`` / ``.struct`` /
-    ``.map`` namespaces, ``[]``, ``over``, ``lag`` and ``median`` that A.3.5
-    brought build the JAX package's expressions."""
+    """``apply`` (ROADMAP A.2) gives the JAX package's rows; the ``.list`` /
+    ``.struct`` / ``.map`` namespaces, ``[]``, ``over``, ``lag`` and
+    ``median`` that A.3.5 brought build the JAX package's expressions."""
     c = daft_tpu_torch.col("a")
-    with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.2"):
-        c.apply(abs, None)
+    applied = [pkg.from_pydict({"a": [-2, None, 3]}).select(
+        pkg.col("a").apply(lambda v: None if v is None else abs(v), pkg.DataType.int64())
+    ).to_pydict() for pkg in PKGS]
+    assert applied[0] == applied[1] == {"a": [2, None, 3]}
     w = [pkg.Window().partition_by("g").order_by("a") for pkg in PKGS]
     builds = (lambda p, i: p.col("a").list.sum(), lambda p, i: p.col("a").struct.get("x"),
               lambda p, i: p.col("a").map.get("k"), lambda p, i: p.col("a")[0],

@@ -210,8 +210,8 @@ def test_grouped_dataframe_shorthands():
         return_dtype=daft_tpu.DataType.float64())(centered)(daft_tpu.col("v"))).sort("ki")
     pdf = daft_tpu_torch.from_pydict({"ki": [1, 1, 2], "v": [1.0, 3.0, 5.0]})
     with _configs(HOST):
-        pout = pdf.groupby("ki").map_groups(Udf(centered, daft_tpu_torch.DataType.float64())(
-            daft_tpu_torch.col("v"))).sort("ki").to_pydict()
+        udf = Udf(centered, daft_tpu_torch.DataType.float64(), batch=True)
+        pout = pdf.groupby("ki").map_groups(udf(daft_tpu_torch.col("v"))).sort("ki").to_pydict()
     assert pout == jout.to_pydict() == {"ki": [1, 1, 2], "v": [-1.0, 1.0, 0.0]}
 
 

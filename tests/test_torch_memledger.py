@@ -25,7 +25,7 @@ from daft_tpu.execution import memledger as jml
 from daft_tpu.execution.resource_manager import memory_limit as jlimit
 from daft_tpu_torch import col
 from daft_tpu_torch.cancellation import CancelToken
-from daft_tpu_torch.errors import DaftTimeoutError
+from daft_tpu_torch.errors import DaftExecutionError, DaftTimeoutError
 from daft_tpu_torch.execution.executor import Executor
 from daft_tpu_torch.execution.memledger import MemoryLedger, RssSampler, get_ledger, read_rss_bytes
 from daft_tpu_torch.execution.resource_manager import memory_limit
@@ -146,7 +146,7 @@ def test_cancelled_query_drains_to_zero():
         time.sleep(0.01)
         return v
 
-    udf = Udf(slow, daft_tpu_torch.DataType.float64())
+    udf = Udf(slow, daft_tpu_torch.DataType.float64(), batch=True)
     # 50 morsels of 10,000 rows, 0.01 s each, against a 0.2 s deadline.
     with memory_limit(1 << 20) as mm, daft_tpu_torch.execution_config_ctx(
             udf_dynamic_batching=False, default_morsel_size=10_000):
@@ -229,12 +229,13 @@ def test_failed_query_poisons_and_drains():
     def boom(v):
         raise ValueError("boom")
 
-    udf = Udf(boom, daft_tpu_torch.DataType.float64())
+    udf = Udf(boom, daft_tpu_torch.DataType.float64(), batch=True)
     with memory_limit(1 << 20) as mm:
         df = daft_tpu_torch.from_pydict(make_data(50_000)).sort("v").with_column(
             "b", udf(col("v")))
-        with pytest.raises(ValueError, match="boom"):
+        with pytest.raises(DaftExecutionError, match="boom") as info:
             df.collect()
+        assert type(info.value.__cause__) is ValueError
         assert mm.available_permits() == 1 << 20
     assert get_ledger().total_held() == 0
 

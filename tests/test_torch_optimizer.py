@@ -199,7 +199,7 @@ def test_filter_merge():
 def test_split_udfs():
     from daft_tpu_torch.udf import Udf
 
-    f = Udf(lambda x: x, daft_tpu_torch.DataType.int64(), name="f")
+    f = Udf(lambda x: x, daft_tpu_torch.DataType.int64(), batch=True, name="f")
     df = daft_tpu_torch.from_pydict({"a": [1, 2]})
     plan = _optimized(df.select(f(col("a")).alias("fa"), col("a")))
     assert any(isinstance(n, lp.UDFProject) for n in plan.walk())

@@ -149,7 +149,7 @@ def test_cancelled_collect_under_a_limit_leaves_no_permit_state():
         time.sleep(0.1)
         return s
 
-    udf = Udf(slow, daft_tpu_torch.DataType.int64())
+    udf = Udf(slow, daft_tpu_torch.DataType.int64(), batch=True)
     df = daft_tpu_torch.from_pydict({"a": list(range(2000))})
     # Morsels of 100 rows, 0.1 s each: 2 s of work against a 0.3 s deadline.
     with daft_tpu_torch.execution_config_ctx(device="cpu", udf_dynamic_batching=False,

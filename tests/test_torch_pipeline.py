@@ -27,7 +27,7 @@ import daft_tpu_torch
 from daft_tpu.execution.executor import Executor as JExecutor
 from daft_tpu_torch.ai import cuda_provider
 from daft_tpu_torch.cancellation import CancelToken, cancel_scope
-from daft_tpu_torch.errors import DaftCancelledError
+from daft_tpu_torch.errors import DaftCancelledError, DaftExecutionError
 from daft_tpu_torch.execution import pipeline
 from daft_tpu_torch.execution.executor import Executor as TExecutor
 from daft_tpu_torch.execution.join_index import join_counters
@@ -244,12 +244,16 @@ def test_parallel_map_propagates_errors():
 
     df = daft_tpu_torch.from_pydict({"a": [1, 2, 0, 4] * 500})
     for conc in (1, 3):
-        udf = Udf(boom, daft_tpu_torch.DataType.int64(), max_concurrency=conc)
+        udf = Udf(boom, daft_tpu_torch.DataType.int64(), batch=True, max_concurrency=conc)
         with daft_tpu_torch.execution_config_ctx(device="cpu", num_compute_threads=4,
                                                  default_morsel_size=100,
                                                  udf_dynamic_batching=False):
-            with pytest.raises(WorkerExploded, match="worker exploded"):  # never wrapped
+            # The UDF's own error after its attempts, as in the JAX package,
+            # never wrapped again by the stage: its cause is the worker's.
+            with pytest.raises(DaftExecutionError, match="'boom' failed after 1 attempts: "
+                               "worker exploded") as info:
                 df.with_column("b", udf(daft_tpu_torch.col("a"))).collect()
+            assert type(info.value.__cause__) is WorkerExploded
 
 
 def test_parallel_map_early_close_releases_feeder(big_df):
@@ -362,7 +366,7 @@ def _concurrent_udf(pkg, cols):
     if pkg is daft_tpu:
         udf = daft_tpu.udf.Udf(triple, daft_tpu.DataType.int64(), batch=True, max_concurrency=3)
     else:
-        udf = Udf(triple, daft_tpu_torch.DataType.int64(), max_concurrency=3)
+        udf = Udf(triple, daft_tpu_torch.DataType.int64(), batch=True, max_concurrency=3)
     df = pkg.from_pydict({"k": cols["l_partkey"]})
     return df.with_column("t", udf(pkg.col("k"))).to_pydict()
 
@@ -434,7 +438,7 @@ def test_embed_image_with_max_concurrency_2_equals_one_at_a_time():
 
 
 def test_udf_concurrency_options():
-    udf = Udf(lambda s: s, daft_tpu_torch.DataType.int64(), batch_size=8)
+    udf = Udf(lambda s: s, daft_tpu_torch.DataType.int64(), batch=True, batch_size=8)
     two = udf.with_concurrency(2)
     assert (udf.max_concurrency, two.max_concurrency, two.batch_size) == (None, 2, 8)
     other = two.override_options(batch_size=None, max_concurrency=4)
@@ -711,7 +715,7 @@ def test_host_udf_runs_under_dynamic_batching():
         time.sleep(0.001)
         return daft_tpu_torch.Series.from_numpy(x.to_numpy() * 2, "y")
 
-    udf = Udf(f, daft_tpu_torch.DataType.int64())
+    udf = Udf(f, daft_tpu_torch.DataType.int64(), batch=True)
     df = daft_tpu_torch.from_pydict({"x": list(range(2000))})
     with daft_tpu_torch.execution_config_ctx(device="cpu", udf_dynamic_batching=True,
                                              udf_target_batch_latency_s=0.005):
@@ -727,7 +731,7 @@ def test_dynamic_batching_can_be_disabled():
         sizes.append(len(x))
         return x
 
-    udf = Udf(g, daft_tpu_torch.DataType.int64())
+    udf = Udf(g, daft_tpu_torch.DataType.int64(), batch=True)
     df = daft_tpu_torch.from_pydict({"x": list(range(500))})
     with daft_tpu_torch.execution_config_ctx(device="cpu", udf_dynamic_batching=False,
                                              default_morsel_size=100):
@@ -742,7 +746,7 @@ def test_a_batch_size_keeps_fixed_morsels_of_16_batches():
         sizes.append(len(x))
         return x
 
-    udf = Udf(g, daft_tpu_torch.DataType.int64(), batch_size=8)
+    udf = Udf(g, daft_tpu_torch.DataType.int64(), batch=True, batch_size=8)
     df = daft_tpu_torch.from_pydict({"x": list(range(300))})
     with daft_tpu_torch.execution_config_ctx(device="cpu", udf_dynamic_batching=True):
         df.with_column("y", udf(daft_tpu_torch.col("x"))).collect()

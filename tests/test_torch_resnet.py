@@ -185,7 +185,7 @@ def test_decode_resize_resnet_slice_matches_the_jax_package():
     out = {}
     for pkg, udf, fn in ((daft_tpu, lambda f, dt: JaxUdf(f, dt, batch=True, batch_size=4),
                           jax_logits),
-                         (daft_tpu_torch, lambda f, dt: TorchUdf(f, dt, batch_size=4),
+                         (daft_tpu_torch, lambda f, dt: TorchUdf(f, dt, batch=True, batch_size=4),
                           port_logits)):
         logits = udf(fn, pkg.DataType.embedding(pkg.DataType.float32(), 10))
         top1 = udf(lambda s, fn=fn: fn(s).argmax(1).astype(np.int64), pkg.DataType.int64())
