@@ -236,7 +236,7 @@ Phases, each of which fails the run on any error:
    l_orderkey, l_suppkey FROM lineitem`` over the first half of lineitem's
    rows, each at 8 workers with the counts set to 0 just before. Each query
    equals phase 14's answer (keys exact, floats within 1e-6); the sort's
-   keys equal the in-memory sort's, every row keeps its keys; the distinct
+   keys come in numpy's order, every row keeps its keys; the distinct
    equals numpy's ``unique``; q18, q21, the sort and the distinct spill.
    After each: the ledger holds 0 bytes, every permit is back, no spill
    directory remains. Printed beside the unlimited run: wall
@@ -302,7 +302,30 @@ Phases, each of which fails the run on any error:
    against numpy; a UDAF class with ``merge`` (the geometric mean of
    ``o_totalprice`` per ``o_orderpriority``) over SF1's 1,500,000 orders,
    within 1e-9 of numpy, with at least one merge per group;
-19. print the whole run's time and one JSON line of per-kernel numbers (with
+19. the observability plane (``phase_observability``): phase 3's 512 images
+   through ViT-L/14 ``embed_image`` with ``collect(profile=True)`` and
+   without (the same bytes, 96 flash launches each, two paths of the kernels
+   line, both walls printed), the profile's ``UDFProject`` row at 512 rows and
+   its Chrome trace (``write_chrome_trace``) read back by ``json.load`` with
+   one span per plan node; ``explain(analyze=True)`` of TPC-H q01 in its
+   DataFrame form over phase 14's SF10 lineitem with the ship dates cast to
+   int32 days (so its filter runs as a device chain) at the default pool,
+   printed on ``[obs]`` lines: its ``rows`` the collected rows (equal to
+   phase 14's SQL answer within 1e-5), its ``device eval`` fused rows and
+   ``compiled chains`` morsels the device layer's counters (both non-zero),
+   each operator's rows ``metrics()``'s ``rows_out``; the sort of
+   SF1's 1,500,000 orders (phase 15's keys) under 1/8 of their bytes while a
+   second holder keeps every permit until the sort's reservation has waited
+   0.5 s, analyzed: ``spill``
+   equal to ``spill_metrics``, a ``memory permits`` wait of at least 0.45 s,
+   ``memory`` equal to the ledger's block, the rows in order, every permit
+   back; then the two planes' overheads as the JAX package's ``bench.py``
+   measures them, each printed in % beside its 2 % budget: ``bench.py``'s
+   loop (filter, join, groupby, sort) at n = 400,000 with the registry on and
+   off (best of 21 each, alternating in one process) and at n = 6,000,000
+   profiled and unprofiled (the median of 10 paired ABBA deltas in one
+   process, doubled once when it reads over 2 %, as ``bench.py`` does);
+20. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -442,6 +465,19 @@ MCAP_MESSAGES = 4096
 WAV_RATES = ((8000, 1), (22050, 2))  # (sample rate, channels), one second each
 RESAMPLE_RATE = 16000
 UDAF_RTOL = 1e-9  # the geometric mean's merged log sums vs numpy's, in f64
+
+# Phase 19 (observability).
+OBS_HOLD_S = 0.5               # how long a second holder keeps the limit's permits
+OVERHEAD_METRICS_ROWS = 400_000   # bench.py's metrics_overhead_check n
+OVERHEAD_METRICS_REPS = 7         # its reps per round
+OVERHEAD_ROUNDS = 3               # its rounds (3 x 7 reps, alternating, in one process)
+OVERHEAD_PROFILE_ROWS = 6_000_000  # bench.py's profile_overhead_check n
+OVERHEAD_PROFILE_BLOCKS = 6       # ABBA pairs in one process (bench.py: 3 children x 10)
+OVERHEAD_BUDGET_PCT = 2.0         # the JAX package's budget for each plane
+PLANE_COST_MORSELS = 20_000       # morsels through each timed chain (tools/plane_cost.py)
+PLANE_COST_REPS = 7               # its reps, variants interleaved
+Q01_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount",
+               "l_tax", "l_shipdate")
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -1651,20 +1687,22 @@ def check_partitioned(card: str, cols: dict) -> int:
                 flash_attention.launch_count = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
+                # Arrow columns, not to_pydict's 5.7 M Python ints a run.
                 out = (df.where(c("l_shipdate") <= lineitem.Q01_SHIPDATE_MAX).groupby("l_partkey")
                        .agg(c("l_quantity").sum().alias("sum_qty"),
-                            c("l_quantity").count().alias("n")).to_pydict())
+                            c("l_quantity").count().alias("n")).to_arrow())
                 elapsed = time.perf_counter() - t0
                 launches = flash_attention.launch_count
                 snap = de.device_eval_counters.snapshot()
         finally:
             Executor._partitioned_agg = real
-        order = np.argsort(np.asarray(out["l_partkey"]))
-        got_keys = np.asarray(out["l_partkey"])[order]
+        col = {k: out.column(k).to_numpy() for k in ("l_partkey", "sum_qty", "n")}
+        order = np.argsort(col["l_partkey"])
+        got_keys = col["l_partkey"][order]
         check(np.array_equal(got_keys, present), f"partitioned query, {label}: {len(got_keys)} "
               f"groups, want {len(present)}")
-        check(np.array_equal(np.asarray(out["sum_qty"])[order], want_sum[present].astype(np.int64))
-              and np.array_equal(np.asarray(out["n"])[order], want_n[present]),
+        check(np.array_equal(col["sum_qty"][order], want_sum[present].astype(np.int64))
+              and np.array_equal(col["n"][order], want_n[present]),
               f"partitioned query, {label}: a group's sum or count differs from np.bincount")
         check(launches == 0, f"partitioned query, {label}: flash_attention launched {launches} "
               "times")
@@ -3773,9 +3811,10 @@ def check_audit(tag: str, run: dict) -> None:
 
 def phase_out_of_core(card: str, state: dict) -> dict:
     """Phase 15: phase 14's SF10 database under a memory limit of 1/8 of its
-    in-memory bytes: TPC-H q01, q18 and q21 in SQL, the sort of the orders
-    and a distinct over lineitem, each against its unlimited answer, with the
-    spill, the ledger and the audit after each; q21 under a 2 s deadline.
+    in-memory bytes: TPC-H q01, q18 and q21 in SQL against phase 14's
+    answers, the sort of the orders and a distinct over lineitem against
+    numpy, with the spill, the ledger and the audit after each; q21 under a
+    2 s deadline.
     Returns each path's flash launches (0)."""
     import gc
     import shutil
@@ -3789,7 +3828,7 @@ def phase_out_of_core(card: str, state: dict) -> dict:
     from daft_tpu_torch.execution.memledger import read_rss_bytes
     from daft_tpu_torch.execution.spill import sink_budget
     from daft_tpu_torch.ops.flash_attention import flash_attention
-    from daft_tpu_torch.tools import out_of_core
+    from daft_tpu_torch.tools import out_of_core, tpch
 
     phase_start = time.perf_counter()
     frames, tables, outs = state["frames"], state["tables"], state["outs"]
@@ -3835,19 +3874,26 @@ def phase_out_of_core(card: str, state: dict) -> dict:
             check(held["spill"]["spills"] > 0, f"{name} did not spill at {limit} bytes")
         report_out_of_core(card, name, held, state["unlimited"][name])
 
-    # The orders' sort (phase 10's keys): the unlimited run in memory, then
-    # the external sort; ties keep no fixed order across runs, so the keys
-    # must match in order and every row must carry its own keys.
+    # The orders' sort (phase 10's keys) under the limit: ties keep no fixed
+    # order across runs, so the keys must come in numpy's order and every row
+    # must carry its own keys. The keys' reference is one numpy sort of the
+    # packed (o_custkey, -o_orderdate): an unlimited engine sort of the same
+    # keys took 9.3-10.8 s on the H100's host.
     keys, desc = ["o_custkey", "o_orderdate"], [False, True]
-    free = run("sort unlimited", lambda: frames["orders"].sort(keys, desc=desc), None, True)
     held = run("sort", lambda: frames["orders"].sort(keys, desc=desc), limit, True)
     check(held["spill"]["spills"] > 0, f"the sort did not spill at {limit} bytes")
-    for k in keys:
-        check(held["rows"][k].equals(free["rows"][k]),
-              f"the sort's {k} differs from the in-memory sort's")
+    o = tables["orders"]
+    packed = np.sort((o["o_custkey"].astype(np.int64) << 32)
+                     | (np.int64(0x7FFFFFFF) - o["o_orderdate"].astype(np.int64)))
+    ship_days = held["rows"]["o_orderdate"].cast("int32").to_numpy() - np.int64(tpch.DAYS_TO_EPOCH)
+    check(np.array_equal(held["rows"]["o_custkey"].to_numpy(), packed >> 32),
+          "the sort's o_custkey differs from numpy's order")
+    check(np.array_equal(ship_days, np.int64(0x7FFFFFFF) - (packed & 0xFFFFFFFF)),
+          "the sort's o_orderdate differs from numpy's order")
+    del packed, ship_days
     # Each sorted row's order by its key, through a dense map of the sparse
     # keys (a binary search per row costs seconds more at 15 M rows).
-    o, got_keys = tables["orders"], held["rows"]["o_orderkey"].to_numpy()
+    got_keys = held["rows"]["o_orderkey"].to_numpy()
     pos = np.full(int(o["o_orderkey"].max()) + 1, -1, dtype=np.int64)
     pos[o["o_orderkey"]] = np.arange(len(o["o_orderkey"]))
     check(len(got_keys) == 0 or (got_keys.min() >= 0 and got_keys.max() < len(pos)),
@@ -3860,10 +3906,9 @@ def phase_out_of_core(card: str, state: dict) -> dict:
           and int(np.bincount(at, minlength=len(at)).max(initial=0)) <= 1,
           "the external sort lost or repeated rows")
     del pos
-    report_out_of_core(card, f"sort of {len(at)} orders", held, free)
+    report_out_of_core(card, f"sort of {len(at)} orders", held)
     print(f"[ooc] the sort checked; {time.perf_counter() - phase_start:.1f} s into the phase",
           flush=True)
-    del free
 
     # A grace distinct of (l_orderkey, l_suppkey) against numpy's unique,
     # over the first half of lineitem's rows (cut from all of them, 40.4 s,
@@ -4214,8 +4259,10 @@ def phase_surface(card: str, state: dict) -> dict:
           f"{host_snap['host_rows']}); equal row for row; approx_count_distinct "
           f"{dict(zip(card_rows['column'], card_rows['approx_count_distinct']))} [{card}]",
           flush=True)
-    # SF1's orders stay for phase 18's UDAF; the rest goes.
+    # SF1's orders stay for phase 18's UDAF and phase 19's sort, SF10's
+    # lineitem and q01's answer for phase 19; the rest goes.
     state["udaf_orders"] = (small["orders"], frames["orders"])
+    state["obs"] = {"lineitem": state["frames"]["lineitem"], "q01": state["outs"]["q01"]}
     del state["tables"], state["frames"], state["outs"], state["small"], state["small_frames"]
     gc.collect()
     print(f"[surface] phase 17 took {time.perf_counter() - phase_start:.1f} s [{card}]",
@@ -4549,7 +4596,7 @@ def phase_udfs_media(card: str, state: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # -- a UDAF with merge over SF1's orders -----------------------------------------
-    orders_cols, orders = state.pop("udaf_orders")
+    orders_cols, orders = state["udaf_orders"]  # phase 19 sorts them
 
     @dt.udf.udaf(dt.DataType.struct({"gmean": dt.DataType.float64(),
                                      "merges": dt.DataType.int64()}))
@@ -4590,6 +4637,389 @@ def phase_udfs_media(card: str, state: dict) -> dict:
     del orders, orders_cols
     gc.collect()
     print(f"[udf] phase 18 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return by_path
+
+
+def analyzed_text(df) -> str:
+    """``df.explain(analyze=True)``'s analyzed part (from ``== Analyze ==``)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        df.explain(analyze=True)
+    text = buf.getvalue()
+    check("== Analyze ==" in text, "explain(analyze=True) printed no analyzed plan")
+    return text[text.index("== Analyze =="):]
+
+
+def analyzed_lines(text: str) -> tuple:
+    """The analyzed plan as ({kind: {count: value}}, [(operator, rows)]): the
+    summary lines' ``name=value`` counts by the line's kind (``rows``,
+    ``device eval``, ``spill``, ...) and the operator table's rows."""
+    kinds, table = {}, []
+    lines = text.splitlines()[1:]
+    for i, line in enumerate(lines):
+        if line == "operators (by self time):":
+            table = [(r.split()[0], int(r.split()[1])) for r in lines[i + 2:] if r.strip()]
+            break
+        kind, _, rest = line.partition(":")
+        counts = {}
+        for part in rest.split(","):
+            key, eq, value = part.strip().partition("=")
+            if eq:
+                counts[key] = float(value.rstrip("s")) if value.rstrip("s").replace(
+                    ".", "", 1).isdigit() else value
+        if kind == "rows":
+            counts["rows"] = int(rest.split(",")[0])
+        kinds[kind] = counts
+    return kinds, table
+
+
+def overhead_loop(dt, orders, cust):
+    """``bench.py``'s TPC-H-style loop (``_TPCH_CHILD``): filter -> join ->
+    groupby -> sort."""
+    c = dt.col
+    return (orders.where(c("o_total") > 0.2)
+            .join(cust, left_on="o_cust", right_on="c_key")
+            .groupby("c_seg").agg(c("o_total").sum().alias("rev"))
+            .sort("rev", desc=True)).to_pydict()
+
+
+def overhead_tables(dt, n: int) -> tuple:
+    """``bench.py``'s two tables at ``n`` orders, seeded as there (int64 and
+    float64 columns from numpy: the metrics child's ``tolist`` gives the
+    same types at a second's more set-up)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    cols = {"o_key": np.arange(n, dtype=np.int64), "o_cust": rng.integers(0, n // 8, n),
+            "o_total": rng.random(n)}
+    dims = {"c_key": np.arange(n // 8, dtype=np.int64), "c_seg": rng.integers(0, 5, n // 8)}
+    return dt.from_pydict(cols), dt.from_pydict(dims)
+
+
+def observability_state() -> dict:
+    """What phase 19 takes from phases 14, 17 and 18, made anew for a run of
+    phase 19 alone: SF10's lineitem with q01's answer, and SF1's orders."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.tools import tpch
+
+    t0 = time.perf_counter()
+    big = tpch.tpch_tables(SQL_SF, seed=0, sql=True)
+    lineitem = tpch.sql_frames(dt, {"lineitem": big.pop("lineitem")})["lineitem"]
+    del big
+    small = tpch.tpch_tables(SQL_CHECK_SF, seed=0, sql=True)["orders"]
+    q01 = dt.sql(tpch_sql_text("q01"), lineitem=lineitem).to_pydict()
+    print(f"[obs] phase 19's tables made alone in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"obs": {"lineitem": lineitem, "q01": q01},
+            "udaf_orders": (small, tpch.sql_frames(dt, {"orders": small})["orders"])}
+
+
+def phase_observability(card: str, state: dict = None) -> dict:
+    """Phase 19: the observability plane on the card. The main path profiled
+    and not; EXPLAIN ANALYZE of TPC-H q01 over phase 14's SF10 lineitem; the
+    orders' sort under a memory limit, analyzed; the metrics registry's and
+    the profiler's overheads as the JAX package's ``bench.py`` measures them.
+    Without ``state`` (run alone, as ``tools/smoke_split.py`` runs a phase) it
+    makes its tables first (``observability_state``). Returns each path's
+    flash launches."""
+    import gc
+    import os
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution.memledger import get_ledger
+    from daft_tpu_torch.execution.resource_manager import memory_limit
+    from daft_tpu_torch.execution.spill import spill_metrics
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.metrics import get_registry
+    from daft_tpu_torch.ops.device_eval import device_eval_counters
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import lineitem, out_of_core, tpch
+    from daft_tpu_torch.tools.plane_cost import counter_totals
+
+    if state is None:
+        state = observability_state()
+    phase_start = time.perf_counter()
+    by_path = {}
+
+    # -- the main path, profiled and not ----------------------------------------
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (NUM_IMAGES, IMAGE * IMAGE * 3), dtype=np.uint8)
+    images = dt.from_pydict({"img": dt.Series.from_numpy(
+        imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))})
+    expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                       batch_size=BATCH)
+    embs, walls = {}, {}
+    with dt.execution_config_ctx(default_morsel_size=NUM_IMAGES):
+        images.limit(BATCH).with_column("emb", expr).collect()  # the tower's weights
+        for profiled in (True, False):
+            q = images.with_column("emb", expr).select("emb")
+            flash_attention.launch_count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.collect(profile=profiled)
+            walls[profiled] = time.perf_counter() - t0
+            by_path["obs embed_image " + ("profiled" if profiled else "unprofiled")] = \
+                {"flash_attention": flash_attention.launch_count}
+            check(flash_attention.launch_count == VIT_L_LAYERS * NUM_IMAGES // BATCH,
+                  f"the {'profiled' if profiled else 'unprofiled'} main path launched "
+                  f"flash_attention {flash_attention.launch_count} times, expected "
+                  f"{VIT_L_LAYERS * NUM_IMAGES // BATCH}")
+            embs[profiled] = np.concatenate([np.asarray(part.to_pydict()["emb"],
+                                                        dtype=np.float32)
+                                             for part in q.iter_partitions()])
+            if profiled:
+                prof = q.query_profile
+    check(embs[True].shape == (NUM_IMAGES, 768) and np.array_equal(embs[True], embs[False]),
+          "the profiled main path's embeddings differ from the unprofiled run's")
+    table = prof.operator_table(by="plan_node")
+    udf_rows = [r["rows"] for r in table if r["operator"] == "UDFProject"]
+    check(udf_rows == [NUM_IMAGES], f"the profile's UDFProject rows {udf_rows}, expected "
+          f"[{NUM_IMAGES}]")
+    trace_dir = tempfile.mkdtemp(prefix="obs-trace-")
+    path = os.path.join(trace_dir, "trace.json")
+    prof.write_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    nodes = [e["args"]["plan_node"] for e in trace["traceEvents"]
+             if e["ph"] == "X" and "plan_node" in e["args"]]
+    check(sorted(nodes) == sorted(r["plan_node"] for r in table) and len(set(nodes)) == len(nodes),
+          f"the Chrome trace's operator spans {nodes} are not one per plan node of {table}")
+    print(f"[obs] main path: {NUM_IMAGES} images profiled {walls[True]:.3f} s "
+          f"({NUM_IMAGES / walls[True]:.1f} img/s), unprofiled {walls[False]:.3f} s "
+          f"({NUM_IMAGES / walls[False]:.1f} img/s), profiled/unprofiled "
+          f"{walls[True] / walls[False]:.4f}; the same bytes; "
+          f"{by_path['obs embed_image profiled']['flash_attention']} flash launches each; "
+          f"Chrome trace {os.path.getsize(path)} bytes, {len(trace['traceEvents'])} events, "
+          f"one span per plan node {sorted(nodes)}; {time.perf_counter() - phase_start:.1f} s "
+          f"into the phase [{card}]", flush=True)
+    for r in table:
+        print(f"[obs]   {r['plan_node']}: rows {r['rows']}, morsels {r['morsels']}, wall "
+              f"{r['wall_ns'] / 1e6:.1f} ms, self {r['self_wall_ns'] / 1e6:.1f} ms, self cpu "
+              f"{r['self_cpu_ns'] / 1e6:.1f} ms (host time: the kernels' launches and the "
+              f"copies back)", flush=True)
+    os.remove(path)
+    os.rmdir(trace_dir)
+    del embs, images, expr, prof, q
+
+    # -- EXPLAIN ANALYZE of q01 over SF10's lineitem, at the default pool -------
+    # The DataFrame form over q01's columns with the ship dates as int32 days,
+    # the form the card takes (date32 is refused there in both packages,
+    # A.20): its filter runs as a device chain, so the device lines carry
+    # counts. The days are made before the query, not by it: a projection
+    # below the filter would be pushed into its predicate, off the card.
+    obs = state.pop("obs")
+    table = obs["lineitem"].select(*Q01_COLUMNS).to_arrow()
+    ship = table.column("l_shipdate").combine_chunks()
+    days = np.frombuffer(ship.buffers()[1], np.int32, len(ship), ship.offset) - tpch.DAYS_TO_EPOCH
+    table = table.set_column(table.schema.get_field_index("l_shipdate"), "l_shipdate",
+                             pa.array(days, pa.int32()))
+    q = lineitem.q01(dt, dt.from_arrow(table))
+    del table, ship, days
+    device_eval_counters.reset()
+    flash_attention.launch_count = 0
+    t0 = time.perf_counter()
+    text = analyzed_text(q)
+    wall = time.perf_counter() - t0
+    by_path["obs q01 analyze"] = {"flash_attention": flash_attention.launch_count}
+    check(flash_attention.launch_count == 0, "q01's analysis launched flash_attention")
+    snap = device_eval_counters.snapshot()
+    ops = q.metrics()
+    kinds, rows_table = analyzed_lines(text)
+    for line in text.splitlines():
+        print(f"[obs] {line}", flush=True)
+    rows = sum(len(p) for p in q._result)
+    # f32 sums on the card's route against the SQL form's on the host.
+    problems = rows_equal(lineitem.sorted_groups(q.to_pydict()), obs["q01"], Q06_RTOL)
+    check(not problems, f"the analyzed q01 differs from phase 14's answer: {problems}")
+    for kind in ("rows", "device eval", "memory"):
+        check(kind in kinds, f"the analyzed q01 has no {kind!r} line: {text}")
+    check(rows_table, "the analyzed q01 has no operator table")
+    check(kinds["rows"]["rows"] == rows, f"analyzed rows {kinds['rows']['rows']} != {rows}")
+    check(kinds["device eval"]["fused_rows"] == snap["fused_rows"],
+          f"device eval fused_rows {kinds['device eval']['fused_rows']} != the counters' "
+          f"{snap['fused_rows']}")
+    chain_morsels = sum(snap["chain_morsels"].values())
+    check(chain_morsels > 0 and snap["fused_rows"] > 0,
+          f"q01's filter ran no device chain: {snap}")
+    check(kinds.get("compiled chains", {}).get("morsels", 0) == chain_morsels,
+          f"compiled chains {kinds.get('compiled chains')} != the counters' {chain_morsels} "
+          f"morsels")
+    by_op = {}
+    for op, n in rows_table:
+        by_op[op] = by_op.get(op, 0) + n
+    # metrics() counts each operator's own stream, as the JAX package's does:
+    # a fused chain's members (a Filter under a Project) have spans, no stream.
+    check({op: by_op.get(op) for op in ops} == {op: c["rows_out"] for op, c in ops.items()}
+          and set(by_op) - set(ops) <= {"Filter", "Project"},
+          f"the operator table's rows {by_op} != metrics()'s rows_out {ops}")
+    print(f"[obs] q01 (the DataFrame form, int32 days) over SF{SQL_SF}'s lineitem analyzed in "
+          f"{wall:.3f} s at the default pool: {rows} rows equal to phase 14's; device eval and compiled chains equal to the "
+          f"counters (fused_rows {snap['fused_rows']}, chain morsels {chain_morsels}); each "
+          f"operator's rows equal metrics()'s rows_out {by_op}; "
+          f"{time.perf_counter() - phase_start:.1f} s into the phase [{card}]", flush=True)
+    del q, obs
+    gc.collect()
+
+    # -- the orders' sort under a memory limit, analyzed -------------------------
+    orders_cols, orders = state.pop("udaf_orders")
+    limit = out_of_core.limit_for({"orders": orders})
+    keys, desc = ["o_custkey", "o_orderdate"], [False, True]
+    spill_metrics.reset()
+    with memory_limit(limit) as mm:
+        # A second holder (as a concurrent query's sink would) keeps every
+        # permit until the sort's reservation has waited OBS_HOLD_S.
+        check(mm.acquire(limit, timeout=1.0), "could not take the limit's permits")
+        asked, acquire = threading.Event(), mm.acquire
+
+        def first_asks(*args, **kwargs):
+            asked.set()
+            return acquire(*args, **kwargs)
+
+        def release():
+            asked.wait(timeout=60)
+            time.sleep(OBS_HOLD_S)
+            mm.release(limit)
+
+        mm.acquire = first_asks
+        releaser = threading.Thread(target=release, name="obs-holder")
+        releaser.start()
+        q = orders.sort(keys, desc=desc)
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        try:
+            text = analyzed_text(q)
+        finally:
+            asked.set()
+            releaser.join(timeout=120)
+            del mm.acquire
+        wall = time.perf_counter() - t0
+        available = mm.available_permits()
+    by_path["obs sort analyze"] = {"flash_attention": flash_attention.launch_count}
+    check(flash_attention.launch_count == 0, "the sort's analysis launched flash_attention")
+    kinds, rows_table = analyzed_lines(text)
+    for line in text.splitlines():
+        print(f"[obs] {line}", flush=True)
+    sp = spill_metrics.snapshot()
+    mem = get_ledger().profile_for(q.query_id) or {}
+    check(available == limit, f"{limit - available} permit bytes still out after the sort")
+    check("spill" in kinds and kinds["spill"]["bytes"] > 0, f"the sort did not spill: {text}")
+    check((kinds["spill"]["bytes"], kinds["spill"]["files"]) == (sp["bytes_spilled"],
+                                                                 sp["files"]),
+          f"the spill line {kinds['spill']} != spill_metrics {sp}")
+    permits = kinds.get("memory permits", {})
+    check(permits.get("waits", 0) >= 1 and permits.get("wait_s", 0) >= 0.9 * OBS_HOLD_S,
+          f"the memory permits line {permits} shows no wait of {OBS_HOLD_S} s")
+    check({k: kinds["memory"].get(k) for k in ("peak_held", "charged", "spilled")} ==
+          {"peak_held": mem.get("peak_held_bytes"), "charged": mem.get("charged_bytes"),
+           "spilled": mem.get("spilled_bytes")},
+          f"the memory line {kinds['memory']} != the ledger's mem block {mem}")
+    out = result_table(q)
+    cust = out.column("o_custkey").to_numpy()
+    date = out.column("o_orderdate").cast("int32").to_numpy()
+    ordered = (cust[1:] > cust[:-1]) | ((cust[1:] == cust[:-1]) & (date[1:] <= date[:-1]))
+    check(bool(ordered.all()) and np.array_equal(np.sort(out.column("o_orderkey").to_numpy()),
+                                                 np.sort(orders_cols["o_orderkey"])),
+          "the analyzed sort's rows are out of order or not the orders'")
+    print(f"[obs] the sort of SF{SQL_CHECK_SF}'s {len(cust)} orders under 1/8 of their bytes "
+          f"({limit} bytes) analyzed in {wall:.3f} s: spill {kinds['spill']} equal to "
+          f"spill_metrics, memory permits {permits} (a holder kept the limit until the sort had "
+          f"waited {OBS_HOLD_S} s), "
+          f"memory {kinds['memory']} equal to the ledger; every permit back; "
+          f"{time.perf_counter() - phase_start:.1f} s into the phase [{card}]", flush=True)
+    del q, out, orders, orders_cols
+    gc.collect()
+
+    # -- the two planes' overheads, as the JAX package's bench.py measures them --
+    # bench.py runs each registry setting in its own processes (it reads
+    # DAFT_METRICS once); the port's switch is the registry's flag, so the
+    # settings alternate rep by rep in one process and drift hits both.
+    reg = get_registry()
+    orders, cust = overhead_tables(dt, OVERHEAD_METRICS_ROWS)
+    times = {True: [], False: []}
+
+    def loop_counts() -> dict:
+        """One rep's registry deltas (the morsels and increments that
+        ``plane_report`` prices)."""
+        before = counter_totals()
+        overhead_loop(dt, orders, cust)
+        after = counter_totals()
+        return {k: after[k] - before[k] for k in after}
+
+    loops = state.setdefault("obs_loops", {})
+    with dt.execution_config_ctx():
+        metrics_counts = loop_counts()  # warm
+        try:
+            for r in range(OVERHEAD_ROUNDS * OVERHEAD_METRICS_REPS):
+                for enabled in ((False, True) if r % 2 == 0 else (True, False)):
+                    reg.enabled = enabled
+                    t0 = time.perf_counter()
+                    overhead_loop(dt, orders, cust)
+                    times[enabled].append(time.perf_counter() - t0)
+        finally:
+            reg.enabled = True
+    on, off = min(times[True]), min(times[False])
+    metrics_pct = (on - off) / off * 100.0
+    # The paired estimator beside bench.py's best-of: each rep's on and off
+    # ran back to back, so the median of their deltas rejects drift.
+    paired = statistics.median(a - b for a, b in zip(times[True], times[False]))
+    paired_pct = paired / statistics.median(times[False]) * 100.0
+    loops["metrics"] = (metrics_counts, statistics.median(times[False]), metrics_pct, paired_pct)
+    print(f"[obs] metrics registry overhead {metrics_pct:.3f} % (on {on:.4f} s, off {off:.4f} s: "
+          f"best of {OVERHEAD_ROUNDS * OVERHEAD_METRICS_REPS} each, alternating ABBA in one "
+          f"process, as bench.py's estimator); paired {paired_pct:.3f} % (the median of "
+          f"{len(times[True])} paired deltas {paired:.4f} s over the median off "
+          f"{statistics.median(times[False]):.4f} s); bench.py's loop at "
+          f"n={OVERHEAD_METRICS_ROWS}; the JAX package's budget {OVERHEAD_BUDGET_PCT} %; "
+          f"{time.perf_counter() - phase_start:.1f} s into the phase [{card}]", flush=True)
+    del orders, cust
+
+    orders, cust = overhead_tables(dt, OVERHEAD_PROFILE_ROWS)
+    on_s, off_s = [], []
+    for profiled in (True, False):  # warm both
+        with dt.execution_config_ctx(profile_enabled=profiled):
+            profile_counts = loop_counts()
+
+    def pairs(blocks: int) -> None:
+        for b in range(blocks):  # ABBA
+            ts = {}
+            for profiled in ((False, True) if b % 2 == 0 else (True, False)):
+                with dt.execution_config_ctx(profile_enabled=profiled):
+                    t0 = time.perf_counter()
+                    overhead_loop(dt, orders, cust)
+                    ts[profiled] = time.perf_counter() - t0
+            on_s.append(ts[True])
+            off_s.append(ts[False])
+
+    def verdict() -> tuple:
+        off = statistics.median(off_s)
+        delta = statistics.median(o - f for o, f in zip(on_s, off_s))
+        return delta / off * 100.0, off, delta
+
+    pairs(OVERHEAD_PROFILE_BLOCKS)
+    profile_pct, off, delta = verdict()
+    escalated = profile_pct >= OVERHEAD_BUDGET_PCT
+    if escalated:  # as bench.py: a failing verdict doubles the sample once
+        pairs(OVERHEAD_PROFILE_BLOCKS)
+        profile_pct, off, delta = verdict()
+    loops["profile"] = (profile_counts, off, profile_pct, profile_pct)
+    print(f"[obs] profiler overhead {profile_pct:.3f} % (median paired delta {delta:.4f} s over "
+          f"median unprofiled {off:.4f} s, {len(on_s)} ABBA pairs in one process"
+          f"{', escalated once' if escalated else ''}, bench.py's loop at "
+          f"n={OVERHEAD_PROFILE_ROWS}; on {[round(t, 4) for t in on_s]}, off "
+          f"{[round(t, 4) for t in off_s]}; the JAX package's budget {OVERHEAD_BUDGET_PCT} %) "
+          f"[{card}]", flush=True)
+    del orders, cust
+    gc.collect()
+    print(f"[obs] phase 19 took {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
     return by_path
 
 
@@ -4645,6 +5075,48 @@ def resnet_macs(cfg, size: int) -> int:
     return macs + c_in * cfg.num_classes
 
 
+def plane_report(card: str, phase_counts: dict, loops: dict) -> None:
+    """What the observability plane cost each phase, from its per-morsel and
+    per-query costs on this host (``tools/plane_cost.py``) times the
+    morsels, device-layer increments and queries the phase counted (the
+    registry-off reps of phase 19 count no morsels); then the registry's and
+    the profiler's own cost in phase 19's two overhead loops, from one rep's
+    counts, beside the overheads measured there."""
+    from daft_tpu_torch.tools import plane_cost
+
+    t0 = time.perf_counter()
+    cost = plane_cost.measure(PLANE_COST_MORSELS, PLANE_COST_REPS)
+    print(f"[plane] the plane's costs on this host (median of {PLANE_COST_REPS} reps, "
+          f"{PLANE_COST_MORSELS} morsels through {cost['depth']} operators): one operator-morsel "
+          f"{cost['per_morsel_ns']:.1f} ns (instrumented {cost['instrumented_ns']:.1f} ns, "
+          f"with the registry off {cost['instrumented_off_ns']:.1f} ns, bare "
+          f"{cost['bare_ns']:.1f} ns); one counter increment {cost['counter_inc_ns']:.1f} ns "
+          f"(off {cost['counter_inc_off_ns']:.1f} ns); one query's events and stats "
+          f"({cost['ops_per_query']} operators) {cost['per_query_ns']:.1f} ns; measured in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    spent = wall = 0.0
+    for number, (deltas, phase_wall) in sorted(phase_counts.items()):
+        est = plane_cost.plane_seconds(cost, deltas)
+        print(f"[plane] phase {number}: {int(est['morsels'])} operator-morsels "
+              f"({est['morsels_s']:.4f} s), {int(est['device_incs'])} device increments at most "
+              f"({est['device_incs_s']:.4f} s), {int(est['queries'])} queries "
+              f"({est['queries_s']:.4f} s): the plane {est['total_s']:.4f} s of the phase's "
+              f"{phase_wall:.1f} s ({100.0 * est['total_s'] / phase_wall:.3f} %)", flush=True)
+        if number <= 18:
+            spent += est["total_s"]
+            wall += phase_wall
+    print(f"[plane] phases 1-18: the plane {spent:.3f} s of {wall:.1f} s "
+          f"({100.0 * spent / wall:.3f} %) [{card}]", flush=True)
+    for name, (counts, off_s, best_pct, paired_pct) in sorted(loops.items()):
+        est = plane_cost.loop_overheads(cost, counts, off_s)
+        plane = "registry" if name == "metrics" else "profiler"
+        print(f"[plane] phase 19's {name} loop: {int(est['morsels'])} operator-morsels and "
+              f"{int(est['device_incs'])} device increments a rep; the {plane}'s own cost "
+              f"{est[plane + '_s'] * 1e3:.4f} ms = {est[plane + '_pct']:.4f} % of the median "
+              f"{off_s:.4f} s without it, against {best_pct:.3f} % / {paired_pct:.3f} % measured "
+              f"(the JAX package's budget {OVERHEAD_BUDGET_PCT} %) [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4657,11 +5129,18 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     sampler = PhaseSampler()
+    phase_counts = {}
 
     def timed(number: int, fn, *args):
+        from daft_tpu_torch.tools.plane_cost import counter_totals
+
+        before = counter_totals()
         t0 = time.perf_counter()
         out = fn(*args)
-        print(f"[run] phase {number} ({fn.__name__}) took {time.perf_counter() - t0:.1f} s; "
+        wall = time.perf_counter() - t0
+        after = counter_totals()
+        phase_counts[number] = ({k: after[k] - before[k] for k in after}, wall)
+        print(f"[run] phase {number} ({fn.__name__}) took {wall:.1f} s; "
               f"{time.perf_counter() - start:.1f} s since the start [{card}]", flush=True)
         sampler.report(number)
         return out
@@ -4684,6 +5163,8 @@ def main() -> int:
         by_path.update(timed(16, phase_windows, card, sql_state))
         by_path.update(timed(17, phase_surface, card, sql_state))
         by_path.update(timed(18, phase_udfs_media, card, sql_state))
+        by_path.update(timed(19, phase_observability, card, sql_state))
+        plane_report(card, phase_counts, sql_state.get("obs_loops", {}))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,9 +9,13 @@ the preview read, and the planning config (``default_io_config``).
 ``set_execution_config`` / ``set_planning_config`` change them for the
 process, ``execution_config_ctx`` / ``planning_config_ctx`` for a block of
 code. The per-query clock (``query_now``) freezes CURRENT_DATE /
-CURRENT_TIMESTAMP once per statement. Not ported yet: ``ExecutionConfig.
-from_env`` (the port reads no ``DAFT_*`` variable), the runner choice (the
-port runs the local executor only), tenants and subscribers (ROADMAP A.8).
+CURRENT_TIMESTAMP once per statement. Event subscribers attach to the
+context (``attach_subscriber``) and ``notify`` hands each one every engine
+event. Not ported yet: ``ExecutionConfig.from_env`` (the port reads no
+``DAFT_*`` variable, so the observability switches are the config fields
+``metrics_enabled``, ``metrics_export_path``, ``profile_enabled`` and
+``profile_export_path``), the runner choice (the port runs the local
+executor only) and tenants (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ import contextlib
 import contextvars
 import dataclasses
 import datetime
+import logging
+import threading
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -88,6 +94,16 @@ class ExecutionConfig:
     # and with verify_on_write also right after each write.
     integrity_enabled: bool = True
     integrity_verify_on_write: bool = False
+    # The metrics plane (metrics.py): metrics_enabled=False on the ACTIVE
+    # config disables the registry process-wide at the first event (one
+    # plane per process, not per query); metrics_export_path writes an
+    # OTLP-JSON line per finished query (daft_tpu/config.py's defaults).
+    metrics_enabled: bool = True
+    metrics_export_path: Optional[str] = None
+    # The query profiler (profiling.py): profile every query, and write each
+    # one's Chrome trace to profile_export_path.
+    profile_enabled: bool = False
+    profile_export_path: Optional[str] = None
 
     def with_changes(self, **kwargs) -> "ExecutionConfig":
         return dataclasses.replace(self, **kwargs)
@@ -97,6 +113,36 @@ class DaftContext:
     def __init__(self) -> None:
         self.planning_config = PlanningConfig()
         self.execution_config = ExecutionConfig()
+        self._lock = threading.Lock()
+        self._subscribers: List[object] = []
+        # The latest query's RuntimeStats (DataFrame.metrics()).
+        self.last_query_stats = None
+
+    # -- subscribers ------------------------------------------------------
+    def attach_subscriber(self, subscriber) -> None:
+        with self._lock:
+            self._subscribers.append(subscriber)
+
+    def detach_subscriber(self, subscriber) -> None:
+        with self._lock:
+            self._subscribers.remove(subscriber)
+
+    def subscribers(self) -> List[object]:
+        return list(self._subscribers)
+
+    def notify(self, event) -> None:
+        from daft_tpu_torch.metrics import maybe_enable_metrics
+
+        maybe_enable_metrics(self)
+        for s in self.subscribers():
+            try:
+                s.on_event(event)
+            except Exception:
+                # One broken subscriber must not kill the query, but a
+                # silently dead metrics sink is a debugging trap: say so.
+                logging.getLogger("daft_tpu_torch.context").warning(
+                    "event subscriber %r raised; event %s dropped",
+                    type(s).__name__, type(event).__name__, exc_info=True)
 
 
 _CONTEXT = DaftContext()

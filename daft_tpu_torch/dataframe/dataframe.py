@@ -29,16 +29,23 @@ around them: ``columns``, ``in`` and ``df[...]``, ``explain``, the preview
 (``iter_rows``, ``to_pylist``, ``to_arrow``, ``to_arrow_iter``,
 ``to_pandas``, ``to_torch_map_dataset``, ``to_torch_iter_dataset``,
 ``to_torch_dataloader``; ``to_dask_dataframe`` and ``to_ray_dataset`` raise
-as in the JAX package). Not ported yet: the runner layer (native and
-distributed runners, admission, plan caches, the query log; A.8), and, each
-raising ``DaftNotImplementedError`` naming its ROADMAP item (``_LEFT_OUT``),
+as in the JAX package), and profiling: ``explain(analyze=True)``,
+``collect(profile=...)`` with ``query_profile``, and ``metrics()``. A query
+sends ``QueryStart`` / ``QueryEnd`` to the context's subscribers, and its
+per-operator counters become ``get_context().last_query_stats``
+(``_run_iter`` takes the part of the JAX package's native runner that does
+this). Not ported yet: the runner layer (native and distributed runners,
+admission, plan caches, the query log; A.8), and, each raising
+``DaftNotImplementedError`` naming its ROADMAP item (``_LEFT_OUT``),
 ``shard``, the table-format, database and connector writers (A.8),
-``with_checkpoint`` and the writers' ``checkpoint=`` (A.2), and profiling:
-``explain(analyze=True)``, ``collect(profile=...)`` and ``metrics`` (A.9.5).
+``with_checkpoint`` and the writers' ``checkpoint=`` (A.2).
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import time
 import uuid
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
@@ -89,6 +96,8 @@ class DataFrame:
         # The id of this frame's latest run, under which its cancel token is
         # registered while it runs.
         self.query_id: Optional[str] = None
+        # The finished profile of collect(profile=...).
+        self.query_profile = None
 
     @property
     def schema(self) -> Schema:
@@ -116,12 +125,15 @@ class DataFrame:
 
     def explain(self, show_all: bool = False, analyze: bool = False) -> None:
         """Print the plan (with ``show_all``: the unoptimized, optimized and
-        physical plans)."""
+        physical plans); with ``analyze=True`` also execute it and append
+        runtime stats: rows and wall, device-eval coverage, spill, IO, permit
+        waits and the per-operator table (``execution/analyze.py``)."""
+        text = self._builder.explain_string(show_all)
         if analyze:
-            raise DaftNotImplementedError(
-                "explain(analyze=True) needs the profiler's operator spans, which are not "
-                "ported to daft_tpu_torch yet: ROADMAP A.9.5")
-        print(self._builder.explain_string(show_all))
+            from daft_tpu_torch.execution.analyze import analyze_suffix
+
+            text += analyze_suffix(self)
+        print(text)
 
     def __repr__(self) -> str:
         if self._result is not None:
@@ -509,12 +521,24 @@ class DataFrame:
         ``timeout`` seconds (``query_timeout_s`` when None; none when both
         are None), as the JAX package's runner builds it. On every exit the
         byte ledger closes the query (``get_ledger().profile_for(query_id)``
-        then holds its ``mem`` block)."""
+        then holds its ``mem`` block).
+
+        The observability prologue and epilogue are the JAX native runner's:
+        ``profiling.begin_query`` (a profile when ``collect(profile=...)``
+        or ``profile_enabled`` asks for one), ``QueryStart`` after planning,
+        a ``RuntimeStats`` as ``last_query_stats``, the task profiler handed
+        to the executor and made ambient per resumption; on every exit
+        ``QueryEnd`` with the error, the stats flushed (by the executor) and
+        ``end_query``. A planning failure closes the profile too."""
+        from daft_tpu_torch import profiling
         from daft_tpu_torch.execution.executor import Executor
         from daft_tpu_torch.execution.memledger import get_ledger
+        from daft_tpu_torch.execution.resource_manager import RuntimeStats
         from daft_tpu_torch.physical.translate import translate
+        from daft_tpu_torch.subscribers.events import QueryEnd, QueryStart
 
-        cfg = get_context().execution_config
+        ctx = get_context()
+        cfg = ctx.execution_config
         ledger = get_ledger()
         # The configuration can only turn the ledger off, and doing so drops
         # what it held, so no balance strands (as the JAX package's runner).
@@ -525,30 +549,81 @@ class DataFrame:
         if timeout is None:
             timeout = cfg.query_timeout_s
         query_id = self.query_id = uuid.uuid4().hex[:16]
+        prof = profiling.begin_query(query_id, cfg)
         token = CancelToken(Deadline.after(timeout) if timeout is not None else None,
                             query_id=query_id)
-        register_query_token(query_id, token)
-        run = None
         try:
-            plan = translate(self._builder.optimize().plan)
-            run = Executor(cfg, cancel_token=token).run(plan)
-            # CURRENT_TIMESTAMP is one instant per statement, frozen per
-            # resumption as the cancel token is.
-            yield from iter_with_cancel_scope(iter_with_frozen_clock(run), token)
+            with contextlib.ExitStack() as plan_scope:
+                if prof is not None:
+                    plan_scope.enter_context(prof.driver_span("daft.plan"))
+                optimized = self._builder.optimize()
+                plan = translate(optimized.plan)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            # The execution try/finally below has not started: close the
+            # profile here, or a planning failure leaks it.
+            ledger.finish_query(query_id)
+            profiling.end_query(query_id, error=str(e))
+            raise
+        ctx.notify(QueryStart(query_id=query_id, plan=repr(optimized.plan)))
+        start = time.perf_counter()
+        error = None
+        register_query_token(query_id, token)
+        run = stream = None
+        try:
+            stats = RuntimeStats(query_id)
+            ctx.last_query_stats = stats  # DataFrame.metrics()
+            tprof = prof.local_task_profiler() if prof is not None else None
+            # The daft.execute span covers the generator's whole lifetime;
+            # ambient=False keeps the profiler out of the caller's context,
+            # where iter_with_profiler_scope sets it per resumption.
+            with profiling.profiled_task_scope(tprof, name="daft.execute", ambient=False):
+                run = Executor(cfg, cancel_token=token, stats=stats, profiler=tprof).run(plan)
+                # CURRENT_TIMESTAMP is one instant per statement, frozen per
+                # resumption as the cancel token and the profiler are.
+                stream = profiling.iter_with_profiler_scope(
+                    iter_with_cancel_scope(iter_with_frozen_clock(run), token), tprof)
+                yield from stream
+        except BaseException as e:  # noqa: BLE001 — re-raised
+            error = str(e)
+            raise
         finally:
-            if run is not None:
-                run.close()  # a failure or an abandoned iteration stops the pool now
+            for gen in (stream, run):
+                if gen is not None:
+                    gen.close()  # a failure or an abandoned iteration stops the pool now
             unregister_query_token(query_id)
             ledger.finish_query(query_id)
+            ctx.notify(QueryEnd(query_id=query_id, duration_s=time.perf_counter() - start,
+                                error=error))
+            profiling.end_query(query_id, error=error)
 
     def collect(self, timeout: Optional[float] = None, profile=None) -> "DataFrame":
         """Materialise the query. ``timeout`` (seconds) bounds the whole
         query: on expiry it fails with ``DaftTimeoutError`` at the next morsel
-        boundary; None falls back to ``query_timeout_s``."""
+        boundary; None falls back to ``query_timeout_s``.
+
+        ``profile`` records the query's trace: a path writes Chrome
+        trace-event JSON there (Perfetto, chrome://tracing), ``True`` keeps
+        it in memory. Either way the finished profile lands on
+        ``df.query_profile`` (race-free under concurrent profiled queries,
+        unlike ``profiling.last_profile()``). The config's
+        ``profile_enabled`` / ``profile_export_path`` do the same for every
+        query. Spans are host time: a morsel's kernels run asynchronously,
+        so an operator's span covers its launches and its copies back, not
+        device time alone."""
         if profile:
-            raise DaftNotImplementedError(
-                "collect(profile=...) needs the profiler's operator spans, which are not "
-                "ported to daft_tpu_torch yet: ROADMAP A.9.5")
+            from daft_tpu_torch import profiling
+
+            if self._result is not None:
+                # Nothing will run: say so rather than hand back a stale
+                # profile as if it were this query's.
+                logging.getLogger("daft_tpu_torch.dataframe").warning(
+                    "collect(profile=...) on an already-materialized DataFrame: no query "
+                    "runs, so no trace is recorded")
+                return self
+            with profiling.collect_profile(profile if isinstance(profile, str) else None) as req:
+                self._result = list(self._run_iter(timeout))
+            self.query_profile = req.profile
+            return self
         if self._result is None:
             self._result = list(self._run_iter(timeout))
         return self
@@ -704,6 +779,13 @@ class DataFrame:
     def write_ipc(self, root_dir: str, partition_cols=None, write_mode: str = "append") -> "DataFrame":
         return self._write("ipc", root_dir, partition_cols, None, write_mode)
 
+    def metrics(self) -> Dict[str, Dict[str, int]]:
+        """Per-operator metrics of the most recent execution on this context
+        (``rows_in``, ``rows_out``, ``cpu_ns`` by operator; reference:
+        dataframe.py metrics backed by the runtime-stats subscriber)."""
+        stats = get_context().last_query_stats
+        return stats.to_wire() if stats is not None else {}
+
     def write_sink(self, sink) -> "DataFrame":
         """Write through a pluggable DataSink (reference: daft/io/sink.py)."""
         from daft_tpu_torch.dataframe import creation
@@ -718,7 +800,6 @@ class DataFrame:
 _LEFT_OUT = {
     "shard": "A.8 (Shard and PushDownShard)",
     "with_checkpoint": "A.2 (pipeline-progress checkpoints)",
-    "metrics": "A.9.5 (RuntimeStats)",
     "write_deltalake": "A.8 (the table formats)",
     "write_iceberg": "A.8 (the table formats)",
     "write_sql": "A.8 (the database writers)",

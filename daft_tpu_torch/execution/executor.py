@@ -112,10 +112,20 @@ operator iterator closed, which releases the feeders.
 Not ported yet: the feedback plane with its join bucket counts and
 estimate-driven early spill (off by default in the JAX package), the
 distributed nodes (two-phase aggregation, sort sampling, shuffle reads) and
-the ``shard`` repartition (A.8), the profiling spans, the ``timer=`` hook
-and runtime stats (A.9.5), replica slots for ``chips_per_replica`` (A.10),
+the ``shard`` repartition (A.8), replica slots for ``chips_per_replica`` (A.10),
 and the scan-output cache tier in front of the scan
 (``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8).
+
+Observability, as in the JAX executor: with ``stats`` (a ``RuntimeStats``)
+every operator's stream counts its morsels and rows in the metrics registry
+(``daft_executor_morsels_total`` / ``_rows_total``) and its rows and
+exclusive CPU time in the stats (``_instrumented``); with ``profiler`` (a
+``profiling.TaskProfiler``) every operator's stream runs inside one span
+keyed by plan node (``Filter#2``, numbered in the order the pulls first meet
+the nodes: ``_profiled``), a fused chain's members get spans of their own
+(``_member_frames``), and each stage times its work on the worker that does
+it (``timer=``, the node's ``_OpFrame``). Neither changes a route, a morsel
+boundary or an order.
 
 Plans are DAGs: a decorrelated subquery references one subtree from several
 parents. A node that more than one parent references
@@ -131,6 +141,7 @@ ends (``SharedSubtree`` in the byte ledger).
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import itertools
 import os
@@ -203,9 +214,23 @@ class Executor:
     #: Seconds a blocking sink waits for a permit before its gate disengages.
     PERMIT_WAIT_S = 5.0
 
-    def __init__(self, cfg: ExecutionConfig, cancel_token: Optional[CancelToken] = None):
+    def __init__(self, cfg: ExecutionConfig, cancel_token: Optional[CancelToken] = None,
+                 stats=None, profiler=None):
         self.cfg = cfg
         self.cancel_token = cancel_token
+        self.stats = stats  # RuntimeStats | None
+        # Query profiler (profiling.TaskProfiler | None): when present, every
+        # operator's morsel loop runs inside a span keyed by plan-node id.
+        # None is the unprofiled fast path: no per-morsel cost.
+        self.profiler = profiler
+        self._profile_node_ids: Dict[int, int] = {}
+        # Live _OpFrame per plan node while its span is open: stages hand it
+        # to their workers, so per-morsel wall/CPU is measured on the worker
+        # and aggregated into the ONE span of that plan node.
+        self._op_frames: Dict[int, object] = {}
+        # Per-THREAD pull-chain stack for _instrumented's exclusive CPU time:
+        # nested frames run in different feeder threads.
+        self._op_stacks = threading.local()
         self.max_morsel_rows = cfg.default_morsel_size
         self.min_morsel_rows = min(self.MIN_MORSEL_ROWS, self.max_morsel_rows)
         n = cfg.num_compute_threads
@@ -228,7 +253,8 @@ class Executor:
         # unwound hands its permit straight back (_add_held).
         self._permits_closed = False
         self._ledger = get_ledger()
-        self._ledger_qid = getattr(cancel_token, "query_id", "") or ""
+        self._ledger_qid = getattr(cancel_token, "query_id", "") \
+            or (stats.query_id if stats is not None else "") or ""
         self._spill_dir: Optional[SpillDir] = None
 
     def _spill(self) -> SpillDir:
@@ -295,6 +321,8 @@ class Executor:
                 self.memory.release(held)
             for op, nbytes in by_op.items():
                 self._ledger.release(self._ledger_qid, op, nbytes, kind="permit")
+            if self.stats is not None:
+                self.stats.flush()
 
     def _add_held(self, nbytes: int, op: str = "") -> None:
         """Book a granted permit of ``nbytes`` to ``op`` (and charge it in
@@ -398,7 +426,11 @@ class Executor:
         it = self._track(handler(node))
         if self.cancel_token is not None:
             it = self._track(self._cancel_checked(node.name(), it))
-        return it
+        if self.profiler is not None:
+            it = self._track(self._profiled(node, it))
+        if self.stats is None:
+            return it
+        return self._track(self._instrumented(node.name(), it))
 
     def _track(self, it):
         """Register an operator iterator for ``_shutdown`` to close."""
@@ -415,16 +447,130 @@ class Executor:
             token.check(op)
             yield mp
 
+    def _profiled(self, node: pp.PhysicalPlan,
+                  it: Iterator[MicroPartition]) -> Iterator[MicroPartition]:
+        """One profiler span per operator iterator (profiling.py): wall and
+        thread-CPU time per pull, rows/bytes out per morsel, plus spill /
+        permit-wait / device-path tallies attributed through the ambient
+        frame stack. The span opens at the FIRST pull and closes on
+        exhaustion or abandonment (a limit's early close exits the context
+        manager, so abandoned operators still export)."""
+        prof = self.profiler
+        op = type(node).__name__
+        # Locked: first pulls race across the prefetch and feeder threads,
+        # and an unguarded read-then-write could give two nodes one number.
+        with self._state_lock:
+            seq = self._profile_node_ids.setdefault(id(node), len(self._profile_node_ids))
+        with prof.operator_span(op, f"{op}#{seq}") as frame:
+            # Published for the node's stage workers: a pipelined operator
+            # times its per-morsel work AT THE WORKER (run_timed), and the
+            # consumer-side pull timing below becomes wait attribution.
+            self._op_frames[id(node)] = frame
+            try:
+                while True:
+                    frame.begin_pull()
+                    try:
+                        mp = next(it)
+                    except StopIteration:
+                        return
+                    finally:
+                        frame.end_pull()
+                    frame.add_output(len(mp), mp)
+                    yield mp
+            finally:
+                self._op_frames.pop(id(node), None)
+
+    def _instrumented(self, op: str, it: Iterator[MicroPartition]) -> Iterator[MicroPartition]:
+        """Per-operator counters with EXCLUSIVE cpu attribution: each level
+        subtracts its inclusive time from its parent (the op stack tracks the
+        current pull chain, per thread), so summing operator cpu ~= query cpu
+        on a serial chain; with parallel stages each thread's chain is
+        attributed independently."""
+        from daft_tpu_torch import metrics
+
+        # Children resolved ONCE per operator iterator, not per morsel: the
+        # hot loop pays one method call + one lock-cheap add.
+        morsels = metrics.MORSELS.labels(op)
+        morsel_rows = metrics.MORSEL_ROWS.labels(op)
+        record = self.stats.record_pull
+        stack = getattr(self._op_stacks, "stack", None)
+        if stack is None:
+            stack = self._op_stacks.stack = []
+        while True:
+            t0 = time.perf_counter_ns()
+            # Unique frame entry: identity-checked pop, so adjacent operators
+            # of one name (Project over Project) can never double-pop.
+            entry = (object(), op)
+            stack.append(entry)
+            try:
+                mp = next(it)
+            except StopIteration:
+                return
+            finally:
+                if stack and stack[-1] is entry:
+                    stack.pop()
+            dt = time.perf_counter_ns() - t0
+            rows = len(mp)
+            morsels.inc()
+            morsel_rows.inc(rows)
+            # The parent's timed region includes ours: remove the double
+            # count and credit it with the rows flowing in.
+            record(op, stack[-1][1] if stack else None, rows, dt)
+            yield mp
+
+    def _stage_frame(self, node):
+        """The node's live profiler _OpFrame (None when unprofiled): the
+        worker-side timing hook the stages pass as ``timer=``."""
+        return self._op_frames.get(id(node))
+
+    def _node_timed(self, node, fn, *args):
+        """Run a sink-side kernel (a partial merge, a finalize) under the
+        node's frame, so its work is attributed though it runs outside the
+        stage workers."""
+        frame = self._stage_frame(node)
+        if frame is None:
+            return fn(*args)
+        return frame.run_timed(lambda _: fn(*args), None)
+
+    def _member_frames(self, stack, members) -> Dict[int, object]:
+        """Open one profiler span per fused member node for the stage's
+        lifetime, so a fused chain stays attributable per plan node: its
+        interpreted kernels time under their own node's frame, and every
+        fused-away operator still exports a span."""
+        frames: Dict[int, object] = {}
+        if self.profiler is None:
+            return frames
+        for nd in members:
+            op = type(nd).__name__
+            with self._state_lock:
+                seq = self._profile_node_ids.setdefault(id(nd), len(self._profile_node_ids))
+            frames[id(nd)] = stack.enter_context(self.profiler.operator_span(op, f"{op}#{seq}"))
+        return frames
+
+    @staticmethod
+    def _member_step(frames, nd, kern, mp: MicroPartition) -> MicroPartition:
+        """One fused member's kernel, timed under the member's own frame,
+        which also counts the member's output (there is no consumer-side
+        pull of a fused-away node)."""
+        frame = frames.get(id(nd))
+        if frame is None:
+            return kern(mp)
+        out = frame.run_timed(kern, mp)
+        frame.add_worker_output(len(out), out)
+        return out
+
     def _streaming_map(self, fn, source: Iterator[MicroPartition], *, name: str,
-                       split: bool = True) -> Iterator[MicroPartition]:
+                       split: bool = True, node=None) -> Iterator[MicroPartition]:
         """A per-morsel map as one stage on the compute pool. ``split``
         morselizes the input first (at every thread count, so the morsels,
         and everything keyed on them, are the same at 1 and N threads).
-        Ordered unless ``default_maintain_order=False``."""
+        Ordered unless ``default_maintain_order=False``. Each morsel is
+        timed under ``node``'s profiler frame, when there is one."""
         if split:
             source = morselize(source, self.min_morsel_rows, self.max_morsel_rows)
         yield from map_stage(source, fn, pool=self._pool(), workers=self.compute_threads,
                              name=name, ordered=self.cfg.default_maintain_order,
+                             timer=None if node is None else self._stage_frame(node),
                              ledger=self._stage_ledger(name))
 
     def _run_InMemorySource(self, node: pp.InMemorySource) -> Iterator[MicroPartition]:
@@ -537,29 +683,41 @@ class Executor:
 
     def _run_relational_chain(self, head) -> Iterator[MicroPartition]:
         """A Project/Filter chain as one stage: the interpreted prefix, then
-        the device suffix as one program per morsel."""
+        the device suffix as one program per morsel. Profiled, the head's
+        kernels and the device program time under the head's frame and each
+        fused member's interpreted kernel under its own."""
         nodes = self._collect_stage_chain(head)
         if len(nodes) > 1:
             device_eval_counters.record_stage_fusions(len(nodes) - 1)
         steps = self._chain_steps(nodes)
         split, spec, reason = self._compiled_suffix(nodes, steps, head.schema)
-        kernels = [self._node_kernel(nd) for nd in reversed(nodes)]
+        kernels = [(nd, self._node_kernel(nd)) for nd in reversed(nodes)]
+        with contextlib.ExitStack() as stack:
+            frames = self._member_frames(stack, nodes[1:])
 
-        def composed(mp: MicroPartition) -> MicroPartition:
-            for kern in kernels[:split]:
-                mp = kern(mp)
-            if spec is not None:
-                out = spec.run_morsel(mp)
-                if out is not None:
-                    return out
-            elif reason != "nothing_on_device":
-                device_eval_counters.record_host(f"chain_{reason}", rows=len(mp))
-            for kern in kernels[split:]:
-                mp = kern(mp)
-            return mp
+            def run_step(nd, kern, mp, head_frame):
+                if nd is not head:
+                    return self._member_step(frames, nd, kern, mp)
+                # The head's output is counted at the consumer (_profiled).
+                return kern(mp) if head_frame is None else head_frame.run_timed(kern, mp)
 
-        yield from self._streaming_map(composed, self._run(nodes[-1].children[0]),
-                                       name=type(head).__name__)
+            def composed(mp: MicroPartition) -> MicroPartition:
+                head_frame = self._stage_frame(head)
+                for nd, kern in kernels[:split]:
+                    mp = run_step(nd, kern, mp, head_frame)
+                if spec is not None:
+                    run = spec.run_morsel
+                    out = run(mp) if head_frame is None else head_frame.run_timed(run, mp)
+                    if out is not None:
+                        return out
+                elif reason != "nothing_on_device":
+                    device_eval_counters.record_host(f"chain_{reason}", rows=len(mp))
+                for nd, kern in kernels[split:]:
+                    mp = run_step(nd, kern, mp, head_frame)
+                return mp
+
+            yield from self._streaming_map(composed, self._run(nodes[-1].children[0]),
+                                           name=type(head).__name__)
 
     def _run_Explode(self, node: pp.Explode) -> Iterator[MicroPartition]:
         names = [e.name() for e in node.to_explode]
@@ -631,7 +789,7 @@ class Executor:
         # the shared relational pool.
         udf_pool = ThreadPoolExecutor(max_workers=concurrency, thread_name_prefix="daft-udf")
         yield from run_stage(child_iter, eval_mp, pool=udf_pool, workers=concurrency,
-                             name="UDFProject", owns_pool=True,
+                             name="UDFProject", owns_pool=True, timer=self._stage_frame(node),
                              ledger=self._stage_ledger("UDFProject"))
 
     def _run_Aggregate(self, node: pp.Aggregate) -> Iterator[MicroPartition]:
@@ -749,20 +907,26 @@ class Executor:
                 if agg_spec is not None:
                     agg_split = k
                     break
-        source = self._run(cur) if agg_spec is not None else self._run(node.children[0])
-        chunks = chunk_morsels(morselize(source, self.min_morsel_rows, self.max_morsel_rows),
-                               self.AGG_CHUNK_ROWS)
-        first = next(chunks, None)
-        if first is None:
-            yield MicroPartition(node.schema, [state.finalize()])
-            return
-        chain_kernels = [self._node_kernel(nd) for nd in reversed(chain_nodes)]
+        with contextlib.ExitStack() as stack:
+            # An absorbed chain's nodes get member spans, opened before the
+            # source's first pull so the plan nodes number as in the JAX
+            # package.
+            frames = self._member_frames(stack, chain_nodes) if agg_spec is not None else {}
+            source = self._run(cur) if agg_spec is not None else self._run(node.children[0])
+            chunks = chunk_morsels(morselize(source, self.min_morsel_rows, self.max_morsel_rows),
+                                   self.AGG_CHUNK_ROWS)
+            first = next(chunks, None)
+            if first is None:
+                yield MicroPartition(node.schema, [state.finalize()])
+                return
+            chain_kernels = [(nd, self._node_kernel(nd)) for nd in reversed(chain_nodes)]
 
-        def partial_of(chunk: List[MicroPartition]) -> RecordBatch:
-            return self._partial_of(chunk, plan, agg_spec, agg_split, cur, chain_kernels, reason)
+            def partial_of(chunk: List[MicroPartition]) -> RecordBatch:
+                return self._partial_of(chunk, plan, agg_spec, agg_split, cur, chain_kernels,
+                                        reason, frames)
 
-        yield from self._pipelined_agg_body(node, fresh_state, state, plan, first, chunks,
-                                            partial_of)
+            yield from self._pipelined_agg_body(node, fresh_state, state, plan, first, chunks,
+                                                partial_of)
 
     def _pipelined_agg_body(self, node, fresh_state, state, plan, first, chunks,
                             partial_of) -> Iterator[MicroPartition]:
@@ -781,9 +945,10 @@ class Executor:
         # soon as it outgrows the threshold. The partials come in chunk order.
         for partial in map_stage(itertools.chain([first], chunks), partial_of,
                                  pool=self._pool(), workers=self.compute_threads,
-                                 name="AggPartial", ledger=self._stage_ledger("Aggregate")):
+                                 name="AggPartial", timer=self._stage_frame(node),
+                                 ledger=self._stage_ledger("Aggregate")):
             state.add_partial(partial)
-        yield MicroPartition(node.schema, [state.finalize()])
+        yield MicroPartition(node.schema, [self._node_timed(node, state.finalize)])
 
     def _partitioned_agg(self, node: pp.Aggregate, fresh_state,
                          chunks) -> Iterator[MicroPartition]:
@@ -805,7 +970,8 @@ class Executor:
 
         buckets: List[List[RecordBatch]] = [[] for _ in range(buckets_n)]
         for parts in map_stage(chunks, split_chunk, pool=self._pool(),
-                               workers=self.compute_threads, name="AggPartition"):
+                               workers=self.compute_threads, name="AggPartition",
+                               timer=self._stage_frame(node)):
             for i, part in enumerate(parts):
                 if len(part):
                     buckets[i].append(part)
@@ -821,7 +987,8 @@ class Executor:
             return st.finalize()
 
         for out in collect_parallel(buckets, agg_bucket, pool=self._pool(),
-                                    workers=self.compute_threads):
+                                    workers=self.compute_threads,
+                                    timer=self._stage_frame(node)):
             if len(out):
                 yield MicroPartition(node.schema, [out])
 
@@ -865,7 +1032,7 @@ class Executor:
         return rb.agg(plan.partial_exprs, plan.group_by)
 
     def _partial_of(self, chunk: List[MicroPartition], plan, agg_spec, agg_split: int, cur,
-                    chain_kernels, reason: Optional[str]) -> RecordBatch:
+                    chain_kernels, reason: Optional[str], frames) -> RecordBatch:
         rb = RecordBatch.concat([b for mp in chunk for b in mp.record_batches()])
         if plan.group_by:
             return self._grouped_partial(rb, plan)
@@ -875,16 +1042,16 @@ class Executor:
         # The interpreted prefix (steps the device cannot run), then the
         # device suffix with the partial aggregation as one program.
         mp = MicroPartition(cur.schema, [rb])
-        for kern in chain_kernels[:agg_split]:
-            mp = kern(mp)
+        for nd, kern in chain_kernels[:agg_split]:
+            mp = self._member_step(frames, nd, kern, mp)
         rb = mp.combined()
         out = agg_spec.run_chunk(rb)
         if out is not None:
             return out
         # A data-driven host route (counted by run_chunk): finish the suffix
-        # interpreted.
-        for kern in chain_kernels[agg_split:]:
-            mp = kern(mp)
+        # interpreted, each step timed under its node's frame.
+        for nd, kern in chain_kernels[agg_split:]:
+            mp = self._member_step(frames, nd, kern, mp)
         return mp.combined().agg(plan.partial_exprs)
 
     def _run_Limit(self, node: pp.Limit) -> Iterator[MicroPartition]:
@@ -1282,7 +1449,7 @@ class Executor:
         if left_source is None:
             left_source = self._run(node.children[0])
         yield from self._streaming_map(probe, left_source, name="HashJoin",
-                                       split=index is not None)
+                                       split=index is not None, node=node)
 
     def _grace_join(self, node: pp.HashJoin, key_dtypes, on, left_side,
                     right_side) -> Iterator[MicroPartition]:

@@ -349,7 +349,8 @@ def _take_arrow(s: Series, idx_arr) -> Series:
 
 
 class JoinCounters:
-    """What each hash join did (the port has no metrics registry yet): one
+    """What each hash join did (the port's own tally: the JAX package counts
+    no join in its metrics registry, and the analyzed plan prints none): one
     record per join, in the order the joins started, with its ``how``, its
     key names, the build side's rows, and per probe route the morsels and
     rows it took and the rows it gave (``dense`` / ``sorted``: the index's

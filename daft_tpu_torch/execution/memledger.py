@@ -35,10 +35,14 @@ Every byte-holding part of the executor reports into this one ledger:
 ``memory_ledger_enabled=False`` (``ExecutionConfig``) turns the ledger off:
 charge and release become no-ops.
 
-Not ported: the worker wire (``drain_query_wire``, ``merge_worker_profile``)
-and the ``shuffle`` / ``cache`` kinds, which belong to the distributed layer
-and the result cache (ROADMAP A.8), and the Prometheus series (A.8), whose
-numbers :meth:`MemoryLedger.process_stats` keeps.
+The metrics registry gets the JAX package's series (``daft_pipeline_stall_
+seconds_total``, ``daft_memory_ledger_residual_bytes_total``, and the
+sampler's ``daft_memory_rss_bytes`` / ``daft_memory_ledger_held_bytes`` /
+``daft_memory_unaccounted_bytes``); :meth:`MemoryLedger.process_stats` keeps
+the same numbers in process. Not ported: the worker wire
+(``drain_query_wire``, ``merge_worker_profile``), the ``shuffle`` / ``cache``
+kinds and the reservation-vs-actual series, which belong to the distributed
+layer, the result cache and admission (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -181,6 +185,9 @@ class MemoryLedger:
         bounded queue was full (backpressure downstream of ``op``)."""
         if not self.enabled or seconds <= 0:
             return
+        from daft_tpu_torch import metrics
+
+        metrics.PIPELINE_STALL.labels(op or "stage").inc(seconds)
         with self._lock:
             by_op = self._process["stall_s_by_op"]
             by_op[op or "stage"] = by_op.get(op or "stage", 0.0) + seconds
@@ -223,6 +230,10 @@ class MemoryLedger:
             "residual_bytes": residual,
             "by_operator": by_op,
         }
+        if residual:
+            from daft_tpu_torch import metrics
+
+            metrics.MEM_LEDGER_RESIDUAL.inc(residual)
         with self._lock:
             self._process["residual_bytes"] += residual
             self._ring.append({"query_id": query_id, "ts": time.time(), **block})
@@ -303,7 +314,12 @@ class MemoryLedger:
     def _sampler_tick(self, rss: int) -> None:
         """One observation: the process RSS against the ledger's belief, and
         the RSS high-water stamped onto every in-flight query."""
+        from daft_tpu_torch import metrics
+
         held = self.total_held()
+        metrics.MEM_RSS.set(rss)
+        metrics.MEM_LEDGER_HELD.set(held)
+        metrics.MEM_UNACCOUNTED.set(max(rss - held, 0))
         with self._lock:
             self._process.update(rss_bytes=rss, held_bytes=held,
                                  unaccounted_bytes=max(rss - held, 0))

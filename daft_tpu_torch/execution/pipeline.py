@@ -11,7 +11,8 @@ checks the ambient token before it starts a morsel, and an abandoned
 consumer sets a stop flag that releases the feeder. A failure anywhere
 reaches the consumer as the ORIGINAL exception, unwrapped, so error types
 match the serial path whatever the thread count. Feeders and workers run in
-a copy of the caller's contextvars (the query's cancel token). Only feeders
+a copy of the caller's contextvars (the query's cancel token, its frozen
+clock and its ambient task profiler). Only feeders
 and consumers wait on futures, never pool workers, so stages stacked on one
 pool cannot deadlock. Each pool worker runs its morsels on a CUDA stream of
 its own (``device.worker_stream``).
@@ -31,7 +32,11 @@ notes the time its feeder spends blocked on a full queue as a stall. The
 serial path charges and releases each morsel in turn, so the cumulative
 charged bytes per operator are the same at any worker count.
 
-Not ported yet: the ``timer=`` profiling hook (ROADMAP A.9.5).
+Profiling: a stage given ``timer=`` (the operator's ``profiling._OpFrame``)
+runs each item as ``timer.run_timed(fn, item)`` on the thread that computes
+it, serial or on a worker, so the operator's span sums the work of every
+worker. The time is host time: it covers the kernels' launches and the
+copies back, not device time alone.
 """
 
 from __future__ import annotations
@@ -121,6 +126,12 @@ def chunk_morsels(it, chunk_rows: int):
             chunk, rows = [], 0
     if chunk:
         yield chunk
+
+
+def _timed(fn: Callable, timer) -> Callable:
+    """``fn`` timed under the profiling ``timer`` (an ``_OpFrame``), or
+    ``fn`` itself when there is none."""
+    return fn if timer is None else (lambda item: timer.run_timed(fn, item))
 
 
 def _on_worker(fn: Callable) -> Callable:
@@ -250,7 +261,7 @@ def _stage_account(ledger: Optional[tuple], name: str) -> Optional[_StageAccount
 
 
 def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
-              name: str = "stage", ordered: bool = True,
+              name: str = "stage", ordered: bool = True, timer=None,
               owns_pool: bool = False, ledger: Optional[tuple] = None) -> Iterator:
     """Run ``fn`` over every item of ``child_iter`` on ``pool``'s workers,
     yielding the results: THE pipeline stage primitive.
@@ -264,11 +275,12 @@ def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
     (a limit, a failure elsewhere) release the feeder without draining.
     ``owns_pool`` shuts ``pool`` down when the stage ends. ``ledger``, a
     ``(query_id, operator)`` tag, charges the queue's residency and the
-    feeder's stalls to the byte ledger."""
+    feeder's stalls to the byte ledger. ``timer`` times each item on its
+    worker (the profiler's ``_OpFrame.run_timed``)."""
     inflight: "queue.Queue" = queue.Queue(maxsize=max(workers * 2, 2))
     stop = threading.Event()
     ambient = contextvars.copy_context()
-    run_one = _on_worker(fn)
+    run_one = _on_worker(_timed(fn, timer))
     acct = _stage_account(ledger, name)
     if acct is not None:
         base_run = run_one
@@ -386,23 +398,25 @@ def run_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
 
 
 def map_stage(child_iter: Iterator, fn: Callable, *, pool, workers: int,
-              name: str = "stage", ordered: bool = True,
+              name: str = "stage", ordered: bool = True, timer=None,
               owns_pool: bool = False, ledger: Optional[tuple] = None) -> Iterator:
     """``run_stage`` when ``workers > 1``, an inline serial map on the
     consumer's thread otherwise: the same stream either way, since the stage
     changes where morsels run, never what they contain. The serial map keeps
     the ``ledger`` hook too (each morsel charged at production and released
     at hand-off), so the charged bytes per operator are the same at 1 and N
-    workers; only the peaks differ."""
+    workers; only the peaks differ. So does the ``timer`` hook: a serial
+    profiled run attributes its work to the frame as a parallel one does."""
     if workers > 1:
         return run_stage(child_iter, fn, pool=pool, workers=workers, name=name,
-                         ordered=ordered, owns_pool=owns_pool, ledger=ledger)
+                         ordered=ordered, timer=timer, owns_pool=owns_pool, ledger=ledger)
     acct = _stage_account(ledger, name)
+    run_one = _timed(fn, timer)
 
     def serial():
         try:
             for item in child_iter:
-                out = fn(item)
+                out = run_one(item)
                 if acct is not None:
                     acct.produced(out)
                     acct.consumed(out)
@@ -474,7 +488,16 @@ class Prefetch:
     def __iter__(self):
         try:
             while True:
-                item = self._q.get()
+                try:
+                    item = self._q.get(timeout=0.1)
+                except queue.Empty:
+                    # Closed while the puller was inside a slow pull: it
+                    # will put nothing more once it sees the stop flag, so a
+                    # consumer still waiting (a stage's feeder during
+                    # teardown) must not wait forever.
+                    if self._stop.is_set() and not self._thread.is_alive():
+                        return
+                    continue
                 if item is _SENTINEL:
                     return
                 if isinstance(item, BaseException):
@@ -484,11 +507,14 @@ class Prefetch:
             self._stop.set()
 
 
-def collect_parallel(items: List, fn: Callable, *, pool, workers: int) -> List:
+def collect_parallel(items: List, fn: Callable, *, pool, workers: int,
+                     timer=None) -> List:
     """``fn`` over every item at once, results in item order: the barrier
     helper of blocking sinks (partitioned buckets). Items never pull a child
     iterator, so sharing the compute pool stays deadlock-free. Every future
-    is waited for; the first error (in item order) is raised after."""
+    is waited for; the first error (in item order) is raised after.
+    ``timer`` times each item as ``run_stage``'s does."""
+    fn = _timed(fn, timer)
     if workers <= 1 or len(items) <= 1:
         return [fn(it) for it in items]
     ambient = contextvars.copy_context()

@@ -9,10 +9,14 @@ permits for what they buffer and spill the rest (``execution/spill.py``).
 The limit comes from :func:`memory_limit` or ``MemoryManager(limit_bytes=)``.
 The port reads no environment variable: ``DAFT_MEMORY_LIMIT`` waits for the
 configuration from the environment (``ExecutionConfig.from_env``, ROADMAP
-A.8). Not ported: the permit-wait metrics and the profiler's permit-wait note
-(the metrics plane, A.8 / A.9.5; the byte ledger's ``note_stall`` keeps the
-stages' stall time), and ``RuntimeStats`` / ``emit_operator_stats``, which
-feed the event subscribers (A.9.5).
+A.8). A wait for permits is observed in ``daft_memory_permit_wait_seconds``
+and attributed to the profiled operator (``profiling.note_permit_wait``).
+
+``RuntimeStats`` keeps one query's per-operator rows and CPU time
+(``DataFrame.metrics()``) and flushes them as ``OperatorStats`` events at the
+query's end. The driver's side of a worker's snapshot (the JAX package's
+``register_query_stats`` / ``emit_operator_stats``) waits for the
+distributed runner that sends it (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 
 class MemoryManager:
@@ -59,11 +64,14 @@ class MemoryManager:
                     self._cond.notify_all()
 
             token.add_listener(woken)
+        wait_t0: Optional[float] = None
         try:
             with self._cond:
                 my_gen = self._poison_gen
                 deadline = None if timeout is None else time.monotonic() + timeout
                 while self._used + request > self.limit:
+                    if wait_t0 is None:
+                        wait_t0 = time.monotonic()
                     if self._poison_gen > my_gen and self._poison_exc is not None:
                         # A waiter holding the live token of ANOTHER query is
                         # not this poison's target: its query is healthy.
@@ -87,12 +95,21 @@ class MemoryManager:
         finally:
             if woken is not None:
                 token.remove_listener(woken)
+            if wait_t0 is not None:
+                from daft_tpu_torch import metrics, profiling
+
+                waited = time.monotonic() - wait_t0
+                metrics.PERMIT_WAIT.observe(waited)
+                profiling.note_permit_wait(waited)
 
     def poison(self, exc: BaseException, query_id: Optional[str] = None) -> None:
         """Fail the waiters CURRENTLY blocked in :meth:`acquire` with ``exc``
         (the executor's abort path). With ``query_id``, only that query's
         waiters (and waiters without a token) raise: concurrent healthy
         queries keep waiting. Later acquires are unaffected."""
+        from daft_tpu_torch import metrics
+
+        metrics.MEMORY_POISON.inc()
         with self._cond:
             self._poison_gen += 1
             self._poison_exc = exc
@@ -142,3 +159,64 @@ def memory_limit(limit_bytes: Optional[int]):
         yield mm
     finally:
         mm.limit = old
+
+
+@dataclass
+class OperatorCounters:
+    rows_in: int = 0
+    rows_out: int = 0
+    cpu_ns: int = 0
+
+
+class RuntimeStats:
+    """Per-query operator counters, flushed as OperatorStats events at query
+    end (reference: RuntimeStatsManager)."""
+
+    def __init__(self, query_id: str = ""):
+        self.query_id = query_id
+        self._ops: Dict[str, OperatorCounters] = {}
+        self._lock = threading.Lock()
+
+    def record_pull(self, op: str, parent: Optional[str], rows: int, cpu_ns: int) -> None:
+        """One pull of ``op``'s stream: its rows out and time and, when the
+        pull ran inside ``parent``'s, the same rows in to ``parent`` and the
+        time taken out of ``parent``'s (exclusive time). The JAX package's
+        executor makes two ``record`` calls for this, each making a counter
+        object; here one lock covers both and a counter is made once."""
+        with self._lock:
+            c = self._counters(op)
+            c.rows_out += rows
+            c.cpu_ns += cpu_ns
+            if parent is not None:
+                c = self._counters(parent)
+                c.rows_in += rows
+                c.cpu_ns -= cpu_ns
+
+    def _counters(self, op: str) -> OperatorCounters:
+        c = self._ops.get(op)
+        if c is None:
+            c = self._ops[op] = OperatorCounters()
+        return c
+
+    def flush(self) -> None:
+        from daft_tpu_torch.context import get_context
+        from daft_tpu_torch.subscribers.events import OperatorStats
+
+        ctx = get_context()
+        with self._lock:
+            for op, c in self._ops.items():
+                ctx.notify(OperatorStats(
+                    query_id=self.query_id, operator=op,
+                    rows_in=c.rows_in, rows_out=c.rows_out,
+                    cpu_us=c.cpu_ns // 1000,
+                ))
+
+    def snapshot(self) -> Dict[str, OperatorCounters]:
+        with self._lock:
+            return dict(self._ops)
+
+    def to_wire(self) -> Dict[str, dict]:
+        """Serializable snapshot (the worker->driver stats wire shape)."""
+        return {op: {"rows_in": c.rows_in, "rows_out": c.rows_out,
+                     "cpu_ns": c.cpu_ns}
+                for op, c in self.snapshot().items()}

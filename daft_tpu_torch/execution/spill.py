@@ -26,8 +26,10 @@ goes on in memory instead.
 The spill directory is ``root=`` or ``tempfile.gettempdir()``; the
 ``DAFT_SPILL_DIR`` variable waits for the configuration from the environment
 (ROADMAP A.8), as does the fault-injection hook before each read-back
-(``maybe_inject``, the distributed layer's). ``spill_metrics`` counts in
-process (the JAX package keeps these counters in its metrics registry, A.8).
+(``maybe_inject``, the distributed layer's). ``spill_metrics`` is a shim
+over the metrics registry's ``daft_spill_*_total`` series, as in the JAX
+package; each spill is also attributed to the profiled operator
+(``profiling.note_spill``).
 """
 
 from __future__ import annotations
@@ -54,25 +56,32 @@ _MARKER = "__daft_run_marker__"
 
 
 class SpillMetrics:
-    """Process counters of the spill: bytes and files written and spill
-    events (the JAX package's ``daft_spill_*_total``), the permit waits
-    that timed out into best effort (``budget_reservation``, and the
-    permit gates of ``_collect`` and of a shared subtree's cache that
-    disengaged: each after a wait of 5 s), and the spill directories made
-    since the last reset (:meth:`dirs`, for the audit that none remains)."""
+    """Thin shim over the unified registry (metrics.py), as in the JAX
+    package: bytes and files written and spill events live as the
+    ``daft_spill_*_total`` series, so disabling the registry empties them
+    too. The port's own tallies stay in process: the permit waits that
+    timed out into best effort (``budget_reservation``, and the permit gates
+    of ``_collect`` and of a shared subtree's cache that disengaged: each
+    after a wait of 5 s), and the spill directories made since the last
+    reset (:meth:`dirs`, for the audit that none remains)."""
 
-    _KEYS = ("bytes_spilled", "files", "spills", "best_effort_reservations",
-             "permit_gates_off")
+    _SERIES = {"bytes_spilled": "daft_spill_bytes_total",
+               "files": "daft_spill_files_total",
+               "spills": "daft_spill_events_total"}
+    _LOCAL = ("best_effort_reservations", "permit_gates_off")
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self.reset()
+        self._c = dict.fromkeys(self._LOCAL, 0)
+        self._dirs: List[str] = []
 
     def record(self, nbytes: int, nfiles: int = 1) -> None:
-        with self._lock:
-            self._c["bytes_spilled"] += nbytes
-            self._c["files"] += nfiles
-            self._c["spills"] += 1
+        from daft_tpu_torch import metrics, profiling
+
+        metrics.SPILL_BYTES.inc(nbytes)
+        metrics.SPILL_FILES.inc(nfiles)
+        metrics.SPILL_EVENTS.inc()
+        profiling.note_spill(nbytes)
 
     def record_best_effort(self, key: str) -> None:
         with self._lock:
@@ -83,13 +92,23 @@ class SpillMetrics:
             self._dirs.append(root)
 
     def reset(self) -> None:
+        from daft_tpu_torch import metrics
+
+        reg = metrics.get_registry()
+        for name in self._SERIES.values():
+            reg.reset(name)
         with self._lock:
-            self._c = dict.fromkeys(self._KEYS, 0)
-            self._dirs: List[str] = []
+            self._c = dict.fromkeys(self._LOCAL, 0)
+            self._dirs = []
 
     def snapshot(self) -> dict:
+        from daft_tpu_torch import metrics
+
+        snap = metrics.get_registry().snapshot()
+        out = {k: int(snap.counter_total(name)) for k, name in self._SERIES.items()}
         with self._lock:
-            return dict(self._c)
+            out.update(self._c)
+        return out
 
     def dirs(self) -> List[str]:
         with self._lock:

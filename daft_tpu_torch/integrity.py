@@ -17,9 +17,10 @@ the process need not match the JAX package's. ``integrity_enabled`` gates
 the read-side check, ``integrity_verify_on_write`` re-reads each file right
 after it is written (``ExecutionConfig``).
 
-Not ported: the kernel-hash flavour, the content digest of wire tables, the
-metrics and the ``CorruptionDetected`` event, which go with the distributed
-layer and the metrics plane (ROADMAP A.8).
+Each check counts in the registry (``daft_integrity_verified_total`` /
+``_failed_total`` / ``_quarantined_total``), and a mismatch notifies
+``CorruptionDetected``. Not ported: the kernel-hash flavour and the content
+digest of wire tables, which go with the distributed layer (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -82,6 +83,31 @@ def quarantine(path: str) -> Optional[str]:
         return None
 
 
+def _record_verified(artifact: str) -> None:
+    from daft_tpu_torch import metrics
+
+    if metrics.get_registry().enabled:
+        metrics.INTEGRITY_VERIFIED.labels(artifact).inc()
+
+
+def _record_failure(artifact: str, path: str, expected: str, actual: str,
+                    quarantined: bool) -> None:
+    from daft_tpu_torch import metrics
+    from daft_tpu_torch.context import get_context
+    from daft_tpu_torch.subscribers.events import CorruptionDetected
+
+    if metrics.get_registry().enabled:
+        metrics.INTEGRITY_FAILED.labels(artifact).inc()
+        if quarantined:
+            metrics.INTEGRITY_QUARANTINED.labels(artifact).inc()
+    try:
+        get_context().notify(CorruptionDetected(
+            artifact=artifact, path=path, expected=expected, actual=actual,
+            action="quarantined" if quarantined else "detected"))
+    except Exception:  # noqa: BLE001 — observability must not mask the error
+        log.warning("CorruptionDetected event delivery failed", exc_info=True)
+
+
 def verify_file(path: str, expected: str, artifact: str, cfg=None,
                 do_quarantine: bool = True) -> None:
     """Check a file's raw bytes against the digest minted at write. A no-op
@@ -94,8 +120,10 @@ def verify_file(path: str, expected: str, artifact: str, cfg=None,
         return
     actual = hash_file(path)  # an unreadable file raises OSError: not corruption
     if actual == expected:
+        _record_verified(artifact)
         return
     qpath = quarantine(path) if do_quarantine else None
+    _record_failure(artifact, path, expected, actual, quarantined=qpath is not None)
     raise DaftCorruptionError(
         f"{artifact} artifact failed integrity verification: {path} "
         f"(expected {expected}, got {actual})"

@@ -10,10 +10,11 @@ re-opens it with a doubled delay.
 
 State machines are process-wide (module registry keyed by endpoint) so every
 task shares one view of a host's health. The port serves local files only,
-so every scan shares the one ``file://local`` endpoint. Not ported yet: the
-``CircuitOpened`` / ``CircuitClosed`` events and the circuit-state gauge
-(subscribers and metrics, ROADMAP A.8), and the fault-injection hook in
-``allow`` (the distributed layer's ``maybe_inject``, A.8).
+so every scan shares the one ``file://local`` endpoint. Transitions emit
+``CircuitOpened`` / ``CircuitClosed`` events through the engine context and
+move the registry's ``daft_circuit_state`` gauge and transition counter. Not
+ported yet: the fault-injection hook in ``allow`` (the distributed layer's
+``maybe_inject``, ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Dict, Optional
 from urllib.parse import urlsplit
 
 from daft_tpu_torch.errors import DaftCircuitOpenError
+from daft_tpu_torch.metrics import record_circuit_state
+from daft_tpu_torch.subscribers.events import CircuitClosed, CircuitOpened
 
 _jitter_rng = random.Random()
 
@@ -47,7 +50,8 @@ HALF_OPEN_PROBES = 1
 
 
 class CircuitBreaker:
-    """One endpoint's closed/open/half-open state machine. Thread-safe."""
+    """One endpoint's closed/open/half-open state machine. Thread-safe;
+    event notification happens outside the lock."""
 
     def __init__(self, endpoint: str,
                  failure_threshold: int = FAILURE_THRESHOLD,
@@ -78,55 +82,71 @@ class CircuitBreaker:
         :class:`DaftCircuitOpenError` while the circuit is open (and it is
         not yet probe time); lets ONE probe per ``half_open_probes`` slot
         through once the backoff elapses."""
-        with self._lock:
-            if self._state == CLOSED:
-                return
-            now = time.monotonic()
-            if self._state == OPEN:
-                if now < self._probe_at:
-                    wait_s = self._probe_at - now
-                    raise DaftCircuitOpenError(
-                        f"circuit open for {self.endpoint} "
-                        f"({self._consecutive_failures} consecutive "
-                        f"failures; probe in {wait_s:.2f}s)",
-                        endpoint=self.endpoint)
-                self._state = HALF_OPEN
-                self._probes_inflight = 0
-            # HALF_OPEN: recovery is PROBED, not stampeded — admit only the
-            # configured probe quota, fail the rest fast. The quota re-arms
-            # once the probe window passes WITHOUT an outcome: a probe whose
-            # caller never reports back (cancelled query, non-retryable
-            # error, abandoned stream) must not wedge the breaker half-open.
-            if self._probes_inflight >= self.half_open_probes:
-                if now < self._probe_window_until:
-                    raise DaftCircuitOpenError(
-                        f"circuit half-open for {self.endpoint}: probe "
-                        f"quota in flight", endpoint=self.endpoint)
-                self._probes_inflight = 0  # probe vanished: re-arm
-            self._probes_inflight += 1
-            self._probe_window_until = now + max(self.open_base_s, 0.1)
+        became_half_open = False
+        try:
+            with self._lock:
+                if self._state == CLOSED:
+                    return
+                now = time.monotonic()
+                if self._state == OPEN:
+                    if now < self._probe_at:
+                        wait_s = self._probe_at - now
+                        raise DaftCircuitOpenError(
+                            f"circuit open for {self.endpoint} "
+                            f"({self._consecutive_failures} consecutive "
+                            f"failures; probe in {wait_s:.2f}s)",
+                            endpoint=self.endpoint)
+                    self._state = HALF_OPEN
+                    self._probes_inflight = 0
+                    became_half_open = True
+                # HALF_OPEN: recovery is PROBED, not stampeded — admit only
+                # the configured probe quota, fail the rest fast. The quota
+                # re-arms once the probe window passes WITHOUT an outcome: a
+                # probe whose caller never reports back (cancelled query,
+                # non-retryable error, abandoned stream) must not wedge the
+                # breaker half-open.
+                if self._probes_inflight >= self.half_open_probes:
+                    if now < self._probe_window_until:
+                        raise DaftCircuitOpenError(
+                            f"circuit half-open for {self.endpoint}: probe "
+                            f"quota in flight", endpoint=self.endpoint)
+                    self._probes_inflight = 0  # probe vanished: re-arm
+                self._probes_inflight += 1
+                self._probe_window_until = now + max(self.open_base_s, 0.1)
+        finally:
+            if became_half_open:
+                record_circuit_state(self.endpoint, HALF_OPEN)
 
     def reset(self) -> None:
-        """Force back to a pristine CLOSED state."""
+        """Force back to a pristine CLOSED state (no events)."""
         with self._lock:
+            was_closed = self._state == CLOSED
             self._state = CLOSED
             self._consecutive_failures = 0
             self._open_count = 0
             self._probes_inflight = 0
             self._probe_at = 0.0
             self._probe_window_until = 0.0
+        if not was_closed:
+            record_circuit_state(self.endpoint, CLOSED)
 
     def record_success(self) -> None:
+        closed = False
         with self._lock:
             self._consecutive_failures = 0
             if self._state != CLOSED:
                 self._state = CLOSED
                 self._open_count = 0
                 self._probes_inflight = 0
+                closed = True
+        if closed:
+            record_circuit_state(self.endpoint, CLOSED)
+            self._notify_closed()
 
     def record_failure(self) -> None:
         """Count one transient failure; trip open at the threshold (or
         instantly from half-open — the probe failing IS the evidence)."""
+        opened = failures = 0
         with self._lock:
             self._consecutive_failures += 1
             trip = (self._state == HALF_OPEN
@@ -142,6 +162,22 @@ class CircuitBreaker:
                 # from many workers against one recovered host spread out.
                 delay *= 0.5 + _jitter_rng.random() / 2
                 self._probe_at = time.monotonic() + delay
+                opened, failures = delay, self._consecutive_failures
+        if opened:
+            record_circuit_state(self.endpoint, OPEN)
+            self._notify_opened(failures, opened)
+
+    # -- events -----------------------------------------------------------
+    def _notify_opened(self, failures: int, open_for_s: float) -> None:
+        from daft_tpu_torch.context import get_context
+
+        get_context().notify(CircuitOpened(
+            endpoint=self.endpoint, failures=failures, open_for_s=open_for_s))
+
+    def _notify_closed(self) -> None:
+        from daft_tpu_torch.context import get_context
+
+        get_context().notify(CircuitClosed(endpoint=self.endpoint))
 
 
 # --------------------------------------------------------------------- #

@@ -5,9 +5,9 @@ Reference: src/daft-io/src/{stats.rs,range.rs,multipart.rs,retry.rs} — the
 reference's object-store layer counts gets/puts/bytes, serves range reads,
 and uploads large objects in retried parts. Arrow C++ filesystems carry the
 transport here (local files in the port); this layer adds the same
-accounting and chunk/retry semantics on top. Not ported yet: the per-endpoint
-``daft_io_*`` series of the metrics plane, and the fault-injection hook in
-``read_range`` (``maybe_inject``, the distributed layer's), both ROADMAP A.8.
+accounting and chunk/retry semantics on top. Not ported yet: the
+fault-injection hook in ``read_range`` (``maybe_inject``, the distributed
+layer's, ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -40,8 +40,11 @@ class IOStatsSnapshot:
 
 class IOStats:
     """Process-wide thread-safe IO counters (reference: daft-io IOStatsRef).
-    ``endpoint`` and ``verb`` name the metrics series the JAX package also
-    feeds (ROADMAP A.8); the port keeps the signature."""
+
+    Every count also feeds the unified registry (metrics.py ``daft_io_*``
+    series): callers that know their endpoint pass it so the exports break
+    requests/bytes/latency out per origin; others fall back to the shared
+    ``unattributed`` series."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -54,6 +57,9 @@ class IOStats:
             self._s.gets += 1
             self._s.bytes_read += nbytes
             self._s.read_time_s += seconds
+        from daft_tpu_torch.metrics import record_io
+
+        record_io(endpoint or "unattributed", verb, nbytes, seconds, "read")
 
     def count_put(self, nbytes: int = 0, seconds: float = 0.0,
                   endpoint: Optional[str] = None,
@@ -62,6 +68,9 @@ class IOStats:
             self._s.puts += 1
             self._s.bytes_written += nbytes
             self._s.write_time_s += seconds
+        from daft_tpu_torch.metrics import record_io
+
+        record_io(endpoint or "unattributed", verb, nbytes, seconds, "write")
 
     def count_open(self) -> None:
         with self._lock:
@@ -70,6 +79,10 @@ class IOStats:
     def count_retry(self, endpoint: Optional[str] = None) -> None:
         with self._lock:
             self._s.retries += 1
+        from daft_tpu_torch import metrics
+
+        if metrics.get_registry().enabled:
+            metrics.IO_RETRIES.labels(endpoint or "unattributed").inc()
 
     def count_pruned(self, nfiles: int) -> None:
         with self._lock:

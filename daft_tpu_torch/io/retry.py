@@ -2,8 +2,9 @@
 
 Reference: src/daft-io/src/retry.rs — per-cloud retry with exponential
 backoff + full jitter over transient statuses/errors; every retry is counted
-in IO stats. The same policy object serves ranged reads and multipart parts.
-Not ported yet: the retry-sleep histogram of the metrics plane (ROADMAP A.8).
+in IO stats, and each backoff sleep in the registry's
+``daft_io_retry_sleep_seconds``. The same policy object serves ranged reads
+and multipart parts.
 """
 
 from __future__ import annotations
@@ -146,6 +147,12 @@ def with_retries(fn: Callable, policy: RetryPolicy, *,
                 raise
             if on_retry is not None:
                 on_retry()
+            from daft_tpu_torch import metrics
+
+            if metrics.get_registry().enabled:
+                metrics.RETRY_SLEEP.labels(
+                    breaker.endpoint if breaker is not None
+                    else "unattributed").observe(delay)
             if token is not None:
                 if token.wait(delay):
                     token.check(describe)  # woken by cancel: raise through it

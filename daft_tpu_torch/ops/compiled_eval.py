@@ -28,7 +28,11 @@ plan and dtype: 64-bit columns, kernels without a torch lowering, Kleene null
 rules, integer sums (they promote past 32 bits on the host). Each such route
 is counted. A device error raises: nothing here turns it into the host path.
 The JAX package's fused-vs-interpreted A/B guard and its self-disable switch
-are not ported (``compiled_eval_enabled=False`` is the only off switch).
+are not ported (``compiled_eval_enabled=False`` is the only off switch), so
+the registry's ``daft_compiled_eval_enabled`` gauge reads 1 whenever a chain
+is considered. The chains' morsels and rows, their program cache and their
+host routes count in the metrics registry as in the JAX package
+(``device_eval.DeviceEvalCounters``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from daft_tpu_torch import metrics
 from daft_tpu_torch.device import resolve_device
 from daft_tpu_torch.errors import DaftError
 from daft_tpu_torch.expressions.expr import AggOp, Alias, ColumnRef, Expr, Literal
@@ -316,12 +321,13 @@ class ChainSpec:
         cols_np, null_masks = _read_columns(rb, self.src_cols)
         if not self.walk.nullable_gate(set(null_masks)):
             de.device_eval_counters.record_host("chain_nullable_unsafe", rows=n)
+            de.device_eval_counters.record_fallback("nullable_unsafe", rows=n)
             return None
         device = resolve_device(self.cfg.device)
         shape_key = (self.fingerprint, de.dtype_sig(cols_np))
         # Elementwise outputs slice back to [:n], so bucket reuse is safe.
         padded = de._bucket_reusing(n, self.cfg.device_batch_buckets, shape_key)
-        fn = de.cached_program(shape_key + (padded,), self._build_run)
+        fn = de.cached_program(shape_key + (padded,), self._build_run, chain=True)
         keep, outs = fn(de.stage(cols_np, padded, n, device))
         fetched = de.fetch(([keep[:n]] if keep is not None else []) +
                            [de._slice(o, n) for o in outs], device)
@@ -376,13 +382,22 @@ class ChainSpec:
         return MicroPartition(self.out_schema, [RecordBatch(self.out_schema, cols, out_n)])
 
 
+def _enabled(cfg) -> bool:
+    """The config knob; sets the registry's enabled gauge (the JAX
+    package's ``enabled`` primes it the same way)."""
+    if not cfg.compiled_eval_enabled:
+        return False
+    metrics.COMPILED_EVAL_ENABLED.set(1)
+    return True
+
+
 def build_chain_spec(steps, input_schema: Schema, out_schema: Schema,
                      cfg) -> Tuple[Optional[ChainSpec], Optional[str]]:
     """(spec, None) when the WHOLE chain runs on the device (pure plan +
     config eligibility), else (None, the host route's reason)."""
     if not steps:
         return None, "nothing_on_device"
-    if not cfg.compiled_eval_enabled:
+    if not _enabled(cfg):
         return None, "compiled_eval_disabled"
     try:
         return ChainSpec(_ChainWalk(steps, input_schema), out_schema, cfg), None
@@ -531,6 +546,7 @@ class AggChainSpec:
         cols_np, null_masks = _read_columns(rb, self.src_cols)
         if not self._agg_nullable_gate(set(null_masks)):
             de.device_eval_counters.record_host("agg_nullable_unsafe", rows=n)
+            de.device_eval_counters.record_fallback("nullable_unsafe", rows=n)
             return None
         device = resolve_device(self.cfg.device)
         # FIXED bucketing: reductions must see a padded length that is a
@@ -547,7 +563,7 @@ class AggChainSpec:
             if m is not None:
                 valids[f"__v_{name}"] = ~m
         shape_key = (self.fingerprint, padded, de.dtype_sig(cols_np), tuple(sorted(valids)))
-        fn = de.cached_program(shape_key, self._build_run)
+        fn = de.cached_program(shape_key, self._build_run, chain=True)
         staged = de.stage({**cols_np, **valids}, padded, n, device,
                           fill={k: False for k in valids})
         outs = fn({k: staged[k] for k in cols_np}, {k: staged[k] for k in valids}, n, padded,
@@ -582,7 +598,7 @@ def build_agg_chain_spec(steps, agg_plan, input_schema: Schema, partial_schema: 
                          cfg) -> Tuple[Optional[AggChainSpec], Optional[str]]:
     """(spec, None) when the whole chain INCLUDING every partial aggregation
     runs on the device; else (None, the host route's reason)."""
-    if not cfg.compiled_eval_enabled:
+    if not _enabled(cfg):
         return None, "compiled_eval_disabled"
     try:
         return AggChainSpec(_ChainWalk(steps, input_schema), agg_plan, partial_schema, cfg), None

@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from daft_tpu_torch import metrics, profiling
 from daft_tpu_torch.datatype import DataType, TypeId
 from daft_tpu_torch.device import resolve_device
 from daft_tpu_torch.errors import DaftError
@@ -62,14 +63,23 @@ _FUSABLE_UNARY = {"not", "negate", "abs"}
 
 
 class DeviceEvalCounters:
-    """Where the relational layer's rows went (the port has no metrics
-    registry yet). ``fused_exprs`` / ``fused_rows`` count expressions and
+    """Where the relational layer's rows went. ``fused_exprs`` / ``fused_rows`` count expressions and
     expression-rows that ran on the device; ``host_exprs`` / ``host_rows``
     the same for each reason a route stayed on the host (a projection's
     expression: the bare reason; a filter/project chain: ``chain_<reason>``;
     a global aggregation's chunk: ``agg_<reason>``); ``chain_morsels`` /
     ``chain_rows`` the morsels and rows each compiled-chain kind ran;
-    ``program_hits`` / ``program_misses`` the program cache."""
+    ``program_hits`` / ``program_misses`` the program cache.
+
+    Beside these tallies the metrics registry gets the JAX package's series at
+    the JAX package's sites: ``daft_device_fused_exprs_total`` /
+    ``daft_device_fused_rows_total`` (:meth:`record_fused`),
+    ``daft_device_fallback_exprs_total{reason}`` (:meth:`record_fallback`,
+    where the JAX package records a fallback: the chains' ``below_min_rows``
+    is not one), ``daft_compiled_chain_morsels_total`` / ``_rows_total``
+    (:meth:`record_chain`) and ``daft_stage_fusions_total``; the profiler
+    gets the device-against-host split of the ambient operator
+    (``profiling.note_device``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -91,6 +101,17 @@ class DeviceEvalCounters:
         with self._lock:
             self.fused_exprs += nexprs
             self.fused_rows += rows * nexprs
+        metrics.DEVICE_FUSED_EXPRS.inc(nexprs)
+        metrics.DEVICE_FUSED_ROWS.inc(rows * nexprs)
+        profiling.note_device(rows * nexprs, fused=True)
+
+    @staticmethod
+    def record_fallback(reason: str, nexprs: int = 1, rows: int = 0) -> None:
+        """The registry's and the profiler's side of a host route, at the
+        JAX package's ``record_fallback`` sites. The profiler counts
+        expression-rows on both sides, as :meth:`record_fused` does."""
+        metrics.DEVICE_FALLBACKS.labels(reason).inc(nexprs)
+        profiling.note_device(rows * nexprs, fused=False)
 
     def record_host(self, reason: str, nexprs: int = 1, rows: int = 0) -> None:
         with self._lock:
@@ -101,6 +122,8 @@ class DeviceEvalCounters:
         with self._lock:
             self.chain_morsels[kind] = self.chain_morsels.get(kind, 0) + 1
             self.chain_rows[kind] = self.chain_rows.get(kind, 0) + rows
+        metrics.COMPILED_CHAIN_MORSELS.labels(kind).inc()
+        metrics.COMPILED_CHAIN_ROWS.labels(kind).inc(rows)
 
     def record_program(self, hit: bool) -> None:
         with self._lock:
@@ -112,6 +135,7 @@ class DeviceEvalCounters:
     def record_stage_fusions(self, n: int) -> None:
         with self._lock:
             self.stage_fusions += n
+        metrics.STAGE_FUSIONS.inc(n)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -588,15 +612,26 @@ _PROGRAMS: Dict[tuple, Callable] = {}
 _PROGRAMS_LOCK = threading.Lock()
 
 
-def cached_program(key: tuple, build: Callable[[], Callable]) -> Callable:
+def cached_program(key: tuple, build: Callable[[], Callable],
+                   chain: bool = False) -> Callable:
     """The program for ``key``, built on first sight; counted as a hit or a
-    miss in ``device_eval_counters``."""
+    miss in ``device_eval_counters``. A compiled chain's program (``chain``)
+    also counts in the registry's ``daft_compile_cache_*`` series and its
+    build time in ``daft_compile_seconds``, as the JAX package counts its
+    chain executables (not its projections' programs)."""
+    t0 = time.perf_counter()
     with _PROGRAMS_LOCK:
         fn = _PROGRAMS.get(key)
         hit = fn is not None
         if not hit:
             fn = _PROGRAMS[key] = build()
     device_eval_counters.record_program(hit)
+    if chain:
+        if hit:
+            metrics.COMPILE_CACHE_HITS.inc()
+        else:
+            metrics.COMPILE_CACHE_MISSES.inc()
+            metrics.COMPILE_SECONDS.observe(time.perf_counter() - t0)
     return fn
 
 
@@ -840,6 +875,7 @@ def try_evaluate_fused(rb, exprs: Sequence[Expr]) -> Optional[Dict[int, Series]]
     if n < cfg.device_eval_min_rows:
         if nontrivial:
             device_eval_counters.record_host("below_min_rows", len(nontrivial), rows=n)
+            device_eval_counters.record_fallback("below_min_rows", len(nontrivial), rows=n)
         return None
     schema = rb.schema
     chosen: List[int] = []
@@ -851,6 +887,8 @@ def try_evaluate_fused(rb, exprs: Sequence[Expr]) -> Optional[Dict[int, Series]]
             needed_cols |= exprs[i].column_refs()
         else:
             device_eval_counters.record_host(reason, rows=n)
+            # The JAX package's registry label for every refusal here.
+            device_eval_counters.record_fallback("not_fusable", rows=n)
     if not chosen:
         return None
     cols_np: Dict[str, np.ndarray] = {}
@@ -867,6 +905,8 @@ def try_evaluate_fused(rb, exprs: Sequence[Expr]) -> Optional[Dict[int, Series]]
                 if not (exprs[i].column_refs() & set(null_masks)) or _nullable_safe(exprs[i])]
         if len(safe) < len(chosen):
             device_eval_counters.record_host("nullable_unsafe", len(chosen) - len(safe), rows=n)
+            device_eval_counters.record_fallback("nullable_unsafe", len(chosen) - len(safe),
+                                                 rows=n)
         chosen = safe
         if not chosen:
             return None

@@ -11,9 +11,9 @@ The port has no sessions or catalogs (ROADMAP A.8): ``CREATE TABLE``,
 session variable raise ``DaftNotImplementedError`` naming A.8, and a table
 name resolves only
 against the bound DataFrames and the query's CTEs. ``SET`` of an execution or
-planning config key applies it live, as in the JAX package. ``EXPLAIN
-ANALYZE`` raises naming A.9.5 (the profiler); plain ``EXPLAIN`` and
-``DESCRIBE`` work.
+planning config key applies it live, as in the JAX package. ``EXPLAIN``,
+``EXPLAIN ANALYZE`` (which runs the SELECT and appends the analyzed plan,
+``execution/analyze.py``) and ``DESCRIBE`` work.
 """
 
 from __future__ import annotations
@@ -91,17 +91,20 @@ def _execute_statement(stmt, bindings: Dict[str, object]):
             f"{_SESSION_STATEMENTS[kind]} runs against a session and its catalogs, which "
             f"are not ported to daft_tpu_torch yet: ROADMAP A.8")
     if isinstance(stmt, ExplainStmt):
-        if stmt.analyze:
-            raise DaftNotImplementedError(
-                "EXPLAIN ANALYZE needs the profiler's operator spans, which are not ported "
-                "to daft_tpu_torch yet: ROADMAP A.9.5")
         target = stmt.stmt
         if not isinstance(target, SelectStmt):
+            if stmt.analyze:
+                raise DaftValueError("EXPLAIN ANALYZE supports SELECT only")
             # EXPLAIN never executes side effects; the session statements
             # themselves are A.8.
             return _execute_statement(target, bindings)
         inner = _plan_select(target, bindings, dict(target.ctes))
-        return from_pydict({"plan": [inner._builder.explain_string(show_all=True)]})
+        text = inner._builder.explain_string(show_all=True)
+        if stmt.analyze:
+            from daft_tpu_torch.execution.analyze import analyze_suffix
+
+            text += analyze_suffix(inner)
+        return from_pydict({"plan": [text]})
     if isinstance(stmt, DescribeStmt):
         if isinstance(stmt.target, SelectStmt):
             schema = _plan_select(stmt.target, bindings, dict(stmt.target.ctes)).schema

@@ -3,7 +3,8 @@
     python3 -m daft_tpu_torch.tools.smoke_split PHASE NAME [NAME ...]
 
 Runs ``chip_smoke.PHASE(card)`` (a phase that needs no earlier phase's state,
-such as ``phase_relational``) and prints the phase's wall seconds, then the
+such as ``phase_relational``, or one that makes it when run alone, such as
+``phase_observability``) and prints the phase's wall seconds, then the
 seconds spent inside each NAME and its number of calls, largest first. A NAME
 is a function of ``chip_smoke`` (``check_q01``) or ``module.function``
 (``gc.collect``, ``daft_tpu_torch.tools.lineitem.q01_reference``), looked up

@@ -24,6 +24,7 @@ names. Where the port leaves a name out, it must raise naming its ROADMAP
 item.
 """
 
+import json
 import warnings
 
 import numpy as np
@@ -456,12 +457,17 @@ def test_explain_prints_the_jax_packages_plan(capsys, show_all):
     assert "Aggregate" in text or "Agg" in text
 
 
-def test_explain_analyze_and_collect_profile_raise_naming_their_item(tmp_path):
+def test_explain_analyze_and_collect_profile_raise_naming_their_item(tmp_path, capsys):
+    # Both ran as ROADMAP A.9.5 until it was ported: now they run as in the
+    # JAX package, and the trace file is the profile of the collected query.
     df = _df(daft_tpu_torch)
-    with pytest.raises(DaftNotImplementedError, match=r"A\.9\.5"):
-        df.explain(analyze=True)
-    with pytest.raises(DaftNotImplementedError, match=r"A\.9\.5"):
-        df.collect(profile=str(tmp_path / "trace.json"))
+    df.explain(analyze=True)
+    assert "== Analyze ==" in capsys.readouterr().out
+    path = tmp_path / "trace.json"
+    df = _df(daft_tpu_torch)  # analyze collected the first one
+    df.collect(profile=str(path))
+    assert df.query_profile is not None and df.query_profile.export_path == str(path)
+    assert json.loads(path.read_text())["otherData"]["query_id"] == df.query_id
     assert df.collect(timeout=30.0).to_pydict() == _df(daft_tpu).to_pydict()
 
 
@@ -683,7 +689,7 @@ def test_dask_and_ray_exporters_raise_as_in_the_jax_package():
 
 
 @pytest.mark.parametrize("method, item", [("shard", "A.8"), ("with_checkpoint", "A.2"),
-                                          ("metrics", "A.9.5"), ("write_iceberg", "A.8"),
+                                          ("write_clickhouse", "A.8"), ("write_iceberg", "A.8"),
                                           ("write_deltalake", "A.8"), ("write_sql", "A.8")])
 def test_left_out_methods_raise_naming_their_item(method, item):
     with pytest.raises(DaftNotImplementedError, match=item.replace(".", r"\.")):

@@ -191,6 +191,10 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch.physical.translate, daft_tpu_torch.dataframe.dataframe\n"
         "import daft_tpu_torch.udf, daft_tpu_torch.udf.udaf, daft_tpu_torch.io.media_sources\n"
         "import daft_tpu_torch.kernels.media_ops\n"
+        "import daft_tpu_torch.metrics, daft_tpu_torch.profiling, daft_tpu_torch.tracing\n"
+        "import daft_tpu_torch.subscribers.events, daft_tpu_torch.subscribers.event_log\n"
+        "import daft_tpu_torch.execution.analyze, daft_tpu_torch.ai.metrics\n"
+        "import daft_tpu_torch.utils.jsonl_sink\n"
         "daft_tpu_torch.kernels.registry.get_kernel('cosine_distance')\n"
         "daft_tpu_torch.kernels.registry.get_kernel('image_resize')\n"
         "new = set(sys.modules) - before\n"

@@ -137,6 +137,32 @@ def test_prefetch_close_releases_thread():
     assert not any("prefetch-close-test" in t.name for t in threading.enumerate())
 
 
+def test_prefetch_consumer_ends_when_closed_mid_pull():
+    # A stage's feeder waiting on the prefetch while the join tears down:
+    # close() lands while the puller is inside a slow pull, after which the
+    # puller puts nothing, so the waiting consumer must end by itself.
+    inside = threading.Event()
+    release = threading.Event()
+
+    def slow():
+        yield 1
+        inside.set()
+        release.wait(5)
+        yield 2
+
+    p = pipeline.Prefetch(slow(), capacity=1, name="prefetch-mid-pull-test")
+    it = iter(p)
+    assert next(it) == 1
+    got = []
+    consumer = threading.Thread(target=lambda: got.extend(it), daemon=True)
+    consumer.start()
+    assert inside.wait(5)
+    p.close()
+    release.set()
+    consumer.join(timeout=5)
+    assert not consumer.is_alive() and got == []
+
+
 def test_prefetch_yields_in_order_and_raises_at_the_failing_item():
     def src():
         yield from range(5)
