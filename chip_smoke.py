@@ -33,7 +33,7 @@ Phases, each of which fails the run on any error:
    and ``classify_text`` (ViT-L/14, 4096 strings); each with every kernel's
    launch count set to 0 just before and read just after, rows/s, peak
    device memory and the phase split. It checks that each tower on the card
-   agrees with the same tower on the CPU (cosine >= 0.99; 48 seeded non-empty
+   agrees with the same tower on the CPU (cosine >= 0.99; 16 seeded non-empty
    strings per text tower), that the card received the token ids the host
    made, that MiniLM gives exact zero vectors for the empty strings and
    unit-norm finite rows for the rest, that the text paths launch no flash
@@ -325,7 +325,37 @@ Phases, each of which fails the run on any error:
    off (best of 21 each, alternating in one process) and at n = 6,000,000
    profiled and unprofiled (the median of 10 paired ABBA deltas in one
    process, doubled once when it reads over 2 %, as ``bench.py`` does);
-20. print the whole run's time and one JSON line of per-kernel numbers (with
+20. the rest of the AI surface and pipeline-progress checkpoints
+   (``phase_ai_surface``), each path with the counts set to 0 just before:
+   (a) a ``ThreadingHTTPServer`` on 127.0.0.1 that speaks the OpenAI wire
+   format (``/v1/embeddings``, ``/v1/chat/completions``) and the Gemini one
+   (``:batchEmbedContents``, ``:generateContent``), answering with the port's
+   towers on the card behind one lock (MiniLM-L6 embeddings, ``default-lm``
+   at temperature 0) and with 429 and ``Retry-After: 0`` to its first two
+   POSTs: ``embed_text(provider="vllm")`` over phase 5's 4096 strings must
+   give the bytes of ``embed_text(provider="cuda")`` (rows/s through HTTP
+   beside the direct route), ``prompt(provider="lm_studio",
+   max_completion_tokens=16)`` over 16 prompts and ``prompt(provider=
+   "google")`` over 4 must equal the prompter answering them one at a time,
+   ``embed_text(provider="google")`` over 256 strings must agree with the
+   direct rows within the chunk tolerance, the registry must count two
+   retries, and ``token_metrics()`` must equal the usage the server
+   reported; (b) the ``transformers`` provider on phase 8's MiniLM directory
+   over the 4096 strings on the card, against the ``cuda`` provider over the
+   same directory (the first 1024, cosine >= 0.99) and against itself on the
+   CPU (32 rows, cosine >= 0.999), or, where ``transformers`` does not import, the
+   ``ImportError`` its ``instantiate()`` raises; (c) the MiniLM-L6 tower's
+   weights as a flax-layout ``.msgpack`` (bf16 block leaves, written with
+   ``msgpack``) beside an ``.npz``: ``embed_text(weights_path=...)`` from both
+   over the 4096 strings must give the same bytes, which equal the tower's
+   own; where ``tensorstore`` does not import, the ``ImportError`` the orbax
+   reader raises naming it (the CPU tests hold orbax directories); (d) 512 images keyed by id
+   through ViT-L/14 ``embed_image`` into ``write_parquet(checkpoint=)``, the
+   same run again under ``with_checkpoint`` (no row reaches the UDF), then 128
+   more ids (one chunk): 96 / 0 / 24 flash launches, each key once in the
+   files, the first run's embeddings unchanged and the new ones equal to a
+   direct forward;
+21. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -355,7 +385,8 @@ F32_TOL = 2e-5    # f32 throughout, TF32 off
 CHUNK_TOL = 1e-5  # same weights, same kernels, same batch: only run-to-run noise
 CPU_COSINE_MIN = 0.99  # GPU tower vs CPU tower in bf16: rounding differs per layer
 CPU_SIM_TOL = 1e-2    # image-label cosines from the GPU towers vs the CPU towers
-CPU_TEXT_SAMPLE = 48  # non-empty strings per text tower held against its CPU tower
+CPU_TEXT_SAMPLE = 16  # non-empty strings per text tower held against its CPU tower
+CPU_CLASSIFY_IMAGES = 2  # images whose label similarities are held against the CPU towers
 BF16_PARITY_T = (5, 64, 257, 300, 1024)  # one short, whole, ragged and long sequences
 
 NUM_PROMPTS = 256
@@ -476,6 +507,17 @@ OVERHEAD_PROFILE_BLOCKS = 6       # ABBA pairs in one process (bench.py: 3 child
 OVERHEAD_BUDGET_PCT = 2.0         # the JAX package's budget for each plane
 PLANE_COST_MORSELS = 20_000       # morsels through each timed chain (tools/plane_cost.py)
 PLANE_COST_REPS = 7               # its reps, variants interleaved
+# Phase 20: the rest of the AI surface and pipeline-progress checkpoints.
+API_EMBED_MODEL = "all-MiniLM-L6-v2"  # the vllm and google routes' model, served by the cuda tower
+API_PROMPTS = 16          # prompts through lm_studio's chat completions
+API_PROMPT_TOKENS = 16    # their max_completion_tokens
+API_RATE_LIMITED = 2      # the server's first POSTs, answered 429 with Retry-After: 0
+GOOGLE_TEXTS = 256        # strings through Gemini's batchEmbedContents
+GOOGLE_PROMPTS = 4        # prompts through Gemini's generateContent
+TRANSFORMERS_CPU_ROWS = 32           # the transformers model on the card against it on the CPU
+HF_COMPARE_ROWS = 1024               # its rows held against the cuda provider's
+TRANSFORMERS_CPU_COSINE_MIN = 0.999  # f32 on both, summed in another order
+CKPT_NEW = 128            # ids added after the first checkpointed write: one chunk
 Q01_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount",
                "l_tax", "l_shipdate")
 
@@ -1052,11 +1094,12 @@ def check_classify_image(inst, idf, imgs, labels_out: list) -> None:
     check(runs[tuple(LABELS[::-1])][0] == out,
           "classify_image: reversing the label list changed a row's label")
 
-    ref_img = check_image_tower("classify_image", tower, imgs[:4], direct_emb[:4])
+    n = CPU_CLASSIFY_IMAGES
+    ref_img = check_image_tower("classify_image", tower, imgs[:n], direct_emb[:n])
     ref_lab, _ = check_text_tower("classify_image prompts", inst.text_embedder, prompts, lab)
     cpu_sims = ref_img @ ref_lab.T
-    cpu_err = float(np.abs(cpu_sims - sims[:4]).max())
-    print(f"[classify_image] similarities of 4 images, GPU vs CPU towers: max_abs_err "
+    cpu_err = float(np.abs(cpu_sims - sims[:n]).max())
+    print(f"[classify_image] similarities of {n} images, GPU vs CPU towers: max_abs_err "
           f"{cpu_err:.3e} (tol {CPU_SIM_TOL}); labels equal a direct forward, and the same "
           f"with the label list reversed", flush=True)
     check(cpu_err <= CPU_SIM_TOL, f"classify_image: GPU and CPU similarities differ by {cpu_err}")
@@ -5023,6 +5066,511 @@ def phase_observability(card: str, state: dict = None) -> dict:
     return by_path
 
 
+class AiServer:
+    """A server on 127.0.0.1 (``ThreadingHTTPServer`` on a free port) that
+    speaks the OpenAI wire format (``/v1/embeddings``, ``/v1/chat/completions``)
+    and the Gemini one (``/v1beta/models/<m>:batchEmbedContents``,
+    ``:generateContent``) and answers with the port's towers on the card,
+    behind one lock. The first ``rate_limited`` POSTs get 429 with
+    ``Retry-After: 0``. ``usage`` tallies what it reported as used, by
+    route; ``posts`` counts every POST and ``refused`` the 429s."""
+
+    def __init__(self, embedder, prompter, max_new_tokens: int, rate_limited: int):
+        import collections
+        import http.server
+        import threading
+
+        self.embedder, self.prompter = embedder, prompter
+        self.max_new_tokens, self.rate_limited = max_new_tokens, rate_limited
+        self.lock = threading.Lock()  # one forward at a time on the card
+        self.tally_lock = threading.Lock()
+        self.usage = collections.Counter()
+        self.posts = self.refused = 0
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                status, payload, extra = outer.answer(self.path, body)
+                data = json.dumps(payload).encode()
+                self.send_response(status)
+                for k, v in extra.items():
+                    self.send_header(k, v)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.thread = threading.Thread(target=self.httpd.serve_forever, name="smoke-ai-server",
+                                       daemon=True)
+
+    @property
+    def base(self) -> str:
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+        check(not self.thread.is_alive(), "the AI server's thread did not end")
+
+    def _tally(self, **counts) -> None:
+        with self.tally_lock:
+            self.usage.update(counts)
+
+    def _embed(self, texts: list):
+        with self.lock:
+            emb = self.embedder.embed_text(texts)
+        _, lengths = self.embedder.tokenizer.encode_batch(texts)
+        return emb, int(lengths.sum())
+
+    def _generate(self, prompt: str):
+        with self.lock:
+            answer = self.prompter.prompt([prompt])[0]
+        _, lengths = self.prompter.tokenizer.encode_batch([prompt])
+        return answer, max(int(lengths[0]), 1), len(answer.split())
+
+    def answer(self, path: str, body: dict) -> tuple:
+        with self.tally_lock:
+            self.posts += 1
+            if self.posts <= self.rate_limited:
+                self.refused += 1
+                return 429, {"error": {"message": "rate limited"}}, {"Retry-After": "0"}
+        if path == "/v1/embeddings":
+            emb, tokens = self._embed(body["input"])
+            self._tally(embed_posts=1, embed_tokens=tokens)
+            return 200, {"object": "list", "model": body["model"],
+                         "data": [{"index": i, "embedding": row.tolist()}
+                                  for i, row in enumerate(emb)],
+                         "usage": {"prompt_tokens": tokens, "total_tokens": tokens}}, {}
+        if path == "/v1/chat/completions":
+            if body.get("max_completion_tokens") != self.max_new_tokens:
+                return 400, {"error": {"message": "max_completion_tokens must be "
+                                                  f"{self.max_new_tokens}"}}, {}
+            answer, pt, ct = self._generate(body["messages"][-1]["content"])
+            self._tally(chat_posts=1, chat_in=pt, chat_out=ct)
+            return 200, {"choices": [{"index": 0, "message": {"role": "assistant",
+                                                              "content": answer}}],
+                         "usage": {"prompt_tokens": pt, "completion_tokens": ct}}, {}
+        if path.endswith(":batchEmbedContents"):
+            emb, _ = self._embed([r["content"]["parts"][0]["text"] for r in body["requests"]])
+            self._tally(gemini_embed_posts=1)
+            return 200, {"embeddings": [{"values": row.tolist()} for row in emb]}, {}
+        if path.endswith(":generateContent"):
+            answer, pt, ct = self._generate(body["contents"][0]["parts"][0]["text"])
+            self._tally(gemini_gen_posts=1, gemini_in=pt, gemini_out=ct)
+            return 200, {"candidates": [{"content": {"parts": [{"text": answer}]}}],
+                         "usageMetadata": {"promptTokenCount": pt,
+                                           "candidatesTokenCount": ct}}, {}
+        return 404, {"error": {"message": f"no route {path}"}}, {}
+
+
+def minilm_flat(encoder) -> dict:
+    """The flat flax state dict of a MiniLM tower (``params/`` keys, the
+    inverse of ``flax_names``' layouts) as f32 arrays, and the keys whose
+    parameter is bf16 on the card."""
+    import numpy as np
+    import torch
+
+    params = dict(encoder.named_parameters())
+    flat, bf16 = {}, set()
+    for key, (tname, how) in encoder.flax_names().items():
+        p = params[tname].detach()
+        a = p.float().cpu().numpy()
+        flat["params/" + key] = np.ascontiguousarray(a.T if how == "dense" else a)
+        if p.dtype == torch.bfloat16:
+            bf16.add("params/" + key)
+    return flat, bf16
+
+
+def write_flax_msgpack(path, flat: dict, bf16: set) -> None:
+    """``flat`` in flax.serialization's layout (nested dicts whose leaves are
+    msgpack extension 1: ``(shape, dtype name, C-order bytes)``), the keys in
+    ``bf16`` stored as bfloat16 (the upper half of each f32, exact for values
+    that are bf16 already), written with ``msgpack``."""
+    import msgpack
+    import numpy as np
+
+    def leaf(key: str, a):
+        if key in bf16:
+            bits = (np.ascontiguousarray(a, np.float32).view(np.uint32) >> 16).astype(np.uint16)
+            data = (list(a.shape), "bfloat16", bits.tobytes())
+        else:
+            data = (list(a.shape), a.dtype.name, np.ascontiguousarray(a).tobytes())
+        return msgpack.ExtType(1, msgpack.packb(data, use_bin_type=True))
+
+    tree: dict = {}
+    for key, a in flat.items():
+        node = tree
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf(key, a)
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(tree, use_bin_type=True))
+
+
+def phase_ai_surface(card: str) -> dict:
+    """Phase 20: the rest of the AI surface and pipeline-progress checkpoints
+    at full width through the engine. (a) The API providers against a local
+    server answering with the port's towers; (b) the transformers provider on
+    the card; (c) MiniLM-L6 weights as a flax ``.msgpack`` beside an ``.npz``
+    (the orbax reader's raise where ``tensorstore`` is missing); (d) ViT-L/14
+    ``embed_image`` into checkpointed writes, resumed. Returns each path's
+    flash launches."""
+    import gc
+    import importlib
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import metrics
+    from daft_tpu_torch.ai.cuda_provider import DEFAULT_UDF_BATCH
+    from daft_tpu_torch.ai.metrics import reset_token_metrics, token_metrics
+    from daft_tpu_torch.ai.provider import load_provider
+    from daft_tpu_torch.checkpoint import CheckpointConfig, CheckpointStore
+    from daft_tpu_torch.functions.ai import embed_image, embed_text, prompt
+    from daft_tpu_torch.models.checkpoint import load_flat
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+
+    by_path = {}
+    texts = make_texts(NUM_TEXTS, seed=2)  # phase 5's strings
+    df = dt.from_pydict({"t": texts})
+    reg = metrics.get_registry()
+    registry_was = reg.enabled
+    reg.enabled = True  # the token and retry tallies are registry counters
+
+    def launches_of(run) -> tuple:
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        out = run()
+        elapsed = time.perf_counter() - t0
+        return out, {"flash_attention": flash_attention.launch_count}, elapsed
+
+    def column(expr, frame=df, rows=NUM_TEXTS) -> list:
+        with dt.execution_config_ctx(default_morsel_size=rows):
+            return frame.with_column("out", expr).to_pydict()["out"]
+
+    # -- (a) the API providers against a local server ------------------------------
+    direct_expr = embed_text(dt.col("t"), provider="cuda", model=API_EMBED_MODEL)
+    direct, launches, direct_s = launches_of(lambda: column(direct_expr))
+    direct = np.asarray(direct, np.float32)
+    embedder = direct_expr._expr.udf._get_instance()
+    prompter = load_provider("cuda").get_prompter(
+        "default-lm", max_new_tokens=API_PROMPT_TOKENS).instantiate()
+    prompts = make_texts(API_PROMPTS, seed=21)[1:] + ["a photo of a cat"]
+    t0 = time.perf_counter()
+    answers = [prompter.prompt([p])[0] for p in prompts]  # one request at a time, directly
+    direct_prompt_s = time.perf_counter() - t0
+    print(f"[api] direct: embed_text {NUM_TEXTS} rows in {direct_s:.3f} s = "
+          f"{NUM_TEXTS / direct_s:.1f} rows/s; {len(prompts)} prompts one at a time in "
+          f"{direct_prompt_s:.2f} s; launches {launches} [{card}]", flush=True)
+    reset_token_metrics()
+    sleeps0 = reg.snapshot().hist("daft_io_retry_sleep_seconds")["count"]
+    with AiServer(embedder, prompter, API_PROMPT_TOKENS, API_RATE_LIMITED) as server:
+        name = "api vllm embed_text"
+        expr = embed_text(dt.col("t"), provider="vllm", model=API_EMBED_MODEL,
+                          base_url=server.base + "/v1", batch_size=DEFAULT_UDF_BATCH)
+        got, launches, http_s = launches_of(lambda: column(expr))
+        got = np.asarray(got, np.float32)
+        retries = reg.snapshot().hist("daft_io_retry_sleep_seconds")["count"] - sleeps0
+        print(f"[{name}] {NUM_TEXTS} rows through HTTP in {http_s:.3f} s = "
+              f"{NUM_TEXTS / http_s:.1f} rows/s against {NUM_TEXTS / direct_s:.1f} direct "
+              f"({http_s / direct_s:.2f}x the direct wall); {server.posts} POSTs, "
+              f"{server.refused} answered 429, {int(retries)} retries; launches {launches} "
+              f"[{card}]", flush=True)
+        check(got.shape == direct.shape and got.tobytes() == direct.tobytes(),
+              f"{name}: the HTTP embeddings differ from embed_text(provider='cuda'): max_abs_err "
+              f"{np.abs(got - direct).max() if got.shape == direct.shape else got.shape}")
+        check(server.refused == API_RATE_LIMITED and retries == API_RATE_LIMITED,
+              f"{name}: {server.refused} 429s answered but {retries} retries counted")
+        check(launches["flash_attention"] == 0, f"{name}: flash launched {launches}")
+        by_path[name] = launches
+
+        name = "api lm_studio prompt"
+        pdf = dt.from_pydict({"q": prompts})
+        expr = prompt(dt.col("q"), provider="lm_studio", model="default-lm",
+                      base_url=server.base + "/v1", max_completion_tokens=API_PROMPT_TOKENS)
+        got, launches, http_s = launches_of(lambda: column(expr, pdf, len(prompts)))
+        print(f"[{name}] {len(prompts)} prompts through HTTP in {http_s:.2f} s against "
+              f"{direct_prompt_s:.2f} s direct; launches {launches} [{card}]", flush=True)
+        check(got == answers, f"{name}: the HTTP answers differ from the direct ones: "
+              f"{[i for i, (a, b) in enumerate(zip(got, answers)) if a != b]}")
+        check(all(a and len(a.split()) <= API_PROMPT_TOKENS for a in got),
+              f"{name}: an answer is empty or longer than {API_PROMPT_TOKENS} tokens")
+        check(launches["flash_attention"] == 0, f"{name}: flash launched {launches}")
+        by_path[name] = launches
+
+        name = "api google embed_text"
+        gdf = df.limit(GOOGLE_TEXTS)
+        expr = embed_text(dt.col("t"), provider="google", model=API_EMBED_MODEL, api_key="local",
+                          base_url=server.base + "/v1beta")
+        got, launches, http_s = launches_of(lambda: column(expr, gdf, GOOGLE_TEXTS))
+        got = np.asarray(got, np.float32)
+        err = float(np.abs(got - direct[:GOOGLE_TEXTS]).max())
+        print(f"[{name}] {GOOGLE_TEXTS} rows through HTTP in {http_s:.3f} s; against the "
+              f"direct route (other batch shapes): max_abs_err {err:.3e} (tol {CHUNK_TOL}); "
+              f"launches {launches} [{card}]", flush=True)
+        check(got.shape == (GOOGLE_TEXTS, direct.shape[1]) and err <= CHUNK_TOL,
+              f"{name}: {got.shape}, max_abs_err {err}")
+        check(launches["flash_attention"] == 0, f"{name}: flash launched {launches}")
+        by_path[name] = launches
+
+        name = "api google prompt"
+        gp = dt.from_pydict({"q": prompts[:GOOGLE_PROMPTS]})
+        expr = prompt(dt.col("q"), provider="google", model="default-lm", api_key="local",
+                      base_url=server.base + "/v1beta")
+        got, launches, http_s = launches_of(lambda: column(expr, gp, GOOGLE_PROMPTS))
+        check(got == answers[:GOOGLE_PROMPTS], f"{name}: the answers differ from the direct ones")
+        check(launches["flash_attention"] == 0, f"{name}: flash launched {launches}")
+        by_path[name] = launches
+        usage = dict(server.usage)
+    tm = token_metrics()
+    want = {f"vllm/{API_EMBED_MODEL}": {"input_tokens": usage["embed_tokens"], "output_tokens": 0,
+                                       "requests": usage["embed_posts"]},
+            "lm_studio/default-lm": {"input_tokens": usage["chat_in"],
+                                     "output_tokens": usage["chat_out"],
+                                     "requests": usage["chat_posts"]},
+            f"google/{API_EMBED_MODEL}": {"input_tokens": 0, "output_tokens": 0,
+                                         "requests": usage["gemini_embed_posts"]},
+            "google/default-lm": {"input_tokens": usage["gemini_in"],
+                                  "output_tokens": usage["gemini_out"],
+                                  "requests": usage["gemini_gen_posts"]}}
+    print(f"[api] the server reported {usage}; token_metrics() {dict(tm)}", flush=True)
+    check(dict(tm) == want, f"token_metrics() {dict(tm)} differs from the server's usage {want}")
+    del embedder, prompter, direct_expr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # -- (b) the transformers provider ----------------------------------------------
+        name = "transformers embed_text"
+        hf_dir = tmp / "all-MiniLM-L6-v2"
+        write_hf_dir(hf_dir, HF_MINILM_CONFIG, seed=10)  # phase 8's MiniLM directory
+        try:
+            importlib.import_module("transformers")
+            have = True
+        except ImportError as e:
+            have, missing = False, e
+        if not have:
+            print(f"[{name}] transformers does not import on this host ({missing}); "
+                  f"instantiate() must raise the same ImportError", flush=True)
+            desc = load_provider("transformers").get_text_embedder(str(hf_dir))
+            try:
+                desc.instantiate()
+                raise SmokeFailure(f"{name}: instantiate() did not raise without transformers")
+            except ImportError as e:
+                check(type(e) is type(missing) and str(e) == str(missing),
+                      f"{name}: raised {e!r}, expected {missing!r}")
+            by_path[name] = {"flash_attention": 0}
+        else:
+            import transformers
+
+            expr = embed_text(dt.col("t"), provider="transformers", model=str(hf_dir),
+                              dimensions=HF_MINILM_CONFIG["hidden_size"],
+                              batch_size=DEFAULT_UDF_BATCH)
+            t0 = time.perf_counter()
+            column(expr, df.limit(DEFAULT_UDF_BATCH), DEFAULT_UDF_BATCH)  # load, first forward
+            setup_s = time.perf_counter() - t0
+            got, launches, tf_s = launches_of(lambda: column(expr))
+            got = np.asarray(got, np.float32)
+            inst = expr._expr.udf._get_instance()
+            cuda_expr = embed_text(dt.col("t"), weights_path=str(hf_dir))
+            ours, _, ours_s = launches_of(lambda: column(cuda_expr, df.limit(HF_COMPARE_ROWS),
+                                                         HF_COMPARE_ROWS))
+            ours = np.asarray(ours, np.float32)
+            full = np.array([bool(t) for t in texts[:HF_COMPARE_ROWS]])
+            cos = cosines(got[:HF_COMPARE_ROWS][full], ours[full])
+            sample = [i for i in range(NUM_TEXTS) if texts[i]][:TRANSFORMERS_CPU_ROWS]
+            t0 = time.perf_counter()
+            from daft_tpu_torch.ai.torch_provider import TorchTextEmbedder
+
+            cpu = TorchTextEmbedder(str(hf_dir), device="cpu").embed_text(
+                [texts[i] for i in sample])
+            cpu_s = time.perf_counter() - t0
+            cpu_cos = cosines(cpu, got[sample])
+            print(f"[{name}] transformers {transformers.__version__} on {inst.device}: set-up "
+                  f"{setup_s:.1f} s, then {NUM_TEXTS} rows in {tf_s:.3f} s = "
+                  f"{NUM_TEXTS / tf_s:.1f} rows/s (the cuda "
+                  f"provider over the same directory, its load included: "
+                  f"{HF_COMPARE_ROWS / ours_s:.1f} rows/s on {HF_COMPARE_ROWS}); cosine "
+                  f"against the cuda provider {cos.min():.6f} (min {CPU_COSINE_MIN}) over "
+                  f"{int(full.sum())} non-empty rows; against itself on the CPU "
+                  f"{cpu_cos.min():.7f} (min {TRANSFORMERS_CPU_COSINE_MIN}, {len(sample)} rows, "
+                  f"{cpu_s:.1f} s); launches {launches} [{card}]", flush=True)
+            check(inst.device.type == "cuda" and next(inst.model.parameters()).is_cuda,
+                  f"{name}: the model is not on the card")
+            check(got.shape == (NUM_TEXTS, HF_MINILM_CONFIG["hidden_size"])
+                  and bool(np.isfinite(got).all())
+                  and bool(np.abs(np.linalg.norm(got, axis=1) - 1).max() < 1e-3),
+                  f"{name}: embeddings {got.shape}, not finite or not unit-norm")
+            check(bool(cos.min() >= CPU_COSINE_MIN), f"{name}: against the cuda provider {cos.min()}")
+            check(bool(cpu_cos.min() >= TRANSFORMERS_CPU_COSINE_MIN),
+                  f"{name}: against the CPU {cpu_cos.min()}")
+            by_path[name] = launches
+            del inst, expr, cuda_expr
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # -- (c) weight files ----------------------------------------------------------------
+        name = "msgpack embed_text"
+        inst = load_provider("cuda").get_text_embedder(API_EMBED_MODEL).instantiate()
+        flat, bf16 = minilm_flat(inst.encoder)
+        del inst
+        npz, mp = tmp / "minilm.npz", tmp / "minilm.msgpack"
+        t0 = time.perf_counter()
+        np.savez(npz, **flat)
+        try:
+            importlib.import_module("msgpack")
+            have_msgpack = True
+        except ImportError as e:
+            have_msgpack, missing = False, e
+        if have_msgpack:
+            write_flax_msgpack(mp, flat, bf16)
+        print(f"[{name}] wrote {len(flat)} arrays: .npz {npz.stat().st_size / 1e6:.1f} MB"
+              + (f", .msgpack {mp.stat().st_size / 1e6:.1f} MB ({len(bf16)} bf16 leaves)"
+                 if have_msgpack else "") + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+        from_npz, _, npz_s = launches_of(lambda: column(embed_text(
+            dt.col("t"), provider="cuda", model=API_EMBED_MODEL, weights_path=str(npz))))
+        from_npz = np.asarray(from_npz, np.float32)
+        check(from_npz.tobytes() == direct.tobytes(),
+              f"{name}: the .npz of the tower's own weights gives other bytes than the tower")
+        if have_msgpack:
+            read = load_flat(str(mp))
+            check(read.keys() == flat.keys() and all(np.array_equal(read[k], flat[k])
+                                                    for k in flat),
+                  f"{name}: load_flat of the .msgpack differs from the arrays written")
+            got, launches, mp_s = launches_of(lambda: column(embed_text(
+                dt.col("t"), provider="cuda", model=API_EMBED_MODEL, weights_path=str(mp))))
+            got = np.asarray(got, np.float32)
+            print(f"[{name}] {NUM_TEXTS} rows from the .msgpack in {mp_s:.3f} s, from the .npz "
+                  f"in {npz_s:.3f} s (each with the load); the same bytes: "
+                  f"{got.tobytes() == from_npz.tobytes()}; launches {launches} [{card}]",
+                  flush=True)
+            check(got.tobytes() == from_npz.tobytes(),
+                  f"{name}: the .msgpack and .npz routes differ by {np.abs(got - from_npz).max()}")
+            check(launches["flash_attention"] == 0, f"{name}: flash launched {launches}")
+            by_path[name] = launches
+        else:
+            print(f"[{name}] msgpack does not import on this host ({missing})", flush=True)
+            (tmp / "w.msgpack").write_bytes(b"\x80")
+            try:
+                load_flat(str(tmp / "w.msgpack"))
+                raise SmokeFailure(f"{name}: load_flat read a .msgpack without msgpack")
+            except ImportError as e:
+                check("msgpack" in str(e), f"{name}: raised {e!r}")
+            by_path[name] = {"flash_attention": 0}
+        orbax = tmp / "minilm_orbax"
+        orbax.mkdir()
+        try:
+            importlib.import_module("tensorstore")
+            have_ts = True
+        except ImportError as e:
+            have_ts, missing = False, e
+        if have_ts:
+            print("[orbax] tensorstore imports on this host; orbax directories are held by "
+                  "the CPU tests (no orbax here to write one)", flush=True)
+        else:
+            (orbax / "_METADATA").write_text(json.dumps({"tree_metadata": {}}))
+            try:
+                load_flat(str(orbax))
+                raise SmokeFailure("orbax: load_flat read a directory without tensorstore")
+            except ImportError as e:
+                check("tensorstore" in str(e), f"orbax: raised {e!r}")
+            print(f"[orbax] tensorstore does not import on this host ({missing}): load_flat "
+                  f"raises ImportError naming it", flush=True)
+        del flat, from_npz
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (d) resume ------------------------------------------------------------------
+        rng = np.random.default_rng(0)  # phase 3's images, then CKPT_NEW more
+        imgs = rng.integers(0, 256, (NUM_IMAGES + CKPT_NEW, IMAGE * IMAGE * 3), dtype=np.uint8)
+        image_type = dt.DataType.image("RGB", IMAGE, IMAGE)
+
+        def frame(n: int):
+            return dt.from_pydict({"id": list(range(n)), "img": dt.Series.from_numpy(
+                imgs[:n], "img", image_type)})
+
+        cfg = CheckpointConfig(CheckpointStore(str(tmp / "ckpt")), on="id")
+        out_dir = str(tmp / "embeddings")
+        expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                           batch_size=BATCH)
+
+        def write(n: int, e):
+            with dt.execution_config_ctx(default_morsel_size=NUM_IMAGES):
+                frame(n).with_checkpoint(cfg).with_column("emb", e).select("id", "emb") \
+                    .write_parquet(out_dir, checkpoint=cfg)
+
+        def written() -> dict:
+            d = dt.read_parquet(out_dir).to_pydict()
+            order = np.argsort(d["id"], kind="stable")
+            return {"id": [d["id"][i] for i in order],
+                    "emb": np.asarray([d["emb"][i] for i in order], np.float32)}
+
+        steps = {}
+        for step, n, e in (("first", NUM_IMAGES, expr), ("resume", NUM_IMAGES, None),
+                           ("new", NUM_IMAGES + CKPT_NEW, expr)):
+            e = e if e is not None else embed_image(dt.col("img"), provider="cuda_random",
+                                                    model="ViT-L/14", batch_size=BATCH)
+            _, launches, s = launches_of(lambda: write(n, e))
+            steps[step] = (launches, s, e, written())
+            by_path[f"ckpt embed_image {step}"] = launches
+        first, resume, new = (steps[k][3] for k in ("first", "resume", "new"))
+        counts = [steps[k][0]["flash_attention"] for k in ("first", "resume", "new")]
+        print(f"[ckpt] embed_image into write_parquet(checkpoint=): first {NUM_IMAGES} rows "
+              f"{steps['first'][1]:.2f} s, resume {steps['resume'][1]:.2f} s, {CKPT_NEW} new "
+              f"{steps['new'][1]:.2f} s; flash launches {counts} (expected "
+              f"{[VIT_L_LAYERS * NUM_IMAGES // BATCH, 0, VIT_L_LAYERS * CKPT_NEW // BATCH]}); "
+              f"keys sealed {len(cfg.store.load_keys())} [{card}]", flush=True)
+        check(counts == [VIT_L_LAYERS * NUM_IMAGES // BATCH, 0, VIT_L_LAYERS * CKPT_NEW // BATCH],
+              f"ckpt: flash launches {counts}")
+        check(steps["resume"][2]._expr.udf._instance is None,
+              "ckpt: rows reached the UDF on the resumed run")
+        check(first["id"] == list(range(NUM_IMAGES)) and resume["id"] == first["id"]
+              and resume["emb"].tobytes() == first["emb"].tobytes(),
+              "ckpt: the resumed run changed the files")
+        check(new["id"] == list(range(NUM_IMAGES + CKPT_NEW)),
+              "ckpt: the files do not hold each key once")
+        check(new["emb"][:NUM_IMAGES].tobytes() == first["emb"].tobytes(),
+              "ckpt: the first run's embeddings changed")
+        check(cfg.store.load_keys() == set(range(NUM_IMAGES + CKPT_NEW)), "ckpt: sealed keys")
+        inst = expr._expr.udf._get_instance()
+        direct_new = embed_direct(inst, imgs[NUM_IMAGES:])
+        err = float(np.abs(direct_new - new["emb"][NUM_IMAGES:]).max())
+        check(err <= CHUNK_TOL, f"ckpt: the new rows differ from a direct forward by {err}")
+        print(f"[ckpt] the new rows against a direct forward: max_abs_err {err:.3e} "
+              f"(tol {CHUNK_TOL}); each key once in the files", flush=True)
+        del inst, expr, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+    reg.enabled = registry_was
+    return by_path
+
+
+def embed_direct(inst, imgs):
+    """``inst``'s image tower over ``imgs`` (flat uint8 rows) in one chunk."""
+    import torch
+
+    from daft_tpu_torch.models.clip import embed
+
+    px = torch.from_numpy(imgs.reshape(-1, IMAGE, IMAGE, 3)).cuda()
+    return embed(inst.encoder, px).cpu().numpy()
+
+
 def tpch_sql_text(name: str) -> str:
     from daft_tpu_torch.tools import tpch_sql
 
@@ -5165,6 +5713,7 @@ def main() -> int:
         by_path.update(timed(18, phase_udfs_media, card, sql_state))
         by_path.update(timed(19, phase_observability, card, sql_state))
         plane_report(card, phase_counts, sql_state.get("obs_loops", {}))
+        by_path.update(timed(20, phase_ai_surface, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,10 +5,12 @@ The CLIP image and text towers, the MiniLM sentence encoder, the CLIP
 zero-shot classifier and the decoder-LM prompter, each served on one GPU with
 
 * **weights resident in device memory** — made once per UDF instance, bf16
-  for the blocks, from a seeded ``torch.Generator`` (``cuda_random``), a
-  JAX-package ``.npz`` checkpoint or a local HF checkpoint directory
-  (``weights_path``; ``models/convert.py``: BERT for the text embedder, CLIP
-  for the CLIP towers, each with the directory's own tokenizer files);
+  for the blocks, from a seeded ``torch.Generator`` (``cuda_random``) or
+  from ``weights_path``: a local HF checkpoint directory first
+  (``models/convert.py``: BERT for the text embedder, CLIP for the CLIP
+  towers, each with the directory's own tokenizer files), else a JAX-package
+  checkpoint: an ``.npz``, a flax ``.msgpack`` or an orbax directory
+  (``models/checkpoint.py::load_flat``);
 * **batch-shape bucketing** — chunks pad to the ``_BUCKETS`` ladder, so the
   forward sees a handful of shapes;
 * **staging, overlapped** — a chunk (uint8 NHWC pixels, or int32 token ids
@@ -159,7 +161,7 @@ def _chunked_forward(fwd: Callable[[torch.Tensor], torch.Tensor], arr: np.ndarra
 def _make_tower(module: nn.Module, init_random_: Callable, load_params: Callable,
                  seed: int, weights_path: Optional[str], device: torch.device) -> nn.Module:
     """``module`` with random weights from ``seed`` on ``device``, then a
-    JAX-package ``.npz`` checkpoint over them when ``weights_path`` is given;
+    JAX-package checkpoint over them when ``weights_path`` is given;
     frozen, in eval mode."""
     init_random_(module, torch.Generator(device).manual_seed(seed))
     if weights_path:

@@ -1,6 +1,6 @@
 """Token/request accounting for API-backed AI providers (port of
-``daft_tpu/ai/metrics.py``; the API providers that record here are ROADMAP
-A.8).
+``daft_tpu/ai/metrics.py``; the API providers of ``ai/api_providers.py``
+record here).
 
 Reference: daft/ai/metrics.py (record_token_metrics) — usage counters flow
 to the tracing subsystem so dashboards can attribute cost per query. The

@@ -2,10 +2,11 @@
 
 A Provider vends protocol descriptors. Built-in: ``cuda`` (the port's models,
 the default) and ``cuda_random`` (same architectures, random weights from a
-seed — for benchmarking and for machines without checkpoints). Third-party
-providers register via ``register_provider``. Not ported yet: the API
-providers (openai, google, lm_studio, vllm) and the transformers text
-provider.
+seed — for benchmarking and for machines without checkpoints), the API
+providers ``openai``, ``google``, ``lm_studio`` and ``vllm``
+(``ai/api_providers.py``) and ``transformers`` (``ai/torch_provider.py``).
+Third-party providers register via ``register_provider``; the built-ins
+never replace one registered first under their name.
 """
 
 from __future__ import annotations
@@ -56,7 +57,19 @@ def load_provider(provider: "str | Provider | None", **options) -> Provider:
 
 
 def _ensure_builtins() -> None:
+    from daft_tpu_torch.ai.api_providers import (
+        GoogleProvider,
+        LMStudioProvider,
+        OpenAIProvider,
+        VLLMProvider,
+    )
     from daft_tpu_torch.ai.cuda_provider import CUDAProvider
+    from daft_tpu_torch.ai.torch_provider import TorchTransformersProvider
 
     _PROVIDERS.setdefault("cuda", lambda **kw: CUDAProvider(**kw))
     _PROVIDERS.setdefault("cuda_random", lambda **kw: CUDAProvider(random_init=True, **kw))
+    _PROVIDERS.setdefault("openai", lambda **kw: OpenAIProvider(**kw))
+    _PROVIDERS.setdefault("google", lambda **kw: GoogleProvider(**kw))
+    _PROVIDERS.setdefault("lm_studio", lambda **kw: LMStudioProvider(**kw))
+    _PROVIDERS.setdefault("vllm", lambda **kw: VLLMProvider(**kw))
+    _PROVIDERS.setdefault("transformers", lambda **kw: TorchTransformersProvider(**kw))

@@ -25,7 +25,9 @@ around them: ``columns``, ``in`` and ``df[...]``, ``explain``, the preview
 (``repr`` of a collected frame, ``show``, the notebook table),
 ``with_column_renamed``, ``describe``, ``summarize``, ``into_batches``,
 ``transform``, ``add_monotonically_increasing_id``, ``count_rows`` /
-``len``, ``num_partitions``, ``skip_existing`` and the exporters
+``len``, ``num_partitions``, ``skip_existing``, the pipeline-progress
+checkpoints (``with_checkpoint`` and the writers' ``checkpoint=``,
+``checkpoint.py``) and the exporters
 (``iter_rows``, ``to_pylist``, ``to_arrow``, ``to_arrow_iter``,
 ``to_pandas``, ``to_torch_map_dataset``, ``to_torch_iter_dataset``,
 ``to_torch_dataloader``; ``to_dask_dataframe`` and ``to_ray_dataset`` raise
@@ -37,8 +39,7 @@ per-operator counters become ``get_context().last_query_stats``
 this). Not ported yet: the runner layer (native and distributed runners,
 admission, plan caches, the query log; A.8), and, each raising
 ``DaftNotImplementedError`` naming its ROADMAP item (``_LEFT_OUT``),
-``shard``, the table-format, database and connector writers (A.8),
-``with_checkpoint`` and the writers' ``checkpoint=`` (A.2).
+``shard`` and the table-format, database and connector writers (A.8).
 """
 
 from __future__ import annotations
@@ -750,18 +751,32 @@ class DataFrame:
         return self.join(existing, left_on=names, right_on=names, how="anti")
 
     # -- writes ---------------------------------------------------------
+    def with_checkpoint(self, config) -> "DataFrame":
+        """Skip the rows whose checkpoint key was already processed
+        (reference: CheckpointConfig attached to reads, daft/checkpoint.py;
+        ``checkpoint.py``)."""
+        return config.filter_done(self)
+
     def _write(self, file_format: str, root_dir: str, partition_cols=None,
                compression=None, write_mode="append", checkpoint=None) -> "DataFrame":
         from daft_tpu_torch.io.writers import WriteInfo
 
-        if checkpoint is not None:
-            raise DaftNotImplementedError(
-                "write checkpoints (daft_tpu/checkpoint.py) are not ported yet (ROADMAP A.2)")
         info = WriteInfo(
             file_format=file_format, root_dir=str(root_dir),
             partition_cols=_inner(partition_cols) if partition_cols else None,
             compression=compression, write_mode=write_mode,
         )
+        if checkpoint is not None:
+            # Run the pipeline once, write what it made, then seal the keys
+            # of those same partitions: running it again could seal keys a
+            # nondeterministic stage never wrote. Reference:
+            # CheckpointTerminus seals at the pipeline's end.
+            parts = self.collect()._result or []
+            mat = DataFrame(LogicalPlanBuilder.in_memory(
+                parts or [MicroPartition.empty(self.schema)], self.schema))
+            out = DataFrame(mat._builder.table_write(info)).collect()
+            checkpoint.seal_partitions(parts, self.schema)
+            return out
         return DataFrame(self._builder.table_write(info)).collect()
 
     def write_parquet(self, root_dir: str, compression: str = "snappy",
@@ -799,7 +814,6 @@ class DataFrame:
 #: The JAX package's DataFrame methods the port leaves out, by ROADMAP item.
 _LEFT_OUT = {
     "shard": "A.8 (Shard and PushDownShard)",
-    "with_checkpoint": "A.2 (pipeline-progress checkpoints)",
     "write_deltalake": "A.8 (the table formats)",
     "write_iceberg": "A.8 (the table formats)",
     "write_sql": "A.8 (the database writers)",

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from daft_tpu_torch.errors import DaftValueError
-from daft_tpu_torch.models.checkpoint import copy_flax_params, load_npz
+from daft_tpu_torch.models.checkpoint import copy_flax_params, load_flat
 from daft_tpu_torch.models.layers import (
     LayerNorm,
     TransformerBlock,
@@ -325,6 +325,10 @@ def load_flax_params(module: CLIPModule, flat: Dict[str, np.ndarray]) -> list:
 
 
 def load_params(path: str, module: CLIPModule) -> CLIPModule:
-    """Load a JAX-package ``.npz`` checkpoint into ``module``."""
-    load_flax_params(module, load_npz(path))
+    """Load a JAX-package checkpoint (``.npz``, flax ``.msgpack`` or an orbax
+    directory; ``checkpoint.load_flat``) into ``module``. The file is held to
+    the whole CLIP model's tree, both towers, as the JAX package loads the
+    whole model for either tower."""
+    tree = ["params/" + k for k in CLIPModel(module.cfg, device="meta").flax_names()]
+    load_flax_params(module, load_flat(path, tree))
     return module

@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from daft_tpu_torch.errors import DaftValueError
-from daft_tpu_torch.models.checkpoint import copy_flax_params, load_npz
+from daft_tpu_torch.models.checkpoint import copy_flax_params, load_flat
 from daft_tpu_torch.models.layers import MLP, LayerNorm, flax_block_names, init_random_params_
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -177,8 +177,10 @@ def load_flax_params(model: DecoderLM, flat: Dict[str, np.ndarray]) -> list:
 
 
 def load_params(path: str, model: DecoderLM) -> DecoderLM:
-    """Load a JAX-package ``.npz`` checkpoint into ``model``."""
-    load_flax_params(model, load_npz(path))
+    """Load a JAX-package checkpoint (``.npz``, flax ``.msgpack`` or an orbax
+    directory; ``checkpoint.load_flat``) into ``model``."""
+    tree = ["params/" + k for k in model.flax_names()]
+    load_flax_params(model, load_flat(path, tree))
     return model
 
 

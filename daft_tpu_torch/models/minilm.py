@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from daft_tpu_torch.models.checkpoint import copy_flax_params, load_npz
+from daft_tpu_torch.models.checkpoint import copy_flax_params, load_flat
 from daft_tpu_torch.models.layers import (
     TransformerBlock,
     flax_block_names,
@@ -101,6 +101,8 @@ def load_flax_params(encoder: MiniLMEncoder, flat: Dict[str, np.ndarray]) -> lis
 
 
 def load_params(path: str, encoder: MiniLMEncoder) -> MiniLMEncoder:
-    """Load a JAX-package ``.npz`` checkpoint into ``encoder``."""
-    load_flax_params(encoder, load_npz(path))
+    """Load a JAX-package checkpoint (``.npz``, flax ``.msgpack`` or an orbax
+    directory; ``checkpoint.load_flat``) into ``encoder``."""
+    tree = ["params/" + k for k in encoder.flax_names()]
+    load_flax_params(encoder, load_flat(path, tree))
     return encoder

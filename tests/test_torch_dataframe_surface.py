@@ -688,7 +688,7 @@ def test_dask_and_ray_exporters_raise_as_in_the_jax_package():
         assert errors[1] == errors[0] and errors[1][0] == "DaftIOError"
 
 
-@pytest.mark.parametrize("method, item", [("shard", "A.8"), ("with_checkpoint", "A.2"),
+@pytest.mark.parametrize("method, item", [("shard", "A.8"), ("write_lance", "A.8"),
                                           ("write_clickhouse", "A.8"), ("write_iceberg", "A.8"),
                                           ("write_deltalake", "A.8"), ("write_sql", "A.8")])
 def test_left_out_methods_raise_naming_their_item(method, item):

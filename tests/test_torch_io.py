@@ -238,11 +238,6 @@ def test_file_url_reads_like_a_local_path(tmp_path):
         daft_tpu_torch.read_parquet(d).to_pydict()
 
 
-def test_write_checkpoint_raises_naming_a2(tmp_path):
-    with pytest.raises(daft_tpu_torch.errors.DaftNotImplementedError, match="A.2"):
-        _df(daft_tpu_torch).write_parquet(str(tmp_path), checkpoint=object())
-
-
 @pytest.mark.parametrize("fmt", ["parquet", "csv", "json", "ipc"])
 def test_overwrite_replaces_what_the_jax_package_appends(tmp_path, fmt):
     """C.32: the JAX package stores ``write_mode="overwrite"`` and appends, so

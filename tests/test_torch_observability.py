@@ -18,9 +18,10 @@ Left out, with the modules they need: ``test_dashboard_server``,
 dataframe_display`` and ``test_dataframe_repr_html`` (the dashboard's server,
 state and assets, ROADMAP A.8; the port's notebook table is held in
 ``tests/test_torch_dataframe_surface.py``), ``test_heartbeat`` (the runner's
-heartbeat, A.8), ``test_checkpoint_resume`` and ``test_checkpoint_mixed_
-type_keys`` (pipeline checkpoints, A.2), ``test_cli_version`` (the CLI, A.8)
+heartbeat, A.8), ``test_cli_version`` (the CLI, A.8)
 and ``test_components_tally_not_stale`` (the JAX package's component tally).
+``test_checkpoint_resume`` and ``test_checkpoint_mixed_type_keys`` are
+mirrored in ``tests/test_torch_checkpoint.py``.
 """
 
 import dataclasses
