@@ -355,7 +355,33 @@ Phases, each of which fails the run on any error:
    more ids (one chunk): 96 / 0 / 24 flash launches, each key once in the
    files, the first run's embeddings unchanged and the new ones equal to a
    direct forward;
-21. print the whole run's time and one JSON line of per-kernel numbers (with
+21. multi-device and the engine's overhead (``phase_multi_device``), each
+   path with the counts set to 0 just before: (a) the watchdog: 2048 images
+   (16 chunks of 128) through ViT-L/14 standalone
+   (``CUDACLIPImageEmbedder.embed_image``) and through ``read ->
+   UDFProject(embed_image) -> collect`` with ``default_morsel_size=2048``,
+   the same seeded weights, in 3 ABBA blocks in this process (9 if the median
+   of the per-block ratios is over 1.15): each side's img/s, the verdict, the
+   two sides' rows equal within the chunk tolerance, and ``gap_breakdown`` of a
+   profiled engine pass; over 1.15 after the 9 blocks the phase fails; (b)
+   replica slots over phase 3's 512 images: ``chips_per_replica=1`` over the
+   card's own ``visible_devices()`` (one slot) and over two entries that both
+   name ``cuda:0`` (two slots, labelled so; morsels of 128), each the bytes of
+   phase 3's route with 96 launches, the second with two instances, one per
+   slot; (c) the mesh over the same two entries: ``mesh_axes={"dp": 2}`` (two
+   towers, chunks split in halves of 64: bit equality is not asked, the max
+   abs error and cosine against (b) are printed and the cosine held to
+   0.999) and ``{"tp": 2}`` (ViT-L/14's qkv, out, fc1, fc2 and proj split in
+   two, cosine >= 0.999 against (b), 24 launches a chunk, the weight bytes
+   each shard holds); (d) ring attention at B=4, T=16384, D=64 in f32: one
+   NCCL rank on ``cuda:0`` in this process, and two gloo ranks spawned with a
+   ``FileStore`` rendezvous, both on ``cuda:0`` (their blocks staged through
+   pinned host buffers; run beside (b) and (c) on the same card), each
+   against the flash kernel over the whole sequence laid out (B, T, 1, D) and
+   against ``flash_attention_plain`` (3e-5), with their walls and no flash
+   launch; (e) C.45: ``flash_attention`` on CUDA tensors that require grad
+   raises, and under ``torch.no_grad()`` the same call launches;
+22. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -520,6 +546,18 @@ TRANSFORMERS_CPU_COSINE_MIN = 0.999  # f32 on both, summed in another order
 CKPT_NEW = 128            # ids added after the first checkpointed write: one chunk
 Q01_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount",
                "l_tax", "l_shipdate")
+
+# Phase 21: multi-device and the engine's overhead.
+WATCHDOG_IMAGES = 2048    # 16 chunks of 128 through ViT-L/14 on each side
+WATCHDOG_BLOCKS, WATCHDOG_ESCALATED = 3, 9  # ABBA blocks, and once more if over the limit
+OVERHEAD_LIMIT = 1.15     # engine wall / standalone wall (tests/benchmarks/test_engine_overhead.py)
+SLOT_MORSEL = 128         # one chunk per morsel, so that two slots both take some
+MESH_COSINE_MIN = 0.999   # a dp2 or tp2 tower against the unsharded one, in bf16
+RING_B, RING_T, RING_D = 4, 16384, 64  # f32; two ranks of 8192
+RING_RANKS = 2
+RING_TOL = 3e-5           # f32 ring vs the f32 kernel and the plain version (the JAX test's)
+RING_PLAIN_BLOCK = 4096   # the plain version's query and key blocks over the whole sequence
+RING_TIMEOUT_S = 120
 
 NUM_TEXTS = 4096
 NUM_CLASSIFY_IMAGES = 256
@@ -1066,7 +1104,7 @@ def check_classify_image(inst, idf, imgs, labels_out: list) -> None:
                 made.clear()
                 expr = classify_image(dt.col("img"), order, provider="cuda_random",
                                       model="ViT-L/14")
-                expr._expr.udf._instance = inst
+                expr._expr.udf._instances[0] = inst
                 labels = idf.with_column("out", expr).to_pydict()["out"]
                 check(bool(made), "classify_image: the engine run embedded no image")
                 runs[tuple(order)] = (labels, np.concatenate(made))
@@ -2438,7 +2476,7 @@ def phase_image(card: str) -> dict:
           f"{name}: embeddings {emb.shape}, or not finite")
     fwd_expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
                            batch_size=BATCH)
-    fwd_expr._expr.udf._instance = inst
+    fwd_expr._expr.udf._instances[0] = inst
     with dt.execution_config_ctx(default_morsel_size=NUM_ENCODED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5538,7 +5576,7 @@ def phase_ai_surface(card: str) -> dict:
               f"keys sealed {len(cfg.store.load_keys())} [{card}]", flush=True)
         check(counts == [VIT_L_LAYERS * NUM_IMAGES // BATCH, 0, VIT_L_LAYERS * CKPT_NEW // BATCH],
               f"ckpt: flash launches {counts}")
-        check(steps["resume"][2]._expr.udf._instance is None,
+        check(not steps["resume"][2]._expr.udf._instances,
               "ckpt: rows reached the UDF on the resumed run")
         check(first["id"] == list(range(NUM_IMAGES)) and resume["id"] == first["id"]
               and resume["emb"].tobytes() == first["emb"].tobytes(),
@@ -5559,6 +5597,318 @@ def phase_ai_surface(card: str) -> dict:
         torch.cuda.empty_cache()
     reg.enabled = registry_was
     return by_path
+
+
+def phase_multi_device(card: str) -> dict:
+    """Phase 21: (a) the engine-overhead watchdog at ViT-L/14; (b) replica
+    slots; (c) dp2 and tp2 meshes over two entries naming the one card;
+    (d) ring attention over one NCCL rank and two gloo ranks; (e) C.45.
+    Returns each path's flash launches."""
+    import datetime
+    import pathlib
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ai.cuda_provider import CUDACLIPImageEmbedder
+    from daft_tpu_torch.errors import DaftValueError
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.models.layers import ShardedLinear
+    from daft_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from daft_tpu_torch.ops.ring_attention import ring_attention, sequence_parallel_attention
+    from daft_tpu_torch.parallel import replica
+    from daft_tpu_torch.parallel.mesh import shard_bytes
+    from daft_tpu_torch.perf_report import gap_breakdown
+    from daft_tpu_torch.tools import ring_world
+
+    paths = {}
+    chunk_launches = VIT_L_LAYERS
+
+    def counted(run):
+        flash_attention.launch_count = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, flash_attention.launch_count
+
+    def emb_of(df):
+        vals, _ = image_column(df, "emb").to_numpy_masked()
+        return np.asarray(vals, dtype=np.float32)
+
+    def vit(**options):
+        return embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                           batch_size=BATCH, **options)
+
+    # (a) The watchdog: the same forward standalone and through the engine.
+    imgs = np.random.default_rng(0).integers(0, 256, (WATCHDOG_IMAGES, IMAGE * IMAGE * 3),
+                                             dtype=np.uint8)
+    pixels = imgs.reshape(-1, IMAGE, IMAGE, 3)
+    df = dt.from_pydict({"img": dt.Series.from_numpy(imgs, "img",
+                                                     dt.DataType.image("RGB", IMAGE, IMAGE))})
+    expr = vit()
+    standalone = CUDACLIPImageEmbedder("ViT-L/14", batch_size=BATCH)
+
+    def standalone_once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = standalone.embed_image(pixels)  # fetched to the host: the work is done
+        return time.perf_counter() - t0, out
+
+    def engine_once(profile=None):
+        with dt.execution_config_ctx(default_morsel_size=WATCHDOG_IMAGES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q = df.with_column("emb", expr).select("emb")
+            q.collect(profile=profile)
+            return time.perf_counter() - t0, q
+
+    (_, st_out), paths["watchdog standalone"] = counted(standalone_once)
+    (_, en_q), paths["watchdog engine"] = counted(engine_once)
+    chunks = WATCHDOG_IMAGES // BATCH
+    for side in ("standalone", "engine"):
+        n = paths[f"watchdog {side}"]
+        check(n == chunk_launches * chunks,
+              f"watchdog {side}: {n} flash launches, expected {chunk_launches} x {chunks}")
+    paths = {k: {"flash_attention": v} for k, v in paths.items()}
+    en_out = emb_of(en_q)
+    err = float(np.abs(en_out - st_out).max())
+    print(f"[multi] watchdog: engine rows against standalone rows max_abs_err {err:.3e} "
+          f"(tol {CHUNK_TOL}), {chunk_launches * chunks} launches each", flush=True)
+    check(en_out.shape == st_out.shape and err <= CHUNK_TOL,
+          f"watchdog: the engine's rows differ from the standalone forward's by {err}")
+
+    def blocks(n):
+        ratios, st_walls, en_walls = [], [], []
+        for b in range(n):
+            if b % 2 == 0:
+                st, en = standalone_once()[0], engine_once()[0]
+            else:
+                en, st = engine_once()[0], standalone_once()[0]
+            st_walls.append(st)
+            en_walls.append(en)
+            ratios.append(en / st)
+        return ratios, statistics.median(st_walls), statistics.median(en_walls)
+
+    ratios, st, en = blocks(WATCHDOG_BLOCKS)
+    verdict = statistics.median(ratios)
+    if verdict >= OVERHEAD_LIMIT:
+        print(f"[multi] watchdog: x{verdict:.3f} over {WATCHDOG_BLOCKS} blocks "
+              f"({[round(r, 4) for r in ratios]}); escalating to {WATCHDOG_ESCALATED}", flush=True)
+        ratios, st, en = blocks(WATCHDOG_ESCALATED)
+        verdict = statistics.median(ratios)
+    profiled_s, profiled_q = engine_once(profile=True)
+    breakdown = gap_breakdown(profiled_q.query_profile, st, en)
+    print(f"[multi] watchdog ViT-L/14, {WATCHDOG_IMAGES} images in {chunks} chunks of {BATCH}: "
+          f"standalone {WATCHDOG_IMAGES / st:.1f} img/s ({st:.4f} s), engine "
+          f"{WATCHDOG_IMAGES / en:.1f} img/s ({en:.4f} s), medians of {len(ratios)} ABBA blocks; "
+          f"per-block ratios {[round(r, 4) for r in ratios]}; verdict x{verdict:.4f} (limit "
+          f"x{OVERHEAD_LIMIT}): {'pass' if verdict < OVERHEAD_LIMIT else 'FAIL'} [{card}]",
+          flush=True)
+    print(f"[multi] watchdog gap_breakdown (a profiled engine pass, {profiled_s:.4f} s):\n"
+          f"{breakdown}", flush=True)
+    check(verdict < OVERHEAD_LIMIT,
+          f"watchdog: the engine costs x{verdict:.3f} over the standalone forward (limit "
+          f"x{OVERHEAD_LIMIT}); attribution:\n{breakdown}")
+    del standalone, profiled_q, en_q
+
+    # (d), started here: two gloo ranks on the card, beside (b) and (c).
+    g = np.random.default_rng(21)
+    qkv = tuple(g.standard_normal((RING_B, RING_T, RING_D)).astype(np.float32) for _ in range(3))
+    ring_tmp = tempfile.TemporaryDirectory()
+    gloo = {}
+
+    def gloo_world():
+        t0 = time.perf_counter()
+        try:
+            gloo["ranks"] = ring_world.launch({"ring": qkv}, RING_RANKS, ring_tmp.name,
+                                              backend="gloo", device="cuda",
+                                              timeout=RING_TIMEOUT_S)["ring"]
+        except Exception as e:  # noqa: BLE001 — reported by the phase's check below
+            gloo["error"] = e
+        gloo["wall"] = time.perf_counter() - t0
+
+    gloo_thread = threading.Thread(target=gloo_world, name="smoke-gloo-ring")
+    gloo_thread.start()
+    try:
+        # (b) Replica slots over phase 3's 512 images.
+        imgs512 = np.random.default_rng(0).integers(0, 256, (NUM_IMAGES, IMAGE * IMAGE * 3),
+                                                    dtype=np.uint8)
+        df512 = dt.from_pydict({"img": dt.Series.from_numpy(
+            imgs512, "img", dt.DataType.image("RGB", IMAGE, IMAGE))})
+
+        def route(e, morsel):
+            def run():
+                with dt.execution_config_ctx(default_morsel_size=morsel):
+                    t0 = time.perf_counter()
+                    out = emb_of(df512.with_column("emb", e).select("emb"))
+                    return out, time.perf_counter() - t0
+            return counted(run)
+
+        want = NUM_IMAGES // BATCH * chunk_launches
+        (ref, _), n_ref = route(expr, NUM_IMAGES)  # phase 3's route, its instance warm
+        check(n_ref == want, f"phase 3's route: {n_ref} launches, expected {want}")
+        e1 = vit(chips_per_replica=1)
+        (one, one_s), n1 = route(e1, NUM_IMAGES)
+        inst1 = e1._expr.udf._instances
+        print(f"[multi] replica: chips_per_replica=1 over visible_devices() "
+              f"{[str(d) for d in replica.visible_devices()]}: {len(inst1)} instance(s) on "
+              f"{[str(i.device) for i in inst1.values()]}, {NUM_IMAGES} images {one_s:.3f} s "
+              f"(its load in it), {n1} launches, the same bytes as phase 3's route: "
+              f"{one.tobytes() == ref.tobytes()} [{card}]", flush=True)
+        check(list(inst1) == [0] and n1 == want and one.tobytes() == ref.tobytes(),
+              f"replica 1 slot: instances {list(inst1)}, launches {n1}, or its bytes differ")
+        paths["replica 1 slot"] = {"flash_attention": n1}
+
+        two = [torch.device("cuda", 0), torch.device("cuda", 0)]
+        real_visible = replica.visible_devices
+        replica.visible_devices = lambda: list(two)
+        try:
+            e2 = vit(chips_per_replica=1)
+            (both, both_s), n2 = route(e2, SLOT_MORSEL)
+            inst2 = e2._expr.udf._instances
+            print(f"[multi] replica: two slots over [cuda:0, cuda:0] (two entries naming one "
+                  f"card): instances for slots {sorted(inst2)}, {NUM_IMAGES} images in morsels of "
+                  f"{SLOT_MORSEL} {both_s:.3f} s (both loads in it), {n2} launches, the same "
+                  f"bytes as phase 3's route: {both.tobytes() == ref.tobytes()} [{card}]",
+                  flush=True)
+            check(sorted(inst2) == [0, 1] and n2 == want and both.tobytes() == ref.tobytes(),
+                  f"replica 2 slots: instances {sorted(inst2)}, launches {n2}, or bytes differ")
+            paths["replica 2 slots"] = {"flash_attention": n2}
+            del e1, e2, inst1, inst2
+
+            # (c) The mesh over the same two entries.
+            for axes in ({"dp": 2}, {"tp": 2}):
+                name = "mesh " + "".join(f"{k}{v}" for k, v in axes.items())
+                e = vit(chips_per_replica=2, mesh_axes=axes)
+                (out, out_s), n = route(e, NUM_IMAGES)
+                inst = e._expr.udf._instances[0]
+                cos = cosines(out, ref)
+                rows = BATCH // axes.get("dp", 1)
+                per_chunk = chunk_launches * axes.get("dp", 1)
+                held = [shard_bytes(t, axes.get("tp", 1)) for t in inst.replicas]
+                print(f"[multi] {name} over [cuda:0, cuda:0]: {inst.mesh}, {len(inst.replicas)} "
+                      f"tower(s); forwards of {rows} rows (phase 3's of {BATCH}; bit equality "
+                      f"{'asked' if rows == BATCH and 'tp' not in axes else 'not asked'}); "
+                      f"max_abs_err "
+                      f"{np.abs(out - ref).max():.3e}, cosine min {cos.min():.7f} (min "
+                      f"{MESH_COSINE_MIN}) against (b); {n} launches ({per_chunk} a chunk); "
+                      f"weight bytes held per shard, by dp row: {held}; {NUM_IMAGES} images "
+                      f"{out_s:.3f} s (its load in it) [{card}]", flush=True)
+                check(inst.mesh.shape == axes, f"{name}: mesh {inst.mesh.shape}")
+                check(n == NUM_IMAGES // BATCH * per_chunk, f"{name}: {n} launches")
+                check(bool(np.isfinite(out).all()) and cos.min() >= MESH_COSINE_MIN,
+                      f"{name}: cosine {cos.min()} against the unsharded tower")
+                if rows == BATCH and "tp" not in axes:  # a tp split sums in another order
+                    check(out.tobytes() == ref.tobytes(), f"{name}: not the same bytes")
+                if "tp" in axes:
+                    split = [m for blk in inst.encoder.blocks
+                             for m in (blk.attn.qkv, blk.attn.out, blk.mlp.fc1, blk.mlp.fc2)]
+                    split.append(inst.encoder.proj)
+                    check(all(isinstance(m, ShardedLinear) and len(m.weights) == axes["tp"]
+                              for m in split), f"{name}: a Dense layer is not split in two")
+                paths[name] = {"flash_attention": n}
+                del e, inst
+        finally:
+            replica.visible_devices = real_visible
+
+        # (e) C.45: the kernel refuses a call that autograd would differentiate.
+        gen = torch.Generator(device="cuda").manual_seed(45)
+        gq, gk, gv = (torch.randn((2, 64, 4, 64), generator=gen, device="cuda")
+                      .to(torch.bfloat16).requires_grad_() for _ in range(3))
+        try:
+            flash_attention(gq, gk, gv)
+            refused = ""
+        except DaftValueError as e:
+            refused = str(e)
+        before = flash_attention.launch_count
+        with torch.no_grad():
+            out = flash_attention(gq, gk, gv)
+        torch.cuda.synchronize()
+        launched = flash_attention.launch_count - before
+        print(f"[multi] C.45: flash_attention on CUDA tensors that require grad raised: "
+              f"{bool(refused)} ({refused[:80]}...); under torch.no_grad() it launched {launched} "
+              f"time(s), grad_fn {out.grad_fn} [{card}]", flush=True)
+        check("A.10.2" in refused, "C.45: the kernel ran under autograd")
+        check(launched == 1 and out.grad_fn is None and bool(torch.isfinite(out.float()).all()),
+              "C.45: the kernel did not launch under torch.no_grad()")
+
+        # (d) The references over the whole sequence, then one NCCL rank.
+        q, k, v = (torch.from_numpy(a).cuda() for a in qkv)
+        q4, k4, v4 = (t.view(RING_B, RING_T, 1, RING_D) for t in (q, k, v))
+
+        def kernel_ref():
+            t0 = time.perf_counter()
+            o = flash_attention(q4, k4, v4)
+            torch.cuda.synchronize()
+            return o.view(RING_B, RING_T, RING_D), time.perf_counter() - t0
+
+        (kref, kref_s), n_kref = counted(kernel_ref)
+        paths["ring reference"] = {"flash_attention": n_kref}
+        t0 = time.perf_counter()
+        pref = flash_attention_plain(q4, k4, v4, RING_PLAIN_BLOCK, RING_PLAIN_BLOCK).view(
+            RING_B, RING_T, RING_D)
+        torch.cuda.synchronize()
+        pref_s = time.perf_counter() - t0
+        kp = (kref - pref).abs().max().item()
+        print(f"[multi] ring reference: the f32 kernel over (B, T, 1, D) = ({RING_B}, {RING_T}, "
+              f"1, {RING_D}) {kref_s:.4f} s, {n_kref} launch; the plain version (blocks of "
+              f"{RING_PLAIN_BLOCK}) {pref_s:.4f} s; kernel vs plain max_abs_err {kp:.3e} [{card}]",
+              flush=True)
+        check(n_kref == 1 and kp <= RING_TOL, f"ring reference: {n_kref} launches, err {kp}")
+
+        def nccl_ring():
+            with tempfile.TemporaryDirectory() as tmp:
+                store = dist.FileStore(str(pathlib.Path(tmp) / "store"), 1)
+                dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                        timeout=datetime.timedelta(seconds=RING_TIMEOUT_S))
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    whole = sequence_parallel_attention(q, k, v)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    local = ring_attention(q, k, v)
+                    torch.cuda.synchronize()
+                finally:
+                    dist.destroy_process_group()
+            return whole, local, wall
+
+        (whole, local, nccl_s), n_nccl = counted(nccl_ring)
+        paths["ring nccl1"] = {"flash_attention": n_nccl}
+        errs = [(whole - kref).abs().max().item(), (whole - pref).abs().max().item()]
+        print(f"[multi] ring nccl, 1 rank on cuda:0: {nccl_s:.4f} s; against the kernel "
+              f"{errs[0]:.3e}, against the plain version {errs[1]:.3e} (tol {RING_TOL}); "
+              f"ring_attention equal to it: {torch.equal(whole, local)}; {n_nccl} flash launches "
+              f"[{card}]", flush=True)
+        check(max(errs) <= RING_TOL and n_nccl == 0 and torch.equal(whole, local),
+              f"ring nccl1: errors {errs}, {n_nccl} flash launches")
+    finally:
+        gloo_thread.join()
+        ring_tmp.cleanup()
+    check("error" not in gloo, f"ring gloo2: {gloo.get('error')}")
+    kref_np, pref_np = kref.cpu().numpy(), pref.cpu().numpy()
+    n_gloo = 0
+    for r, res in enumerate(gloo["ranks"]):
+        errs = [float(np.abs(res["whole"] - kref_np).max()),
+                float(np.abs(res["whole"] - pref_np).max())]
+        t = RING_T // RING_RANKS
+        lerr = float(np.abs(res["local"] - kref_np[:, r * t:(r + 1) * t]).max())
+        n_gloo += int(res["launches"])
+        print(f"[multi] ring gloo rank {r} of {RING_RANKS} on cuda:0 (spawned, FileStore, blocks "
+              f"through pinned host buffers; beside (b)-(c)): sequence_parallel_attention "
+              f"{res['seconds'][0]:.4f} s, ring_attention {res['seconds'][1]:.4f} s; against the "
+              f"kernel {errs[0]:.3e}, the plain version {errs[1]:.3e}, its own rows {lerr:.3e} "
+              f"(tol {RING_TOL}); {int(res['launches'])} flash launches [{card}]", flush=True)
+        check(max(errs + [lerr]) <= RING_TOL, f"ring gloo rank {r}: errors {errs}, {lerr}")
+    print(f"[multi] ring gloo world of {RING_RANKS}: {gloo['wall']:.1f} s from spawn to results "
+          f"[{card}]", flush=True)
+    check(n_gloo == 0, f"ring gloo2: {n_gloo} flash launches")
+    paths["ring gloo2"] = {"flash_attention": n_gloo}
+    return paths
 
 
 def embed_direct(inst, imgs):
@@ -5714,6 +6064,7 @@ def main() -> int:
         by_path.update(timed(19, phase_observability, card, sql_state))
         plane_report(card, phase_counts, sql_state.get("obs_loops", {}))
         by_path.update(timed(20, phase_ai_surface, card))
+        by_path.update(timed(21, phase_multi_device, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

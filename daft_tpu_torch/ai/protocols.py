@@ -1,10 +1,9 @@
 """AI protocols + descriptors (port of ``daft_tpu/ai/protocols.py``).
 
 Reference: daft/ai/protocols.py:15-60 — each protocol is paired with a
-Descriptor that carries instantiation options and the UDF's batch size. This
-slice ports the text and image embedders and the text and image classifiers.
-Not ported yet: the accelerator asks of the replica options (``tpus``,
-``chips_per_replica``).
+Descriptor that carries instantiation options and the UDF's scheduling
+options: batch size, concurrency, the accelerator ask (``tpus``, recorded as
+in the JAX package) and ``chips_per_replica``.
 """
 
 from __future__ import annotations
@@ -24,6 +23,11 @@ class UDFOptions:
     # UDF morsels evaluated at once, each on a pool thread of its own, all
     # sharing the one instance.
     max_concurrency: int = 1
+    tpus: float = 1.0
+    # Devices per replica slot (parallel/replica.py): the executor runs each
+    # morsel in a slot, and each slot has an instance of its own on the
+    # slot's devices (the reference's gpus_per_actor).
+    chips_per_replica: Optional[int] = None
 
 
 @runtime_checkable

@@ -2,7 +2,10 @@
 
 ``entry()`` returns the flagship forward — the CLIP ViT-L/14 image tower
 with L2-normalised output — and example arguments for it. Not ported yet:
-``dryrun_multichip`` (the CLIP training step over a dp x tp mesh).
+``dryrun_multichip``'s CLIP training step over a dp x tp mesh (ROADMAP
+A.10.2: it needs a gradient through attention, which the card's kernel does
+not have). Its engine and ring sections have their counterparts in
+``parallel/`` and ``ops/ring_attention.py``.
 """
 
 from __future__ import annotations

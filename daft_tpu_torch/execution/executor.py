@@ -185,6 +185,7 @@ from daft_tpu_torch.expressions.expr import UdfCall
 from daft_tpu_torch.micropartition import MicroPartition
 from daft_tpu_torch.ops import compiled_eval
 from daft_tpu_torch.ops.device_eval import device_eval_counters
+from daft_tpu_torch.parallel.replica import ReplicaSlots
 from daft_tpu_torch.physical import plan as pp
 from daft_tpu_torch.recordbatch import RecordBatch
 from daft_tpu_torch.schema import Field, Schema
@@ -759,13 +760,22 @@ class Executor:
     def _run_UDFProject(self, node: pp.UDFProject) -> Iterator[MicroPartition]:
         udf = next(n.udf for n in node.udf_expr.walk() if isinstance(n, UdfCall))
         concurrency = max(1, getattr(udf, "max_concurrency", None) or 1)
+        # chips_per_replica: the visible devices in replica slots; each
+        # morsel evaluates holding one, so at most one morsel per slot runs
+        # at a time (the reference's gpus_per_actor, udf.rs:391-406).
+        slots = None
+        cpr = getattr(udf, "chips_per_replica", None)
+        if cpr:
+            slots = ReplicaSlots(cpr)
+            concurrency = slots.num_replicas if udf.max_concurrency is None \
+                else min(concurrency, slots.num_replicas)
         exprs = node.passthrough + [node.udf_expr]
         source = self._run(node.children[0])
         udf_bs = udf.batch_size
         batch_state = None
         if udf_bs:
             child_iter = split_morsels(source, min(udf_bs * 16, self.cfg.default_morsel_size))
-        elif self.cfg.udf_dynamic_batching:
+        elif self.cfg.udf_dynamic_batching and slots is None:
             batch_state = LatencyConstrainedBatching(
                 target_latency_s=self.cfg.udf_target_batch_latency_s,
                 b_max=self.cfg.default_morsel_size).make_state()
@@ -774,6 +784,8 @@ class Executor:
             child_iter = split_morsels(source, self.cfg.default_morsel_size)
 
         def eval_mp(mp: MicroPartition) -> MicroPartition:
+            if slots is not None:
+                return slots.run(mp.eval_expression_list, exprs)
             if batch_state is None:
                 return mp.eval_expression_list(exprs)
             t0 = time.perf_counter()
@@ -781,12 +793,12 @@ class Executor:
             batch_state.record(len(mp), time.perf_counter() - t0)
             return out
 
-        if concurrency == 1:
+        if concurrency == 1 and slots is None:
             for mp in child_iter:
                 yield eval_mp(mp)
             return
-        # In order, on a pool of the UDF's own: a slow UDF must never starve
-        # the shared relational pool.
+        # In order, on a pool of the UDF's own: a slow UDF, or one waiting
+        # for a replica slot, must never starve the shared relational pool.
         udf_pool = ThreadPoolExecutor(max_workers=concurrency, thread_name_prefix="daft-udf")
         yield from run_stage(child_iter, eval_mp, pool=udf_pool, workers=concurrency,
                              name="UDFProject", owns_pool=True, timer=self._stage_frame(node),

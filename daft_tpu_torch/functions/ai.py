@@ -27,15 +27,18 @@ from daft_tpu_torch.udf import Udf
 class _ProtocolUdf(Udf):
     """Batch UDF over a lazily-instantiated protocol implementation.
 
-    The instance (model weights in device memory) is created once, on the
-    first batch — the actor-pool replica pattern (reference:
-    daft/ai/_expressions.py + @daft.cls wrapping in functions/ai).
+    The instance (model weights in device memory) is created on the first
+    batch, one per replica slot: with ``chips_per_replica`` the executor
+    runs each morsel inside a slot's scope, and the instance made there
+    lives on that slot's devices (the actor-pool replica pattern; reference:
+    daft/ai/_expressions.py + @daft.cls wrapping in functions/ai). Without
+    it every morsel sees slot 0 and shares one instance.
     """
 
     def __init__(self, descriptor, call, return_dtype: DataType, name: str):
         self._descriptor = descriptor
         self._call = call
-        self._instance = None
+        self._instances: dict = {}
         self._instance_lock = threading.Lock()
         udf_opts = descriptor.get_udf_options()
 
@@ -47,14 +50,23 @@ class _ProtocolUdf(Udf):
         fn.__name__ = name
         super().__init__(fn, return_dtype, batch=True, name=name,
                          batch_size=udf_opts.batch_size,
-                         max_concurrency=udf_opts.max_concurrency)
+                         max_concurrency=udf_opts.max_concurrency,
+                         tpus=udf_opts.tpus,
+                         chips_per_replica=udf_opts.chips_per_replica)
 
     def _get_instance(self):
-        if self._instance is None:
+        """The instance of the current replica slot (``replica_id()``),
+        made inside the slot's scope on its first morsel."""
+        from daft_tpu_torch.parallel.replica import replica_id
+
+        rid = replica_id()
+        inst = self._instances.get(rid)
+        if inst is None:
             with self._instance_lock:
-                if self._instance is None:
-                    self._instance = self._descriptor.instantiate()
-        return self._instance
+                inst = self._instances.get(rid)
+                if inst is None:
+                    inst = self._instances[rid] = self._descriptor.instantiate()
+        return inst
 
 
 def _images_to_numpy(series: Series, size: int) -> np.ndarray:

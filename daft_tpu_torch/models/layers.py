@@ -13,12 +13,21 @@ With a mask (the text towers' causal and key-padding masks) it runs
 ``jax.nn.dot_product_attention``; the JAX package leaves that path to XLA, so
 no hand-written kernel stands behind it, and it never reaches the mask-free
 kernel or PyTorch's fused attention (SDPA).
+
+Under a mesh with a ``tp`` axis (``parallel/mesh.py::shard_module_``) a Dense
+layer whose spec splits it becomes a ``ShardedLinear``: one weight shard per
+tp device, the outputs gathered (column shards) or the partial products
+summed in f32 (row shards) on the lead device. ``qkv``'s columns are
+``[q | k | v]``, so its shards are not head-aligned (at ViT-L/14 and tp 4 the
+second shard holds q's last 256 columns and k's first 512): its output is
+gathered before the heads split, and attention runs once, on the lead
+device. Without a mesh, or at tp 1, no layer is replaced.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +89,78 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
+
+
+class ShardedLinear(nn.Module):
+    """A Dense layer split over the tensor-parallel devices ``devices``, one
+    weight shard on each; the input arrives and the output leaves on the
+    lead device, ``devices[0]``. ``column``: shard i holds outputs
+    ``[i*n, (i+1)*n)`` with their bias, and the shards' outputs are
+    concatenated on the lead device. ``row``: shard i holds inputs
+    ``[i*n, (i+1)*n)``, multiplies its slice of the input, and the partial
+    products are summed on the lead device in f32 with the bias, then cast
+    back to the input's dtype."""
+
+    def __init__(self, kind: str, in_features: int, out_features: int, devices: list,
+                 weights: list, biases: Optional[list], bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.kind = kind
+        self.in_features, self.out_features = in_features, out_features
+        self.devices = list(devices)
+        self.weights = nn.ParameterList(weights)
+        self.biases = nn.ParameterList(biases) if biases is not None else None
+        self.bias = bias
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, linear: nn.Linear, kind: str, devices: list) -> "ShardedLinear":
+        """``linear`` split into ``len(devices)`` shards by ``kind``; each
+        shard is a copy of its own, so the whole weight can be freed."""
+        tp = len(devices)
+        dim = {"column": 0, "row": 1}[kind]
+        size = linear.weight.shape[dim]
+        if size % tp:
+            raise DaftValueError(f"{kind} shards of a Linear of {size} features over {tp} "
+                                 f"devices do not divide")
+        n = size // tp
+        grad = linear.weight.requires_grad
+
+        def copy_to(t: torch.Tensor, dev) -> nn.Parameter:
+            out = torch.empty(t.shape, dtype=t.dtype, device=dev)
+            return nn.Parameter(out.copy_(t), requires_grad=grad)
+
+        weights = [copy_to(linear.weight.narrow(dim, i * n, n), d) for i, d in enumerate(devices)]
+        biases, bias = None, None
+        if linear.bias is not None and kind == "column":
+            biases = [copy_to(linear.bias.narrow(0, i * n, n), d) for i, d in enumerate(devices)]
+        elif linear.bias is not None:
+            bias = copy_to(linear.bias, devices[0])
+        return cls(kind, linear.in_features, linear.out_features, devices, weights, biases, bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = self.devices[0]
+        if self.kind == "column":
+            biases = self.biases if self.biases is not None else [None] * len(self.weights)
+            outs = [F.linear(x.to(d), w, b) for d, w, b in zip(self.devices, self.weights, biases)]
+            return torch.cat([o.to(lead) for o in outs], dim=-1)
+        n = self.in_features // len(self.weights)
+        acc = None
+        for i, (d, w) in enumerate(zip(self.devices, self.weights)):
+            part = F.linear(x[..., i * n:(i + 1) * n].to(d), w).to(lead, torch.float32)
+            acc = part if acc is None else acc + part
+        if self.bias is not None:
+            acc = acc + self.bias.float()
+        return acc.to(x.dtype)
+
+    def shard_nbytes(self) -> List[int]:
+        """The bytes of weights (and biases) each shard holds; a row layer's
+        bias counts on the lead device's shard."""
+        out = [w.numel() * w.element_size() for w in self.weights]
+        if self.biases is not None:
+            out = [o + b.numel() * b.element_size() for o, b in zip(out, self.biases)]
+        if self.bias is not None:
+            out[0] += self.bias.numel() * self.bias.element_size()
+        return out
 
 
 class MultiHeadAttention(nn.Module):

@@ -7,8 +7,10 @@ tensor it launches the hand-written kernel in ``csrc/flash_attention.cu``
 (bf16: TMA-fed K/V ring and wgmma on the tensor cores; f32: CUDA cores; the
 source says what bounds it).
 On a CPU tensor it runs ``flash_attention_plain``, the same blockwise online
-softmax in torch ops. There is no other route: a CUDA tensor the kernel does
-not take raises.
+softmax in torch ops, which autograd differentiates. There is no other route:
+a CUDA tensor the kernel does not take raises, and so does a call that
+autograd would have to differentiate through the kernel, which has no
+backward (``refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -75,6 +77,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise DaftValueError(f"flash_attention supports head_dim {HEAD_DIMS}, got {q.shape[-1]}")
 
 
+def refuse_autograd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise when grad mode is on and any of q, k, v requires grad: the
+    kernel writes into a fresh tensor with no ``grad_fn``, so no gradient
+    would reach q, k or v and every weight below the attention would get a
+    wrong one, silently. The kernel calls it on CUDA tensors; it reads only
+    the grad flags, so a test can call it on CPU tensors."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise DaftValueError(
+            "flash_attention's CUDA kernel has no backward (the JAX package's pallas_call "
+            "has none either): call it under torch.no_grad() or torch.inference_mode(), "
+            "or on tensors that do not require grad; a gradient through attention on the "
+            "card is ROADMAP A.10.2")
+
+
 def kernel_strides(t: torch.Tensor) -> tuple:
     """The (B, T, H) element strides the kernel is given. A dimension of size 1
     is never stepped over, so its stride is replaced by the contiguous one:
@@ -135,12 +151,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Non-causal attention, q/k/v: (B, T, H, D) -> (B, T, H, D) in q's dtype.
 
     A CUDA tensor goes to the CUDA kernel (each launch adds one to
-    ``flash_attention.launch_count``); a CPU tensor to ``flash_attention_plain``."""
+    ``flash_attention.launch_count``), and raises where autograd would need
+    the kernel's backward (``refuse_autograd``); a CPU tensor goes to
+    ``flash_attention_plain``."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise DaftValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    refuse_autograd(q, k, v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_kernel_layout(t, name)
     return _launch(q, k, v)

@@ -9,7 +9,10 @@ stateful UDF's instance is created lazily, once per process, on first use: a
 class that holds a model on the card builds it there once. ``gpus`` / ``tpus``
 / ``cpus`` / ``memory_bytes`` are recorded asks, and ``use_process`` is
 accepted and does nothing, as in the JAX package. ``chips_per_replica``
-(replica slots over several cards) is ROADMAP A.10.
+partitions the visible CUDA devices into replica slots of that many devices
+(``parallel/replica.py``): each morsel evaluates inside one slot's scope,
+at most one morsel per slot at a time, and ``replica_devices()`` names the
+slot's devices to the code the UDF runs.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import time
 from typing import Callable, List, Optional
 
 from daft_tpu_torch.datatype import DataType
-from daft_tpu_torch.errors import DaftExecutionError, DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftExecutionError, DaftValueError
 from daft_tpu_torch.expressions.expr import UdfCall, ensure_expr
 from daft_tpu_torch.expressions.expression import Expression
 from daft_tpu_torch.series import Series
@@ -38,10 +41,6 @@ class Udf:
                  max_retries: int = 0, on_error: str = "raise",
                  batch_size: Optional[int] = None, use_process: bool = False,
                  chips_per_replica: Optional[int] = None):
-        if chips_per_replica is not None:
-            raise DaftNotImplementedError(
-                "chips_per_replica is not ported to daft_tpu_torch: ROADMAP A.10 "
-                "(multi-device)")
         self.fn = fn
         self.return_dtype = return_dtype
         self.batch = batch
@@ -57,6 +56,8 @@ class Udf:
         self.on_error = on_error
         self.batch_size = batch_size
         self.use_process = use_process
+        # Devices per replica slot (the reference's gpus_per_actor).
+        self.chips_per_replica = chips_per_replica
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs) -> Expression:

@@ -286,8 +286,15 @@ def test_apply_over_nulls():
 def test_chips_per_replica_names_its_item():
     from daft_tpu_torch.udf import Udf
 
-    with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.10"):
-        Udf(abs, daft_tpu_torch.DataType.int64(), chips_per_replica=2)
+    # Accepted and recorded since A.10; its slots are CUDA devices, so without
+    # one the query raises naming them.
+    slotted = Udf(abs, daft_tpu_torch.DataType.int64(), chips_per_replica=2)
+    assert slotted.chips_per_replica == 2
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(DaftValueError, match="no CUDA device is visible"):
+            daft_tpu_torch.from_pydict({"a": [-1]}).select(
+                slotted(daft_tpu_torch.col("a"))).to_pydict()
     udf = daft_tpu_torch.udf.func(return_dtype=daft_tpu_torch.DataType.int64(), gpus=1,
                                   use_process=True, memory_bytes=1 << 20)(abs)
     assert (udf.gpus, udf.use_process, udf.memory_bytes) == (1, True, 1 << 20)
