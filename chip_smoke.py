@@ -20,7 +20,8 @@ Phases, each of which fails the run on any error:
    to 0 just before and read just after; check the row count, finite unit-norm
    embeddings, launches = 24 per forward chunk, that one chunk equals a direct
    forward of the tower, and that the tower with the kernel agrees with the
-   tower on the CPU (plain attention) on two images;
+   tower on the CPU (plain attention) on one image (each CPU image check of
+   phases 3, 5 and 8 takes one: two cost 4.2-6.0 s more a run);
 4. put ``torch.profiler`` over one more chunk of the same path and print the
    ten device kernels with the most time, the time by kind (attention,
    matmul, LayerNorm, GELU or sigmoid, copies and casts, other) and the
@@ -218,7 +219,10 @@ Phases, each of which fails the run on any error:
    ``date32``: first SF1's, each of the 21 against its numpy reference (keys
    exact, floats within 1e-6; q06's predicate as the route that ran it
    decides) with the join order ``ReorderJoins`` chose (q05, q08, q09) and
-   no flash launch; then SF10's (generation and references timed) for the
+   no flash launch, their walls taken while SF10's tables are generated on
+   another thread, which shares the host and the GIL with them; then
+   SF10's (generated on that thread beside the SF1 part, which took back most
+   of its 28-30 s; generation and references timed) for the
    three phase 15 runs under a limit, q01, q18 and q21 (the other 18 cut
    from SF10 to keep the run inside its limit), each once at 8 workers with
    the counts set to 0 just before: wall s, the plan's parse and
@@ -381,7 +385,32 @@ Phases, each of which fails the run on any error:
    against ``flash_attention_plain`` (3e-5), with their walls and no flash
    launch; (e) C.45: ``flash_attention`` on CUDA tensors that require grad
    raises, and under ``torch.no_grad()`` the same call launches;
-22. print the whole run's time and one JSON line of per-kernel numbers (with
+22. the core (``phase_core``): the query caches and the native runner, which
+   phases 1-21 run with both caches off (``caches_off``), so that each of
+   their repeated runs executes and is timed as before; here they are on, as
+   a user's default config has them; sized to 15 s. (a) the main path through the runner:
+   ViT-L/14 ``embed_image`` over phase 3's 512 images through two frames
+   built alike over one expression, the first a plan-cache miss, the second
+   a plan-cache HIT and a result-cache MISS ("UDF in plan"), both the bytes
+   of phase 3's route (run here with the caches off) with 96 launches each,
+   and the optimize + translate wall that the hit saved; (b) the relational
+   caches: q06 in SQL over phase 12's hive-partitioned lineitem (the first
+   ``SCAN_ROWS // 10`` rows of its table, q01's columns; run alone, the
+   phase writes one like it): a MISS, then a result-cache HIT with the same
+   bytes and no device-layer work, then another query over the same scan
+   (AVG beside the SUM) served by the scan tier, then a write of 4096 more
+   rows into the directory and q06 again, a MISS whose answer is held
+   against the host's f64 reference of all the rows (the pushed-down filter
+   decides on the host, ROADMAP C.31), each wall and ``cache_stats()``
+   printed; (c) the environment, in one subprocess with
+   ``DAFT_COMPUTE_THREADS=1 DAFT_RESULT_CACHE=0``, whose
+   ``get_context().execution_config`` shows both and which runs phase 3's
+   route on the card over its first chunk (128 images, 24 launches, within
+   ``CHUNK_TOL`` of (a)'s rows); (d) the CLI, in the same subprocess as
+   ``python -m daft_tpu_torch sql "<q06>" --table lineitem=<dir>`` runs it
+   (``runpy``), on the card, printing the text of q06 run in this process
+   under the subprocess's config. The subprocess runs beside (b) and (a);
+23. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -412,7 +441,7 @@ CHUNK_TOL = 1e-5  # same weights, same kernels, same batch: only run-to-run nois
 CPU_COSINE_MIN = 0.99  # GPU tower vs CPU tower in bf16: rounding differs per layer
 CPU_SIM_TOL = 1e-2    # image-label cosines from the GPU towers vs the CPU towers
 CPU_TEXT_SAMPLE = 16  # non-empty strings per text tower held against its CPU tower
-CPU_CLASSIFY_IMAGES = 2  # images whose label similarities are held against the CPU towers
+CPU_CLASSIFY_IMAGES = 1  # images whose label similarities are held against the CPU towers
 BF16_PARITY_T = (5, 64, 257, 300, 1024)  # one short, whole, ragged and long sequences
 
 NUM_PROMPTS = 256
@@ -851,7 +880,7 @@ def phase_main_path(card: str) -> tuple:
           f"(tol {CHUNK_TOL})", flush=True)
     check(chunk_err <= CHUNK_TOL, f"engine chunk differs from direct forward by {chunk_err}")
 
-    check_image_tower("main", inst, imgs[:2].reshape(2, IMAGE, IMAGE, 3), emb[:2])
+    check_image_tower("main", inst, imgs[:1].reshape(1, IMAGE, IMAGE, 3), emb[:1])
     return {"flash_attention": launches}, elapsed * 1e3
 
 
@@ -2283,7 +2312,7 @@ def phase_hf(card: str) -> dict:
               f"chunk(s); engine chunk vs direct forward: max_abs_err {err:.3e} (tol "
               f"{CHUNK_TOL})", flush=True)
         check(err <= CHUNK_TOL, f"{name}: engine chunk differs from a direct forward by {err}")
-        check_image_tower(name, inst, imgs[:2].reshape(2, IMAGE, IMAGE, 3), emb[:2])
+        check_image_tower(name, inst, imgs[:1].reshape(1, IMAGE, IMAGE, 3), emb[:1])
         head = idf.limit(BATCH)
         trace_window(card, f"trace {name}", f"one chunk of {BATCH} images",
                      lambda: head.with_column("out", expr).collect())
@@ -3196,13 +3225,15 @@ def arrow_sorted(table):
     return table.sort_by([(n, "ascending") for n in table.column_names])
 
 
-def phase_scan(card: str, rows: int = 0) -> dict:
+def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
     """Scan and local files on the card: SF10's lineitem written to parquet
     and read back into q06 and q01 at 1 and N threads; hive pruning over
     SF1's q01 columns; phase 9's photos read from files and from parquet
     shards into ViT-L/14; C.30's sqrt on the card; a deadline over a parquet
-    scan. ``rows`` cuts the table (0: SF10's). Returns the launch counts of
-    its paths."""
+    scan. ``rows`` cuts the table (0: SF10's). With ``shared``, the hive
+    directory outlives the phase and ``shared`` names it and holds q06's
+    columns of its rows, for phase 22. Returns the launch counts of its
+    paths."""
     import gc
     import os
     import shutil
@@ -3412,7 +3443,11 @@ def phase_scan(card: str, rows: int = 0) -> dict:
         sf1 = {k: cols[k][:sf1_rows] for k in q01_names}
         del cols
         gc.collect()
-        hive_dir = os.path.join(tmp, "hive")
+        if shared is None:
+            hive_dir = os.path.join(tmp, "hive")
+        else:
+            shared["root"] = tempfile.mkdtemp(prefix="smoke-lineitem-")
+            hive_dir = os.path.join(shared["root"], "hive")
         t0 = time.perf_counter()
         res = dt.from_pydict(sf1).select(*q01_names).write_parquet(
             hive_dir, partition_cols=["l_returnflag"]).to_pydict()
@@ -3445,6 +3480,9 @@ def phase_scan(card: str, rows: int = 0) -> dict:
         check(errs <= Q06_RTOL, f"hive q01 vs the f64 reference: {errs}")
         print(f"[scan] hive q01 over the {sf1_rows} rows: {hq01_s:.3f} s, largest rel err "
               f"{errs:.2e} vs the f64 reference, counts exact [{card}]", flush=True)
+        if shared is not None:
+            shared["lineitem_dir"] = hive_dir
+            shared["lineitem_cols"] = {k: np.array(sf1[k]) for k in NUMERIC_COLS}
         del sf1, got, want
         gc.collect()
 
@@ -3659,6 +3697,7 @@ def phase_sql(card: str) -> dict:
     and SF1's tables and frames."""
     import gc
     import resource
+    import threading
 
     import torch
 
@@ -3700,6 +3739,23 @@ def phase_sql(card: str) -> dict:
         return tpch.filter_on_host(de.device_eval_counters.snapshot()["chain_rows"],
                                    len(tables["lineitem"]["l_orderkey"]))
 
+    # SF10's tables are generated on a thread of their own beside the SF1
+    # part (host numpy and Arrow work that needs nothing of it); the SF10
+    # part waits for them. The SF1 part's walls are so taken with the host
+    # and the GIL shared with that thread, and their lines say so.
+    sf10 = {}
+
+    def generate_sf10():
+        t0 = time.perf_counter()
+        try:
+            sf10["tables"] = tpch.tpch_tables(SQL_SF, seed=0, sql=True)
+        except BaseException as e:  # noqa: BLE001 — raised on the phase's thread below
+            sf10["error"] = e
+        sf10["gen_s"] = time.perf_counter() - t0
+
+    sf10_thread = threading.Thread(target=generate_sf10, name="smoke-sf10-tables")
+    sf10_thread.start()
+
     # SF1: each query against its reference (warms the device programs).
     t0 = time.perf_counter()
     small = tpch.tpch_tables(SQL_CHECK_SF, seed=0, sql=True)
@@ -3723,8 +3779,9 @@ def phase_sql(card: str) -> dict:
             print(f"[sql] {name} join order over SF{SQL_CHECK_SF} (ReorderJoins): "
                   f"{join_order(plan)} [{card}]", flush=True)
     print(f"[sql] SF{SQL_CHECK_SF}'s tables generated in {gen_s:.1f} s; the 22 queries equal "
-          f"their references (warm runs): " + ", ".join(f"{n} {s:.3f} s" for n, s in walls.items())
-          + f" [{card}]", flush=True)
+          f"their references (warm runs, timed while SF{SQL_SF}'s tables are generated on "
+          f"another thread{'' if sf10_thread.is_alive() else ' or after it ended'}): "
+          + ", ".join(f"{n} {s:.3f} s" for n, s in walls.items()) + f" [{card}]", flush=True)
     check("q16" in walls, "q16 must run in SQL (count(DISTINCT ...))")
     print(f"[sql] q16 over SF{SQL_CHECK_SF} ({len(small_outs['q16']['supplier_cnt'])} groups, "
           f"count(DISTINCT ps_suppkey) through the list partials) equals its reference in "
@@ -3747,7 +3804,9 @@ def phase_sql(card: str) -> dict:
         check(not problems, f"{name}: the SQL form vs the DataFrame form: {problems}")
         builds = [j["build_rows"] for j in join_counters.snapshot()]
         print(f"[sql] {name} DataFrame form over SF{SQL_CHECK_SF}: {wall:.3f} s at "
-              f"{SQL_WORKERS} workers, equal to the SQL form; build rows {builds}; join order "
+              f"{SQL_WORKERS} workers (SF{SQL_SF}'s generation "
+              f"{'still running' if sf10_thread.is_alive() else 'ended'}), equal to the SQL "
+              f"form; build rows {builds}; join order "
               f"as written {written}, after the optimizer "
               f"{chosen}{'' if chosen == written else ' (reordered)'} [{card}]", flush=True)
     # Phase 16 runs on SF1's tables and frames too.
@@ -3756,16 +3815,19 @@ def phase_sql(card: str) -> dict:
     gc.collect()
 
     t0 = time.perf_counter()
-    tables = tpch.tpch_tables(SQL_SF, seed=0, sql=True)
-    gen_s = time.perf_counter() - t0
+    sf10_thread.join()
+    wait_s = time.perf_counter() - t0
+    if "error" in sf10:
+        raise sf10["error"]
+    tables, gen_s = sf10["tables"], sf10["gen_s"]
     t0 = time.perf_counter()
     frames = tpch.sql_frames(dt, tables)
     frames_s = time.perf_counter() - t0
     sizes = {t: len(next(iter(cols.values()))) for t, cols in tables.items()}
     print(f"[sql] TPC-H SF{SQL_SF} from seed 0 with every column q01-q22 read: "
           + ", ".join(f"{t} {n}" for t, n in sizes.items())
-          + f" rows, generated in {gen_s:.1f} s, date32 frames in {frames_s:.1f} s "
-          f"[{card}]", flush=True)
+          + f" rows, generated in {gen_s:.1f} s beside the SF1 part ({wait_s:.1f} s of it after "
+          f"the SF1 part), date32 frames in {frames_s:.1f} s [{card}]", flush=True)
     outs, device_rows, unlimited = {}, {}, {}
     ref_s = 0.0
     for name in out_of_core.QUERIES:
@@ -6015,6 +6077,317 @@ def plane_report(card: str, phase_counts: dict, loops: dict) -> None:
               f"(the JAX package's budget {OVERHEAD_BUDGET_PCT} %) [{card}]", flush=True)
 
 
+def caches_off() -> None:
+    """Phases 1-21 run with the plan and result caches off: each of their
+    repeated runs (timings, thread counts, ABBA loops) executes as it did
+    before the caches were ported. Phase 22 turns them on."""
+    import daft_tpu_torch as dt
+
+    dt.set_execution_config(plan_cache_enabled=False, result_cache_enabled=False)
+
+
+Q01_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+            "l_returnflag", "l_linestatus")
+CORE_ROWS = SCAN_ROWS // 10   # phase 12's hive lineitem's rows; phase 22 alone writes its own
+CORE_SEED = 22
+CORE_APPEND_ROWS = 4096   # rows phase 22 writes into that directory
+CORE_TIMEOUT_S = 300      # phase 22's subprocess
+
+
+def q06_sql(table: str = "lineitem", select: str = "SUM(l_extendedprice * l_discount) AS revenue"):
+    from daft_tpu_torch.tools import lineitem as li
+
+    return (f"SELECT {select} FROM {table} WHERE l_shipdate >= {li.Q06_DATE_LO} "
+            f"AND l_shipdate < {li.Q06_DATE_HI} AND l_discount >= {li.Q06_DISCOUNT_LO} "
+            f"AND l_discount <= {li.Q06_DISCOUNT_HI} AND l_quantity < {li.Q06_QUANTITY}")
+
+
+#: Phase 22's one subprocess: (c) the environment's config and phase 3's
+#: route, then (d) the CLI, run as ``python -m daft_tpu_torch`` runs it
+#: (``runpy`` with ``run_name="__main__"``) and its printed text captured.
+CORE_SUB_SCRIPT = """
+import contextlib, io, json, runpy, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+torch_s = time.perf_counter() - t0
+import daft_tpu_torch as dt
+from daft_tpu_torch.functions.ai import embed_image
+from daft_tpu_torch.ops.flash_attention import flash_attention
+n, image, batch, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+query, table = sys.argv[5], sys.argv[6]
+cfg = dt.get_context().execution_config
+dt_s = time.perf_counter() - t0 - torch_s
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+import_s = time.perf_counter() - t0
+imgs = np.random.default_rng(0).integers(0, 256, (n, image * image * 3), dtype=np.uint8)
+df = dt.from_pydict({"img": dt.Series.from_numpy(imgs, "img", dt.DataType.image("RGB", image, image))})
+expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14", batch_size=batch)
+with dt.execution_config_ctx(default_morsel_size=n):
+    flash_attention.launch_count = 0
+    parts = list(df.with_column("emb", expr).select("emb").iter_partitions())
+    launches = flash_attention.launch_count
+emb = np.concatenate([np.asarray(p.to_pydict()["emb"], dtype=np.float32) for p in parts])
+np.save(out, emb)
+torch.cuda.synchronize()
+route_s = time.perf_counter() - t0 - import_s
+sys.argv = ["daft_tpu_torch", "sql", query, "--table", table]
+text, rc = io.StringIO(), 0
+try:
+    with contextlib.redirect_stdout(text):
+        runpy.run_module("daft_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+cli_s = time.perf_counter() - t0 - import_s - route_s
+print(json.dumps({"num_compute_threads": cfg.num_compute_threads,
+                  "result_cache_enabled": cfg.result_cache_enabled,
+                  "plan_cache_enabled": cfg.plan_cache_enabled, "device": cfg.device,
+                  "launches": launches, "rows": int(emb.shape[0]), "cli_rc": rc,
+                  "cli_text": text.getvalue(), "torch_s": torch_s, "dt_s": dt_s,
+                  "import_s": import_s, "route_s": route_s, "cli_s": cli_s}))
+"""
+
+
+def phase_core(card: str, shared: dict = None) -> dict:
+    """Phase 22: the runner and the query caches on the card, over phase
+    12's hive-partitioned lineitem (``shared``; run alone, it writes one
+    like it). Returns each path's flash launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import metrics, plancache
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.ops import device_eval as de
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.physical.translate import translate
+    from daft_tpu_torch.tools import lineitem
+
+    phase_start = time.perf_counter()
+    paths = {}
+    on = {"plan_cache_enabled": True, "result_cache_enabled": True}
+    # The subprocess's config, for the in-process text its CLI must print.
+    sub_cfg = {"num_compute_threads": 1, "result_cache_enabled": False}
+    plancache.reset_caches()
+
+    def counted(run):
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, flash_attention.launch_count
+
+    def hits(kind):
+        return metrics.RESULT_CACHE_HITS.labels(kind).value()
+
+    def plan_hits():
+        return metrics.PLAN_CACHE_HITS._default_child().value()
+
+    tmp = tempfile.mkdtemp(prefix="smoke-core-")
+    procs = []
+    try:
+        if shared and "lineitem_dir" in shared:
+            li_dir, cols = shared["lineitem_dir"], shared["lineitem_cols"]
+            print(f"[core] lineitem: phase 12's directory, {len(cols['l_quantity'])} rows of "
+                  f"q01's columns hive-partitioned by l_returnflag", flush=True)
+        else:
+            t0 = time.perf_counter()
+            full = lineitem.lineitem_columns(CORE_ROWS, seed=CORE_SEED)
+            li_dir = os.path.join(tmp, "lineitem")
+            dt.from_pydict({k: full[k] for k in Q01_COLS}).select(*Q01_COLS).write_parquet(
+                li_dir, partition_cols=["l_returnflag"])
+            cols = {k: full[k] for k in NUMERIC_COLS}
+            del full
+            print(f"[core] lineitem: {CORE_ROWS} rows of q01's columns (seed {CORE_SEED}) "
+                  f"written hive-partitioned by l_returnflag in "
+                  f"{time.perf_counter() - t0:.2f} s (phase 12 writes it in a whole run)",
+                  flush=True)
+
+        # (c) and (d) in one subprocess, started first: it runs beside (b)
+        # and (a), and nothing writes into the directory until it is done.
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items() if not k.startswith("DAFT_")}
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        env_out = os.path.join(tmp, "env_rows.npy")
+        sub_t0 = time.perf_counter()
+        sub_proc = subprocess.Popen(
+            [sys.executable, "-c", CORE_SUB_SCRIPT, str(BATCH), str(IMAGE), str(BATCH),
+             env_out, q06_sql(), f"lineitem={li_dir}"],
+            env=dict(env, DAFT_COMPUTE_THREADS="1", DAFT_RESULT_CACHE="0"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=tmp)
+        procs.append(sub_proc)
+
+        def q06(select=None):
+            frames = {"lineitem": dt.read_parquet(li_dir)}
+            text = q06_sql() if select is None else q06_sql(select=select)
+            return dt.sql(text, **frames)
+
+        # (b), first half.
+        with dt.execution_config_ctx(**on):
+            rows_out = {}
+            for tag, build, want in (("q06", q06, "miss"), ("q06 hit", q06, "hit"),
+                                     ("scan", lambda: q06("SUM(l_extendedprice * l_discount) "
+                                                          "AS revenue, AVG(l_extendedprice * "
+                                                          "l_discount) AS mean"), "scan")):
+                r0, s0, m0 = hits("result"), hits("scan"), \
+                    metrics.RESULT_CACHE_MISSES.labels("result").value()
+                d0 = de.device_eval_counters.snapshot()
+                df = build()
+                (out, wall, n) = counted(lambda: df.to_pydict())
+                d1 = de.device_eval_counters.snapshot()
+                got = (hits("result") - r0, hits("scan") - s0,
+                       metrics.RESULT_CACHE_MISSES.labels("result").value() - m0)
+                rows_out[tag] = out
+                print(f"[core] {tag}: {out} in {wall:.4f} s; result-cache hits/misses "
+                      f"{got[0]:g}/{got[2]:g}, scan-tier hits {got[1]:g}; device layer "
+                      f"fused_exprs {d1['fused_exprs'] - d0['fused_exprs']}, chain_rows "
+                      f"{d1['chain_rows']} [{card}]", flush=True)
+                paths[f"core {tag}"] = {"flash_attention": n}
+                check(n == 0, f"core {tag}: {n} flash launches")
+                if want == "miss":
+                    check(got == (0, 0, 1), f"core q06: expected a result-cache miss, got {got}")
+                elif want == "hit":
+                    check(got == (1, 0, 0), f"core q06 hit: expected a result-cache hit, got {got}")
+                    check(d1 == d0, f"core q06 hit: the device layer ran: {d0} -> {d1}")
+                    check(out == rows_out["q06"],
+                          f"core q06 hit: {out} against the miss's {rows_out['q06']}")
+                else:
+                    check(got == (0, 1, 1), f"core scan: expected a result miss and a scan-tier "
+                                            f"hit, got {got}")
+                    rel = abs(out["revenue"][0] - rows_out["q06"]["revenue"][0]) \
+                        / abs(rows_out["q06"]["revenue"][0])
+                    check(rel <= Q06_RTOL,
+                          f"core scan: {out['revenue']} against q06's {rows_out['q06']}")
+            ref = lineitem.q06_reference(cols, host_literals=True)
+            rev = rows_out["q06"]["revenue"][0]
+            err = abs(rev - ref) / abs(ref)
+            print(f"[core] q06 revenue {rev!r} against the host's f64 reference {ref!r}: rel err "
+                  f"{err:.2e} (tol {Q06_RTOL})", flush=True)
+            check(err <= Q06_RTOL, f"core q06: {rev} vs the host reference {ref}")
+        with dt.execution_config_ctx(**sub_cfg):
+            preview = q06()._materialize_preview(20)
+
+        # (a) The main path through the runner: phase 3's route (caches off),
+        # then two frames built alike over one expression with them on.
+        imgs = np.random.default_rng(0).integers(0, 256, (NUM_IMAGES, IMAGE * IMAGE * 3),
+                                                 dtype=np.uint8)
+        series = dt.Series.from_numpy(imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))
+        expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                           batch_size=BATCH)
+
+        base = dt.from_pydict({"img": series})
+
+        def frame():
+            # Built alike: the same source partitions and the same expression,
+            # so the same pre-optimize plan text.
+            return base.with_column("emb", expr).select("emb")
+
+        def emb_of(df):
+            vals, _ = image_column(df, "emb").to_numpy_masked()
+            return np.asarray(vals, dtype=np.float32)
+
+        with dt.execution_config_ctx(default_morsel_size=NUM_IMAGES, plan_cache_enabled=False,
+                                     result_cache_enabled=False):
+            frame().limit(BATCH).collect()  # the instance's weights, warm
+            (ref, ref_s, n_ref) = counted(lambda: emb_of(frame()))
+            want = NUM_IMAGES // BATCH * VIT_L_LAYERS
+            check(n_ref == want, f"core: phase 3's route launched {n_ref}, expected {want}")
+            plancache.reset_caches()
+            with dt.execution_config_ctx(**on):
+                runs = []
+                for tag in ("1st", "2nd"):
+                    p0, r0 = plan_hits(), metrics.RESULT_CACHE_MISSES.labels("result").value()
+                    df = frame()
+                    (out, wall, n) = counted(lambda: emb_of(df))
+                    runs.append((tag, out, wall, n, plan_hits() - p0,
+                                 metrics.RESULT_CACHE_MISSES.labels("result").value() - r0))
+                    paths[f"core runner {tag}"] = {"flash_attention": n}
+                key = plancache.compute_query_key(frame()._builder.plan,
+                                                  dt.get_context().execution_config)
+                t0 = time.perf_counter()
+                translate(frame()._builder.optimize().plan)
+                plan_s = time.perf_counter() - t0
+        for tag, out, wall, n, ph, rm in runs:
+            same = out.tobytes() == ref.tobytes()
+            print(f"[core] runner {tag}: {NUM_IMAGES} images {wall:.3f} s, {n} launches, plan-cache "
+                  f"hits {ph:g}, result-cache misses {rm:g}, the bytes of phase 3's route "
+                  f"({ref_s:.3f} s): {same} [{card}]", flush=True)
+            check(n == want and same, f"core runner {tag}: {n} launches or its bytes differ")
+            check(rm == 0, f"core runner {tag}: the UDF plan reached the result cache")
+        check(runs[0][4] == 0 and runs[1][4] == 1,
+              f"core runner: plan-cache hits {runs[0][4]} / {runs[1][4]}, expected 0 / 1")
+        check(not key.result_cacheable and key.reason == "UDF in plan",
+              f"core runner: result_cacheable {key.result_cacheable}, reason {key.reason!r}")
+        print(f"[core] runner: the 2nd run a plan-cache HIT and a result-cache MISS "
+              f"({key.reason!r}); optimize + translate of this plan {plan_s * 1e3:.2f} ms, the "
+              f"wall the hit saved [{card}]", flush=True)
+
+        # (c)'s environment and (d)'s CLI, from the subprocess.
+        main_s = time.perf_counter() - phase_start
+        sub_stdout, sub_stderr = sub_proc.communicate(timeout=CORE_TIMEOUT_S)
+        sub_s = time.perf_counter() - sub_t0
+        check(sub_proc.returncode == 0, f"core subprocess failed: {sub_stderr[-2000:]}")
+        seen = json.loads(sub_stdout.strip().splitlines()[-1])
+        env_err = float(np.abs(np.load(env_out) - ref[:BATCH]).max())
+        print(f"[core] subprocess: {sub_s:.1f} s from its start (after Python's own start: "
+              f"torch imported {seen['torch_s']:.1f} s, daft_tpu_torch and its config "
+              f"{seen['dt_s']:.1f} s, CUDA's context {seen['import_s'] - seen['torch_s'] - seen['dt_s']:.1f} "
+              f"s, the route {seen['route_s']:.1f} s, the CLI {seen['cli_s']:.1f} s); this "
+              f"process's own work before the wait {main_s:.1f} s [{card}]", flush=True)
+        print(f"[core] environment DAFT_COMPUTE_THREADS=1 DAFT_RESULT_CACHE=0: "
+              f"{ {k: v for k, v in seen.items() if not k.startswith('cli_')} }; rows against "
+              f"(a)'s max_abs_err {env_err:.3e} (tol {CHUNK_TOL}) [{card}]", flush=True)
+        check(seen["num_compute_threads"] == 1 and seen["result_cache_enabled"] is False
+              and seen["plan_cache_enabled"] is True and seen["device"] == "cuda",
+              f"core env: the subprocess's config is {seen}")
+        check(seen["launches"] == VIT_L_LAYERS and seen["rows"] == BATCH and env_err <= CHUNK_TOL,
+              f"core env: {seen['launches']} launches, {seen['rows']} rows, err {env_err}")
+        cli_text = seen["cli_text"].strip()
+        print(f"[core] CLI (python -m daft_tpu_torch sql, in the subprocess): exit "
+              f"{seen['cli_rc']}: {cli_text!r}", flush=True)
+        check(seen["cli_rc"] == 0, f"core CLI exited {seen['cli_rc']}: {sub_stderr[-2000:]}")
+        check(cli_text == preview.strip(),
+              f"core CLI printed {cli_text!r}, this process under its config {preview.strip()!r}")
+
+        # (b), second half: a write into the directory, then q06 again.
+        more = lineitem.lineitem_columns(CORE_APPEND_ROWS, seed=CORE_SEED + 1)
+        with dt.execution_config_ctx(**on):
+            t0 = time.perf_counter()
+            dt.from_pydict({k: more[k] for k in Q01_COLS}).select(*Q01_COLS).write_parquet(
+                li_dir, partition_cols=["l_returnflag"])
+            write_s = time.perf_counter() - t0
+            r0, m0 = hits("result"), metrics.RESULT_CACHE_MISSES.labels("result").value()
+            (after, wall, n) = counted(lambda: q06().to_pydict())
+            got = (hits("result") - r0, metrics.RESULT_CACHE_MISSES.labels("result").value() - m0)
+        paths["core after write"] = {"flash_attention": n}
+        both = {k: np.concatenate([cols[k], more[k]]) for k in NUMERIC_COLS}
+        ref2 = lineitem.q06_reference(both, host_literals=True)
+        rev2 = after["revenue"][0]
+        err2 = abs(rev2 - ref2) / abs(ref2)
+        print(f"[core] after a write of {CORE_APPEND_ROWS} rows ({write_s:.3f} s): q06 {after} "
+              f"in {wall:.4f} s, result-cache hits/misses {got[0]:g}/{got[1]:g}; against the "
+              f"host's f64 reference {ref2!r}: rel err {err2:.2e} [{card}]", flush=True)
+        check(n == 0 and got == (0, 1), f"core after write: {n} launches, hits/misses {got}")
+        check(err2 <= Q06_RTOL and rev2 != rev, f"core after write: {rev2} vs {ref2} (was {rev})")
+        stats = plancache.cache_stats()
+        print(f"[core] cache_stats: plan {stats['plan']}, result {stats['result']}, entries "
+              f"{[(e['kind'], e['bytes'], e['hits']) for e in stats['entries']]}", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        plancache.reset_caches()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[core] phase 22 {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -6028,6 +6401,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
     sampler = PhaseSampler()
     phase_counts = {}
+    shared = {}  # phase 12's lineitem directory, which phase 22 reads again
 
     def timed(number: int, fn, *args):
         from daft_tpu_torch.tools.plane_cost import counter_totals
@@ -6044,6 +6418,7 @@ def main() -> int:
         return out
 
     try:
+        caches_off()
         timed(1, phase_build)
         records = [timed(2, phase_kernels, card)]
         launches, wall_ms = timed(3, phase_main_path, card)
@@ -6053,7 +6428,7 @@ def main() -> int:
                                         phase_image, phase_relational_joins, phase_pipelined),
                                        start=5):
             by_path.update(timed(number, phase, card))
-        by_path.update(timed(12, phase_scan, card, SCAN_ROWS))
+        by_path.update(timed(12, phase_scan, card, SCAN_ROWS, shared))
         by_path.update(timed(13, phase_expressions, card))
         sql_paths, sql_state = timed(14, phase_sql, card)
         by_path.update(sql_paths)
@@ -6065,11 +6440,16 @@ def main() -> int:
         plane_report(card, phase_counts, sql_state.get("obs_loops", {}))
         by_path.update(timed(20, phase_ai_surface, card))
         by_path.update(timed(21, phase_multi_device, card))
+        by_path.update(timed(22, phase_core, card, shared))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         sampler.close()
+        if "root" in shared:
+            import shutil
+
+            shutil.rmtree(shared["root"], ignore_errors=True)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}

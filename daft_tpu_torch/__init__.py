@@ -22,7 +22,12 @@ library (``.str``, ``.dt``, ``.binary``, ``url.parse``, ``is_in``,
 and the exporters (``to_arrow``, ``to_pandas``, ``to_torch_*``), the UDF
 decorators (``func``, ``func.batch``, ``cls``, ``method``) and the UDAFs
 (``udf.udaf``), the media functions and the media sources (``read_mcap``,
-``read_video_frames``, ``from_files``). Names of the
+``read_video_frames``, ``from_files``), and the core: the configuration
+from ``DAFT_*`` variables (``config.py``), the native runner with the plan
+and result caches (``runners/``, ``plancache.py``; ``set_runner_native``,
+``invalidate_cache_path``), sessions and the local catalogs (``Session``,
+``current_session``, ``Catalog``, ``register_table``) and the CLI
+(``python -m daft_tpu_torch``). Names of the
 JAX package's top level that the port lacks raise ``AttributeError`` naming
 their ROADMAP item. ``ROADMAP.md`` lists what is still to port.
 """
@@ -34,6 +39,7 @@ from daft_tpu_torch.context import (
     planning_config_ctx,
     set_execution_config,
     set_planning_config,
+    set_runner_native,
 )
 from daft_tpu_torch.dataframe import DataFrame
 from daft_tpu_torch.dataframe.creation import from_arrow, from_pandas, from_pydict, from_pylist
@@ -78,14 +84,12 @@ _MEDIA_SOURCES = ("read_mcap", "read_kafka", "read_paimon", "read_video_frames",
 _NOT_PORTED = {
     **dict.fromkeys(("read_iceberg", "read_deltalake", "read_lance", "read_hudi", "read_sql",
                      "read_huggingface"), "A.8 (the table formats and connectors)"),
-    **dict.fromkeys(("Session", "current_session", "Catalog", "set_runner_native",
-                     "register_table", "submit_query", "invalidate_cache_path",
-                     "recent_queries"), "A.8 (sessions, catalogs, runners, the plan cache, "
-                                        "the query service and the flight recorder)"),
+    **dict.fromkeys(("submit_query", "recent_queries"),
+                    "A.8.4 (the query service and the flight recorder)"),
     **dict.fromkeys(("set_tenant", "current_tenant", "set_tenant_policy", "TenantPolicy",
-                     "set_request_priority"), "A.8 (admission)"),
+                     "set_request_priority"), "A.8.4 (admission)"),
     **dict.fromkeys(("register_view", "read_view", "view_freshness", "get_view_registry"),
-                    "A.8 (streaming views)"),
+                    "A.8.6 (streaming views)"),
 }
 
 
@@ -115,6 +119,22 @@ def __getattr__(name: str):
         import daft_tpu_torch.functions as functions
 
         return functions
+    if name in ("Session", "current_session"):
+        from daft_tpu_torch import session
+
+        return getattr(session, name)
+    if name == "Catalog":
+        from daft_tpu_torch.catalog import Catalog
+
+        return Catalog
+    if name == "register_table":
+        from daft_tpu_torch.query_service import register_table
+
+        return register_table
+    if name == "invalidate_cache_path":
+        from daft_tpu_torch.plancache import invalidate_path
+
+        return invalidate_path
     if name in _NOT_PORTED:
         raise AttributeError(f"module 'daft_tpu_torch' has no attribute {name!r}: it is not "
                              f"ported yet, ROADMAP {_NOT_PORTED[name]}")
@@ -170,6 +190,7 @@ __all__ = [
     "reset_io_stats",
     "set_execution_config",
     "set_planning_config",
+    "set_runner_native",
     "sql",
     "sql_expr",
     "udf",

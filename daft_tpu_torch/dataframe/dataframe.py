@@ -34,30 +34,21 @@ checkpoints (``with_checkpoint`` and the writers' ``checkpoint=``,
 as in the JAX package), and profiling: ``explain(analyze=True)``,
 ``collect(profile=...)`` with ``query_profile``, and ``metrics()``. A query
 sends ``QueryStart`` / ``QueryEnd`` to the context's subscribers, and its
-per-operator counters become ``get_context().last_query_stats``
-(``_run_iter`` takes the part of the JAX package's native runner that does
-this). Not ported yet: the runner layer (native and distributed runners,
-admission, plan caches, the query log; A.8), and, each raising
-``DaftNotImplementedError`` naming its ROADMAP item (``_LEFT_OUT``),
-``shard`` and the table-format, database and connector writers (A.8).
+per-operator counters become ``get_context().last_query_stats``: every
+query runs through ``get_context().runner`` (``runners/native.py``), with
+its plan and result caches, and every write invalidates the caches under
+what it wrote. Not ported yet, each raising ``DaftNotImplementedError``
+naming its ROADMAP item (``_LEFT_OUT``): ``shard`` and the table-format,
+database and connector writers (A.8).
 """
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import time
 import uuid
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
-from daft_tpu_torch.cancellation import (
-    CancelToken,
-    Deadline,
-    iter_with_cancel_scope,
-    register_query_token,
-    unregister_query_token,
-)
-from daft_tpu_torch.context import get_context, iter_with_frozen_clock
+from daft_tpu_torch.context import get_context
 from daft_tpu_torch.errors import DaftIOError, DaftNotImplementedError, DaftValueError
 from daft_tpu_torch.expressions.expr import ColumnRef
 from daft_tpu_torch.expressions.expression import Expression, col, lit
@@ -518,84 +509,16 @@ class DataFrame:
 
     # -- materialisation ------------------------------------------------
     def _run_iter(self, timeout: Optional[float] = None) -> Iterator[MicroPartition]:
-        """Run the query under one cancel token, with a deadline of
-        ``timeout`` seconds (``query_timeout_s`` when None; none when both
-        are None), as the JAX package's runner builds it. On every exit the
-        byte ledger closes the query (``get_ledger().profile_for(query_id)``
-        then holds its ``mem`` block).
-
-        The observability prologue and epilogue are the JAX native runner's:
-        ``profiling.begin_query`` (a profile when ``collect(profile=...)``
-        or ``profile_enabled`` asks for one), ``QueryStart`` after planning,
-        a ``RuntimeStats`` as ``last_query_stats``, the task profiler handed
-        to the executor and made ambient per resumption; on every exit
-        ``QueryEnd`` with the error, the stats flushed (by the executor) and
-        ``end_query``. A planning failure closes the profile too."""
-        from daft_tpu_torch import profiling
-        from daft_tpu_torch.execution.executor import Executor
-        from daft_tpu_torch.execution.memledger import get_ledger
-        from daft_tpu_torch.execution.resource_manager import RuntimeStats
-        from daft_tpu_torch.physical.translate import translate
-        from daft_tpu_torch.subscribers.events import QueryEnd, QueryStart
-
-        ctx = get_context()
-        cfg = ctx.execution_config
-        ledger = get_ledger()
-        # The configuration can only turn the ledger off, and doing so drops
-        # what it held, so no balance strands (as the JAX package's runner).
-        if not cfg.memory_ledger_enabled and ledger.enabled:
-            ledger.enabled = False
-            ledger.reset()
-        ledger.ensure_sampler()
-        if timeout is None:
-            timeout = cfg.query_timeout_s
+        """Run the query through the context's runner (``runners/native.py``)
+        under one cancel token, with a deadline of ``timeout`` seconds
+        (``query_timeout_s`` when None; none when both are None).
+        ``self.query_id`` names the query while it runs
+        (``cancellation.cancel_query``); on every exit the byte ledger closes
+        it (``get_ledger().profile_for(query_id)`` then holds its ``mem``
+        block)."""
         query_id = self.query_id = uuid.uuid4().hex[:16]
-        prof = profiling.begin_query(query_id, cfg)
-        token = CancelToken(Deadline.after(timeout) if timeout is not None else None,
-                            query_id=query_id)
-        try:
-            with contextlib.ExitStack() as plan_scope:
-                if prof is not None:
-                    plan_scope.enter_context(prof.driver_span("daft.plan"))
-                optimized = self._builder.optimize()
-                plan = translate(optimized.plan)
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            # The execution try/finally below has not started: close the
-            # profile here, or a planning failure leaks it.
-            ledger.finish_query(query_id)
-            profiling.end_query(query_id, error=str(e))
-            raise
-        ctx.notify(QueryStart(query_id=query_id, plan=repr(optimized.plan)))
-        start = time.perf_counter()
-        error = None
-        register_query_token(query_id, token)
-        run = stream = None
-        try:
-            stats = RuntimeStats(query_id)
-            ctx.last_query_stats = stats  # DataFrame.metrics()
-            tprof = prof.local_task_profiler() if prof is not None else None
-            # The daft.execute span covers the generator's whole lifetime;
-            # ambient=False keeps the profiler out of the caller's context,
-            # where iter_with_profiler_scope sets it per resumption.
-            with profiling.profiled_task_scope(tprof, name="daft.execute", ambient=False):
-                run = Executor(cfg, cancel_token=token, stats=stats, profiler=tprof).run(plan)
-                # CURRENT_TIMESTAMP is one instant per statement, frozen per
-                # resumption as the cancel token and the profiler are.
-                stream = profiling.iter_with_profiler_scope(
-                    iter_with_cancel_scope(iter_with_frozen_clock(run), token), tprof)
-                yield from stream
-        except BaseException as e:  # noqa: BLE001 — re-raised
-            error = str(e)
-            raise
-        finally:
-            for gen in (stream, run):
-                if gen is not None:
-                    gen.close()  # a failure or an abandoned iteration stops the pool now
-            unregister_query_token(query_id)
-            ledger.finish_query(query_id)
-            ctx.notify(QueryEnd(query_id=query_id, duration_s=time.perf_counter() - start,
-                                error=error))
-            profiling.end_query(query_id, error=error)
+        yield from get_context().runner.run_iter(self._builder, timeout=timeout,
+                                                 query_id=query_id)
 
     def collect(self, timeout: Optional[float] = None, profile=None) -> "DataFrame":
         """Materialise the query. ``timeout`` (seconds) bounds the whole
@@ -776,8 +699,19 @@ class DataFrame:
                 parts or [MicroPartition.empty(self.schema)], self.schema))
             out = DataFrame(mat._builder.table_write(info)).collect()
             checkpoint.seal_partitions(parts, self.schema)
+            self._invalidate_written(root_dir)
             return out
-        return DataFrame(self._builder.table_write(info)).collect()
+        out = DataFrame(self._builder.table_write(info)).collect()
+        # The writers invalidate what they wrote; this covers the overwrite
+        # mode's deletions, which happen after the writer has closed.
+        self._invalidate_written(root_dir)
+        return out
+
+    @staticmethod
+    def _invalidate_written(path: str) -> None:
+        from daft_tpu_torch.plancache import invalidate_path
+
+        invalidate_path(str(path))
 
     def write_parquet(self, root_dir: str, compression: str = "snappy",
                       partition_cols=None, write_mode: str = "append",
@@ -808,6 +742,11 @@ class DataFrame:
         sink.start()
         results = [sink.write(part) for part in self.iter_partitions()]
         final = sink.finalize(results)
+        # Write-invalidation: a sink declares what it touched
+        # (DataSink.invalidates), and cached reads over it drop as after a
+        # file writer.
+        for path in (sink.invalidates() if hasattr(sink, "invalidates") else ()):
+            self._invalidate_written(path)
         return creation.from_pydict(final if isinstance(final, dict) else {"result": [repr(final)]})
 
 

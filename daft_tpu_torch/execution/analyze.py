@@ -9,13 +9,15 @@ daft-sql). All deltas come from ONE before/after pair of unified-registry
 snapshots (daft_tpu_torch/metrics.py): anything the registry learns to count
 shows up here for free.
 
-Left out until ROADMAP A.8, whose modules the JAX package reads for them:
-the ``plan cache`` / ``result cache`` lines (``plancache``), the ``shuffle``
-line (the distributed shuffle), the memory line's reservation (admission),
-the ``flight record`` line (``querylog``) and the ``planner`` line with the
-operator table's ``est_rows`` / ``q_err`` values (``feedback``), which
-therefore show ``-`` as the JAX package shows them for a node without an
-estimate.
+The ``plan cache: HIT|MISS`` and ``result cache: HIT (<n> bytes)|MISS``
+lines say whether the run skipped optimize + translate, or execution
+altogether (``plancache``). Left out until the modules the JAX package reads
+for them are ported: the ``shuffle`` line (the distributed shuffle, ROADMAP
+A.8.5), the memory line's reservation (admission) and the ``flight record``
+line (``querylog``), ROADMAP A.8.4, and the ``planner`` line with the
+operator table's ``est_rows`` / ``q_err`` values (``feedback``, A.8.6),
+which therefore show ``-`` as the JAX package shows them for a node without
+an estimate.
 """
 
 from __future__ import annotations
@@ -68,6 +70,21 @@ def analyze_suffix(df) -> str:
             f"cache_hits={hits}, cache_misses={misses}, "
             f"compile_s={ch1['sum'] - ch0['sum']:.4f}"
             + ("" if enabled else " [SELF-DISABLED]"))
+    # Query-cache visibility (plancache.py): one line per cache tier. HIT
+    # means this run skipped optimize + translate (plan) or execution
+    # altogether (result: bytes served from memory).
+    pc_hit = int(d("daft_plan_cache_hits_total"))
+    pc_miss = int(d("daft_plan_cache_misses_total"))
+    if pc_hit or pc_miss:
+        lines.append(f"plan cache: {'HIT' if pc_hit else 'MISS'}")
+    rc_hit = int(d("daft_result_cache_hits_total"))
+    rc_miss = int(d("daft_result_cache_misses_total"))
+    if rc_hit or rc_miss:
+        if rc_hit:
+            hit_bytes = int(d("daft_result_cache_hit_bytes_total"))
+            lines.append(f"result cache: HIT ({hit_bytes} bytes)")
+        else:
+            lines.append("result cache: MISS")
     spilled = int(d("daft_spill_bytes_total"))
     if spilled:
         lines.append(f"spill: bytes={spilled}, "

@@ -109,12 +109,12 @@ boundary (``_cancel_checked`` around each operator's stream, and each worker
 before its morsel); on every exit of ``run`` the pool is shut down and every
 operator iterator closed, which releases the feeders.
 
-Not ported yet: the feedback plane with its join bucket counts and
-estimate-driven early spill (off by default in the JAX package), the
-distributed nodes (two-phase aggregation, sort sampling, shuffle reads) and
-the ``shard`` repartition (A.8), replica slots for ``chips_per_replica`` (A.10),
-and the scan-output cache tier in front of the scan
-(``daft_tpu/execution/executor.py:527-574``, ``plancache``, A.8).
+The scan has the result cache's scan tier in front of it
+(``_run_PhysicalScan``, ``plancache``), keyed with the morsel size so a hit
+yields the same morsels. Not ported yet: the feedback plane with its join
+bucket counts and estimate-driven early spill (off by default in the JAX
+package; A.8.6), and the distributed nodes (two-phase aggregation, sort
+sampling, shuffle reads) and the ``shard`` repartition (A.8.5).
 
 Observability, as in the JAX executor: with ``stats`` (a ``RuntimeStats``)
 every operator's stream counts its morsels and rows in the metrics registry
@@ -578,6 +578,73 @@ class Executor:
         yield from node.partitions
 
     def _run_PhysicalScan(self, node: pp.PhysicalScan) -> Iterator[MicroPartition]:
+        """The scan, with the scan tier of the result cache in front: a
+        repeated scan of unchanged files (by mtime and size) serves its
+        morsel stream from memory instead of reading and decoding again.
+        The key holds ``default_morsel_size``, so a hit yields the fresh
+        stream's morsels at the same boundaries, and everything downstream
+        that depends on them (the pipeline's determinism contract) cannot
+        tell a hit from a miss."""
+        cfg = self.cfg
+        if not (cfg.result_cache_enabled and cfg.result_cache_scan_outputs) \
+                or not node.scan_tasks \
+                or not all(hasattr(t, "files") and hasattr(t, "pushdowns")
+                           for t in node.scan_tasks) \
+                or any(getattr(t, "ephemeral", False) for t in node.scan_tasks):
+            yield from self._scan_stream(node)
+            return
+        from daft_tpu_torch import plancache
+        from daft_tpu_torch.execution.admission import current_tenant
+
+        try:
+            key = "scan:" + plancache.fingerprint(
+                self._scan_key_text(node) + f"\nmorsel={cfg.default_morsel_size}")
+        except (AttributeError, TypeError, ValueError):
+            # Unfingerprintable scan: read uncached (the cache is an
+            # optimization, never a gate).
+            yield from self._scan_stream(node)
+            return
+        outcome, payload = plancache.get_result_cache(cfg).lookup_or_claim(
+            key, plancache.KIND_SCAN, current_tenant(), token=self.cancel_token)
+        if outcome == "hit":
+            yield from payload.partitions
+            return
+        payload.set_provenance(*self._scan_sources(node))
+        try:
+            for mp in self._scan_stream(node):
+                payload.add(mp)
+                yield mp
+            # Full drain only: an abandoned scan (a limit, an error
+            # downstream) aborts in the finally, never a partial entry.
+            payload.commit()
+        finally:
+            payload.abort()
+
+    @staticmethod
+    def _scan_key_text(node: pp.PhysicalScan) -> str:
+        parts = []
+        for t in node.scan_tasks:
+            pd = t.pushdowns
+            filt = pd.filters.key() if pd.filters is not None else None
+            ro = sorted((k, repr(v)) for k, v in t.read_options.items() if k != "io_config")
+            files = ",".join(f"{f.path}:{f.size_bytes}:{f.partition_values}" for f in t.files)
+            parts.append(f"{t.file_format};cols={pd.columns};limit={pd.limit};"
+                         f"shard={pd.shard};filt={filt};opts={ro};files={files}")
+        parts.append(f"schema={node.schema.column_names()}")
+        return "\n".join(parts)
+
+    @staticmethod
+    def _scan_sources(node: pp.PhysicalScan):
+        from daft_tpu_torch.plancache import file_fingerprint
+
+        sources, roots = [], []
+        for t in node.scan_tasks:
+            for f in t.files:
+                roots.append(f.path)
+                sources.append(file_fingerprint(f.path, f.size_bytes))
+        return sources, roots
+
+    def _scan_stream(self, node: pp.PhysicalScan) -> Iterator[MicroPartition]:
         from daft_tpu_torch.io.formats import read_scan_task
 
         tasks = node.scan_tasks

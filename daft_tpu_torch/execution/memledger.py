@@ -300,14 +300,24 @@ class MemoryLedger:
         if s is not None:
             s.wake()
 
-    def ensure_sampler(self, interval_s: float = 0.25) -> Optional["RssSampler"]:
-        """Start the process RSS sampler once (the first query arms it);
-        None while the ledger is off."""
+    def ensure_sampler(self, cfg=None) -> Optional["RssSampler"]:
+        """Start the process RSS sampler once (the first query through the
+        runner arms it). None while the ledger is off, or when
+        ``DAFT_MEM_SAMPLER=0`` / ``mem_sampler_enabled=False`` disables it."""
         if not self.enabled:
+            return None
+        if self._sampler is not None:
+            return self._sampler
+        from daft_tpu_torch.config import daft_env_flag
+
+        enabled = daft_env_flag("DAFT_MEM_SAMPLER", True)
+        if cfg is not None and not getattr(cfg, "mem_sampler_enabled", True):
+            enabled = False
+        if not enabled:
             return None
         with self._lock:
             if self._sampler is None:
-                self._sampler = RssSampler(self, interval_s=interval_s)
+                self._sampler = RssSampler(self)
                 self._sampler.start()
             return self._sampler
 

@@ -6,10 +6,9 @@ memory manager handing out byte permits. Without a limit every acquire
 succeeds at once and nothing spills; under one, the blocking sinks take
 permits for what they buffer and spill the rest (``execution/spill.py``).
 
-The limit comes from :func:`memory_limit` or ``MemoryManager(limit_bytes=)``.
-The port reads no environment variable: ``DAFT_MEMORY_LIMIT`` waits for the
-configuration from the environment (``ExecutionConfig.from_env``, ROADMAP
-A.8). A wait for permits is observed in ``daft_memory_permit_wait_seconds``
+The limit comes from :func:`memory_limit`, ``MemoryManager(limit_bytes=)``
+or, for a manager made without one, ``DAFT_MEMORY_LIMIT``, as in the JAX
+package. A wait for permits is observed in ``daft_memory_permit_wait_seconds``
 and attributed to the profiled operator (``profiling.note_permit_wait``).
 
 ``RuntimeStats`` keeps one query's per-operator rows and CPU time
@@ -45,6 +44,11 @@ class MemoryManager:
     """
 
     def __init__(self, limit_bytes: Optional[int] = None):
+        if limit_bytes is None:
+            from daft_tpu_torch.config import daft_env
+
+            env = daft_env("DAFT_MEMORY_LIMIT")
+            limit_bytes = int(env) if env else None
         self.limit = limit_bytes
         self._used = 0
         self._cond = threading.Condition()

@@ -23,10 +23,10 @@ stamped with a digest at write and verified before it is read back
 read that fails raises ``DaftExecutionError`` from its cause; the query never
 goes on in memory instead.
 
-The spill directory is ``root=`` or ``tempfile.gettempdir()``; the
-``DAFT_SPILL_DIR`` variable waits for the configuration from the environment
-(ROADMAP A.8), as does the fault-injection hook before each read-back
-(``maybe_inject``, the distributed layer's). ``spill_metrics`` is a shim
+The spill directory is ``root=``, else ``DAFT_SPILL_DIR``, else
+``tempfile.gettempdir()``, as in the JAX package. The fault-injection hook
+before each read-back (``maybe_inject``, the distributed layer's) is ROADMAP
+A.8.5. ``spill_metrics`` is a shim
 over the metrics registry's ``daft_spill_*_total`` series, as in the JAX
 package; each spill is also attributed to the profiled operator
 (``profiling.note_spill``).
@@ -181,7 +181,9 @@ class SpillDir:
     tally released at :meth:`cleanup`."""
 
     def __init__(self, root: Optional[str] = None, query_id: str = ""):
-        base = root or tempfile.gettempdir()
+        from daft_tpu_torch.config import daft_env
+
+        base = root or daft_env("DAFT_SPILL_DIR") or tempfile.gettempdir()
         self.root = os.path.join(base, f"daft-spill-{uuid.uuid4().hex[:8]}")
         self._created = False
         self.query_id = query_id

@@ -5,10 +5,9 @@ physical writer factory (physical.rs), target-file-size batching
 (batch_file_writer.rs), partitioned writes (partition.rs). Arrow C++ writers
 (pyarrow.parquet / csv / ipc / json) are the native encode path.
 ``write_mode="overwrite"`` replaces what was under the root directory
-(``overwrite_files``), where the JAX package appends (ROADMAP C.32). Not ported
-yet: the write-side invalidation of the plan and result caches
-(``plancache.invalidate_path``, ROADMAP A.8), which have no port to
-invalidate.
+(``overwrite_files``), where the JAX package appends (ROADMAP C.32). Every
+writer's ``close`` invalidates the query caches under its root directory
+(``plancache.invalidate_path``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -138,6 +137,12 @@ class FileWriter:
     def close(self) -> List[Dict[str, Any]]:
         if self._current is not None:
             self._close_current()
+        # Write-invalidation: every cached plan, result or scan reading
+        # under this root is now stale. The source fingerprints checked at
+        # each hit catch the writes this process never saw.
+        from daft_tpu_torch.plancache import invalidate_path
+
+        invalidate_path(self.info.root_dir)
         return self.results
 
 
@@ -180,6 +185,9 @@ class PartitionedWriter:
         out = []
         for w in self._writers.values():
             out.extend(w.close())
+        from daft_tpu_torch.plancache import invalidate_path
+
+        invalidate_path(self.info.root_dir)
         return out
 
 

@@ -25,9 +25,8 @@ implements the same surface natively, as the metrics twin of ``tracing.py``:
   merge is pure registry code; the distributed layer that ships the wires
   is ROADMAP A.8.
 
-``metrics_enabled=False`` on the execution config (the JAX package's
-``DAFT_METRICS=0``; the port reads no ``DAFT_*`` variable until ROADMAP A.8's
-``ExecutionConfig.from_env``) disables the whole plane with a zero-allocation
+``DAFT_METRICS=0``, or ``metrics_enabled=False`` on the execution config,
+disables the whole plane with a zero-allocation
 fast path: ``labels()`` returns one shared no-op child and increments become
 attribute-check no-ops (``chip_smoke.py``'s phase 19 measures enabled against
 disabled on a TPC-H-style loop, as the JAX package's ``bench.py`` does). That switch is deliberate
@@ -329,9 +328,9 @@ class MetricRegistry:
 
     def __init__(self, enabled: Optional[bool] = None):
         if enabled is None:
-            # On by default (the config's metrics_enabled); the JAX
-            # package's DAFT_METRICS override waits for ROADMAP A.8.
-            enabled = True
+            from daft_tpu_torch.config import daft_env_flag
+
+            enabled = daft_env_flag("DAFT_METRICS", True)
         self.enabled = enabled
         self._instruments: Dict[str, _Instrument] = {}
         self._lock = threading.Lock()
@@ -971,7 +970,7 @@ AUTOPROFILE_CAPTURES = _r.counter(
     "daft_slo_autoprofile_captures_total",
     "Queries auto-profiled by the tail sampler (armed plan fingerprints)")
 
-# Query-as-a-service caching (the JAX package's plancache.py, ROADMAP A.8)
+# Query-as-a-service caching (plancache.py)
 PLAN_CACHE_HITS = _r.counter(
     "daft_plan_cache_hits_total",
     "Queries whose optimize+translate was served from the plan cache")
@@ -1193,8 +1192,7 @@ def maybe_enable_metrics(context) -> None:
     execution config disables the registry process-wide at first notify
     (it is one plane per process, not per query), and
     ``metrics_export_path`` is the config-level spelling of
-    ``DAFT_METRICS_FILE`` for the OTLP file exporter (the port reads the
-    config fields only: the env spellings wait for ROADMAP A.8)."""
+    ``DAFT_METRICS_FILE`` for the OTLP file exporter."""
     global _auto_subscriber
     reg = get_registry()
     cfg = getattr(context, "execution_config", None)
@@ -1205,8 +1203,10 @@ def maybe_enable_metrics(context) -> None:
     with _auto_lock:
         if _auto_subscriber is not None:  # double-checked: notify() races
             return
-        path = (getattr(cfg, "metrics_export_path", None) if cfg is not None
-                else None)
+        from daft_tpu_torch.config import daft_env
+
+        path = daft_env("DAFT_METRICS_FILE") or (
+            getattr(cfg, "metrics_export_path", None) if cfg is not None else None)
         sub = MetricsSubscriber(
             OTLPJsonMetricsFileExporter(path) if path else None)
         context.attach_subscriber(sub)

@@ -22,7 +22,11 @@ from daft_tpu_torch.stats import TableStatistics
 
 
 class MicroPartition:
-    __slots__ = ("_schema", "_batches", "_statistics")
+    # _cache_uid: process-unique identity stamped lazily by the query
+    # caches (plancache._partition_uid). Unlike id(), it is never recycled,
+    # so a cache entry keyed on it can outlive the partition without
+    # aliasing a new frame at a reused address.
+    __slots__ = ("_schema", "_batches", "_statistics", "_cache_uid")
 
     def __init__(self, schema: Schema, batches: Sequence[RecordBatch],
                  statistics: Optional[TableStatistics] = None):

@@ -35,9 +35,10 @@ step-timeline profiler demonstrated a dataflow engine needs:
   :func:`timeline_json` gives the same span store as a per-query Gantt
   timeline (the dashboard's route that serves it is ROADMAP A.8).
 
-The JAX package's env switches (``DAFT_PROFILE``, ``DAFT_PROFILE_FILE``,
-``DAFT_PROFILE_CPU``) wait for ``ExecutionConfig.from_env`` (ROADMAP A.8): the
-port reads the config fields ``profile_enabled`` / ``profile_export_path``.
+``DAFT_PROFILE`` / ``DAFT_PROFILE_FILE`` (read live at every query, as in
+the JAX package) and the config fields ``profile_enabled`` /
+``profile_export_path`` profile every query; ``DAFT_PROFILE_CPU`` forces the
+per-pull CPU clock on or off.
 
 Spans are ALWAYS opened through context managers: an
 un-ended span silently drops from export and leaks the thread-local parent
@@ -108,9 +109,8 @@ def _thread_cpu_ns() -> int:
 # clock costs ~1µs and every pull gets an exact CPU delta; under sandboxed
 # kernels (gVisor-style) the same read costs 50µs+, which alone would blow
 # the <2% overhead budget — there, per-pull sampling switches off and CPU
-# is recorded at TASK granularity only (two reads per task). The JAX
-# package's DAFT_PROFILE_CPU override waits for ROADMAP A.8: the port keeps
-# the clock probe only.
+# is recorded at TASK granularity only (two reads per task).
+# DAFT_PROFILE_CPU=1 (force per-pull) / =0 (task-level only).
 _CPU_CLOCK_BUDGET_NS = 5_000
 _sample_cpu: Optional[bool] = None
 
@@ -118,11 +118,17 @@ _sample_cpu: Optional[bool] = None
 def cpu_sampling_enabled() -> bool:
     global _sample_cpu
     if _sample_cpu is None:
-        t0 = time.perf_counter_ns()
-        for _ in range(4):
-            time.thread_time_ns()
-        _sample_cpu = \
-            (time.perf_counter_ns() - t0) / 4 < _CPU_CLOCK_BUDGET_NS
+        from daft_tpu_torch.config import daft_env
+
+        raw = (daft_env("DAFT_PROFILE_CPU") or "").strip().lower()
+        if raw and raw != "auto":
+            _sample_cpu = raw not in ("0", "false", "no", "off")
+        else:
+            t0 = time.perf_counter_ns()
+            for _ in range(4):
+                time.thread_time_ns()
+            _sample_cpu = \
+                (time.perf_counter_ns() - t0) / 4 < _CPU_CLOCK_BUDGET_NS
     return _sample_cpu
 
 # --------------------------------------------------------------------- #
@@ -826,20 +832,28 @@ _LAST: Optional[QueryProfile] = None
 
 def begin_query(query_id: str, cfg=None) -> Optional[QueryProfile]:
     """Open a QueryProfile when profiling is requested — by the ambient
-    ``collect(profile=...)`` scope or the config knob (``profile_enabled``;
-    the JAX package's ``DAFT_PROFILE`` override is ROADMAP A.8). Returns
-    None (and costs nothing downstream) otherwise."""
+    ``collect(profile=...)`` scope, ``DAFT_PROFILE``, or the config knob
+    (``profile_enabled``). Returns None (and costs nothing downstream)
+    otherwise."""
     req = _request.get()
     active = req is not None
     path = req.path if req is not None else None
     if not active:
-        active = bool(getattr(cfg, "profile_enabled", False))
-        # The config export path applies only to config-triggered
+        from daft_tpu_torch.config import daft_env, daft_env_flag
+
+        # An explicitly set DAFT_PROFILE wins in both directions (the live
+        # process-wide switch); the config decides only when it is unset.
+        if daft_env("DAFT_PROFILE") is not None:
+            active = daft_env_flag("DAFT_PROFILE", False)
+        else:
+            active = bool(getattr(cfg, "profile_enabled", False))
+        # The env/config export path applies only to env/config-triggered
         # profiling: an explicit collect(profile=True) scope asked for an
         # IN-MEMORY trace (and explain-analyze's internal scope must not
-        # overwrite a file profile_export_path was set to keep).
+        # overwrite a file DAFT_PROFILE_FILE was set to keep).
         if active:
-            path = getattr(cfg, "profile_export_path", None)
+            path = daft_env("DAFT_PROFILE_FILE") \
+                or getattr(cfg, "profile_export_path", None)
     if not active:
         return None
     prof = QueryProfile(query_id, export_path=path)

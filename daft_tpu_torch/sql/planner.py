@@ -6,21 +6,22 @@ LogicalPlanBuilder the DataFrame API uses. Subqueries become ``Subquery`` /
 ``InSubquery`` / ``Exists`` nodes with their correlations, which the
 optimizer's ``UnnestSubqueries`` turns into joins.
 
-The port has no sessions or catalogs (ROADMAP A.8): ``CREATE TABLE``,
-``DROP TABLE``, ``INSERT``, ``SHOW TABLES``, ``USE`` and a ``SET`` of a
-session variable raise ``DaftNotImplementedError`` naming A.8, and a table
-name resolves only
-against the bound DataFrames and the query's CTEs. ``SET`` of an execution or
-planning config key applies it live, as in the JAX package. ``EXPLAIN``,
+A table name resolves against the query's CTEs, the bound DataFrames, then
+the calling session's tables and the current session's (``session.py``).
+``CREATE TABLE``, ``DROP TABLE``, ``INSERT``, ``SHOW TABLES``, ``USE`` and
+a ``SET`` of a session variable run against the calling session, else
+``current_session()``, as in the JAX planner; ``SET`` of an execution or
+planning config key applies it live. ``EXPLAIN``
 ``EXPLAIN ANALYZE`` (which runs the SELECT and appends the analyzed plan,
 ``execution/analyze.py``) and ``DESCRIBE`` work.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import Dict, List, Optional, Tuple
 
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.expressions.expr import (
     AggOp,
     Alias,
@@ -64,40 +65,106 @@ class _OuterRef(Expr):
         return f"outer({self.name_})"
 
 
-def plan_sql(query: str, bindings: Dict[str, object]):
+#: The session a statement is planned for: ``Session.sql`` passes its own,
+#: and a table name or a session statement falls back to
+#: ``current_session()``.
+_calling_session: contextvars.ContextVar = contextvars.ContextVar(
+    "daft_torch_sql_session", default=None)
+
+
+def plan_sql(query: str, bindings: Dict[str, object], session=None):
     stmt = parse_sql(query)
-    return _execute_statement(stmt, bindings)
-
-
-#: The session statements, which need the sessions and catalogs of A.8.
-_SESSION_STATEMENTS = {"CreateTableStmt": "CREATE TABLE", "DropTableStmt": "DROP TABLE",
-                       "InsertStmt": "INSERT", "ShowTablesStmt": "SHOW TABLES",
-                       "UseStmt": "USE"}
+    token = _calling_session.set(session)
+    try:
+        return _execute_statement(stmt, bindings)
+    finally:
+        _calling_session.reset(token)
 
 
 def _execute_statement(stmt, bindings: Dict[str, object]):
     """Dispatch a statement (reference: src/daft-sql/src/exec.rs): SELECT
-    returns its DataFrame, EXPLAIN and DESCRIBE small DataFrames of text."""
+    returns its DataFrame; the session statements run against the session
+    and return small status DataFrames, EXPLAIN and DESCRIBE frames of
+    text."""
     from daft_tpu_torch.dataframe.creation import from_pydict
-    from daft_tpu_torch.sql.parser import DescribeStmt, ExplainStmt, SetStmt
+    from daft_tpu_torch.session import current_session
+    from daft_tpu_torch.sql.parser import (
+        CreateTableStmt,
+        DescribeStmt,
+        DropTableStmt,
+        ExplainStmt,
+        InsertStmt,
+        SetStmt,
+        ShowTablesStmt,
+        UseStmt,
+        ValuesRef,
+    )
 
     if isinstance(stmt, SelectStmt):
         return _plan_select(stmt, bindings, dict(stmt.ctes))
+    sess = _calling_session.get() or current_session()
     if isinstance(stmt, SetStmt):
-        return _set(stmt)
-    kind = type(stmt).__name__
-    if kind in _SESSION_STATEMENTS:
-        raise DaftNotImplementedError(
-            f"{_SESSION_STATEMENTS[kind]} runs against a session and its catalogs, which "
-            f"are not ported to daft_tpu_torch yet: ROADMAP A.8")
+        return _set(stmt, sess)
+    if isinstance(stmt, CreateTableStmt):
+        existing = sess.get_table(stmt.name)
+        if existing is not None and not stmt.or_replace:
+            if stmt.if_not_exists:
+                return from_pydict({"table": [stmt.name], "created": [False]})
+            raise DaftValueError(f"Table {stmt.name!r} already exists (use OR REPLACE)")
+        df = _plan_select(stmt.select, bindings, dict(stmt.select.ctes)).collect()
+        if existing is not None:
+            sess.drop_table(stmt.name)
+        if stmt.temp:
+            sess.create_temp_table(stmt.name, df)
+        else:
+            sess.create_table(stmt.name, df)
+        return from_pydict({"table": [stmt.name], "created": [True]})
+    if isinstance(stmt, DropTableStmt):
+        if sess.get_table(stmt.name) is None:
+            if stmt.if_exists:
+                return from_pydict({"table": [stmt.name], "dropped": [False]})
+            raise DaftValueError(f"Unknown table {stmt.name!r}")
+        sess.drop_table(stmt.name)  # catalog failures surface to the caller
+        return from_pydict({"table": [stmt.name], "dropped": [True]})
+    if isinstance(stmt, InsertStmt):
+        table = sess.get_table(stmt.name)
+        if table is None:
+            raise DaftValueError(f"Unknown table {stmt.name!r} for INSERT")
+        if isinstance(stmt.source, ValuesRef):
+            df = _resolve_source(stmt.source, bindings, {})
+            # Positional VALUES take the target table's column names.
+            df = _rename_positional(df, table.schema().column_names())
+        else:
+            df = _plan_select(stmt.source, bindings, dict(stmt.source.ctes))
+        df = df.collect()
+        table.append(df)
+        return from_pydict({"table": [stmt.name], "rows_inserted": [df.count_rows()]})
+    if isinstance(stmt, ShowTablesStmt):
+        import fnmatch
+
+        names = sess.list_tables(None)
+        if stmt.pattern is not None:
+            # SQL LIKE wildcards -> fnmatch, over temp and catalog tables.
+            pat = stmt.pattern.replace("%", "*").replace("_", "?")
+            names = [n for n in names if fnmatch.fnmatch(n, pat)]
+        return from_pydict({"table": list(names) if names else []})
+    if isinstance(stmt, UseStmt):
+        sess.use(stmt.name)
+        return from_pydict({"catalog": [stmt.name]})
     if isinstance(stmt, ExplainStmt):
+        # EXPLAIN never executes side effects: a DDL or DML statement is
+        # described (with its inner SELECT's plan when it has one); only a
+        # plain SELECT is planned and, under ANALYZE, run.
         target = stmt.stmt
         if not isinstance(target, SelectStmt):
             if stmt.analyze:
                 raise DaftValueError("EXPLAIN ANALYZE supports SELECT only")
-            # EXPLAIN never executes side effects; the session statements
-            # themselves are A.8.
-            return _execute_statement(target, bindings)
+            text = type(target).__name__.replace("Stmt", "")
+            inner_sel = getattr(target, "select", None) or getattr(target, "source", None)
+            if isinstance(inner_sel, SelectStmt):
+                sub = _plan_select(inner_sel, bindings, dict(inner_sel.ctes))
+                text += " <- \n" + sub._builder.explain_string(show_all=True)
+            return from_pydict({"plan": [text]})
         inner = _plan_select(target, bindings, dict(target.ctes))
         text = inner._builder.explain_string(show_all=True)
         if stmt.analyze:
@@ -108,10 +175,15 @@ def _execute_statement(stmt, bindings: Dict[str, object]):
     if isinstance(stmt, DescribeStmt):
         if isinstance(stmt.target, SelectStmt):
             schema = _plan_select(stmt.target, bindings, dict(stmt.target.ctes)).schema
-        elif stmt.target in bindings:
-            schema = bindings[stmt.target].schema
         else:
-            raise DaftValueError(f"Unknown table {stmt.target!r} for DESCRIBE")
+            name = stmt.target
+            table = sess.get_table(name)
+            if table is None and name in bindings:
+                schema = bindings[name].schema
+            elif table is not None:
+                schema = table.schema()
+            else:
+                raise DaftValueError(f"Unknown table {name!r} for DESCRIBE")
         return from_pydict({
             "column_name": [f.name for f in schema],
             "type": [repr(f.dtype) for f in schema],
@@ -119,10 +191,10 @@ def _execute_statement(stmt, bindings: Dict[str, object]):
     raise DaftValueError(f"Unsupported SQL statement {type(stmt).__name__}")
 
 
-def _set(stmt):
+def _set(stmt, sess):
     """``SET key = value``: an execution or planning config key applies
-    live and the statement returns its one-row frame (the JAX package's
-    planner); any other key is a session variable (A.8)."""
+    live; any other key lands in the session's variable store (reference:
+    daft-sql session variables). The statement returns its one-row frame."""
     import dataclasses
 
     from daft_tpu_torch import context
@@ -135,9 +207,7 @@ def _set(stmt):
     elif key in {f.name for f in dataclasses.fields(type(ctx.planning_config))}:
         context.set_planning_config(**{key: stmt.value})
     else:
-        raise DaftNotImplementedError(
-            f"SET {key}: {key!r} is no execution or planning config key, so it is a session "
-            f"variable, and sessions are not ported to daft_tpu_torch yet: ROADMAP A.8")
+        sess.set_variable(key, stmt.value)
     return from_pydict({"name": [key], "value": [str(stmt.value)]})
 
 
@@ -214,7 +284,15 @@ def _resolve_source(src, bindings, ctes):
         obj = bindings[name]
         if isinstance(obj, DataFrame):
             return obj
-    # The JAX package looks the name up in the session's catalogs next (A.8).
+    # The session's tables: the calling session first, then the current one.
+    from daft_tpu_torch.session import current_session
+
+    for sess in (_calling_session.get(), current_session()):
+        if sess is None:
+            continue
+        table = sess.get_table(name)
+        if table is not None:
+            return table.read()
     raise DaftValueError(f"Unknown table {name!r} in SQL query")
 
 

@@ -11,7 +11,9 @@ is a function of ``chip_smoke`` (``check_q01``) or ``module.function``
 where the phase looks it up. The times are inclusive: a helper's time counts in
 every named helper that calls it. Run it from the repo's root.
 
-Exits non-zero with no CUDA device, or when the phase fails a check.
+Every phase but ``phase_core`` runs with the plan and result caches off, as
+the whole run runs phases 1-21 (``chip_smoke.caches_off``). Exits non-zero
+with no CUDA device, or when the phase fails a check.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ def main(argv: list) -> int:
         timed(owner, attr, name, totals, calls)
     card = chip_smoke.card_line()
     print(card, flush=True)
+    if argv[0] != "phase_core":
+        chip_smoke.caches_off()
     t0 = time.perf_counter()
     try:
         getattr(chip_smoke, argv[0])(card)

@@ -10,16 +10,17 @@ in-memory exporter mirrors the SDK's test exporter, and the OTLP-JSON file
 exporter writes `resourceSpans` payloads in the OTLP/HTTP JSON schema so an
 external collector can ship them (zero-egress environments log to disk).
 
-Attach a :class:`TracingSubscriber` explicitly to trace the engine. The
-JAX package's env switch (``DAFT_DEV_ENABLE_TRACING`` / ``DAFT_TRACE_FILE``)
-waits for ``ExecutionConfig.from_env`` (ROADMAP A.8): the port reads no
-``DAFT_*`` variable, so the JAX package's ``maybe_enable_tracing`` is not
-ported either.
+Attach a :class:`TracingSubscriber` explicitly to trace the engine, or set
+``DAFT_DEV_ENABLE_TRACING`` (with ``DAFT_TRACE_FILE``, else
+``daft_tpu_traces.jsonl`` in the temp directory): ``maybe_enable_tracing``,
+called from ``context.notify``, attaches one to the context, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import secrets
 import threading
 import time
@@ -360,3 +361,26 @@ class TracingSubscriber:
                 self.meter.add(
                     f"daft.admission.shed.{e.reason or 'unknown'}")
 
+
+_auto_subscriber: Optional[TracingSubscriber] = None
+_auto_lock = threading.Lock()
+
+
+def maybe_enable_tracing(context) -> None:
+    """Env-gated auto-attach (reference: DAFT_DEV_ENABLE_TRACING)."""
+    global _auto_subscriber
+    from daft_tpu_torch.config import daft_env
+
+    if _auto_subscriber is not None or not daft_env("DAFT_DEV_ENABLE_TRACING"):
+        return
+    with _auto_lock:
+        if _auto_subscriber is not None:  # double-checked: notify() races
+            return
+        path = daft_env("DAFT_TRACE_FILE")
+        if not path:
+            import tempfile
+
+            path = os.path.join(tempfile.gettempdir(), "daft_tpu_traces.jsonl")
+        sub = TracingSubscriber(OTLPJsonFileExporter(path))
+        context.attach_subscriber(sub)
+        _auto_subscriber = sub

@@ -27,7 +27,7 @@ F32_ULPS = 2.4e-7  # two f32 roundings, relative
 @pytest.fixture(autouse=True)
 def _configs():
     with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-            daft_tpu_torch.execution_config_ctx(device="cpu"):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
         tde.device_eval_counters.reset()
         yield
 

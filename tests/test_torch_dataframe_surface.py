@@ -45,7 +45,7 @@ def _cpu():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-                daft_tpu_torch.execution_config_ctx(device="cpu"):
+                daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
             yield
 
 
@@ -729,7 +729,8 @@ LAZY_NAMES = ["File", "functions", "udf", "cancel_query", "from_pylist", "from_a
               "planning_config_ctx", "Window", "DataSource", "DataSink", "IOConfig",
               "S3Config", "read_parquet", "DaftCancelledError", "DaftTimeoutError", "sql",
               "func", "cls", "method", "read_mcap", "read_video_frames", "from_files",
-              "read_kafka", "read_paimon"]
+              "read_kafka", "read_paimon", "Session", "current_session", "Catalog",
+              "set_runner_native", "register_table", "invalidate_cache_path"]
 
 
 @pytest.mark.parametrize("name", LAZY_NAMES)
@@ -757,10 +758,11 @@ def test_every_top_level_name_of_the_jax_package_resolves_or_names_its_item():
             assert re.search(r"ROADMAP A\.\d", str(e)), (name, str(e))
             assert not hasattr(daft_tpu_torch, name)
             missing[name] = str(e)
-    assert {"Session", "Catalog", "read_iceberg", "recent_queries", "set_tenant",
+    assert {"read_iceberg", "recent_queries", "set_tenant", "submit_query",
             "register_view"} <= set(missing)
     assert not {"File", "functions", "udf", "from_pylist", "range", "Window", "read_mcap",
-                "func"} & set(missing)
+                "func", "Session", "current_session", "Catalog", "set_runner_native",
+                "register_table", "invalidate_cache_path"} & set(missing)
     for name in daft_tpu_torch.__all__:
         assert getattr(daft_tpu_torch, name) is not None, name
     with pytest.raises(AttributeError, match="no attribute 'not_a_name'$"):

@@ -44,7 +44,8 @@ HERE = str(pathlib.Path(__file__).resolve())
 @pytest.fixture(autouse=True)
 def _configs():
     with daft_tpu.execution_config_ctx(result_cache_enabled=False, device_eval_min_rows=1), \
-            daft_tpu_torch.execution_config_ctx(device="cpu", device_eval_min_rows=1):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False,
+                                                device_eval_min_rows=1):
         yield
 
 
@@ -543,11 +544,45 @@ def test_kernel_parity(name, build):
     jde.device_eval_metrics.reset()
     tde.device_eval_counters.reset()
     for pkg, df in zip(PKGS, frames):
-        outs.append(df.select(build(pkg, pkg.col, _F(pkg)).alias("o")).to_pydict())
+        # The route counters count per morsel. A UDF without a batch_size
+        # (the ``.apply`` of ``udaf_finalize``) is re-morselled by a
+        # latency-driven batching in both packages, whose boundaries follow
+        # the host's load (test_dynamic_batching_follows_the_same_latencies),
+        # so the counted routes are compared over fixed morsels.
+        with pkg.execution_config_ctx(udf_dynamic_batching=False):
+            outs.append(df.select(build(pkg, pkg.col, _F(pkg)).alias("o")).to_pydict())
     _assert_same(outs[0], outs[1], FLOAT_RTOL.get(name, 0.0))
     assert any(v is not None for v in outs[1]["o"]), "every row is null: the case tests nothing"
     jax, port = _route_snapshots()
     assert jax == port
+
+
+@pytest.mark.parametrize("latencies_ms", [
+    [0.4, 0.8],                      # an idle host: 1 row, then the rest
+    [11.6, 0.9, 1.0],                # a 12 ms stall on the first morsel
+    [250.0, 300.0, 0.5, 0.5, 0.5],   # past the 0.2 s target: contract
+], ids=["idle", "stall", "overshoot"])
+def test_dynamic_batching_follows_the_same_latencies(latencies_ms):
+    """The latency-driven batching of a UDF without a batch_size re-slices
+    a 48-row stream at the same boundaries in both packages when each batch
+    takes the same time: its boundaries are a function of the measured
+    latencies, which the host's load moves (ROADMAP C.47)."""
+    from daft_tpu.execution import dynamic_batching as jdb
+    from daft_tpu_torch.execution import dynamic_batching as tdb
+
+    sizes = []
+    for pkg, mod in zip(PKGS, (jdb, tdb)):
+        state = mod.LatencyConstrainedBatching(target_latency_s=0.2, b_max=256 * 1024).make_state()
+        lat = iter(latencies_ms + [0.5] * 48)
+        source = [pkg.MicroPartition.from_pydict({"x": list(range(i, i + 8))})
+                  for i in range(0, 48, 8)]
+        seen = []
+        for mp in mod.dynamic_remorsel(iter(source), state):
+            seen.append(len(mp))
+            state.record(len(mp), next(lat) / 1e3)
+        sizes.append(seen)
+    assert sizes[0] == sizes[1]
+    assert sum(sizes[1]) == 48
 
 
 def test_random_kernels_and_the_frozen_clock():

@@ -31,7 +31,7 @@ PAIRS = ((daft_tpu, JF), (daft_tpu_torch, PF))
 @pytest.fixture(autouse=True)
 def _configs():
     with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-            daft_tpu_torch.execution_config_ctx(device="cpu"):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
         yield
 
 

@@ -78,7 +78,7 @@ def _aggs(pkg):
 @contextlib.contextmanager
 def _configs(port_cfg, **both):
     with daft_tpu.execution_config_ctx(result_cache_enabled=False, **both), \
-            daft_tpu_torch.execution_config_ctx(**port_cfg, **both):
+            daft_tpu_torch.execution_config_ctx(result_cache_enabled=False, **port_cfg, **both):
         yield
 
 

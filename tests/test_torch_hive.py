@@ -28,7 +28,7 @@ PKGS = (daft_tpu, daft_tpu_torch)
 @pytest.fixture(autouse=True)
 def _configs():
     with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-            daft_tpu_torch.execution_config_ctx(device="cpu"):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
         yield
 
 

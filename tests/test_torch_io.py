@@ -52,7 +52,7 @@ BF16_TOL = 3e-2
 @pytest.fixture(autouse=True)
 def _configs():
     with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-            daft_tpu_torch.execution_config_ctx(device="cpu"):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
         yield
 
 
@@ -617,7 +617,8 @@ def _small(monkeypatch, threads: int):
     with daft_tpu.execution_config_ctx(result_cache_enabled=False, num_compute_threads=4,
                                        default_morsel_size=4096, min_morsel_size=4096,
                                        scan_tasks_min_size_bytes=1), \
-            daft_tpu_torch.execution_config_ctx(device="cpu", num_compute_threads=threads,
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False,
+                                                num_compute_threads=threads,
                                                 default_morsel_size=4096,
                                                 scan_tasks_min_size_bytes=1):
         yield

@@ -45,7 +45,7 @@ REVENUE_RTOL = 1e-6
 @contextlib.contextmanager
 def _configs(**both):
     with daft_tpu.execution_config_ctx(result_cache_enabled=False, **both), \
-            daft_tpu_torch.execution_config_ctx(device="cpu", **both):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False, **both):
         yield
 
 

@@ -39,7 +39,7 @@ def _fresh_ledger():
     led.enabled = True
     led.reset()
     with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-            daft_tpu_torch.execution_config_ctx(device="cpu"):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
         yield
     led.reset()
     led.enabled = True

@@ -6,10 +6,9 @@ both exporters' schemas (golden-pinned, and the same text from the same
 increments in both packages), the worker-wire merge with its staleness rules
 (pure registry code, in one process), the disabled registry's
 zero-allocation path, the engine's counters, the token shim, per-query IO
-attribution, the circuit gauge and ``EXPLAIN ANALYZE``. The JAX test's
-``DAFT_METRICS`` case goes through the config field ``metrics_enabled``: the
-port reads no ``DAFT_*`` variable until ``ExecutionConfig.from_env``
-(ROADMAP A.8). Beyond the JAX file: ``RuntimeStats.record_pull`` (the
+attribution, the circuit gauge and ``EXPLAIN ANALYZE``. The ``DAFT_METRICS``
+case sets the variable as the JAX test does. Beyond the JAX file: its config
+spelling (``metrics_enabled=False``), ``RuntimeStats.record_pull`` (the
 rows in and the exclusive time credited to the parent operator), and ``tools/plane_cost.py``, which
 times the plane's hot paths and turns a run's registry deltas into the
 seconds the plane added to it.
@@ -459,12 +458,18 @@ def test_disabled_registry_allocation_count():
     assert peak < 4096, f"disabled fast path allocated {peak} bytes"
 
 
-def test_daft_metrics_env_gates_registry():
-    # The JAX test sets DAFT_METRICS; the port's switch is the config field
-    # metrics_enabled (the port reads no DAFT_* variable, ROADMAP A.8). A new
-    # registry is on by default, and the first event under
-    # metrics_enabled=False turns the process registry off.
+def test_daft_metrics_env_gates_registry(monkeypatch):
+    monkeypatch.setenv("DAFT_METRICS", "0")
+    assert MetricRegistry().enabled is False
+    monkeypatch.setenv("DAFT_METRICS", "1")
+    assert MetricRegistry().enabled is True
+    monkeypatch.delenv("DAFT_METRICS")
     assert MetricRegistry().enabled is True  # default on
+
+
+def test_metrics_enabled_false_turns_the_process_registry_off():
+    """The config spelling of the switch: the first event under
+    ``metrics_enabled=False`` turns the process registry off."""
     reg = get_registry()
     was = reg.enabled
     try:

@@ -3,12 +3,10 @@
 the JAX package's, on the CPU.
 
 Mirrors ``tests/test_observability.py``: query events, the JSONL event log,
-in-memory OTel-style tracing and the OTLP file exporter. The JAX test's
-``DAFT_DEV_ENABLE_TRACING`` case becomes: the port reads no ``DAFT_*``
-variable (``ExecutionConfig.from_env`` and the tracer's auto-attach are
-ROADMAP A.8), so no tracer attaches whatever the environment says, and
-an explicitly attached ``TracingSubscriber`` writes the same file. Beyond
-the JAX file: the event dataclasses are the JAX package's field for field, a
+in-memory OTel-style tracing, the OTLP file exporter, the
+``DAFT_DEV_ENABLE_TRACING`` / ``DAFT_TRACE_FILE`` auto-attach and the CLI's
+``version`` (with its ``sql`` beside the JAX CLI's text, and ``dashboard``
+raising naming ROADMAP A.8.6). Beyond the JAX file: the event dataclasses are the JAX package's field for field, a
 raising subscriber loses only its own event, the event log's ring and
 rotation, the circuit breaker's and the digest check's events, and
 ``OperatorStats`` from the query's ``RuntimeStats``.
@@ -16,10 +14,10 @@ rotation, the circuit breaker's and the digest check's events, and
 Left out, with the modules they need: ``test_dashboard_server``,
 ``test_dashboard_live_operator_state``, ``test_dashboard_static_app_and_
 dataframe_display`` and ``test_dataframe_repr_html`` (the dashboard's server,
-state and assets, ROADMAP A.8; the port's notebook table is held in
-``tests/test_torch_dataframe_surface.py``), ``test_heartbeat`` (the runner's
-heartbeat, A.8), ``test_cli_version`` (the CLI, A.8)
-and ``test_components_tally_not_stale`` (the JAX package's component tally).
+state and assets, ROADMAP A.8.6; the port's notebook table is held in
+``tests/test_torch_dataframe_surface.py``), ``test_heartbeat`` (the
+distributed runner's heartbeat, A.8.5) and
+``test_components_tally_not_stale`` (the JAX package's component tally).
 ``test_checkpoint_resume`` and ``test_checkpoint_mixed_type_keys`` are
 mirrored in ``tests/test_torch_checkpoint.py``.
 """
@@ -144,21 +142,54 @@ def test_otlp_file_exporter(tmp_path):
 def test_env_gated_tracing(tmp_path, monkeypatch):
     import daft_tpu_torch.tracing as tracing_mod
 
-    # The JAX package attaches a tracer when DAFT_DEV_ENABLE_TRACING is set;
-    # the port reads no DAFT_* variable (ROADMAP A.8), so nothing attaches.
     path = str(tmp_path / "auto.jsonl")
     monkeypatch.setenv("DAFT_DEV_ENABLE_TRACING", "1")
     monkeypatch.setenv("DAFT_TRACE_FILE", path)
+    monkeypatch.setattr(tracing_mod, "_auto_subscriber", None)
     ctx = daft_tpu_torch.get_context()
     before = list(ctx.subscribers())
-    make_df({"x": [1]}).collect()
-    assert not [s for s in ctx.subscribers()
-                if s not in before and isinstance(s, tracing_mod.TracingSubscriber)]
-    # Attached explicitly, the tracer writes the file the JAX one would.
-    sub = tracing_mod.TracingSubscriber(tracing_mod.OTLPJsonFileExporter(path))
-    with _attached(sub):
+    try:
+        make_df({"x": [1]}).collect()
+        assert tracing_mod._auto_subscriber is not None
         make_df({"x": [2]}).collect()
-    assert open(path).read().strip()
+        assert path and open(path).read().strip()
+    finally:
+        for s in ctx.subscribers():
+            if s not in before:
+                ctx.detach_subscriber(s)
+        monkeypatch.setattr(tracing_mod, "_auto_subscriber", None)
+
+
+def test_cli_version(capsys):
+    from daft_tpu_torch.__main__ import main
+
+    assert main(["version"]) == 0
+    out = capsys.readouterr().out.strip()
+    assert out == daft_tpu_torch.__version__
+
+
+def test_cli_sql_runs_on_the_cpu_with_tables(tmp_path, capsys):
+    """``python -m daft_tpu_torch sql`` over a parquet table, ``--device
+    cpu``: the JAX CLI's preview text of the same query."""
+    from daft_tpu.__main__ import main as jax_main
+    from daft_tpu_torch.__main__ import main
+
+    d = str(tmp_path / "t")
+    daft_tpu_torch.from_pydict({"k": [1, 2, 3], "v": [0.5, 1.5, 2.5]}).write_parquet(d)
+    q = "SELECT SUM(v) AS s, COUNT(*) AS n FROM t WHERE k > 1"
+    assert main(["sql", q, "--table", f"t={d}", "--device", "cpu"]) == 0
+    port = capsys.readouterr().out
+    assert jax_main(["sql", q, "--table", f"t={d}"]) == 0
+    assert port == capsys.readouterr().out
+    assert "4" in port
+
+
+def test_cli_dashboard_raises_naming_its_item():
+    from daft_tpu_torch.__main__ import main
+    from daft_tpu_torch.errors import DaftNotImplementedError
+
+    with pytest.raises(DaftNotImplementedError, match=r"A\.8\.6"):
+        main(["dashboard"])
 
 
 # ------------------------------------------------------------------ #

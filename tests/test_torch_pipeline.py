@@ -320,9 +320,11 @@ def test_stages_run_on_the_pool(big_df, monkeypatch):
     monkeypatch.setattr(TExecutor, "_node_kernel", staticmethod(spy))
     for threads, want in ((4, {"daft-compute"}), (1, {threading.current_thread().name})):
         names.clear()
+        # The result cache off: the second run must run the chain again.
         with daft_tpu_torch.execution_config_ctx(device="cpu", num_compute_threads=threads,
                                                  default_morsel_size=1000, device_eval=False,
-                                                 compiled_eval_enabled=False):
+                                                 compiled_eval_enabled=False,
+                                                 result_cache_enabled=False):
             _chain(big_df).to_pydict()
         assert names == want
 
@@ -338,7 +340,8 @@ def _small_chunks(monkeypatch, threads: int, **cfg):
         monkeypatch.setattr(cls, "AGG_CHUNK_ROWS", 8192)
     with daft_tpu.execution_config_ctx(result_cache_enabled=False, num_compute_threads=4,
                                        default_morsel_size=4096, min_morsel_size=4096), \
-            daft_tpu_torch.execution_config_ctx(device="cpu", num_compute_threads=threads,
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False,
+                                                num_compute_threads=threads,
                                                 default_morsel_size=4096, **cfg):
         yield
 

@@ -10,10 +10,8 @@ must not leak its profile, interleaved lazy profiled queries, the span wire,
 EXPLAIN ANALYZE's operator table, the timeline (through
 ``profiling.timeline_json``, the data the dashboard's route serves) and the
 parallel stage attribution at the default pool and at
-``num_compute_threads=1``. The JAX test's ``DAFT_PROFILE`` /
-``DAFT_PROFILE_FILE`` cases go through the config fields ``profile_enabled``
-/ ``profile_export_path`` (the port reads no ``DAFT_*`` variable, ROADMAP
-A.8). Beyond the JAX file: the span cap's dropped count (beside the JAX
+``num_compute_threads=1``. The ``DAFT_PROFILE`` / ``DAFT_PROFILE_FILE``
+cases set the variables as the JAX test does. Beyond the JAX file: the span cap's dropped count (beside the JAX
 package's), a failing driver span, a profile finished with an error, the
 ambient task profiler per resumption, and the ``note_*`` hooks' fallback
 onto the task profiler.
@@ -170,12 +168,16 @@ def test_profile_disabled_is_inert():
     profiling.note_device(10, fused=True)
 
 
-def test_daft_profile_0_overrides_baked_config():
-    # The JAX test's DAFT_PROFILE switch is the config field profile_enabled
-    # in the port (ROADMAP A.8): the config decides, both ways.
+def test_daft_profile_0_overrides_baked_config(monkeypatch):
+    # DAFT_PROFILE is the live process-wide switch: explicitly =0 wins over a
+    # config that says profile_enabled=True; unset, the config decides.
+    baked = types.SimpleNamespace(profile_enabled=True)
+    monkeypatch.setenv("DAFT_PROFILE", "0")
+    assert profiling.begin_query("q-env-off", baked) is None
+    monkeypatch.delenv("DAFT_PROFILE")
     assert profiling.begin_query("q-cfg-off", types.SimpleNamespace(profile_enabled=False)) \
         is None
-    prof = profiling.begin_query("q-cfg-on", types.SimpleNamespace(profile_enabled=True))
+    prof = profiling.begin_query("q-cfg-on", baked)
     assert prof is not None
     profiling.end_query("q-cfg-on")
     before = profiling.last_profile()
@@ -209,19 +211,20 @@ def test_planning_failure_does_not_leak_profile(monkeypatch):
     assert req.profile is not None and req.profile.error is not None
 
 
-def test_interleaved_lazy_profiled_queries_do_not_clobber():
-    # _run_iter is a GENERATOR: its ambient-profiler contextvar must be set
-    # per resumption, not for the generator's lifetime.
-    with daft_tpu_torch.execution_config_ctx(profile_enabled=True):
-        it_a = small_df().where(col("a") > 10).iter_partitions()
-        it_b = small_df().where(col("a") > 100).iter_partitions()
-        next(it_a)
-        next(it_b)  # B's scope opens while A is mid-flight
-        # Between resumptions the caller's context carries NO profiler.
-        assert profiling._current_profiler.get() is None
-        for it in (it_a, it_b):
-            for _ in it:
-                pass
+def test_interleaved_lazy_profiled_queries_do_not_clobber(monkeypatch):
+    # The native runner's run_iter is a GENERATOR: its ambient-profiler
+    # contextvar must be set per resumption, not for the generator's
+    # lifetime.
+    monkeypatch.setenv("DAFT_PROFILE", "1")
+    it_a = small_df().where(col("a") > 10).iter_partitions()
+    it_b = small_df().where(col("a") > 100).iter_partitions()
+    next(it_a)
+    next(it_b)  # B's scope opens while A is mid-flight
+    # Between resumptions the caller's context carries NO profiler.
+    assert profiling._current_profiler.get() is None
+    for it in (it_a, it_b):
+        for _ in it:
+            pass
     assert profiling._current_profiler.get() is None
 
 
@@ -315,13 +318,19 @@ def test_notes_without_a_frame_tally_on_the_ambient_task_profiler():
                            "permit_wait_ns": 250_000_000}
 
 
-def test_profile_true_stays_in_memory_despite_env_file(tmp_path):
-    # The config's profile_export_path (the JAX package's DAFT_PROFILE_FILE)
-    # applies to config-triggered profiling only: an explicit
+@pytest.mark.parametrize("via", ["env", "config"])
+def test_profile_true_stays_in_memory_despite_env_file(tmp_path, monkeypatch, via):
+    # DAFT_PROFILE_FILE (and its config spelling profile_export_path)
+    # applies to env- or config-triggered profiling only: an explicit
     # collect(profile=True) asked for an in-memory trace.
     target = tmp_path / "keep.json"
     target.write_text("sentinel")
-    with daft_tpu_torch.execution_config_ctx(profile_export_path=str(target)):
+    overrides = {}
+    if via == "env":
+        monkeypatch.setenv("DAFT_PROFILE_FILE", str(target))
+    else:
+        overrides["profile_export_path"] = str(target)
+    with daft_tpu_torch.execution_config_ctx(**overrides):
         with profiling.collect_profile() as req:
             small_df().where(col("a") > 10).collect()
     assert req.profile is not None and req.profile.export_path is None

@@ -5,10 +5,12 @@ Mirrors ``tests/test_sql.py`` case for case: each query runs through both
 packages on the same tables (``device="cpu"`` for the port) and must give
 the JAX package's rows and the value that the JAX test asserts, window
 functions, ``count(DISTINCT ...)``, ``INTERSECT ALL`` and ``ARRAY[...]``
-included (ROADMAP A.3.5). The cases that need what the port lacks assert
-that it raises ``DaftNotImplementedError`` naming the item: sessions,
-catalogs, a ``SET`` of a session variable and ``USE`` (A.8). ``EXPLAIN
-ANALYZE`` runs the SELECT as in the JAX package. A ``SET`` of an execution or
+included (ROADMAP A.3.5). The session statements (``CREATE``, ``DROP``,
+``INSERT``, ``SHOW TABLES``, ``USE``, a ``SET`` of a session variable and
+``EXPLAIN`` of one) run against a session of each package, which must end
+in the same state with the same status rows (``tests/test_torch_session.py``
+holds the sessions themselves). ``EXPLAIN ANALYZE`` runs the SELECT as in
+the JAX package. A ``SET`` of an execution or
 planning config key applies live, as in the JAX package.
 The connector cases (``read_sql``) are not SQL-planner cases and stay with
 the JAX package (A.8).
@@ -20,7 +22,6 @@ import pytest
 
 import daft_tpu
 import daft_tpu_torch
-from daft_tpu_torch.errors import DaftNotImplementedError
 
 pytestmark = pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning")
 
@@ -36,7 +37,7 @@ def _cpu():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-                daft_tpu_torch.execution_config_ctx(device="cpu"):
+                daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
             yield
 
 
@@ -356,10 +357,53 @@ SESSION_STATEMENTS = [
 ]
 
 
-@pytest.mark.parametrize("statement", SESSION_STATEMENTS)
-def test_session_statements_raise_naming_their_item(statement):
-    with pytest.raises(DaftNotImplementedError, match=r"A\.8"):
-        daft_tpu_torch.sql(statement, people=daft_tpu_torch.from_pydict(PEOPLE))
+def _session_with_tables(pkg):
+    """A private session of ``pkg`` holding a temp ``people``, a catalog
+    table ``t`` (name, age), a catalog table ``adults``, a second catalog
+    ``cat2`` and a table ``bar1``."""
+    from importlib import import_module
+
+    catalog = import_module(f"{pkg.__name__}.catalog")
+    s = pkg.Session()
+    s.create_temp_table("people", pkg.from_pydict(PEOPLE))
+    s.create_table("t", pkg.from_pydict({"name": ["zoe"], "age": [7]}))
+    s.create_table("adults", pkg.from_pydict({"x": [0]}))
+    s.create_table("bar1", pkg.from_pydict({"y": [1.5]}))
+    s.attach(catalog.InMemoryCatalog("cat2"))
+    return s
+
+
+def _session_state(s):
+    tables = {}
+    for name in s.list_tables():
+        tables[name] = s.get_table(name).read().sort(
+            s.get_table(name).read().schema.column_names()[0]).to_pydict()
+    return {"tables": tables, "catalog": s.current_catalog.name,
+            "vars": dict(s._variables)}
+
+
+@pytest.mark.parametrize("statement", SESSION_STATEMENTS + [
+    "CREATE TABLE IF NOT EXISTS adults AS SELECT 1 AS x",
+    "CREATE TABLE kids AS SELECT name FROM people WHERE age < 21",
+    "DROP TABLE IF EXISTS nope",
+])
+def test_session_statements_run_against_the_session_as_in_the_jax_package(statement):
+    """Each session statement gives the JAX planner's status rows and leaves
+    the session in the JAX package's state: its tables (rows sorted by the
+    first column), the current catalog and the session variables. A
+    statement the JAX planner refuses raises the same error class and
+    message in the port."""
+    outs = []
+    for pkg in (daft_tpu, daft_tpu_torch):
+        s = _session_with_tables(pkg)
+        try:
+            rows = s.sql(statement).to_pydict()
+        except pkg.DaftError as e:
+            rows = (type(e).__name__, str(e))
+        if statement.startswith("EXPLAIN"):
+            rows = {"plan": [rows["plan"][0].split("\n")[0]]}
+        outs.append((rows, _session_state(s)))
+    assert outs[1] == outs[0]
 
 
 def test_set_applies_a_config_key_live_as_in_the_jax_package():

@@ -35,7 +35,7 @@ def tables():
 @pytest.fixture(autouse=True)
 def _configs():
     with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-            daft_tpu_torch.execution_config_ctx(device="cpu", default_morsel_size=8192):
+            daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False, default_morsel_size=8192):
         tde.device_eval_counters.reset()
         yield
 

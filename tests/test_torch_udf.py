@@ -34,7 +34,7 @@ def _cpu():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         with daft_tpu.execution_config_ctx(result_cache_enabled=False), \
-                daft_tpu_torch.execution_config_ctx(device="cpu"):
+                daft_tpu_torch.execution_config_ctx(device="cpu", result_cache_enabled=False):
             yield
 
 
