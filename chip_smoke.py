@@ -235,13 +235,14 @@ Phases, each of which fails the run on any error:
 15. out of core (``phase_out_of_core``) on phase 14's SF10 tables and
    answers, under ``memory_limit`` at 1/8 of the tables' in-memory bytes
    (printed with the spill root's free bytes, which must be at least twice
-   the tables'): TPC-H q01, q18 and q21 in SQL, the sort of the 15M orders
-   by (``o_custkey``, ``o_orderdate`` desc) and ``SELECT DISTINCT
+   the tables'): TPC-H q01, q18 and q21 in SQL and ``SELECT DISTINCT
    l_orderkey, l_suppkey FROM lineitem`` over the first half of lineitem's
    rows, each at 8 workers with the counts set to 0 just before. Each query
-   equals phase 14's answer (keys exact, floats within 1e-6); the sort's
-   keys come in numpy's order, every row keeps its keys; the distinct
-   equals numpy's ``unique``; q18, q21, the sort and the distinct spill.
+   equals phase 14's answer (keys exact, floats within 1e-6); the distinct
+   equals numpy's ``unique``; q18, q21 and the distinct spill. (The sort of
+   SF10's 15M orders under the limit, 21.3 s, was cut to make room for
+   phase 23: phase 19 sorts SF1's orders by the same keys under 1/8 of
+   their bytes and makes its checks, every row keeping its keys included.)
    After each: the ledger holds 0 bytes, every permit is back, no spill
    directory remains. Printed beside the unlimited run: wall
    s, spills, files and bytes, the best-effort permit waits, the ledger's
@@ -322,8 +323,10 @@ Phases, each of which fails the run on any error:
    second holder keeps every permit until the sort's reservation has waited
    0.5 s, analyzed: ``spill``
    equal to ``spill_metrics``, a ``memory permits`` wait of at least 0.45 s,
-   ``memory`` equal to the ledger's block, the rows in order, every permit
-   back; then the two planes' overheads as the JAX package's ``bench.py``
+   ``memory`` equal to the ledger's block, the rows in order, each row
+   carrying its own order's ``o_custkey`` and ``o_orderdate`` (no row lost
+   or repeated), every
+   permit back; then the two planes' overheads as the JAX package's ``bench.py``
    measures them, each printed in % beside its 2 % budget: ``bench.py``'s
    loop (filter, join, groupby, sort) at n = 400,000 with the registry on and
    off (best of 21 each, alternating in one process) and at n = 6,000,000
@@ -410,7 +413,39 @@ Phases, each of which fails the run on any error:
    ``python -m daft_tpu_torch sql "<q06>" --table lineitem=<dir>`` runs it
    (``runpy``), on the card, printing the text of q06 run in this process
    under the subprocess's config. The subprocess runs beside (b) and (a);
-23. print the whole run's time and one JSON line of per-kernel numbers (with
+23. the front door (``phase_front_door``): admission, the flight recorder,
+   the SLO plane and ``submit_query`` over HTTP and Arrow Flight, with the
+   plan and result caches on. (a) Phase 3's route behind a quota: tenant
+   ``batch`` at ``max_concurrent_queries=1`` runs three ViT-L/14
+   ``embed_image`` queries over the 512 images on three threads, and tenant
+   ``gold`` (priority 1) one more beside them: each gives phase 3's bytes
+   (taken here first), the four 384 launches together, the two queued
+   ``batch`` records an ``admission_wait_s`` over 0 and ``gold``'s 0; each
+   wall and wait printed. (b) HTTP: ``DashboardServer(port=0)`` with phase
+   12's hive lineitem registered as ``lineitem`` (run alone, the phase
+   writes one like it): q06 POSTed (200, phase 22's in-process answer after
+   its write, which ran on the card; alone, this phase's own), the same
+   POST again (``result_cache_hit``, the same data), a burst of 8 distinct
+   queries by a tenant at ``max_concurrent_queries=1, queue_depth=1,
+   priority=-1`` (at least one 429 with ``Retry-After``, and at least as
+   many ``shed`` records), ``timeout_s=1e-7`` (504 and a ``timeout``
+   record), bad SQL (400). (c) Flight: the same q06 through
+   ``start_query_server()`` and ``do_get`` (the answer of (b)), and a ticket
+   that is not JSON (``FlightError``). (d) The tail sampler: with
+   ``slo_slow_query_s`` under the ViT-L/14 query's wall, one run arms its
+   fingerprint and the next is auto-profiled (its record ``autoprofiled``,
+   its ``flight record:`` line ending ``[autoprofiled]``, phase 3's bytes
+   and 96 launches), and ``/api/slo`` shows the tenant's p99. (e) The
+   recorder's and the gate's price per query (``tools/plane_cost.py``:
+   ``FlightRecorder.begin`` to ``finish``, ``admit`` to ``release``, each
+   record reading the peak RSS and evaluating its tenant's windows, as a
+   spaced query pays them) beside the smallest query wall of this phase,
+   with the same price at a full window, 0.26 s apart and in bursts, each
+   printed against the JAX package's 2 % recorder budget (as phase 19
+   prints the other planes' overheads against theirs), and the median of
+   paired ratios of q06 over the same
+   rows in memory with ``DAFT_QUERY_RECORDER`` 0 against 1 (no limit);
+24. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -3955,9 +3990,9 @@ def check_audit(tag: str, run: dict) -> None:
 def phase_out_of_core(card: str, state: dict) -> dict:
     """Phase 15: phase 14's SF10 database under a memory limit of 1/8 of its
     in-memory bytes: TPC-H q01, q18 and q21 in SQL against phase 14's
-    answers, the sort of the orders and a distinct over lineitem against
-    numpy, with the spill, the ledger and the audit after each; q21 under a
-    2 s deadline.
+    answers and a distinct over lineitem against numpy, with the spill, the
+    ledger and the audit after each; q21 under a 2 s deadline. (Phase 19
+    sorts SF1's orders under the same share of their bytes.)
     Returns each path's flash launches (0)."""
     import gc
     import shutil
@@ -3971,7 +4006,7 @@ def phase_out_of_core(card: str, state: dict) -> dict:
     from daft_tpu_torch.execution.memledger import read_rss_bytes
     from daft_tpu_torch.execution.spill import sink_budget
     from daft_tpu_torch.ops.flash_attention import flash_attention
-    from daft_tpu_torch.tools import out_of_core, tpch
+    from daft_tpu_torch.tools import out_of_core
 
     phase_start = time.perf_counter()
     frames, tables, outs = state["frames"], state["tables"], state["outs"]
@@ -4016,42 +4051,6 @@ def phase_out_of_core(card: str, state: dict) -> dict:
         if name != "q01":
             check(held["spill"]["spills"] > 0, f"{name} did not spill at {limit} bytes")
         report_out_of_core(card, name, held, state["unlimited"][name])
-
-    # The orders' sort (phase 10's keys) under the limit: ties keep no fixed
-    # order across runs, so the keys must come in numpy's order and every row
-    # must carry its own keys. The keys' reference is one numpy sort of the
-    # packed (o_custkey, -o_orderdate): an unlimited engine sort of the same
-    # keys took 9.3-10.8 s on the H100's host.
-    keys, desc = ["o_custkey", "o_orderdate"], [False, True]
-    held = run("sort", lambda: frames["orders"].sort(keys, desc=desc), limit, True)
-    check(held["spill"]["spills"] > 0, f"the sort did not spill at {limit} bytes")
-    o = tables["orders"]
-    packed = np.sort((o["o_custkey"].astype(np.int64) << 32)
-                     | (np.int64(0x7FFFFFFF) - o["o_orderdate"].astype(np.int64)))
-    ship_days = held["rows"]["o_orderdate"].cast("int32").to_numpy() - np.int64(tpch.DAYS_TO_EPOCH)
-    check(np.array_equal(held["rows"]["o_custkey"].to_numpy(), packed >> 32),
-          "the sort's o_custkey differs from numpy's order")
-    check(np.array_equal(ship_days, np.int64(0x7FFFFFFF) - (packed & 0xFFFFFFFF)),
-          "the sort's o_orderdate differs from numpy's order")
-    del packed, ship_days
-    # Each sorted row's order by its key, through a dense map of the sparse
-    # keys (a binary search per row costs seconds more at 15 M rows).
-    got_keys = held["rows"]["o_orderkey"].to_numpy()
-    pos = np.full(int(o["o_orderkey"].max()) + 1, -1, dtype=np.int64)
-    pos[o["o_orderkey"]] = np.arange(len(o["o_orderkey"]))
-    check(len(got_keys) == 0 or (got_keys.min() >= 0 and got_keys.max() < len(pos)),
-          "the external sort returned an order key outside the table's")
-    at = pos[got_keys]
-    check(bool((at >= 0).all()), "the external sort returned an order key the table lacks")
-    check(np.array_equal(o["o_custkey"][at], held["rows"]["o_custkey"].to_numpy()),
-          "the external sort moved o_custkey apart from its rows")
-    check(len(at) == len(o["o_orderkey"])
-          and int(np.bincount(at, minlength=len(at)).max(initial=0)) <= 1,
-          "the external sort lost or repeated rows")
-    del pos
-    report_out_of_core(card, f"sort of {len(at)} orders", held)
-    print(f"[ooc] the sort checked; {time.perf_counter() - phase_start:.1f} s into the phase",
-          flush=True)
 
     # A grace distinct of (l_orderkey, l_suppkey) against numpy's unique,
     # over the first half of lineitem's rows (cut from all of them, 40.4 s,
@@ -5072,6 +5071,17 @@ def phase_observability(card: str, state: dict = None) -> dict:
     check(bool(ordered.all()) and np.array_equal(np.sort(out.column("o_orderkey").to_numpy()),
                                                  np.sort(orders_cols["o_orderkey"])),
           "the analyzed sort's rows are out of order or not the orders'")
+    # Each sorted row carries its own order's customer and date (a dense map
+    # of the order keys: the external sort must move whole rows).
+    pos = np.full(int(orders_cols["o_orderkey"].max()) + 1, -1, dtype=np.int64)
+    pos[orders_cols["o_orderkey"]] = np.arange(len(orders_cols["o_orderkey"]))
+    at = pos[out.column("o_orderkey").to_numpy()]
+    check(bool((at >= 0).all()) and np.array_equal(orders_cols["o_custkey"][at], cust),
+          "the analyzed sort moved o_custkey apart from its rows")
+    check(np.array_equal(orders_cols["o_orderdate"][at].astype(np.int64)
+                         + np.int64(tpch.DAYS_TO_EPOCH), date),
+          "the analyzed sort moved o_orderdate apart from its rows")
+    del pos, at
     print(f"[obs] the sort of SF{SQL_CHECK_SF}'s {len(cust)} orders under 1/8 of their bytes "
           f"({limit} bytes) analyzed in {wall:.3f} s: spill {kinds['spill']} equal to "
           f"spill_metrics, memory permits {permits} (a holder kept the limit until the sort had "
@@ -6365,6 +6375,9 @@ def phase_core(card: str, shared: dict = None) -> dict:
             (after, wall, n) = counted(lambda: q06().to_pydict())
             got = (hits("result") - r0, metrics.RESULT_CACHE_MISSES.labels("result").value() - m0)
         paths["core after write"] = {"flash_attention": n}
+        if shared is not None:
+            # Phase 23 POSTs the same q06 over the same directory.
+            shared["core_q06_after"] = after
         both = {k: np.concatenate([cols[k], more[k]]) for k in NUMERIC_COLS}
         ref2 = lineitem.q06_reference(both, host_literals=True)
         rev2 = after["revenue"][0]
@@ -6385,6 +6398,401 @@ def phase_core(card: str, shared: dict = None) -> dict:
         plancache.reset_caches()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[core] phase 22 {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return paths
+
+
+FD_BATCH_QUERIES = 3       # tenant batch's ViT-L/14 queries behind a one-slot quota
+FD_BURST = 8               # distinct q06 POSTs of the throttled tenant, started together
+FD_SLOW_QUERY_S = 0.05     # slo_slow_query_s for (d): under a ViT-L/14 query's ~0.24 s
+FD_RECORDER_PAIRS = 8      # ABBA pairs of q06 in memory, DAFT_QUERY_RECORDER 0 / 1
+FD_PRICE_QUERIES = 2000    # front-door admits / records per timed burst (tools/plane_cost.py)
+FD_PRICE_REPS = 5
+FD_SPACED_QUERIES = 200    # queries each timed alone, every record evaluated
+FD_COLD_QUERIES = 9        # queries each after a pause of FD_COLD_GAP_S
+FD_COLD_GAP_S = 0.26       # over the SLO tracker's 0.25 s evaluation throttle
+FD_HTTP_TIMEOUT_S = 120
+
+
+def fd_post(url: str, body: dict) -> tuple:
+    """POST ``body`` to ``url/api/query``: (status, JSON body, headers)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/api/query", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        resp = urllib.request.urlopen(req, timeout=FD_HTTP_TIMEOUT_S)
+        return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def fd_get(url: str) -> dict:
+    import urllib.request
+
+    return json.loads(urllib.request.urlopen(url, timeout=FD_HTTP_TIMEOUT_S).read())
+
+
+def phase_front_door(card: str, shared: dict = None) -> dict:
+    """Phase 23: admission, the flight recorder, the SLO plane and the
+    network front door on the card, over phase 12's hive lineitem
+    (``shared``; run alone, it writes one like it). Returns each path's
+    flash launches."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import plancache, querylog, slo
+    from daft_tpu_torch.distributed.flight import start_query_server
+    from daft_tpu_torch.execution.admission import get_controller
+    from daft_tpu_torch.execution.analyze import flight_record_line
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.query_service import get_table_registry
+    from daft_tpu_torch.subscribers.dashboard import DashboardServer
+    from daft_tpu_torch.tools import lineitem, plane_cost
+
+    import pyarrow.flight as flight
+
+    phase_start = time.perf_counter()
+    paths, walls = {}, {}
+    ctl, rec, tracker = get_controller(), querylog.get_recorder(), slo.get_tracker()
+    ctl.reset()
+    tracker.reset()
+    plancache.reset_caches()
+    want = NUM_IMAGES // BATCH * VIT_L_LAYERS
+    cfg0 = dt.get_context().execution_config
+    tmp = tempfile.mkdtemp(prefix="smoke-front-door-")
+    server = flight_server = None
+    dt.set_execution_config(plan_cache_enabled=True, result_cache_enabled=True)
+    try:
+        # -- (a) the main path behind a quota -----------------------------------
+        imgs = np.random.default_rng(0).integers(0, 256, (NUM_IMAGES, IMAGE * IMAGE * 3),
+                                                 dtype=np.uint8)
+        base = dt.from_pydict({"img": dt.Series.from_numpy(
+            imgs, "img", dt.DataType.image("RGB", IMAGE, IMAGE))})
+        expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                           batch_size=BATCH)
+
+        def frame():
+            return base.with_column("emb", expr).select("emb")
+
+        def emb_of(df):
+            vals, _ = image_column(df, "emb").to_numpy_masked()
+            return np.asarray(vals, dtype=np.float32)
+
+        dt.set_execution_config(default_morsel_size=NUM_IMAGES)
+        frame().limit(BATCH).collect()  # the instance's weights, warm
+        flash_attention.launch_count = 0
+        t0 = time.perf_counter()
+        ref = emb_of(frame())
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        check(flash_attention.launch_count == want,
+              f"front door: phase 3's route launched {flash_attention.launch_count}, "
+              f"expected {want}")
+        dt.set_tenant_policy("batch", max_concurrent_queries=1, queue_depth=8)
+        dt.set_tenant_policy("gold", priority=1)
+        runs, errors = {}, []
+
+        def vit(tag, tenant):
+            dt.set_tenant(tenant)
+            try:
+                df = frame()
+                t0 = time.perf_counter()
+                out = emb_of(df)
+                torch.cuda.synchronize()
+                runs[tag] = (out, time.perf_counter() - t0, df.query_id)
+            except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+                errors.append((tag, e))
+            finally:
+                dt.set_tenant(None)
+
+        def wait_for(cond, what):
+            deadline = time.monotonic() + 60
+            while not cond() and time.monotonic() < deadline:
+                time.sleep(0.002)
+            check(cond(), f"front door: {what} within 60 s")
+
+        threads = []
+        flash_attention.launch_count = 0
+        t_all = time.perf_counter()
+        for i in range(FD_BATCH_QUERIES):
+            th = threading.Thread(target=vit, args=(f"batch {i}", "batch"), name=f"fd-batch-{i}")
+            th.start()
+            threads.append(th)
+            if i == 0:
+                wait_for(lambda: ctl.snapshot().get("batch", {}).get("running") == 1,
+                         "the first batch query admitted")
+            else:
+                wait_for(lambda i=i: ctl.snapshot().get("batch", {}).get("queued") == i,
+                         f"{i} batch queries queued")
+        th = threading.Thread(target=vit, args=("gold", "gold"), name="fd-gold")
+        th.start()
+        threads.append(th)
+        for th in threads:
+            th.join(timeout=300)
+        all_s = time.perf_counter() - t_all
+        launches = flash_attention.launch_count
+        check(not errors, f"front door (a): {errors}")
+        check(not any(th.is_alive() for th in threads), "front door (a): a query did not end")
+        paths["front door vit x4"] = {"flash_attention": launches}
+        check(launches == (FD_BATCH_QUERIES + 1) * want,
+              f"front door (a): {launches} launches for {FD_BATCH_QUERIES + 1} queries, "
+              f"expected {want} each")
+        waits = {}
+        for tag, (out, wall, qid) in sorted(runs.items()):
+            r = rec.record_for(qid)
+            check(r is not None and r["outcome"] == "success", f"front door {tag}: record {r}")
+            waits[tag] = r["admission_wait_s"]
+            walls[f"vit {tag}"] = wall
+            print(f"[front door] {tag}: {NUM_IMAGES} images {wall:.3f} s, admission wait "
+                  f"{r['admission_wait_s']:.4f} s, tenant {r['tenant']}, the bytes of phase 3's "
+                  f"route ({ref_s:.3f} s): {out.tobytes() == ref.tobytes()} [{card}]", flush=True)
+            check(out.tobytes() == ref.tobytes(), f"front door {tag}: not phase 3's bytes")
+        queued = sorted(waits[f"batch {i}"] for i in range(FD_BATCH_QUERIES))
+        check(queued[0] == 0.0 and all(w > 0 for w in queued[1:]),
+              f"front door (a): the batch waits {queued}; two should wait, one not")
+        check(waits["gold"] == 0.0, f"front door (a): gold waited {waits['gold']} s on batch")
+        print(f"[front door] (a) {FD_BATCH_QUERIES} batch queries behind one slot and one gold "
+              f"query in {all_s:.3f} s, {launches} launches; gold admitted with no wait while "
+              f"batch queued [{card}]", flush=True)
+        dt.set_execution_config(default_morsel_size=cfg0.default_morsel_size)
+
+        # -- (b) HTTP -------------------------------------------------------------
+        if shared and "lineitem_dir" in shared:
+            li_dir = shared["lineitem_dir"]
+            expect = shared.get("core_q06_after")
+        else:
+            full = lineitem.lineitem_columns(CORE_ROWS, seed=CORE_SEED)
+            li_dir = os.path.join(tmp, "lineitem")
+            dt.from_pydict({k: full[k] for k in Q01_COLS}).select(*Q01_COLS).write_parquet(
+                li_dir, partition_cols=["l_returnflag"])
+            expect = None
+        if expect is None:
+            expect = dt.sql(q06_sql(), lineitem=dt.read_parquet(li_dir)).to_pydict()
+            plancache.reset_caches()
+        server = DashboardServer(port=0).start()
+        sub = server.subscriber()
+        dt.get_context().attach_subscriber(sub)
+        server.register_table("lineitem", dt.read_parquet(li_dir))
+
+        def posted(tag, body):
+            flash_attention.launch_count = 0
+            t0 = time.perf_counter()
+            out = fd_post(server.url, body)
+            walls[tag] = time.perf_counter() - t0
+            paths[f"front door {tag}"] = {"flash_attention": flash_attention.launch_count}
+            check(flash_attention.launch_count == 0, f"front door {tag}: flash launched")
+            return out
+
+        status, miss, _ = posted("http q06", {"sql": q06_sql(), "tenant": "web"})
+        check(status == 200 and miss.get("outcome") == "success", f"front door q06: {status} {miss}")
+        rel = abs(miss["data"]["revenue"][0] - expect["revenue"][0]) / abs(expect["revenue"][0])
+        print(f"[front door] (b) POST q06: {status} in {walls['http q06']:.4f} s, "
+              f"{miss['data']} against phase 22's in-process {expect} (rel {rel:.2e}, "
+              f"bit-equal {miss['data'] == expect}), result_cache_hit "
+              f"{miss['result_cache_hit']} [{card}]", flush=True)
+        check(rel <= Q06_RTOL and not miss["result_cache_hit"],
+              f"front door q06: {miss['data']} vs {expect}")
+        status, hit, _ = posted("http q06 hit", {"sql": q06_sql(), "tenant": "web"})
+        print(f"[front door] (b) the same POST: {status} in {walls['http q06 hit']:.4f} s, "
+              f"result_cache_hit {hit.get('result_cache_hit')}, the same data "
+              f"{hit.get('data') == miss['data']} [{card}]", flush=True)
+        check(status == 200 and hit["result_cache_hit"] and hit["data"] == miss["data"],
+              f"front door q06 hit: {status} {hit}")
+
+        dt.set_tenant_policy("throttled", max_concurrent_queries=1, queue_depth=1, priority=-1)
+        shed0 = rec.stats()["by_outcome"].get("shed", 0)
+        barrier = threading.Barrier(FD_BURST)
+        answers, lock = [], threading.Lock()
+
+        def burst(i):
+            barrier.wait(timeout=60)
+            out = fd_post(server.url, {"sql": q06_sql(
+                select=f"SUM(l_extendedprice * l_discount + {i}) AS revenue"),
+                "tenant": "throttled"})
+            with lock:
+                answers.append(out)
+
+        t0 = time.perf_counter()
+        burst_threads = [threading.Thread(target=burst, args=(i,), name=f"fd-burst-{i}")
+                         for i in range(FD_BURST)]
+        for th in burst_threads:
+            th.start()
+        for th in burst_threads:
+            th.join(timeout=300)
+        burst_s = time.perf_counter() - t0
+        codes = sorted(a[0] for a in answers)
+        n429 = codes.count(429)
+        with_retry = sum(1 for a in answers if a[0] == 429 and a[2].get("Retry-After")
+                         and "retry_after_s" in a[1])
+        shed = rec.stats()["by_outcome"].get("shed", 0) - shed0
+        print(f"[front door] (b) a burst of {FD_BURST} by a 1-slot, 1-deep, priority -1 tenant in "
+              f"{burst_s:.3f} s: statuses {codes}, {n429} x 429 ({with_retry} with Retry-After), "
+              f"{shed} shed records [{card}]", flush=True)
+        check(len(answers) == FD_BURST and set(codes) <= {200, 429},
+              f"front door burst: statuses {codes}")
+        check(n429 >= 1 and with_retry == n429 and shed >= n429,
+              f"front door burst: {n429} x 429, {with_retry} with Retry-After, {shed} shed")
+        timeouts0 = rec.stats()["by_outcome"].get("timeout", 0)
+        status, body, _ = fd_post(server.url, {"sql": q06_sql(), "tenant": "web",
+                                               "timeout_s": 1e-7})
+        timeouts = rec.stats()["by_outcome"].get("timeout", 0) - timeouts0
+        check(status == 504 and body.get("kind") == "DaftTimeoutError" and timeouts == 1,
+              f"front door timeout_s=1e-7: {status} {body}, {timeouts} timeout records")
+        status, bad, _ = fd_post(server.url, {"sql": "SELECT FROM nothing"})
+        check(status == 400, f"front door bad SQL: {status} {bad}")
+        print(f"[front door] (b) timeout_s=1e-7: 504 and one timeout record; bad SQL: 400 "
+              f"[{card}]", flush=True)
+
+        # -- (c) Arrow Flight -----------------------------------------------------
+        flight_server = start_query_server()
+        client = flight.FlightClient(flight_server.address)
+        try:
+            flash_attention.launch_count = 0
+            t0 = time.perf_counter()
+            table = client.do_get(flight.Ticket(json.dumps(
+                {"sql": q06_sql(), "tenant": "web"}).encode())).read_all()
+            walls["flight q06"] = time.perf_counter() - t0
+            paths["front door flight q06"] = {"flash_attention": flash_attention.launch_count}
+            check(flash_attention.launch_count == 0, "front door flight: flash launched")
+            got = table.to_pydict()
+            print(f"[front door] (c) Flight do_get q06: {got} in {walls['flight q06']:.4f} s, "
+                  f"(b)'s answer {got == miss['data']} [{card}]", flush=True)
+            check(got == miss["data"], f"front door flight: {got} vs (b)'s {miss['data']}")
+            try:
+                client.do_get(flight.Ticket(b"not json")).read_all()
+                check(False, "front door flight: a ticket that is not JSON was answered")
+            except flight.FlightError as e:
+                print(f"[front door] (c) a ticket that is not JSON: {type(e).__name__}",
+                      flush=True)
+        finally:
+            client.close()
+
+        # -- (d) the tail sampler -------------------------------------------------
+        dt.set_execution_config(default_morsel_size=NUM_IMAGES)
+        dt.set_tenant("tail")
+        try:
+            with dt.execution_config_ctx(slo_slow_query_s=FD_SLOW_QUERY_S,
+                                         slo_autoprofile_count=1):
+                tail = []
+                for _ in range(2):
+                    df = frame()
+                    flash_attention.launch_count = 0
+                    t0 = time.perf_counter()
+                    out = emb_of(df)
+                    torch.cuda.synchronize()
+                    tail.append((out, time.perf_counter() - t0, flash_attention.launch_count,
+                                 rec.record_for(df.query_id)))
+        finally:
+            dt.set_tenant(None)
+        dt.set_execution_config(default_morsel_size=cfg0.default_morsel_size)
+        (_, arm_s, _, first), (auto_out, auto_s, auto_n, second) = tail
+        walls["vit tail arm"], walls["vit autoprofiled"] = arm_s, auto_s
+        paths["front door autoprofiled"] = {"flash_attention": auto_n}
+        line = flight_record_line(second)
+        print(f"[front door] (d) slo_slow_query_s {FD_SLOW_QUERY_S}: the 1st run {arm_s:.3f} s "
+              f"armed {first['plan_fingerprint']} (autoprofiled {first['autoprofiled']}); the "
+              f"2nd {auto_s:.3f} s, {auto_n} launches, autoprofiled {second['autoprofiled']}, "
+              f"operators {second['operators'][:2]}; {line!r} [{card}]", flush=True)
+        check(not first["autoprofiled"] and second["autoprofiled"] and second["profiled"]
+              and second["plan_fingerprint"] == first["plan_fingerprint"],
+              f"front door (d): records {first} / {second}")
+        check(line.endswith("[autoprofiled]"), f"front door (d): {line}")
+        check(auto_n == want and auto_out.tobytes() == ref.tobytes(),
+              f"front door (d): {auto_n} launches or not phase 3's bytes")
+        panel = {t["tenant"]: t for t in fd_get(f"{server.url}/api/slo")["tenants"]}
+        check("tail" in panel and panel["tail"]["latency_p99_s"] > 0,
+              f"front door (d): /api/slo {panel.get('tail')}")
+        admission = fd_get(f"{server.url}/api/admission")
+        print(f"[front door] (d) /api/slo: {[(t, panel[t]['queries'], panel[t]['latency_p99_s'], panel[t]['error_rate']) for t in sorted(panel)]}; "
+              f"/api/admission totals {admission['totals']} [{card}]", flush=True)
+
+        # -- (e) the recorder's and the gate's price ----------------------------
+        cols = shared.get("lineitem_cols") if shared else None
+        if cols is None:
+            cols = {k: full[k] for k in NUMERIC_COLS}
+        mem_df = dt.from_pydict({k: cols[k] for k in NUMERIC_COLS})
+        dt.set_execution_config(plan_cache_enabled=False, result_cache_enabled=False)
+        lineitem.q06(dt, mem_df).to_pydict()  # warm
+        ratios, on_walls = [], []
+        saved = os.environ.get("DAFT_QUERY_RECORDER")
+        try:
+            for i in range(FD_RECORDER_PAIRS):
+                order = ("0", "1") if i % 2 == 0 else ("1", "0")
+                got = {}
+                for flag in order:
+                    os.environ["DAFT_QUERY_RECORDER"] = flag
+                    t0 = time.perf_counter()
+                    lineitem.q06(dt, mem_df).to_pydict()
+                    got[flag] = time.perf_counter() - t0
+                ratios.append(got["1"] / got["0"])
+                on_walls.append(got["1"])
+        finally:
+            if saved is None:
+                os.environ.pop("DAFT_QUERY_RECORDER", None)
+            else:
+                os.environ["DAFT_QUERY_RECORDER"] = saved
+        walls["q06 in memory"] = min(on_walls)
+        burst = plane_cost.front_door_ns(FD_PRICE_QUERIES, FD_PRICE_REPS)
+        price = plane_cost.front_door_spaced_ns(FD_SPACED_QUERIES)
+        steady = plane_cost.front_door_spaced_ns(FD_SPACED_QUERIES, plane_cost.STEADY_WINDOW)
+        cold = plane_cost.front_door_spaced_ns(FD_COLD_QUERIES, 0, FD_COLD_GAP_S)
+        smallest = min(walls, key=walls.get)
+
+        def share(p):
+            return 100.0 * p["front_door_query_ns"] / 1e9 / walls[smallest]
+
+        def verdict(p):
+            # Printed against the budget, as phase 19 prints the other planes'
+            # overheads against theirs: the port's front door is over it at a
+            # full SLO window, cold and in bursts (ROADMAP A.23).
+            return "within" if share(p) <= OVERHEAD_BUDGET_PCT else "NOT MET"
+
+        pct = share(price)
+        print(f"[front door] (e) q06 over {len(cols['l_quantity'])} rows in memory, "
+              f"DAFT_QUERY_RECORDER 1 over 0: median of {FD_RECORDER_PAIRS} paired ratios "
+              f"{statistics.median(ratios):.4f} (each {[round(r, 4) for r in ratios]}; no limit) "
+              f"[{card}]", flush=True)
+        print(f"[front door] (e) the price per query on this host, each record reading the peak "
+              f"RSS and evaluating its tenant's windows (median of {FD_SPACED_QUERIES} queries, "
+              f"each timed alone): the recorder {price['recorder_query_ns'] / 1e3:.2f} us, the "
+              f"gate {price['admission_query_ns'] / 1e3:.2f} us, together "
+              f"{price['front_door_query_ns'] / 1e3:.2f} us = {pct:.4f} % of this phase's "
+              f"smallest query wall ({smallest}, {walls[smallest]:.4f} s; the JAX package's "
+              f"recorder budget {OVERHEAD_BUDGET_PCT} %: {verdict(price)}); the walls "
+              f"{dict((k, round(v, 4)) for k, v in sorted(walls.items()))} [{card}]", flush=True)
+        for label, p in ((f"a full window ({plane_cost.STEADY_WINDOW} records)", steady),
+                         (f"{FD_COLD_GAP_S} s apart (median of {FD_COLD_QUERIES})", cold),
+                         (f"in bursts (median of {FD_PRICE_REPS} reps of {FD_PRICE_QUERIES}; "
+                          f"an evaluation every {slo.MIN_SAMPLES} records)", burst)):
+            print(f"[front door] (e) the same price {label}: the recorder "
+                  f"{p['recorder_query_ns'] / 1e3:.2f} us, the gate "
+                  f"{p['admission_query_ns'] / 1e3:.2f} us, together "
+                  f"{p['front_door_query_ns'] / 1e3:.2f} us = {share(p):.4f} % "
+                  f"({OVERHEAD_BUDGET_PCT} %: {verdict(p)}) [{card}]", flush=True)
+        check(ctl.totals()["running"] == 0 and ctl.totals()["queued"] == 0,
+              f"front door: admission state left {ctl.totals()}")
+    finally:
+        if flight_server is not None:
+            flight_server.shutdown()
+        if server is not None:
+            dt.get_context().detach_subscriber(sub)
+            server.shutdown()
+        get_table_registry().clear()
+        dt.set_execution_config(cfg0)
+        dt.set_tenant(None)
+        ctl.reset()
+        plancache.reset_caches()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[front door] phase 23 {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
     return paths
 
 
@@ -6441,6 +6849,7 @@ def main() -> int:
         by_path.update(timed(20, phase_ai_surface, card))
         by_path.update(timed(21, phase_multi_device, card))
         by_path.update(timed(22, phase_core, card, shared))
+        by_path.update(timed(23, phase_front_door, card, shared))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -84,10 +84,6 @@ _MEDIA_SOURCES = ("read_mcap", "read_kafka", "read_paimon", "read_video_frames",
 _NOT_PORTED = {
     **dict.fromkeys(("read_iceberg", "read_deltalake", "read_lance", "read_hudi", "read_sql",
                      "read_huggingface"), "A.8 (the table formats and connectors)"),
-    **dict.fromkeys(("submit_query", "recent_queries"),
-                    "A.8.4 (the query service and the flight recorder)"),
-    **dict.fromkeys(("set_tenant", "current_tenant", "set_tenant_policy", "TenantPolicy",
-                     "set_request_priority"), "A.8.4 (admission)"),
     **dict.fromkeys(("register_view", "read_view", "view_freshness", "get_view_registry"),
                     "A.8.6 (streaming views)"),
 }
@@ -127,10 +123,19 @@ def __getattr__(name: str):
         from daft_tpu_torch.catalog import Catalog
 
         return Catalog
-    if name == "register_table":
-        from daft_tpu_torch.query_service import register_table
+    if name in ("set_tenant", "current_tenant", "set_tenant_policy", "TenantPolicy",
+                "set_request_priority"):
+        from daft_tpu_torch.execution import admission
 
-        return register_table
+        return getattr(admission, name)
+    if name == "recent_queries":
+        from daft_tpu_torch.querylog import recent_queries
+
+        return recent_queries
+    if name in ("register_table", "submit_query"):
+        from daft_tpu_torch import query_service
+
+        return getattr(query_service, name)
     if name == "invalidate_cache_path":
         from daft_tpu_torch.plancache import invalidate_path
 

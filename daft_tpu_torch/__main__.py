@@ -4,7 +4,9 @@
 ``version`` prints the package's version. ``sql "<query>" --table
 name=path`` runs a SQL query over parquet (or ``.csv``) tables and prints
 its first rows; it runs on the card unless ``--device cpu`` is given.
-``dashboard`` raises: the dashboard's server is ROADMAP A.8.6.
+``dashboard`` raises: the dashboard's web app is ROADMAP A.8.6
+(``subscribers/dashboard.py::DashboardServer`` serves the front door's
+routes).
 """
 
 from __future__ import annotations

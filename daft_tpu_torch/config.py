@@ -10,8 +10,15 @@ verbatim for every field the port has: ``DAFT_TPU_DEVICE_EVAL``, ``DAFT_COMPILED
 ``DAFT_QUERY_TIMEOUT_S``, ``DAFT_METRICS``, ``DAFT_METRICS_FILE``,
 ``DAFT_PROFILE``, ``DAFT_PROFILE_FILE``, ``DAFT_PLAN_CACHE``,
 ``DAFT_PLAN_CACHE_SIZE``, ``DAFT_RESULT_CACHE``, ``DAFT_RESULT_CACHE_BYTES``,
-``DAFT_MEMLEDGER``, ``DAFT_MEM_SAMPLER``, ``DAFT_INTEGRITY`` and
-``DAFT_INTEGRITY_VERIFY_ON_WRITE``. ``DAFT_SPILL_DIR``, ``DAFT_PROFILE_CPU``,
+``DAFT_MEMLEDGER``, ``DAFT_MEM_SAMPLER``, ``DAFT_INTEGRITY``,
+``DAFT_INTEGRITY_VERIFY_ON_WRITE``, the front door's ``DAFT_ADMISSION``,
+``DAFT_ADMISSION_MAX_CONCURRENT``, ``DAFT_ADMISSION_QUEUE_DEPTH``,
+``DAFT_ADMISSION_POLICIES``, ``DAFT_QUERY_RECORDER``, ``DAFT_QUERY_LOG``,
+``DAFT_SLO_LATENCY_P99_S``, ``DAFT_SLO_ERROR_RATE`` and
+``DAFT_SLO_AUTOPROFILE``. ``DAFT_QUERY_RECORDER`` is also read at every
+query's start (``querylog.FlightRecorder.begin``), and
+``DAFT_QUERY_LOG``, ``DAFT_QUERY_LOG_MAX_BYTES`` and ``DAFT_QUERY_LOG_RING``
+where the recorder opens its sink and ring, as in the JAX package. ``DAFT_SPILL_DIR``, ``DAFT_PROFILE_CPU``,
 ``DAFT_DEV_ENABLE_TRACING`` / ``DAFT_TRACE_FILE``, ``DAFT_TENANT`` and the
 ``DAFT_MEMORY_LIMIT`` of a new ``MemoryManager`` are read where the JAX
 package reads them, through :func:`daft_env`. The config's
@@ -22,10 +29,9 @@ field here: the port's chains are always one stage (ROADMAP A.9's Keep).
 The variables of layers not ported yet come with their fields in their own
 slices: the shuffle (``DAFT_SHUFFLE_*``), the fleet, the faults and
 speculation (``DAFT_FLEET*``, ``DAFT_FAULT_*``, ``DAFT_SPECULATION``) and the
-distributed runner (``DAFT_RUNNER``), ROADMAP A.8.5; admission, the query
-log and the SLO plane (``DAFT_ADMISSION*``, ``DAFT_QUERY_RECORDER``,
-``DAFT_QUERY_LOG``, ``DAFT_SLO_*``), A.8.4; feedback and streaming
-(``DAFT_FEEDBACK*``, ``DAFT_STREAMING_*``), A.8.6.
+distributed runner (``DAFT_RUNNER``), ROADMAP A.8.5; feedback and streaming
+(``DAFT_FEEDBACK*``, ``DAFT_STREAMING_*``, and the views' freshness
+objective ``DAFT_SLO_STALENESS_P99_S``), A.8.6.
 """
 
 from __future__ import annotations
@@ -138,6 +144,42 @@ class ExecutionConfig:
     # mem_sampler_enabled (DAFT_MEM_SAMPLER).
     memory_ledger_enabled: bool = True
     mem_sampler_enabled: bool = True
+    # The admission front door (execution/admission.py), on by default with
+    # unlimited per-tenant concurrency: the uncontended path is one lock
+    # acquisition per query. Per-tenant defaults: max concurrent queries
+    # (0 = unlimited), the bounded wait queue's depth (full = a fast
+    # DaftAdmissionError), the memory-reservation quota as a fraction of
+    # the MemoryManager limit (1.0 = ungated). admission_policies is a JSON
+    # map {tenant: {max_concurrent_queries, max_memory_fraction,
+    # queue_depth, priority, slo_latency_p99_s, slo_error_rate}}. The shed
+    # ladder rises with queue pressure above admission_overload_queue_fraction
+    # of capacity or a permit-wait p95 above admission_permit_wait_p95_s, and
+    # steps down one level per admission_shed_cooldown_s without overload.
+    admission_enabled: bool = True
+    admission_max_concurrent_queries: int = 0
+    admission_queue_depth: int = 32
+    admission_max_memory_fraction: float = 1.0
+    admission_policies: Optional[str] = None
+    admission_overload_queue_fraction: float = 0.8
+    admission_permit_wait_p95_s: float = 1.0
+    admission_shed_cooldown_s: float = 2.0
+    # The flight recorder (querylog.py): one record per query, every
+    # outcome, into a bounded ring; query_log_path also appends it as JSONL
+    # with a size-capped rotation.
+    query_recorder_enabled: bool = True
+    query_log_path: Optional[str] = None
+    # The SLO plane (slo.py): per-tenant objectives (overridable in the
+    # admission policy JSON), the multiwindow burn-rate alert's windows and
+    # thresholds, the tail sampler's captures per armed plan fingerprint,
+    # and a global slow-query threshold (> 0) below the tenant objective.
+    slo_latency_p99_s: float = 30.0
+    slo_error_rate: float = 0.05
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 300.0
+    slo_fast_burn: float = 14.0
+    slo_slow_burn: float = 6.0
+    slo_autoprofile_count: int = 3
+    slo_slow_query_s: float = 0.0
     # The spill files' digest check (integrity.py): verify before each read,
     # and with verify_on_write also right after each write.
     integrity_enabled: bool = True
@@ -164,10 +206,29 @@ class ExecutionConfig:
             changes["metrics_enabled"] = False
         if daft_env("DAFT_METRICS_FILE"):
             changes["metrics_export_path"] = daft_env("DAFT_METRICS_FILE")
+        if not daft_env_flag("DAFT_ADMISSION", True):
+            changes["admission_enabled"] = False
+        if daft_env("DAFT_ADMISSION_MAX_CONCURRENT"):
+            changes["admission_max_concurrent_queries"] = int(
+                daft_env("DAFT_ADMISSION_MAX_CONCURRENT"))
+        if daft_env("DAFT_ADMISSION_QUEUE_DEPTH"):
+            changes["admission_queue_depth"] = int(daft_env("DAFT_ADMISSION_QUEUE_DEPTH"))
+        if daft_env("DAFT_ADMISSION_POLICIES"):
+            changes["admission_policies"] = daft_env("DAFT_ADMISSION_POLICIES")
         if daft_env_flag("DAFT_PROFILE", False):
             changes["profile_enabled"] = True
         if daft_env("DAFT_PROFILE_FILE"):
             changes["profile_export_path"] = daft_env("DAFT_PROFILE_FILE")
+        if not daft_env_flag("DAFT_QUERY_RECORDER", True):
+            changes["query_recorder_enabled"] = False
+        if daft_env("DAFT_QUERY_LOG"):
+            changes["query_log_path"] = daft_env("DAFT_QUERY_LOG")
+        if daft_env("DAFT_SLO_LATENCY_P99_S"):
+            changes["slo_latency_p99_s"] = float(daft_env("DAFT_SLO_LATENCY_P99_S"))
+        if daft_env("DAFT_SLO_ERROR_RATE"):
+            changes["slo_error_rate"] = float(daft_env("DAFT_SLO_ERROR_RATE"))
+        if daft_env("DAFT_SLO_AUTOPROFILE"):
+            changes["slo_autoprofile_count"] = int(daft_env("DAFT_SLO_AUTOPROFILE"))
         if not daft_env_flag("DAFT_PLAN_CACHE", True):
             changes["plan_cache_enabled"] = False
         if daft_env("DAFT_PLAN_CACHE_SIZE"):

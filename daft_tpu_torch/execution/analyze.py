@@ -11,18 +11,33 @@ shows up here for free.
 
 The ``plan cache: HIT|MISS`` and ``result cache: HIT (<n> bytes)|MISS``
 lines say whether the run skipped optimize + translate, or execution
-altogether (``plancache``). Left out until the modules the JAX package reads
-for them are ported: the ``shuffle`` line (the distributed shuffle, ROADMAP
-A.8.5), the memory line's reservation (admission) and the ``flight record``
-line (``querylog``), ROADMAP A.8.4, and the ``planner`` line with the
-operator table's ``est_rows`` / ``q_err`` values (``feedback``, A.8.6),
-which therefore show ``-`` as the JAX package shows them for a node without
-an estimate.
+altogether (``plancache``). The memory line sets the peak beside the
+admission reservation, and the ``flight record`` line repeats the query's
+record (``querylog``): its tenant, outcome, admission wait, shed level and
+plan fingerprint, ``[autoprofiled]`` when the tail sampler profiled it.
+Left out until the modules the JAX package reads for them are ported: the
+``shuffle`` line (the distributed shuffle, ROADMAP A.8.5) and the
+``planner`` line with the operator table's ``est_rows`` / ``q_err`` values
+(``feedback``, A.8.6), which therefore show ``-`` as the JAX package shows
+them for a node without an estimate.
 """
 
 from __future__ import annotations
 
 import time
+
+
+def flight_record_line(rec: dict) -> str:
+    """The analyzed plan's ``flight record:`` line for one query record.
+    ``[autoprofiled]`` marks a record the tail sampler profiled; the
+    analyzed run itself is profiled by its own scope, so the sampler never
+    takes it, in both packages alike."""
+    return (f"flight record: tenant={rec['tenant']} "
+            f"outcome={rec['outcome']} "
+            f"admission_wait={rec['admission_wait_s']:.3f}s "
+            f"shed_level={rec['shed_level']} "
+            f"fingerprint={rec['plan_fingerprint']}"
+            + (" [autoprofiled]" if rec.get("autoprofiled") else ""))
 
 
 def analyze_suffix(df) -> str:
@@ -116,7 +131,7 @@ def analyze_suffix(df) -> str:
         lines.append(f"memory permits: waits={waits}, "
                      f"wait_s={h1['sum'] - h0['sum']:.4f}")
     # Memory observatory (execution/memledger.py): the run's reconciled
-    # byte profile — peak-held vs spilled, backpressure stall,
+    # byte profile — reserved vs peak-held vs spilled, backpressure stall,
     # and (below) a per-operator peak column on the profiler table.
     mem_by_op = {}
     if prof is not None:
@@ -126,6 +141,11 @@ def analyze_suffix(df) -> str:
         if memprof is not None and memprof.get("peak_held_bytes"):
             line = (f"memory: peak_held={memprof['peak_held_bytes']}, "
                     f"charged={memprof['charged_bytes']}")
+            if memprof.get("reserved_bytes"):
+                over, under = memprof["over_bytes"], memprof["under_bytes"]
+                delta = f"+{over}" if over else f"-{under}" if under else "exact"
+                line += (f", reserved={memprof['reserved_bytes']}"
+                         f" ({delta} vs reservation)")
             if memprof.get("spilled_bytes"):
                 line += f", spilled={memprof['spilled_bytes']}"
             if memprof.get("stall_s"):
@@ -134,11 +154,18 @@ def analyze_suffix(df) -> str:
                 line += f", RESIDUAL={memprof['residual_bytes']}"
             lines.append(line)
             mem_by_op = memprof.get("by_operator") or {}
-    # The flight-record line (querylog) and the planner's estimates
-    # (feedback) are ROADMAP A.8: the port has neither module, so it prints
-    # no such line and "-" for every est_rows / q_err below. Plan-node
-    # granularity (HashJoin#3, not just HashJoin): two Filters never share
-    # a row.
+    if prof is not None:
+        # The flight recorder's line: the same record the always-on query
+        # log kept for this run, beside the profiler's table, so the two
+        # planes cannot disagree about what happened.
+        from daft_tpu_torch.querylog import get_recorder
+
+        rec = get_recorder().record_for(prof.query_id)
+        if rec is not None:
+            lines.append(flight_record_line(rec))
+    # The planner's estimates (feedback) are ROADMAP A.8.6: "-" for every
+    # est_rows / q_err below. Plan-node granularity (HashJoin#3, not just
+    # HashJoin): two Filters never share a row.
     table = prof.operator_table(by="plan_node") if prof is not None else []
     if table:
         lines.append("operators (by self time):")

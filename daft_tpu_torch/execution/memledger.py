@@ -39,10 +39,11 @@ The metrics registry gets the JAX package's series (``daft_pipeline_stall_
 seconds_total``, ``daft_memory_ledger_residual_bytes_total``, and the
 sampler's ``daft_memory_rss_bytes`` / ``daft_memory_ledger_held_bytes`` /
 ``daft_memory_unaccounted_bytes``); :meth:`MemoryLedger.process_stats` keeps
-the same numbers in process. Not ported: the worker wire
-(``drain_query_wire``, ``merge_worker_profile``), the ``shuffle`` / ``cache``
-kinds and the reservation-vs-actual series, which belong to the distributed
-layer, the result cache and admission (ROADMAP A.8).
+the same numbers in process. ``finish_query`` reconciles each query's peak
+against its admission reservation (``daft_memory_reservation_over_bytes``
+/ ``..._under_bytes``). Not ported: the worker wire
+(``drain_query_wire``, ``merge_worker_profile``) and the ``shuffle`` /
+``cache`` kinds, which belong to the distributed layer (ROADMAP A.8.5).
 """
 
 from __future__ import annotations
@@ -198,10 +199,15 @@ class MemoryLedger:
             q.stall_ns += int(seconds * 1e9)
 
     # -- finish ------------------------------------------------------------
-    def finish_query(self, query_id: str) -> dict:
-        """Close the query's ledger into its ``mem`` block. Any residue
-        still held is FORCE-DRAINED (the ledger returns to zero at teardown
-        whatever the outcome) and reported as ``residual_bytes``."""
+    def finish_query(self, query_id: str, reserved_bytes: int = 0,
+                     tenant: str = "") -> dict:
+        """Close the query's ledger into its ``mem`` block, reconciling its
+        peak against the admission reservation (``reserved_bytes``, the
+        ticket's ``mem_reserved``): ``over_bytes`` / ``under_bytes`` on the
+        block and on ``daft_memory_reservation_over_bytes`` /
+        ``..._under_bytes``. Any residue still held is FORCE-DRAINED (the
+        ledger returns to zero at teardown whatever the outcome) and
+        reported as ``residual_bytes``."""
         with self._lock:
             # The pop runs even when the ledger is disabled: a query that
             # charged before a mid-flight disable must not strand its balance.
@@ -214,6 +220,7 @@ class MemoryLedger:
             q = _QueryLedger(query_id or "")
         snap = q.snapshot()
         residual = snap.pop("held_bytes")
+        peak = snap["peak_held_bytes"]
         spilled = sum(k["charged"] for row in snap["by_operator"].values()
                       for kind, k in row["kinds"].items() if kind == KIND_SPILL)
         # Bound the per-operator table: the top rows by peak.
@@ -221,22 +228,33 @@ class MemoryLedger:
                             key=lambda kv: -kv[1]["peak"])[:PROFILE_TOP_OPERATORS])
         for row in by_op.values():
             row.pop("held", None)
+        over = under = 0
+        if reserved_bytes > 0:
+            over = max(peak - reserved_bytes, 0)
+            under = max(reserved_bytes - peak, 0)
         block = {
-            "peak_held_bytes": snap["peak_held_bytes"],
+            "reserved_bytes": int(reserved_bytes),
+            "peak_held_bytes": peak,
             "charged_bytes": snap["charged_bytes"],
             "spilled_bytes": spilled,
             "stall_s": snap["stall_s"],
+            "over_bytes": over,
+            "under_bytes": under,
             "rss_peak_bytes": snap["rss_peak_bytes"],
             "residual_bytes": residual,
             "by_operator": by_op,
         }
-        if residual:
-            from daft_tpu_torch import metrics
+        from daft_tpu_torch import metrics
 
+        if reserved_bytes > 0:
+            metrics.MEM_RESERVATION_OVER.inc(over)
+            metrics.MEM_RESERVATION_UNDER.inc(under)
+        if residual:
             metrics.MEM_LEDGER_RESIDUAL.inc(residual)
         with self._lock:
             self._process["residual_bytes"] += residual
-            self._ring.append({"query_id": query_id, "ts": time.time(), **block})
+            self._ring.append({"query_id": query_id, "tenant": tenant,
+                               "ts": time.time(), **block})
         return block
 
     def _sweep_stale_locked(self, max_age_s: float = 3600.0) -> None:

@@ -29,8 +29,10 @@ A plan holding a UDF, a nondeterministic function (``now``, ``today``,
 ``random``, ``uuid``), an unseeded ``Sample``, a write or a source without
 file identity is plan-cacheable but never result-cacheable; a correlated
 subquery (keyed on its plan's identity) is neither. ``QueryKey.reason``
-says why. The admission controller that the JAX package charges the cached
-bytes to is ROADMAP A.8.4 (:meth:`ResultCache._apply_admission_charges`).
+says why. Every commit and eviction charges its bytes to the tenant's
+admission quota (:meth:`ResultCache._apply_admission_charges`), and
+admission reclaims them through :meth:`ResultCache.shrink_tenant` when a
+live query needs the room.
 ``put_view`` / ``update_view_freshness`` / ``drop_view`` serve the
 streaming views of ROADMAP A.8.6.
 """
@@ -58,9 +60,9 @@ EVICT_QUOTA = "tenant-quota"
 
 def fingerprint(text: str) -> str:
     """THE engine fingerprint: 16-hex-char sha1 of canonical text, the JAX
-    package's. Both caches key on it, and the flight recorder and the SLO
-    tail sampler of ROADMAP A.8.4 will: identical inputs produce identical,
-    joinable keys everywhere."""
+    package's. Both caches, the flight recorder and the SLO tail sampler
+    key on it: identical inputs produce identical, joinable keys
+    everywhere."""
     return hashlib.sha1(text.encode("utf-8", "replace")).hexdigest()[:16]
 
 
@@ -892,11 +894,20 @@ class ResultCache:
     def _apply_admission_charges(charged: List[Tuple[str, int]]) -> None:
         """Mirror the (tenant, byte delta) pairs into the admission
         controller's per-tenant cache ledger, strictly outside the cache
-        lock (admission takes its own lock, and ``shrink_tenant`` nests the
-        other way). The port has no admission controller to charge until
-        ROADMAP A.8.4: every caller collects its ``charged`` list and calls
-        this as the JAX package's does, and the controller's
-        ``note_cache_bytes`` slots in here alone."""
+        lock: admission takes its own lock, and the reverse nesting
+        (admission → cache, in ``shrink_tenant``) would otherwise
+        deadlock."""
+        if not charged:
+            return
+        from daft_tpu_torch.execution.admission import get_controller
+
+        per_tenant: Dict[str, int] = {}
+        for tenant, delta in charged:
+            per_tenant[tenant] = per_tenant.get(tenant, 0) + delta
+        controller = get_controller()
+        for tenant, delta in per_tenant.items():
+            if delta:
+                controller.note_cache_bytes(tenant, delta)
 
     # -- invalidation ---------------------------------------------------- #
     def invalidate_path(self, path: str) -> int:

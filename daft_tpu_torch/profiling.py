@@ -15,8 +15,9 @@ step-timeline profiler demonstrated a dataflow engine needs:
   JAX package's distributed side of the trace waits for the distributed
   runner (ROADMAP A.8): the trace context on every task, the workers' span
   buffers and their heartbeat piggyback, the clock-skew offsets, the
-  driver's ingestion (``deliver_spans``), the dispatcher's task spans
-  (``ProfilingSubscriber``) and the SLO plane's ``force_begin_query``.
+  driver's ingestion (``deliver_spans``) and the dispatcher's task spans
+  (``ProfilingSubscriber``). :func:`force_begin_query` opens a profile
+  after planning for the SLO plane's tail sampler.
 * **Operator-level timing** — the executor wraps each physical operator's
   morsel loop in a span keyed by plan-node id, recording wall time per
   pull, CPU time (``time.thread_time_ns``), rows/bytes out, and — via the
@@ -861,6 +862,23 @@ def begin_query(query_id: str, cfg=None) -> Optional[QueryProfile]:
     with _profiles_lock:
         _PROFILES[query_id] = prof
     return prof
+
+
+def force_begin_query(query_id: str,
+                      export_path: Optional[str] = None) -> Optional[QueryProfile]:
+    """Open a QueryProfile unconditionally for a query already started:
+    the tail sampler's entry point (``querylog.maybe_autoprofile``), which
+    decides after planning that this plan fingerprint deserves a trace,
+    after :func:`begin_query` said no. Idempotent per query id (an open
+    profile is returned); the runner's ``end_query`` finishes it like any
+    other."""
+    with _profiles_lock:
+        existing = _PROFILES.get(query_id)
+        if existing is not None:
+            return existing
+    prof = QueryProfile(query_id, export_path=export_path)
+    with _profiles_lock:
+        return _PROFILES.setdefault(query_id, prof)
 
 
 def end_query(query_id: str, error: Optional[str] = None) -> Optional[QueryProfile]:

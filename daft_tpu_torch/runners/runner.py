@@ -1,16 +1,17 @@
 """The runner interface and the query prologue both runners share (port of
 ``daft_tpu/runners/runner.py``; reference: daft/runners/runner.py:26-61).
 
-``enter_front_door`` builds the query's one cancel token and hands back a
-ticket; ``plan_with_caches`` serves a result-cache hit, else a plan-cache
-hit, else optimizes and translates under the ``daft.plan`` span.
+``enter_front_door`` opens the query's flight record, builds its one cancel
+token and passes the admission gate; ``plan_with_caches`` serves a
+result-cache hit, else a plan-cache hit, else optimizes and translates
+under the ``daft.plan`` span.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
-from dataclasses import dataclass
+import time
 from typing import Iterator, List, Optional
 
 from daft_tpu_torch.micropartition import MicroPartition
@@ -30,41 +31,55 @@ class PartitionCacheEntry:
         return sum(p.size_bytes() for p in self.partitions)
 
 
-@dataclass
-class Ticket:
-    """What the front door hands a query: its tenant, and the admission
-    slot it holds. Admission (the slot, the memory reservation, the shed
-    ladder's thread cap) is ROADMAP A.8.4, so the ticket reserves nothing
-    and :meth:`release` releases nothing yet; the runner calls it on every
-    exit as the JAX package's does."""
+def enter_front_door(query_id: str, cfg, timeout: Optional[float],
+                     runner: str = "native"):
+    """The shared query prologue, before any planning: open the query's
+    flight-recorder entry (every query gets exactly one record, a query
+    rejected here included), make the one cancel token (explicit timeout >
+    ``query_timeout_s`` > unbounded) and pass the admission gate. Returns
+    ``(token, ticket, cfg, entry)``: ``cfg`` carries the shed ladder's
+    compute-thread cap when the ticket has one (the stage pool gives the
+    same bytes at any count), ``entry`` is None when recording is off.
 
-    tenant: str
-
-    def release(self) -> None:
-        pass
-
-
-def enter_front_door(query_id: str, cfg, timeout: Optional[float]):
-    """The shared query prologue: the one cancel token (explicit timeout >
-    ``query_timeout_s`` > unbounded) and the ticket, before any planning.
-    Returns ``(token, ticket, cfg, entry)`` as the JAX package's does.
-
-    The JAX package's front door also opens the query's flight-recorder
-    entry and passes the admission gate here (ROADMAP A.8.4: ``entry`` is
-    None, and the ticket admits at once, with no thread cap on ``cfg``);
-    its ``mem_hint``, the feedback store's observed peak that sizes the
-    reservation, is ROADMAP A.8.6."""
+    On a failed admission the entry notes the wait, its record lands with
+    the outcome the gate raised (``shed``, ``timeout`` or ``cancelled``)
+    and the profile the caller opened is closed, so nothing leaks. The
+    caller owns ``ticket.release()`` and ``querylog.finish_entry(entry)``
+    on every later exit. The JAX package's ``mem_hint``, the feedback
+    store's observed peak that sizes the reservation, is ROADMAP A.8.6."""
+    from daft_tpu_torch import profiling, querylog
     from daft_tpu_torch.cancellation import CancelToken, Deadline
-    from daft_tpu_torch.execution.admission import current_tenant
+    from daft_tpu_torch.execution.admission import get_controller
 
     if timeout is None:
         timeout = cfg.query_timeout_s
     token = CancelToken(Deadline.after(timeout) if timeout is not None else None,
                         query_id=query_id)
-    return token, Ticket(tenant=current_tenant()), cfg, None
+    entry = querylog.get_recorder().begin(query_id, cfg, runner=runner)
+    controller = get_controller()
+    admit_t0 = time.monotonic()
+    try:
+        # May block in the tenant's bounded queue (deadline- and
+        # cancel-aware), or raise: a shed query costs one lock acquisition,
+        # never an optimizer pass.
+        ticket = controller.admit(query_id, token=token, cfg=cfg)
+    except BaseException as e:  # noqa: BLE001 — the record and profile must not leak
+        if entry is not None:
+            # The failed admission is the record's story: a query that
+            # waited in the queue until its deadline must not read
+            # admission_wait_s=0.
+            entry.note_admission(time.monotonic() - admit_t0, controller.shed_level())
+        querylog.finish_entry(entry, error=e)
+        profiling.end_query(query_id, error=str(e))
+        raise
+    if entry is not None:
+        entry.note_admission(ticket.wait_s, controller.shed_level())
+    if ticket.compute_threads_cap:
+        cfg = cfg.with_changes(num_compute_threads=ticket.compute_threads_cap)
+    return token, ticket, cfg, entry
 
 
-def plan_with_caches(builder, cfg, prof, token, tenant: str, key=None):
+def plan_with_caches(builder, cfg, prof, fentry, token, tenant: str, key=None):
     """Result cache first, then the plan cache, then (and only then) a real
     optimize + translate under the ``daft.plan`` span.
 
@@ -72,7 +87,7 @@ def plan_with_caches(builder, cfg, prof, token, tenant: str, key=None):
 
     * ``cached_partitions`` is not None on a **result-cache hit**: the
       runner streams them and never plans or executes (``physical`` is
-      None).
+      None; the flight record, ``fentry``, carries ``result_cache_hit``).
     * ``build_handle`` is not None when this query claimed the single-flight
       build of its key: the runner feeds it every partition it yields,
       commits on a FULL drain and aborts it in its ``finally``.
@@ -103,6 +118,9 @@ def plan_with_caches(builder, cfg, prof, token, tenant: str, key=None):
         outcome, payload = plancache.get_result_cache(cfg).lookup_or_claim(
             key.fp, plancache.KIND_RESULT, tenant, token=token)
         if outcome == "hit":
+            if fentry is not None:
+                fentry.observe_plan(payload.plan_repr)
+                fentry.note_caches(result_hit=True)
             return None, payload.plan_repr, payload.partitions, None
         handle = payload
 
@@ -113,6 +131,8 @@ def plan_with_caches(builder, cfg, prof, token, tenant: str, key=None):
             physical = pentry.physical
             plan_repr = pentry.plan_repr
             sources, roots = pentry.sources, pentry.roots
+            if fentry is not None:
+                fentry.note_caches(plan_hit=True)
         else:
             with contextlib.ExitStack() as plan_scope:
                 if prof is not None:

@@ -31,7 +31,22 @@ costs are taken here where they resolve to the nanosecond:
   context holds (the registry's own attaches at the first notify);
 * ``profiled_query_ns``: what a profiled query adds once: its
   ``QueryProfile`` opened and closed, the planning span, the task
-  profiler's ``daft.execute`` span.
+  profiler's ``daft.execute`` span;
+* ``recorder_query_ns``: the flight recorder's price per query: an entry
+  begun, its admission, plan, cache and memory facts noted, one partition
+  counted, and finished into a record (the ring, the counters, the SLO
+  tracker's observation); ``admission_query_ns``: one uncontended
+  ``admit`` and ``release`` of the admission controller; and
+  ``front_door_query_ns``, their sum (:func:`front_door_ns`, on instances of
+  its own under a tenant of its own, so the process's ring and tracker keep
+  their state). These are bursts: the SLO tracker evaluates its windows
+  every ``MIN_SAMPLES`` records, which spaced queries pay once per 0.25 s;
+* :func:`front_door_spaced_ns`: the same price as a spaced query pays it:
+  each record read the peak RSS and evaluates its tenant's windows, which
+  hold ``window`` earlier records (``window=0``: a tenant's first queries;
+  :data:`STEADY_WINDOW`: a tenant that has sent one query every 0.26 s for
+  the whole slow window), each query timed alone, back to back
+  (``gap_s=0``) or each after a pause of ``gap_s`` (its caches cold).
 
 :func:`plane_seconds` turns a run's registry deltas into the seconds the
 plane added to it; :func:`loop_overheads` turns one query's deltas into the
@@ -139,6 +154,106 @@ def _profiled_query_s(queries: int) -> float:
     return time.perf_counter() - t0
 
 
+def _recorder_query_s(recorder, cfg, mp, queries: int) -> float:
+    t0 = time.perf_counter()
+    for q in range(queries):
+        entry = recorder.begin(f"plane-cost-rec-{q}", cfg)
+        entry.note_admission(0.0, 0)
+        entry.observe_plan("Project")
+        entry.note_caches(plan_hit=False, result_hit=False)
+        entry.note_memory({"peak_held_bytes": 8})
+        entry.count(mp)
+        entry.finish()
+    return time.perf_counter() - t0
+
+
+def _admission_query_s(controller, cfg, queries: int) -> float:
+    t0 = time.perf_counter()
+    for q in range(queries):
+        controller.admit(f"plane-cost-adm-{q}", tenant="plane-cost", cfg=cfg).release()
+    return time.perf_counter() - t0
+
+
+def front_door_ns(queries: int = 2000, reps: int = 5) -> Dict[str, float]:
+    """The front door's price per query on this host, in ns (the medians of
+    ``reps`` reps of ``queries`` each): ``recorder_query_ns``,
+    ``admission_query_ns`` and their sum ``front_door_query_ns``."""
+    from daft_tpu_torch import querylog, slo
+    from daft_tpu_torch.context import get_context
+    from daft_tpu_torch.execution import admission
+    from daft_tpu_torch.micropartition import MicroPartition
+
+    mp = MicroPartition.from_pydict({"x": [1]})
+    cfg = get_context().execution_config
+    recorder = querylog.FlightRecorder(ring_size=512)
+    controller = admission.AdmissionController()
+    saved_tracker = slo._TRACKER
+    slo._TRACKER = slo.SLOTracker()
+    tenant = admission._tenant_var.set("plane-cost")
+    rec_s, adm_s = [], []
+    try:
+        for _ in range(reps):
+            rec_s.append(_recorder_query_s(recorder, cfg, mp, queries))
+            adm_s.append(_admission_query_s(controller, cfg, queries))
+    finally:
+        admission._tenant_var.reset(tenant)
+        slo._TRACKER = saved_tracker
+    rec_ns = statistics.median(rec_s) * 1e9 / queries
+    adm_ns = statistics.median(adm_s) * 1e9 / queries
+    return {"recorder_query_ns": rec_ns, "admission_query_ns": adm_ns,
+            "front_door_query_ns": rec_ns + adm_ns}
+
+
+#: Records in the slow window (300 s) of a tenant that sends one query per
+#: 0.26 s, just over the SLO tracker's 0.25 s evaluation throttle.
+STEADY_WINDOW = int(300.0 / 0.26)
+
+
+def front_door_spaced_ns(queries: int = 200, window: int = 0,
+                         gap_s: float = 0.0) -> Dict[str, float]:
+    """The front door's price per query on this host, in ns, as spaced
+    queries pay it (see the module's docstring): the medians over
+    ``queries``, each timed alone, of ``recorder_query_ns``,
+    ``admission_query_ns`` and ``front_door_query_ns``. Every record is
+    evaluated (the tracker's throttle is 0 while this runs); ``window``
+    earlier records, one per 0.26 s, sit in the tenant's windows; each query
+    starts ``gap_s`` after the one before."""
+    from daft_tpu_torch import querylog, slo
+    from daft_tpu_torch.context import get_context
+    from daft_tpu_torch.execution import admission
+    from daft_tpu_torch.micropartition import MicroPartition
+
+    mp = MicroPartition.from_pydict({"x": [1]})
+    cfg = get_context().execution_config
+    recorder = querylog.FlightRecorder(ring_size=512)
+    controller = admission.AdmissionController()
+    saved_tracker, saved_refresh = slo._TRACKER, slo._EVAL_REFRESH_S
+    slo._TRACKER = tracker = slo.SLOTracker()
+    slo._EVAL_REFRESH_S = 0.0
+    tenant = admission._tenant_var.set("plane-cost")
+    rec_s, adm_s = [], []
+    try:
+        _recorder_query_s(recorder, cfg, mp, 1)
+        records = tracker._tenants["plane-cost"].records
+        records.clear()
+        now = time.monotonic()
+        for i in range(window, 0, -1):
+            records.append((now - i * 0.26, 0.001, False, False, True))
+        for _ in range(queries):
+            if gap_s:
+                time.sleep(gap_s)
+            rec_s.append(_recorder_query_s(recorder, cfg, mp, 1))
+            adm_s.append(_admission_query_s(controller, cfg, 1))
+    finally:
+        admission._tenant_var.reset(tenant)
+        slo._TRACKER, slo._EVAL_REFRESH_S = saved_tracker, saved_refresh
+    return {"recorder_query_ns": statistics.median(rec_s) * 1e9,
+            "admission_query_ns": statistics.median(adm_s) * 1e9,
+            "front_door_query_ns": statistics.median(
+                (r + a) * 1e9 for r, a in zip(rec_s, adm_s)),
+            "window": window, "queries": queries, "gap_s": gap_s}
+
+
 def measure(morsels: int = 200_000, reps: int = 9) -> Dict[str, float]:
     """The plane's costs on this host, in ns (see the module's docstring)."""
     from daft_tpu_torch import metrics, profiling
@@ -190,6 +305,7 @@ def measure(morsels: int = 200_000, reps: int = 9) -> Dict[str, float]:
         "per_query_ns": med["query"] * 1e9 / queries,
         "profiled_query_ns": med["profiled_query"] * 1e9 / queries,
         "ops_per_query": OPS_PER_QUERY,
+        **front_door_ns(queries, reps),
     }
 
 
@@ -249,8 +365,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--morsels", type=int, default=200_000)
     ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--spaced", type=int, default=0, metavar="QUERIES",
+                    help="also price QUERIES spaced queries, at a fresh and a steady "
+                         "window, back to back and 0.26 s apart")
     args = ap.parse_args(argv)
-    print(json.dumps(measure(args.morsels, args.reps)))
+    out = measure(args.morsels, args.reps)
+    if args.spaced:
+        for window in (0, STEADY_WINDOW):
+            for gap_s in (0.0, 0.26):
+                out[f"spaced_window{window}_gap{gap_s}"] = front_door_spaced_ns(
+                    args.spaced, window, gap_s)
+    print(json.dumps(out))
     return 0
 
 

@@ -11,13 +11,14 @@ For each query, run once in each package (the port with ``device="cpu"``):
 * ``query_profile.operator_table(by="plan_node")`` has the same plan-node
   labels with the same ``rows``, ``morsels``, ``device_rows``,
   ``fallback_rows`` and ``spill_bytes``;
-* ``explain(analyze=True)`` prints the JAX package's lines less ``flight
-  record`` (ROADMAP A.8.4) and ``planner`` (A.8.6), in the same order, the
-  ``plan cache`` line included, with equal counts on the ``device eval``, ``spill``,
-  ``io`` and ``memory permits`` lines and the same operators and rows in its
-  table;
+* ``explain(analyze=True)`` prints the JAX package's lines less ``planner``
+  (ROADMAP A.8.6), in the same order, the ``plan cache`` and ``flight
+  record`` lines included, with equal counts on the ``device eval``,
+  ``spill``, ``io`` and ``memory permits`` lines, the same tenant, outcome,
+  shed level and plan fingerprint on the ``flight record`` line, and the same
+  operators and rows in its table;
 * the registry's counters move alike: the same series with the same deltas,
-  less those that only the JAX package's A.8.4 modules move (``JAX_ONLY``);
+  the admission and query-log counters included;
 * collecting with ``profile=True`` gives the same Arrow table as without, at
   ``num_compute_threads`` 1 and at the default.
 
@@ -49,16 +50,13 @@ N = 20_000
 #: A sink budget (a quarter of the limit) of 64 KiB against ~1 MB of state.
 LIMIT = 256 * 1024
 #: Lines of the JAX package's analyzed plan that read modules the port has
-#: not yet (the query log, A.8.4; feedback, A.8.6).
-A8_LINES = ("flight record:", "planner:")
+#: not yet (feedback, A.8.6).
+A8_LINES = ("planner:",)
 #: Counters whose deltas depend on the process's history, not on the query:
 #: the chain programs' cache (each package's cache holds what earlier tests
 #: built) and the seconds a stage's feeder was blocked.
 HISTORY_COUNTERS = ("daft_compile_cache_hits_total", "daft_compile_cache_misses_total",
                     "daft_pipeline_stall_seconds_total")
-#: Counters that only the JAX package's A.8.4 modules move: admission and the
-#: query log (the flight recorder).
-JAX_ONLY = {"daft_admission_admitted_total", "daft_querylog_records_total"}
 
 
 @pytest.fixture(autouse=True)
@@ -208,6 +206,11 @@ def _analyze_lines(text):
     return [ln for ln in body if not ln.startswith(A8_LINES)]
 
 
+def _record_facts(line):
+    """The ``flight record`` line's fields less the admission wait."""
+    return [p for p in line.split(":", 1)[1].split() if not p.startswith("admission_wait=")]
+
+
 def _counts(line):
     """The integer counts of a summary line (``name=value`` pairs, seconds
     left out: they are wall times)."""
@@ -262,6 +265,9 @@ def test_explain_analyze_lines_equal_the_jax_packages(case, files):
             assert ln == by_kind[kind]  # counts only, fallback reasons included
         elif kind == "memory permits":
             assert _counts(ln) == _counts(by_kind[kind])  # waits; wait_s is a time
+        elif kind == "flight record":
+            # The admission wait is a time; the rest is the record's facts.
+            assert _record_facts(ln) == _record_facts(by_kind[kind])
     # The operator table: the same operators with the same rows, and "-"
     # for the planner's estimates (ROADMAP A.8).
     table = ours[ours.index("operators (by self time):") + 2:]
@@ -279,10 +285,11 @@ def test_explain_analyze_lines_equal_the_jax_packages(case, files):
 def test_registry_deltas_equal_the_jax_packages(case, files):
     ours = _run(daft_tpu_torch, case, files)[3]
     theirs = _run(daft_tpu, case, files)[3]
-    assert set(ours) == set(theirs) - JAX_ONLY
+    assert set(ours) == set(theirs)
     assert {"daft_queries_started_total", "daft_executor_morsels_total",
-            "daft_executor_rows_total"} <= set(ours)
-    assert ours == {n: v for n, v in theirs.items() if n not in JAX_ONLY}
+            "daft_executor_rows_total", "daft_admission_admitted_total",
+            "daft_querylog_records_total"} <= set(ours)
+    assert ours == theirs
 
 
 @pytest.mark.parametrize("threads", [1, 0])

@@ -8,7 +8,9 @@ strings and booleans parsed from the same text). Unset, the port's
 ``from_env()`` is its dataclass defaults. The variables read where the JAX
 package reads them (``DAFT_SPILL_DIR``, ``DAFT_PROFILE_CPU``,
 ``DAFT_MEMORY_LIMIT`` of a new ``MemoryManager``, ``DAFT_TENANT``,
-``DAFT_MEM_SAMPLER``) are held at those places.
+``DAFT_MEM_SAMPLER``, ``DAFT_QUERY_RECORDER`` at each query's start) are
+held at those places. The front door's fields have the JAX package's
+defaults.
 """
 
 import dataclasses
@@ -44,7 +46,26 @@ VARIABLES = {
     "DAFT_MEM_SAMPLER": ["0", "1"],
     "DAFT_INTEGRITY": ["0", "1"],
     "DAFT_INTEGRITY_VERIFY_ON_WRITE": ["1", "0"],
+    "DAFT_ADMISSION": ["0", "off", "1"],
+    "DAFT_ADMISSION_MAX_CONCURRENT": ["3"],
+    "DAFT_ADMISSION_QUEUE_DEPTH": ["5"],
+    "DAFT_ADMISSION_POLICIES": ['{"gold": {"priority": 1}}'],
+    "DAFT_QUERY_RECORDER": ["0", "1"],
+    "DAFT_QUERY_LOG": ["/tmp/qlog.jsonl"],
+    "DAFT_SLO_LATENCY_P99_S": ["0.25"],
+    "DAFT_SLO_ERROR_RATE": ["0.01"],
+    "DAFT_SLO_AUTOPROFILE": ["5"],
 }
+
+#: The front door's fields (admission, the flight recorder, the SLO plane):
+#: the JAX package's names and defaults.
+FRONT_DOOR_FIELDS = (
+    "admission_enabled", "admission_max_concurrent_queries", "admission_queue_depth",
+    "admission_max_memory_fraction", "admission_policies", "admission_overload_queue_fraction",
+    "admission_permit_wait_p95_s", "admission_shed_cooldown_s", "query_recorder_enabled",
+    "query_log_path", "slo_latency_p99_s", "slo_error_rate", "slo_fast_window_s",
+    "slo_slow_window_s", "slo_fast_burn", "slo_slow_burn", "slo_autoprofile_count",
+    "slo_slow_query_s")
 
 _CASES = [pytest.param(var, val, id=f"{var}={val}")
           for var, vals in VARIABLES.items() for val in vals]
@@ -92,6 +113,25 @@ def test_unset_gives_the_port_defaults(clean_env):
                  "result_cache_max_entry_bytes", "result_cache_scan_outputs",
                  "mem_sampler_enabled"):
         assert getattr(cfg, name) == getattr(jcfg, name), name
+
+
+def test_front_door_fields_have_the_jax_packages_defaults():
+    tcfg, jcfg = tconfig.ExecutionConfig(), jconfig.ExecutionConfig()
+    for name in FRONT_DOOR_FIELDS:
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+
+
+@pytest.mark.parametrize("raw", ["0", "1"])
+def test_query_recorder_read_at_every_query(clean_env, raw):
+    """``DAFT_QUERY_RECORDER`` is read at each query's start, over the
+    config, in both packages: an A/B can alternate in one process."""
+    from daft_tpu import querylog as jql
+    from daft_tpu_torch import querylog as tql
+
+    clean_env.setenv("DAFT_QUERY_RECORDER", raw)
+    for ql, cfg in ((tql, tconfig.ExecutionConfig(query_recorder_enabled=raw != "1")),
+                    (jql, jconfig.ExecutionConfig(query_recorder_enabled=raw != "1"))):
+        assert (ql.get_recorder().begin("env-q", cfg) is not None) is (raw == "1")
 
 
 def test_context_module_still_exports_the_configs():

@@ -195,6 +195,9 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch.subscribers.events, daft_tpu_torch.subscribers.event_log\n"
         "import daft_tpu_torch.execution.analyze, daft_tpu_torch.ai.metrics\n"
         "import daft_tpu_torch.utils.jsonl_sink\n"
+        "import daft_tpu_torch.execution.admission, daft_tpu_torch.querylog, daft_tpu_torch.slo\n"
+        "import daft_tpu_torch.query_service, daft_tpu_torch.distributed.flight\n"
+        "import daft_tpu_torch.subscribers.dashboard, daft_tpu_torch.runners.native\n"
         "daft_tpu_torch.kernels.registry.get_kernel('cosine_distance')\n"
         "daft_tpu_torch.kernels.registry.get_kernel('image_resize')\n"
         "new = set(sys.modules) - before\n"
@@ -203,3 +206,50 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
     out = subprocess.run([sys.executable, "-c", code], check=True, capture_output=True,
                          text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("threads", [4, 0])
+def test_shed_ladder_thread_cap_gives_the_uncapped_bytes(threads):
+    """At shed level 2 the front door halves a newly admitted query's
+    ``num_compute_threads``; the stage pool gives the same bytes at any
+    count, so the capped run's Arrow table is the uncapped run's."""
+    import time as _time
+
+    from daft_tpu_torch import col
+    from daft_tpu_torch.execution.admission import get_controller
+    from daft_tpu_torch.subscribers.events import QueryAdmitted
+
+    def query():
+        rng = np.random.default_rng(5)
+        df = daft_tpu_torch.from_pydict({"g": rng.integers(0, 30, 20_000),
+                                         "v": rng.standard_normal(20_000)})
+        return df.where(col("v") > -0.5).groupby("g").agg(col("v").sum().alias("s")).sort("g")
+
+    admitted = []
+
+    class Tap:
+        def on_event(self, e):
+            if isinstance(e, QueryAdmitted):
+                admitted.append(e.compute_threads_cap)
+
+    ctl = get_controller()
+    ctx = daft_tpu_torch.get_context()
+    tap = Tap()
+    with daft_tpu_torch.execution_config_ctx(device="cpu", num_compute_threads=threads,
+                                             result_cache_enabled=False,
+                                             default_morsel_size=1024):
+        plain = query().to_arrow()
+        ctx.attach_subscriber(tap)
+        with ctl._cond:
+            ctl._shed_level = 2
+            ctl._shed_changed_at = _time.monotonic() + 3600
+            ctl._hist_read_at = _time.monotonic() + 3600
+        try:
+            capped = query().to_arrow()
+        finally:
+            ctx.detach_subscriber(tap)
+            ctl.reset()
+    assert admitted and admitted[-1] >= 1
+    if threads:
+        assert admitted[-1] == threads // 2
+    assert capped.equals(plain)

@@ -2,8 +2,11 @@
 its charge sites: the executor's permits, the stages' queues, the spill
 files), on the CPU, beside the JAX package's.
 
-Mirrors ``tests/test_memledger.py`` less its dashboard, ``EXPLAIN ANALYZE``,
-reservation and distributed cases (ROADMAP A.8 / A.9.5): the bookkeeping,
+Mirrors ``tests/test_memledger.py`` less its dashboard, ``EXPLAIN ANALYZE``
+and distributed cases (ROADMAP A.8.5 / A.8.6): the bookkeeping, the
+reservation's reconciliation (``over_bytes`` / ``under_bytes`` against the
+JAX ledger's for the same charges, and a query's admission reservation
+through the runner with its counters),
 the disabled ledger, the query's ``mem`` block, drains to zero after a
 cancelled or early-closed query, poison mid-acquire, a late ``_add_held``
 after the unwind, charged bytes per (operator, kind) the same at 1 and 4
@@ -105,6 +108,64 @@ def test_charge_release_peak_and_audit():
     for key in ("residual_bytes", "peak_held_bytes", "charged_bytes", "spilled_bytes",
                 "by_operator"):
         assert jblock[key] == block[key], key
+
+
+@pytest.mark.parametrize("reserved", [0, 100, 180, 500])
+def test_reservation_over_under_equal_the_jax_ledgers(reserved):
+    """The peak (180) reconciled against a reservation: the same block in
+    both packages, over by the excess and under by the slack."""
+    blocks = []
+    for led in (MemoryLedger(enabled=True), jml.MemoryLedger(enabled=True)):
+        led.charge("q1", "Sort", 150, kind="permit")
+        led.charge("q1", "Project", 30, kind="queue")
+        led.release("q1", "Sort", 150, kind="permit")
+        blocks.append(led.finish_query("q1", reserved_bytes=reserved, tenant="t"))
+    ours, theirs = blocks
+    for key in ("reserved_bytes", "peak_held_bytes", "over_bytes", "under_bytes",
+                "residual_bytes", "charged_bytes"):
+        assert ours[key] == theirs[key], key
+    assert ours["over_bytes"] == (max(180 - reserved, 0) if reserved else 0)
+    assert ours["under_bytes"] == (max(reserved - 180, 0) if reserved else 0)
+
+
+def test_reservation_reconciliation_metrics_and_block():
+    """With an admission memory quota the ticket carries a reservation (one
+    sink share); the query's mem block reconciles it, the over / under
+    counters move by the block's numbers, and the reservation is the JAX
+    package's for the same query."""
+    from daft_tpu import metrics as jmetrics
+    from daft_tpu.execution.admission import get_controller as jctl
+    from daft_tpu_torch import metrics
+    from daft_tpu_torch.execution.admission import get_controller
+    from daft_tpu_torch.execution.spill import sink_budget
+
+    reserved = []
+    for pkg, reg, ctl, limit in ((daft_tpu_torch, metrics.get_registry(), get_controller,
+                                  memory_limit),
+                                 (daft_tpu, jmetrics.get_registry(), jctl, jlimit)):
+        s0o = reg.snapshot().counter_total("daft_memory_reservation_over_bytes")
+        s0u = reg.snapshot().counter_total("daft_memory_reservation_under_bytes")
+        ctl().reset()
+        pkg.set_tenant_policy("memobs", max_memory_fraction=0.5)
+        try:
+            pkg.set_tenant("memobs")
+            with limit(8 << 20) as mm:
+                df = pkg.from_pydict(make_data(50_000)).where(pkg.col("k") > 3)
+                df.to_pydict()
+                share = sink_budget(mm.limit)
+        finally:
+            pkg.set_tenant(None)
+            ctl().reset()
+        mem = pkg.recent_queries(1)[0]["mem"]
+        assert mem["reserved_bytes"] == share
+        assert mem["over_bytes"] == max(mem["peak_held_bytes"] - share, 0)
+        assert mem["under_bytes"] == max(share - mem["peak_held_bytes"], 0)
+        assert reg.snapshot().counter_total("daft_memory_reservation_over_bytes") - s0o \
+            == mem["over_bytes"]
+        assert reg.snapshot().counter_total("daft_memory_reservation_under_bytes") - s0u \
+            == mem["under_bytes"]
+        reserved.append(mem["reserved_bytes"])
+    assert reserved[0] == reserved[1] == (8 << 20) // 4
 
 
 def test_disabled_ledger_is_a_noop():

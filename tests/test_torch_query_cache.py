@@ -16,21 +16,19 @@ plan-cacheable and result-cacheable; a hit gives the miss's bytes in the
 same order; a UDF plan hits the plan cache and never the result cache;
 with both caches off the routes and the morsels are those of a miss.
 
-The cases that wait, with their items: the flight record's
-``plan_cache_hit`` / ``result_cache_hit`` (``recent_queries``) and the
-query-log schema (``test_schema_reader_accepts_v1_through_v6``,
-``test_live_records_are_schema_valid_v6``), the HTTP and Flight submit paths
-(``test_http_*``, ``test_request_priority_can_only_lower``,
-``test_flight_do_get_roundtrip``) and the admission charge
-(``test_cache_bytes_charged_to_admission_and_reclaimed``; here the cached
-bytes and ``shrink_tenant`` are held without the controller): ROADMAP
-A.8.4. The worker death mid-build
-(``test_worker_death_mid_build_does_not_poison_entry``): A.8.5.
+The front door's cases (the admission charge of the cached bytes, the HTTP
+and Flight submit paths, the query-log schema and a live record) run on the
+port's dashboard server, Flight server and recorder. The case that waits:
+the worker death mid-build
+(``test_worker_death_mid_build_does_not_poison_entry``), ROADMAP A.8.5.
 """
 
+import json
 import os
 import tempfile
 import threading
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -39,16 +37,18 @@ import daft_tpu_torch
 from daft_tpu import plancache as jpc
 from daft_tpu_torch import col, metrics, plancache
 from daft_tpu_torch.context import execution_config_ctx, get_context
-from daft_tpu_torch.execution.admission import set_tenant
+from daft_tpu_torch.execution.admission import get_controller, set_tenant
 
 
 @pytest.fixture(autouse=True)
 def fresh_caches():
     plancache.reset_caches()
+    get_controller().reset()
     set_tenant(None)
     with execution_config_ctx(device="cpu"):
         yield
     plancache.reset_caches()
+    get_controller().reset()
     set_tenant(None)
 
 
@@ -410,9 +410,8 @@ def test_tenant_fair_eviction():
 
 
 def test_shrink_tenant_reclaims_cached_bytes():
-    """The port's half of the admission charge (the controller is A.8.4):
-    a tenant's committed bytes are accounted to it and ``shrink_tenant``
-    gives them back to zero."""
+    """The cache's half of the admission charge: a tenant's committed bytes
+    are accounted to it and ``shrink_tenant`` gives them back to zero."""
     df = make_df(5_000, seed=5)
     set_tenant("acme")
     try:
@@ -423,6 +422,182 @@ def test_shrink_tenant_reclaims_cached_bytes():
     assert held > 0
     assert plancache.get_result_cache().shrink_tenant("acme", held) >= held
     assert "acme" not in plancache.get_result_cache().stats()["tenant_bytes"]
+
+
+def test_cache_bytes_charged_to_admission_and_reclaimed():
+    """Committed bytes land on the tenant's admission ledger; a shrink
+    reclaims them and the ledger returns to zero."""
+    df = make_df(5_000, seed=5)
+    set_tenant("acme")
+    try:
+        agg_query(df).collect()
+    finally:
+        set_tenant(None)
+    ctl = get_controller()
+    snap = ctl.snapshot()["acme"]
+    assert snap["cache_bytes"] > 0
+    assert snap["cache_bytes"] == plancache.get_result_cache().stats()["tenant_bytes"]["acme"]
+    freed = plancache.get_result_cache().shrink_tenant("acme", snap["cache_bytes"])
+    assert freed >= snap["cache_bytes"]
+    assert ctl.snapshot()["acme"]["cache_bytes"] == 0
+
+
+def test_admission_reclaims_cached_bytes_a_live_query_needs():
+    """Under a memory limit a tenant's cached results over its quota yield
+    to its next live query: the admission evicts them (``tenant-quota``)."""
+    from daft_tpu_torch.execution.resource_manager import memory_limit
+
+    df = make_df(5_000, seed=6)
+    daft_tpu_torch.set_tenant_policy("tight", max_memory_fraction=0.5)
+    with memory_limit(1 << 20):
+        set_tenant("tight")
+        try:
+            agg_query(df).collect()
+            cached = get_controller().snapshot()["tight"]["cache_bytes"]
+            assert cached > 0
+            ticket = get_controller().admit("live", tenant="tight")
+            try:
+                # One share (limit/4) reserved; quota limit/2: the cache keeps
+                # at most the rest.
+                snap = get_controller().snapshot()["tight"]
+                assert snap["mem_reserved"] + snap["cache_bytes"] <= (1 << 19)
+            finally:
+                ticket.release()
+        finally:
+            set_tenant(None)
+
+
+# --------------------------------------------------------------------- #
+# The front door (HTTP and Flight)                                        #
+# --------------------------------------------------------------------- #
+def _post(url, body, timeout=60):
+    req = urllib.request.Request(f"{url}/api/query", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        resp = urllib.request.urlopen(req, timeout=timeout)
+        return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+@pytest.fixture()
+def front_door():
+    from daft_tpu_torch.query_service import get_table_registry
+    from daft_tpu_torch.subscribers.dashboard import DashboardServer
+
+    dash = DashboardServer(port=0).start()
+    sub = dash.subscriber()
+    get_context().attach_subscriber(sub)
+    try:
+        dash.register_table("t", make_df(3_000, seed=9))
+        yield dash
+    finally:
+        get_context().detach_subscriber(sub)
+        dash.shutdown()
+        get_table_registry().clear()
+
+
+def test_http_submit_and_cache_hit(front_door):
+    sql = "SELECT k, SUM(v) AS s FROM t WHERE k < 10 GROUP BY k ORDER BY k"
+    s, r, _ = _post(front_door.url, {"sql": sql, "tenant": "web"})
+    assert s == 200 and r["outcome"] == "success"
+    assert r["row_count"] == 10 and not r["result_cache_hit"]
+    assert r["query_id"] and r["plan_fingerprint"]
+    s, r2, _ = _post(front_door.url, {"sql": sql, "tenant": "web"})
+    assert s == 200 and r2["result_cache_hit"]
+    assert r2["data"] == r["data"]
+    # The wire query's record is a real one, and its answer the in-process
+    # query's.
+    rec = daft_tpu_torch.recent_queries(1)[0]
+    assert rec["tenant"] == "web" and rec["result_cache_hit"] is True
+    local = daft_tpu_torch.sql(sql, t=make_df(3_000, seed=9)).to_pydict()
+    assert r["data"] == local and r["columns"] == ["k", "s"]
+
+
+def test_http_timeout_maps_to_504_with_record(front_door):
+    from daft_tpu_torch.querylog import get_recorder
+
+    before = get_recorder().stats()["by_outcome"].get("timeout", 0)
+    s, r, _ = _post(front_door.url, {"sql": "SELECT SUM(v) AS s FROM t", "tenant": "web",
+                                     "timeout_s": 1e-7})
+    assert s == 504 and r["kind"] == "DaftTimeoutError"
+    assert get_recorder().stats()["by_outcome"]["timeout"] == before + 1
+
+
+def test_http_shed_maps_to_429_with_retry_after(front_door):
+    from daft_tpu_torch.querylog import get_recorder
+
+    daft_tpu_torch.set_tenant_policy("throttled", max_concurrent_queries=1, queue_depth=1,
+                                     priority=-1)
+    before = get_recorder().stats()["by_outcome"].get("shed", 0)
+    seen = {"429": 0, "retry_after": True}
+    lock = threading.Lock()
+
+    def post_one(i):
+        # Distinct shapes: real concurrent work, so the 1-deep queue fills.
+        s, r, headers = _post(front_door.url, {"sql": f"SELECT SUM(v + {i}) AS s FROM t",
+                                               "tenant": "throttled"})
+        with lock:
+            if s == 429:
+                seen["429"] += 1
+                if not headers.get("Retry-After") or "retry_after_s" not in r:
+                    seen["retry_after"] = False
+
+    threads = [threading.Thread(target=post_one, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert seen["429"] >= 1, "no shed despite a 1-deep queue under a burst"
+    assert seen["retry_after"], "a 429 without Retry-After / retry_after_s"
+    shed = get_recorder().stats()["by_outcome"].get("shed", 0) - before
+    assert shed >= seen["429"], "shed wire queries under-recorded"
+
+
+def test_http_bad_sql_is_400(front_door):
+    s, r, _ = _post(front_door.url, {"sql": "SELECT FROM nothing"})
+    assert s == 400
+    s, r, _ = _post(front_door.url, {"no_sql": 1})
+    assert s == 400
+    # Malformed field values are the client's errors too, never 500s.
+    s, r, _ = _post(front_door.url, {"sql": "SELECT k FROM t", "timeout_s": "abc"})
+    assert s == 400 and r["kind"] == "BadRequest"
+    s, r, _ = _post(front_door.url, {"sql": "SELECT k FROM t", "priority": "high"})
+    assert s == 400
+
+
+def test_request_priority_can_only_lower(front_door):
+    """A wire request's priority=-1 sheds at level 1 even for a default
+    tenant; a request cannot raise itself above its tenant's policy."""
+    from daft_tpu_torch.execution.admission import TenantPolicy, set_request_priority
+
+    ctl = get_controller()
+    pol = TenantPolicy(tenant="web", priority=0)
+    assert ctl._effective_priority(pol) == 0
+    set_request_priority(-1)
+    try:
+        assert ctl._effective_priority(pol) == -1
+        set_request_priority(5)
+        assert ctl._effective_priority(pol) == 0  # cannot outrank the policy
+    finally:
+        set_request_priority(None)
+
+
+def test_flight_do_get_roundtrip(front_door):
+    fl = pytest.importorskip("pyarrow.flight")
+    from daft_tpu_torch.distributed.flight import start_query_server
+
+    srv = start_query_server()
+    try:
+        client = fl.FlightClient(srv.address)
+        reader = client.do_get(fl.Ticket(json.dumps({
+            "sql": "SELECT COUNT(k) AS n FROM t", "tenant": "web"}).encode()))
+        assert reader.read_all().to_pydict() == {"n": [3000]}
+        with pytest.raises(fl.FlightError):
+            client.do_get(fl.Ticket(b"not json")).read_all()
+        client.close()
+    finally:
+        srv.shutdown()
 
 
 # --------------------------------------------------------------------- #
@@ -438,6 +613,64 @@ def test_explain_analyze_prints_cache_lines(capsys):
     agg_query(df).explain(analyze=True)
     out = capsys.readouterr().out
     assert "plan cache: MISS" in out or "result cache: MISS" in out
+
+
+def test_schema_reader_accepts_v1_through_v6(tmp_path):
+    from daft_tpu_torch.querylog import (
+        QUERYLOG_SCHEMA_VERSION,
+        load_query_log,
+        validate_record,
+    )
+
+    assert QUERYLOG_SCHEMA_VERSION == 6
+    v1 = {"schema_version": 1, "query_id": "q1", "tenant": "default", "runner": "native",
+          "ts": 1.0, "outcome": "success", "duration_s": 0.1, "plan_fingerprint": "ab",
+          "error_kind": "", "admission_wait_s": 0.0, "shed_level": 0, "rows_out": 1,
+          "bytes_out": 8}
+    assert validate_record(v1) == []
+    v2 = dict(v1, schema_version=2, plan_cache_hit=True, result_cache_hit=False)
+    assert validate_record(v2) == []
+    v3 = dict(v2, schema_version=3, mem={})
+    assert validate_record(v3) == []
+    v4 = dict(v3, schema_version=4, view={})
+    assert validate_record(v4) == []
+    assert validate_record(dict(v4, view={"view": "totals", "role": "serve", "watermark": 1.0,
+                                          "staleness_s": 0.5, "delta_count": 3})) == []
+    v5 = dict(v4, schema_version=5)
+    assert validate_record(v5) == []
+    assert validate_record(dict(v5, integrity={"verified": 3, "failed": 1,
+                                               "quarantined": 1})) == []
+    v6 = dict(v5, schema_version=6)
+    assert validate_record(v6) == []
+    assert validate_record(dict(v6, query_fingerprint="ab12", estimates={
+        "complete": True, "corrected": False, "epoch": 0,
+        "nodes": [{"node": "cd34", "op": "Filter", "est_rows": 100.0, "rows": 43,
+                   "qerr": 2.326, "exact": True}]})) == []
+    # A record missing its version's new fields is invalid; an unknown
+    # version is rejected.
+    assert validate_record(dict(v1, schema_version=2))
+    assert validate_record(dict(v2, schema_version=3))
+    assert validate_record(dict(v3, schema_version=4))
+    assert validate_record(dict(v4, schema_version=7))
+    p = tmp_path / "log.jsonl"
+    with open(p, "w") as f:
+        for rec in (v1, v2, v3, v4):
+            f.write(json.dumps(rec) + "\n")
+        f.write('{"torn')
+    assert len(load_query_log(str(p))) == 4
+
+
+def test_live_records_are_schema_valid_v6():
+    from daft_tpu_torch.querylog import validate_record
+
+    make_df(100, seed=13).agg(col("v").sum().alias("s")).collect()
+    rec = daft_tpu_torch.recent_queries(1)[0]
+    assert validate_record(rec) == []
+    assert rec["schema_version"] == 6
+    assert isinstance(rec["plan_cache_hit"], bool)
+    assert isinstance(rec["result_cache_hit"], bool)
+    assert isinstance(rec["mem"], dict)
+    assert rec["view"] == {}  # not a view query: the block present and empty
 
 
 @pytest.mark.parametrize("text", ["abc", "", "ümlaut\nplan", "x" * 1000])
