@@ -197,7 +197,9 @@ Phases, each of which fails the run on any error:
    dataset; phase 9's photos as files (``from_glob_path`` →
    ``image_file`` → ``decode_image_file``) and as parquet shards of 128 rows
    (``read_parquet`` → ``.image.decode``), resized and embedded with
-   ViT-L/14 beside the in-memory column: rows/s, the decode / rest split, 24
+   ViT-L/14 beside the in-memory column (the lineitem parquet, the photos,
+   the shards, their embeddings and q06's answer kept for phase 24): rows/s,
+   the decode / rest split, 24
    flash launches per chunk, and the embeddings equal to the in-memory
    column's or, where not, cosine >= 0.99999;
 13. the expression library (``phase_expressions``): TPC-H q05, q07-q10,
@@ -235,14 +237,18 @@ Phases, each of which fails the run on any error:
 15. out of core (``phase_out_of_core``) on phase 14's SF10 tables and
    answers, under ``memory_limit`` at 1/8 of the tables' in-memory bytes
    (printed with the spill root's free bytes, which must be at least twice
-   the tables'): TPC-H q01, q18 and q21 in SQL and ``SELECT DISTINCT
-   l_orderkey, l_suppkey FROM lineitem`` over the first half of lineitem's
-   rows, each at 8 workers with the counts set to 0 just before. Each query
-   equals phase 14's answer (keys exact, floats within 1e-6); the distinct
-   equals numpy's ``unique``; q18, q21 and the distinct spill. (The sort of
-   SF10's 15M orders under the limit, 21.3 s, was cut to make room for
-   phase 23: phase 19 sorts SF1's orders by the same keys under 1/8 of
-   their bytes and makes its checks, every row keeping its keys included.)
+   the tables'): TPC-H q01 and q18 in SQL, q21 over the first quarter of
+   SF10's orders and their lines (the other tables whole) under 1/8 of that
+   database's bytes, and ``SELECT DISTINCT l_orderkey, l_suppkey FROM
+   lineitem`` over the first half of lineitem's rows, each at 8 workers
+   with the counts set to 0 just before. q01 and q18 equal phase 14's
+   answers and q21 numpy's reference over its rows (keys exact, floats
+   within 1e-6); the distinct equals numpy's ``unique``; q18, q21 and the
+   distinct spill. (The sort of SF10's 15M orders under the limit, 21.3 s,
+   was cut to make room for phase 23: phase 19 sorts SF1's orders by the
+   same keys under 1/8 of their bytes and makes its checks, every row
+   keeping its keys included. q21 over all of SF10 under the limit, 57.9-73.7
+   s, was cut to a quarter to make room for phase 24.)
    After each: the ledger holds 0 bytes, every permit is back, no spill
    directory remains. Printed beside the unlimited run: wall
    s, spills, files and bytes, the best-effort permit waits, the ledger's
@@ -445,7 +451,35 @@ Phases, each of which fails the run on any error:
    prints the other planes' overheads against theirs), and the median of
    paired ratios of q06 over the same
    rows in memory with ``DAFT_QUERY_RECORDER`` 0 against 1 (no limit);
-24. print the whole run's time and one JSON line of per-kernel numbers (with
+24. remote IO (``phase_remote_io``), with the plan and result caches on as
+   in 23: phase 12's files, kept for it, served in place by the stubs of
+   ``daft_tpu_torch/tools/object_stores.py`` on 127.0.0.1, each in a child
+   process (the S3 stub checks every sigv4 signature with its own code; the
+   HTTP stub serves TLS with the repo's loopback certificate, which
+   ``SSL_CERT_FILE`` makes trusted). (a) ``from_glob_path("s3://photos/")``
+   -> ``url.download()`` alone, the first GET of every 16th photo answered
+   503 ``SlowDown``: the bytes equal the files', the retries counted equal
+   the answers injected, the download's s and MB/s; then -> ``.image.decode``
+   -> resize -> ViT-L/14 at morsels of ``BATCH`` over the pool: 192 flash
+   launches, the embeddings phase 12's ``files`` route's bit for bit (or the
+   cosine bound with its reason), rows/s beside phase 12's, the IO stats.
+   (b) The parquet shards over ``gs://`` (the metadata server's token) and
+   ``hf://`` (``read_huggingface`` with ``HF_RESOLVE_BASE`` at the HTTPS
+   stub): 192 launches each, phase 12's ``parquet shards`` embeddings. (c)
+   q06 over phase 12's lineitem parquet through ``s3://`` with the native
+   client and with Arrow's ``S3FileSystem``, and over ``https://`` on one
+   file, each equal to the local parquet's answer bit for bit, with the
+   wall, the bytes and GETs, and the stub's bare ceiling (the same ranges
+   through ``parallel_ranged_read`` at 8 threads). (d) The endpoint
+   answering only 503: ``DaftIOError`` naming the URL within the retry
+   policy's bound until the breaker opens, and the next query after its
+   cooldown reads the object. (e) ``url.upload`` of 256 embedding rows'
+   bytes to ``s3://`` and ``gs://`` and ``url.download`` back, bit-equal;
+   ``write_parquet`` to ``s3://out/q06/`` with the caches on: a miss, a
+   hit, a second write and a miss with both writes' rows, the counters
+   printed. Run alone, the phase runs phase 12 first at a third of its
+   rows;
+25. print the whole run's time and one JSON line of per-kernel numbers (with
    the launches on each path), then, last, the device line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -3265,10 +3299,12 @@ def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
     and read back into q06 and q01 at 1 and N threads; hive pruning over
     SF1's q01 columns; phase 9's photos read from files and from parquet
     shards into ViT-L/14; C.30's sqrt on the card; a deadline over a parquet
-    scan. ``rows`` cuts the table (0: SF10's). With ``shared``, the hive
-    directory outlives the phase and ``shared`` names it and holds q06's
-    columns of its rows, for phase 22. Returns the launch counts of its
-    paths."""
+    scan. ``rows`` cuts the table (0: SF10's). With ``shared``, the
+    lineitem parquet, the hive directory, the photo files and the parquet
+    shards outlive the phase under ``shared["root"]``, and ``shared`` names
+    them and holds q06's columns of the hive rows (phase 22), the parquet
+    q06's answer and the photo routes' embeddings and rates (phase 24).
+    Returns the launch counts of its paths."""
     import gc
     import os
     import shutil
@@ -3308,6 +3344,9 @@ def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
     q01_names = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
                  "l_returnflag", "l_linestatus")
     with tempfile.TemporaryDirectory() as tmp:
+        if shared is not None:
+            shared["root"] = tempfile.mkdtemp(prefix="smoke-lineitem-")
+        keep = tmp if shared is None else shared["root"]
         free = shutil.disk_usage(tmp).free
         print(f"[scan] {tmp}: {free / 1e9:.3f} GB free on its disk (need {SCAN_FREE_FACTOR}x "
               f"the table's {table_bytes / 1e9:.3f} GB)", flush=True)
@@ -3332,7 +3371,7 @@ def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
 
         # (1) Write the lineitem with the port's writer. The select's stage
         # hands the writer morsels, so it rolls files at its target size.
-        li_dir = os.path.join(tmp, "lineitem")
+        li_dir = os.path.join(keep, "lineitem")
         dt.reset_io_stats()
         t0 = time.perf_counter()
         res = dt.from_pydict(cols).select(*names).write_parquet(li_dir).to_pydict()
@@ -3472,17 +3511,18 @@ def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
         check(np.float32(after).tobytes() == np.float32(results[("q06", workers)][0]["revenue"][0])
               .tobytes(), f"parquet q06 after the cancelled query: {after!r}")
         print(f"[scan] the next parquet q06 equals the earlier ones: {after!r}", flush=True)
-        shutil.rmtree(li_dir)
+        if shared is None:
+            shutil.rmtree(li_dir)
+        else:  # phase 24 reads it again over s3:// and http://
+            shared["scan_dir"] = li_dir
+            shared["scan_q06"] = results[("q06", workers)][0]["revenue"][0]
+            shared["scan_q06_s"] = results[("q06", workers)][1]
 
         # Hive pruning over SF1's q01 columns, partitioned by l_returnflag.
         sf1 = {k: cols[k][:sf1_rows] for k in q01_names}
         del cols
         gc.collect()
-        if shared is None:
-            hive_dir = os.path.join(tmp, "hive")
-        else:
-            shared["root"] = tempfile.mkdtemp(prefix="smoke-lineitem-")
-            hive_dir = os.path.join(shared["root"], "hive")
+        hive_dir = os.path.join(keep, "hive")
         t0 = time.perf_counter()
         res = dt.from_pydict(sf1).select(*q01_names).write_parquet(
             hive_dir, partition_cols=["l_returnflag"]).to_pydict()
@@ -3523,7 +3563,7 @@ def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
 
         # Photos from files and from parquet shards into ViT-L/14.
         raw = make_encoded(NUM_ENCODED, seed=20)
-        photo_dir, shard_dir = os.path.join(tmp, "photos"), os.path.join(tmp, "shards")
+        photo_dir, shard_dir = os.path.join(keep, "photos"), os.path.join(keep, "shards")
         os.makedirs(photo_dir)
         for i, b in enumerate(raw):
             if b is not None:  # the null row has no file
@@ -3566,6 +3606,8 @@ def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
             check(embs[name].shape == (n_rows, 768) and bool(np.isfinite(embs[name]).all()),
                   f"photos from {name}: embeddings {embs[name].shape}, or not finite")
             by_path[f"scan photos from {name}"] = {"flash_attention": launches}
+            if shared is not None:
+                shared.setdefault("photo_rates", {})[name] = n_rows / path_s
             print(f"[scan] photos from {name}: {n_rows} rows, {n_rows / path_s:.1f} rows/s end to "
                   f"end ({path_s:.3f} s); decode + resize alone {dec_s:.3f} s, the rest "
                   f"(forward and the engine) {path_s - dec_s:.3f} s; flash launches {launches} "
@@ -3583,6 +3625,8 @@ def phase_scan(card: str, rows: int = 0, shared: dict = None) -> dict:
                   f"the in-memory column, cosine min {cos.min():.8f} (min {PHOTO_COSINE_MIN}) "
                   f"[{card}]", flush=True)
             check(bool(cos.min() >= PHOTO_COSINE_MIN), f"photos from {name}: cosine {cos.min()}")
+        if shared is not None:
+            shared.update(photo_dir=photo_dir, shard_dir=shard_dir, photo_embs=embs)
         del raw, embs, expr, paths
         gc.collect()
         torch.cuda.empty_cache()
@@ -3987,13 +4031,37 @@ def check_audit(tag: str, run: dict) -> None:
     check(not a["spill_dirs"], f"{tag}: spill directories left: {a['spill_dirs']}")
 
 
+OOC_QUERIES = ("q01", "q18")  # phase 15's queries over all of SF10 under the limit
+OOC_Q21_PARTS = 4  # phase 15's q21 under the limit: the first 1/4 of SF10's orders
+
+
+def orders_prefix(tables: dict, parts: int) -> dict:
+    """``tables`` with only the first ``1/parts`` of its orders and their
+    lineitem rows (a prefix of each: the lines are grouped by order, in
+    order-key order); the other tables whole. The slices share the tables'
+    buffers."""
+    import numpy as np
+
+    orders, li = tables["orders"], tables["lineitem"]
+    n = len(orders["o_orderkey"]) // parts
+    m = int(np.searchsorted(li["l_orderkey"], orders["o_orderkey"][n - 1], side="right"))
+
+    def head(cols, k):
+        return {c: v[:k] if isinstance(v, np.ndarray) else v.slice(0, k)
+                for c, v in cols.items()}
+
+    return dict(tables, orders=head(orders, n), lineitem=head(li, m))
+
+
 def phase_out_of_core(card: str, state: dict) -> dict:
     """Phase 15: phase 14's SF10 database under a memory limit of 1/8 of its
-    in-memory bytes: TPC-H q01, q18 and q21 in SQL against phase 14's
-    answers and a distinct over lineitem against numpy, with the spill, the
-    ledger and the audit after each; q21 under a 2 s deadline. (Phase 19
-    sorts SF1's orders under the same share of their bytes.)
-    Returns each path's flash launches (0)."""
+    in-memory bytes: TPC-H q01 and q18 in SQL against phase 14's answers, q21
+    over the first ``1/OOC_Q21_PARTS`` of its orders (and their lines) under
+    1/8 of that database's bytes against numpy's reference over the same
+    rows, and a distinct over lineitem against numpy, with the spill, the
+    ledger and the audit after each; q21 over all of SF10 under a 2 s
+    deadline. (Phase 19 sorts SF1's orders under the same share of their
+    bytes.) Returns each path's flash launches (0)."""
     import gc
     import shutil
     import tempfile
@@ -4006,7 +4074,7 @@ def phase_out_of_core(card: str, state: dict) -> dict:
     from daft_tpu_torch.execution.memledger import read_rss_bytes
     from daft_tpu_torch.execution.spill import sink_budget
     from daft_tpu_torch.ops.flash_attention import flash_attention
-    from daft_tpu_torch.tools import out_of_core
+    from daft_tpu_torch.tools import out_of_core, tpch
 
     phase_start = time.perf_counter()
     frames, tables, outs = state["frames"], state["tables"], state["outs"]
@@ -4043,7 +4111,8 @@ def phase_out_of_core(card: str, state: dict) -> dict:
             r["rss_growth"] = r["mem"]["rss_peak_bytes"] - rss0
         return r
 
-    for name in out_of_core.QUERIES:
+    # q01 and q18 under the limit.
+    for name in OOC_QUERIES:
         text = tpch_sql_text(name)
         held = run(name, lambda: dt.sql(text, **frames), limit)
         problems = rows_equal(held["rows"], outs[name], SQL_RTOL)
@@ -4051,6 +4120,31 @@ def phase_out_of_core(card: str, state: dict) -> dict:
         if name != "q01":
             check(held["spill"]["spills"] > 0, f"{name} did not spill at {limit} bytes")
         report_out_of_core(card, name, held, state["unlimited"][name])
+
+    # q21 under the limit over a quarter of SF10's orders (all of them took
+    # 57.9-73.7 s on the card's hosts; the cut makes room for phase 24),
+    # under 1/8 of that database's bytes: it must spill and equal numpy's
+    # reference over the same rows.
+    cut = orders_prefix(tables, OOC_Q21_PARTS)
+    cut_frames = dict(frames, **tpch.sql_frames(dt, {k: cut[k] for k in ("orders", "lineitem")}))
+    cut_limit = out_of_core.limit_for(cut_frames)
+    text = tpch_sql_text("q21")
+    held = run("q21", lambda: dt.sql(text, **cut_frames), cut_limit)
+    t0 = time.perf_counter()
+    problems = tpch.sql_compare("q21", held["rows"], tpch.q21_reference(cut), SQL_RTOL)
+    ref_s = time.perf_counter() - t0
+    check(not problems, f"q21 over 1/{OOC_Q21_PARTS} of the orders under the limit vs numpy's "
+          f"reference: {problems}")
+    check(len(held["rows"]["s_name"]) > 0, "q21 over the cut: an empty result")
+    check(held["spill"]["spills"] > 0, f"q21 over the cut did not spill at {cut_limit} bytes")
+    print(f"[ooc] q21 over the first 1/{OOC_Q21_PARTS} of SF{SQL_SF}'s orders "
+          f"({len(cut['orders']['o_orderkey'])} orders, {len(cut['lineitem']['l_orderkey'])} "
+          f"lines; the database {out_of_core.tables_bytes(cut_frames) / 1e9:.3f} GB, the limit "
+          f"1/8 = {cut_limit / 1e9:.3f} GB): {len(held['rows']['s_name'])} rows equal to numpy's "
+          f"reference over the same rows (tol {SQL_RTOL}; the reference {ref_s:.3f} s) [{card}]",
+          flush=True)
+    report_out_of_core(card, f"q21 over 1/{OOC_Q21_PARTS} of the orders", held)
+    del cut, cut_frames, held
 
     # A grace distinct of (l_orderkey, l_suppkey) against numpy's unique,
     # over the first half of lineitem's rows (cut from all of them, 40.4 s,
@@ -6796,6 +6890,414 @@ def phase_front_door(card: str, shared: dict = None) -> dict:
     return paths
 
 
+REMOTE_REGION = "us-east-1"
+REMOTE_FAIL_EVERY = 16     # (a): the first GET of every 16th object answers 503 SlowDown
+REMOTE_PROBE_URL = "s3://photos/0000.img"  # (d): the object read while the endpoint answers 503
+REMOTE_BREAKER_WAIT_S = 60.0   # (d): how long the next query may wait for the breaker to close
+REMOTE_WRITE_ROWS = 50_000     # (e): lineitem rows per write_parquet to s3://out/q06/
+REMOTE_UPLOAD_ROWS = 2 * BATCH  # (e): embedding rows uploaded to each store and read back
+REMOTE_ALONE_ROWS = SCAN_ROWS // 3  # phase 24 alone: phase 12 at this many lineitem rows first
+# (q01 over them outlasts phase 12's 0.5 s deadline)
+
+
+def phase_remote_io(card: str, shared: dict = None) -> dict:
+    """Phase 24: remote IO on the card's host. Phase 12's files, served in
+    place by the object-store stubs on 127.0.0.1, each in a child process
+    (``daft_tpu_torch/tools/object_stores.py``; the host has no network; the
+    HTTP stub serves TLS with the repo's loopback certificate, trusted
+    through ``SSL_CERT_FILE``): (a) the photos from s3:// through
+    ``url.download`` alone, the first GET of every 16th answered 503
+    ``SlowDown`` (the bytes equal the files', the retries the answers
+    injected), then through the decode and ViT-L/14; (b) the parquet shards
+    over gs:// (the metadata server's token) and hf:// (``read_huggingface``
+    against the HTTP stub); (c) q06 over phase 12's lineitem parquet through
+    s3:// with the native client and with Arrow's ``S3FileSystem``, and over
+    https:// on one file, beside the stub's bare ceiling; (d) an endpoint
+    that answers only 503 opening its breaker; (e) ``url.upload`` to s3://
+    and gs:// read back, and a ``write_parquet`` to s3:// that drops the
+    result cache's entry. The caches on, as in phase 23. Run alone, it runs
+    phase 12 first at ``REMOTE_ALONE_ROWS`` lineitem rows. Returns each
+    path's flash launches."""
+    import math
+    import os
+    import shutil
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import plancache
+    from daft_tpu_torch.errors import DaftIOError
+    from daft_tpu_torch.functions.ai import embed_image
+    from daft_tpu_torch.io import circuit, gcs_auth, http_source
+    from daft_tpu_torch.io.config import GCSConfig, IOConfig, S3Config
+    from daft_tpu_torch.io.iostats import parallel_ranged_read
+    from daft_tpu_torch.io.retry import RetryPolicy
+    from daft_tpu_torch.metrics import get_registry
+    from daft_tpu_torch.ops.flash_attention import flash_attention
+    from daft_tpu_torch.tools import lineitem
+    from daft_tpu_torch.tools.object_stores import LOOPBACK_CERT, ChildStub
+
+    alone = shared is None or "photo_dir" not in shared
+    if alone:
+        shared = {}
+        phase_scan(card, REMOTE_ALONE_ROWS, shared)
+    phase_start = time.perf_counter()
+    paths = {}
+    workers = compute_workers()
+    f32 = dt.DataType.float32()
+    cfg0, pcfg0 = dt.get_context().execution_config, dt.get_context().planning_config
+    want = VIT_L_LAYERS * math.ceil((NUM_ENCODED - 1) / BATCH)
+    want_shards = VIT_L_LAYERS * math.ceil(NUM_ENCODED / BATCH)
+    env_names = ("AWS_EC2_METADATA_DISABLED", "SSL_CERT_FILE", "GCE_METADATA_HOST",
+                 "GOOGLE_APPLICATION_CREDENTIALS", "DAFT_NATIVE_S3", "DAFT_NATIVE_GCS")
+    env0 = {k: os.environ.get(k) for k in env_names}
+    hf_base0 = http_source.HF_RESOLVE_BASE
+    s3 = gcs = http = None
+    emb_of = lambda s: np.asarray(s.to_numpy(), dtype=np.float32)  # noqa: E731
+
+    def counter(name):
+        return get_registry().snapshot().counter_total(name)
+
+    try:
+        # Arrow's AWS SDK reads no instance metadata; HTTPS trusts the loopback
+        # certificate (urllib's shared opener keeps the context it was built
+        # with: it is rebuilt); the GCS chain takes the metadata server's
+        # token from the stub, which it trusts unprobed.
+        os.environ["AWS_EC2_METADATA_DISABLED"] = "true"
+        os.environ["SSL_CERT_FILE"] = LOOPBACK_CERT
+        urllib.request.install_opener(None)
+        for k in env_names[3:]:
+            os.environ.pop(k, None)
+        s3 = ChildStub("s3", region=REMOTE_REGION)
+        gcs = ChildStub("gcs", tokens=())
+        li_files = sorted(f for f in os.listdir(shared["scan_dir"]) if f.endswith(".parquet"))
+        shard_files = sorted(f for f in os.listdir(shared["shard_dir"])
+                             if f.endswith(".parquet"))
+        http = ChildStub("http", root=shared["root"], tls=True, mounts={
+            "/datasets/smoke/photos/resolve/main/": shared["shard_dir"],
+            "/lineitem/": shared["scan_dir"]})
+        http.route("/api/datasets/smoke/photos/parquet", json.dumps({"default": {"train": [
+            f"{http.url}/datasets/smoke/photos/resolve/main/{f}" for f in shard_files]}}).encode())
+        s3.mount("photos", shared["photo_dir"])
+        s3.mount("lineitem", shared["scan_dir"])
+        gcs.mount("shards", shared["shard_dir"])
+        os.environ["GCE_METADATA_HOST"] = gcs.host
+        gcs_auth._PROVIDER_CACHE.clear()
+        http_source.HF_RESOLVE_BASE = http.url
+        circuit.reset_circuit_breakers()
+        s3_cfg = S3Config(endpoint_url=s3.url, region_name=REMOTE_REGION, key_id=s3.key_id,
+                          access_key=s3.secret, use_native_client=True)
+        io = IOConfig(s3=s3_cfg, gcs=GCSConfig(endpoint_url=gcs.url))
+        dt.set_planning_config(default_io_config=io)
+        dt.set_execution_config(plan_cache_enabled=True, result_cache_enabled=True)
+        plancache.reset_caches()
+        print(f"[remote] stubs in child processes on 127.0.0.1: s3 {s3.url} (sigv4 checked on "
+              f"every request), gcs {gcs.url} (metadata-server token), http {http.url} (TLS, the "
+              f"loopback certificate); phase 12's "
+              f"{len(os.listdir(shared['photo_dir']))} photo files, {len(shard_files)} parquet "
+              f"shards and {len(li_files)} lineitem parquet files served in place [{card}]",
+              flush=True)
+
+        # -- (a) photos from s3:// -------------------------------------------
+        expr = embed_image(dt.col("img"), provider="cuda_random", model="ViT-L/14",
+                           batch_size=BATCH)
+        fetched = dt.col("path").url.download()
+
+        def photos():
+            img = fetched.image.decode(mode="RGB", on_error="null").image.resize(IMAGE, IMAGE)
+            return dt.from_glob_path("s3://photos/").with_column("img", img) \
+                .with_column("emb", expr).select("emb")
+
+        # The download alone, the first GET of every 16th object answered 503
+        # SlowDown: the bytes must equal the files' and the retries the
+        # answers injected. It also opens the stub's first connections.
+        s3.reset_counters()
+        s3.fail_first_get_every(REMOTE_FAIL_EVERY)
+        dt.reset_io_stats()
+        try:
+            raw, dl_s = timed_at(workers, lambda: dt.from_glob_path("s3://photos/").select(
+                dt.col("path"), fetched.alias("b")).to_pydict(), default_morsel_size=BATCH)
+        finally:
+            s3.fail_first_get_every(0)
+        dl_io, injected, served = dt.io_stats(), s3.injected, s3.counters()
+        dl_bytes = sum(len(b) for b in raw["b"])
+        def on_disk(url):
+            with open(os.path.join(shared["photo_dir"], url.rsplit("/", 1)[1]), "rb") as fh:
+                return fh.read()
+
+        same = all(on_disk(u) == b for u, b in zip(raw["path"], raw["b"]))
+        print(f"[remote] (a) the download alone: {len(raw['b'])} objects, {dl_bytes / 1e6:.3f} MB "
+              f"in {dl_s:.3f} s = {dl_bytes / 1e6 / dl_s:.1f} MB/s at {workers} threads, the "
+              f"first GET of every {REMOTE_FAIL_EVERY}th object answered 503 SlowDown "
+              f"(Retry-After: 0): {injected} injected, {dl_io.retries} retries counted; the "
+              f"bytes {'equal' if same else 'differ from'} the files'; io_stats gets "
+              f"{dl_io.gets}, {dl_io.bytes_read / 1e6:.3f} MB; the stub served {served} [{card}]",
+              flush=True)
+        check(len(raw["b"]) == NUM_ENCODED - 1 and same and not s3.bad_auth,
+              f"(a) {len(raw['b'])} photos downloaded, the bytes equal: {same}; bad signatures "
+              f"{s3.bad_auth[:1]}")
+        check(injected == math.ceil((NUM_ENCODED - 1) / REMOTE_FAIL_EVERY)
+              and dl_io.retries == injected,
+              f"(a) {injected} 503 answers injected, {dl_io.retries} retries counted")
+        del raw
+        dt.reset_io_stats()
+        flash_attention.launch_count = 0
+        emb, path_s = timed_at(workers, lambda: image_column(photos(), "emb"),
+                               default_morsel_size=BATCH)
+        launches = flash_attention.launch_count
+        io_a = dt.io_stats()
+        got_a = emb_of(emb)
+        check(launches == want, f"(a) s3 photos: {launches} flash launches, want {want}")
+        paths["s3 photos vit"] = {"flash_attention": launches}
+        files_rate = shared["photo_rates"]["files"]
+        print(f"[remote] (a) s3 photos -> url.download -> decode -> ViT-L/14: {len(got_a)} rows, "
+              f"{len(got_a) / path_s:.1f} rows/s end to end ({path_s:.3f} s; phase 12's files "
+              f"route {files_rate:.1f} rows/s); io_stats gets {io_a.gets}, "
+              f"{io_a.bytes_read / 1e6:.3f} MB, retries {io_a.retries}; flash launches "
+              f"{launches} [{card}]", flush=True)
+
+        def same_as(tag, got, ref):
+            check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                  f"{tag}: embeddings {got.shape} against {ref.shape}, or not finite")
+            if np.array_equal(got, ref):
+                print(f"[remote] {tag}: the embeddings equal phase 12's bit for bit [{card}]",
+                      flush=True)
+                return
+            cos = cosines(got, ref)
+            print(f"[remote] {tag}: not the same bits as phase 12's (max_abs_err "
+                  f"{np.abs(got - ref).max():.3e}): the decode of the downloaded bytes "
+                  f"(.image.decode) against phase 12's decode_image_file; cosine min "
+                  f"{cos.min():.8f} (min {PHOTO_COSINE_MIN}) [{card}]", flush=True)
+            check(bool(cos.min() >= PHOTO_COSINE_MIN), f"{tag}: cosine {cos.min()}")
+
+        same_as("(a) s3 photos", got_a, shared["photo_embs"]["files"])
+
+        # -- (b) parquet shards over gs:// and hf:// --------------------------
+        shard_img = dt.col("image").image.decode(mode="RGB", on_error="null").image.resize(
+            IMAGE, IMAGE)
+        routes = {"gs shards vit": lambda: dt.read_parquet("gs://shards/"),
+                  "hf shards vit": lambda: dt.read_huggingface("smoke/photos")}
+        for tag, src in routes.items():
+            dt.reset_io_stats()
+            gcs.reset_counters()
+            http.reset_counters()
+            flash_attention.launch_count = 0
+            emb, wall = timed_at(workers, lambda: image_column(
+                src().with_column("img", shard_img).with_column("emb", expr).select("emb"),
+                "emb"), default_morsel_size=BATCH)
+            launches = flash_attention.launch_count
+            io_b = dt.io_stats()
+            check(launches == want_shards, f"(b) {tag}: {launches} flash launches, "
+                  f"want {want_shards}")
+            paths[tag] = {"flash_attention": launches}
+            stub = gcs if tag.startswith("gs") else http
+            print(f"[remote] (b) {tag}: {len(emb)} rows, {len(emb) / wall:.1f} rows/s end to end "
+                  f"({wall:.3f} s; phase 12's parquet shards route "
+                  f"{shared['photo_rates']['parquet shards']:.1f} rows/s); io_stats gets "
+                  f"{io_b.gets}, {io_b.bytes_read / 1e6:.3f} MB, retries {io_b.retries}; the stub "
+                  f"served {stub.counters()}; flash launches {launches} [{card}]", flush=True)
+            same_as(f"(b) {tag}", emb_of(emb), shared["photo_embs"]["parquet shards"])
+        check(gcs.metadata_count >= 1 and not gcs.bad_auth,
+              f"(b) gs: metadata tokens {gcs.metadata_count}, bad tokens {gcs.bad_auth[:1]}")
+
+        # -- (c) q06 over phase 12's lineitem through s3:// and http:// -------
+        want06 = np.float32(shared["scan_q06"]).tobytes()
+
+        def q06_over(path, io_config):
+            plancache.reset_caches()  # each route reads its bytes: no scan-tier hit
+            s3.take_log()
+            s3.reset_counters()
+            http.take_log()
+            http.reset_counters()
+            dt.reset_io_stats()
+            out, wall = timed_at(workers, lambda: lineitem.q06(
+                dt, dt.read_parquet(path, io_config=io_config), rate_dtype=f32).to_pydict())
+            return out["revenue"][0], wall, dt.io_stats()
+
+        rev, wall, io_c = q06_over("s3://lineitem/", io)
+        log = s3.take_log()
+        gets = [r for r in log if r.method == "GET" and r.range]
+        served = s3.counters()
+        print(f"[remote] (c) q06 over s3://lineitem/ (the native client): {rev!r} in {wall:.3f} s "
+              f"(phase 12's local parquet {shared['scan_q06_s']:.3f} s); "
+              f"{served['bytes_out'] / 1e9:.4f} GB read in {len(gets)} ranged GETs "
+              f"({len(log)} requests); io_stats gets {io_c.gets}, retries {io_c.retries} "
+              f"[{card}]", flush=True)
+        check(np.float32(rev).tobytes() == want06,
+              f"(c) q06 over s3:// {rev!r} against phase 12's {shared['scan_q06']!r}")
+        # The stub's bare ceiling: the same ranges at the IO pool's 8 threads.
+        by_key = {}
+        for r in gets:
+            a, _, b = r.range[len("bytes="):].partition("-")
+            by_key.setdefault(r.path, []).append((int(a), int(b) - int(a) + 1))
+        t0 = time.perf_counter()
+        nbytes = 0
+        for key, ranges in by_key.items():
+            got = parallel_ranged_read("s3:/" + key, ranges, max_concurrency=8, io_config=io)
+            nbytes += sum(len(g) for g in got)
+        ceil_s = time.perf_counter() - t0
+        print(f"[remote] (c) the stub's bare ceiling: the same {len(gets)} ranges "
+              f"({nbytes / 1e9:.4f} GB) through parallel_ranged_read at 8 threads per file in "
+              f"{ceil_s:.3f} s = {nbytes / 1e6 / ceil_s:.1f} MB/s, against the query's "
+              f"{served['bytes_out'] / 1e6 / wall:.1f} MB/s [{card}]", flush=True)
+
+        arrow_io = IOConfig(s3=S3Config(endpoint_url=s3.url, region_name=REMOTE_REGION,
+                                        key_id=s3.key_id, access_key=s3.secret),
+                            gcs=io.gcs)
+        try:
+            rev_a, wall_a, _ = q06_over("s3://lineitem/", arrow_io)
+        except Exception as e:  # noqa: BLE001 — printed: the stub cannot take Arrow's requests
+            print(f"[remote] (c) Arrow's S3FileSystem against the stub: it cannot read it: "
+                  f"{type(e).__name__}: {str(e)[:300]}; the stub's refusals "
+                  f"{s3.bad_auth[:2]} [{card}]", flush=True)
+            s3.bad_auth = []
+        else:
+            log = s3.take_log()
+            print(f"[remote] (c) q06 over s3://lineitem/ through Arrow's S3FileSystem (its AWS "
+                  f"SDK signing, checked by the stub): {rev_a!r} in {wall_a:.3f} s; "
+                  f"{s3.counters()['bytes_out'] / 1e9:.4f} GB in "
+                  f"{sum(r.method == 'GET' for r in log)} GETs ({len(log)} requests); refused "
+                  f"{len(s3.bad_auth)} [{card}]", flush=True)
+            check(np.float32(rev_a).tobytes() == want06 and not s3.bad_auth,
+                  f"(c) q06 through Arrow's S3FileSystem {rev_a!r}; refusals {s3.bad_auth[:1]}")
+        one = li_files[0]
+        local1 = lineitem.q06(dt, dt.read_parquet(os.path.join(shared["scan_dir"], one)),
+                              rate_dtype=f32).to_pydict()["revenue"][0]
+        rev_h, wall_h, _ = q06_over(f"{http.url}/lineitem/{one}", None)
+        log = http.take_log()
+        print(f"[remote] (c) q06 over one file through https:// ({one}; TLS with the loopback "
+              f"certificate): {rev_h!r} in {wall_h:.3f} s, "
+              f"{http.counters()['bytes_out'] / 1e9:.4f} GB in {len(log)} requests; the local "
+              f"file gives {local1!r} [{card}]", flush=True)
+        check(http.url.startswith("https://") and log,
+              f"(c) q06 over {http.url}: {len(log)} requests reached the TLS stub")
+        check(np.float32(rev_h).tobytes() == np.float32(local1).tobytes(),
+              f"(c) q06 over https:// {rev_h!r} against the local file's {local1!r}")
+        paths["remote q06"] = {"flash_attention": 0}
+
+        # -- (d) an endpoint that answers only 503 ------------------------------
+        probe = dt.from_pydict({"u": [REMOTE_PROBE_URL]})
+        policy = RetryPolicy(max_retries=s3_cfg.num_tries - 1)
+        bound = sum(min(policy.backoff_base_s * 2 ** k, policy.backoff_cap_s)
+                    for k in range(policy.max_retries)) + 1.0
+        breaker = circuit.breaker_for(s3.url)
+        opens0 = get_registry().snapshot().label_totals("daft_circuit_transitions_total",
+                                                        "to").get("open", 0.0)
+        s3.fail_all = 503
+        raised = []
+        try:
+            while breaker.state() != "open" and len(raised) < 10:
+                t0 = time.perf_counter()
+                try:
+                    probe.select(dt.col("u").url.download()).to_pydict()
+                    check(False, "(d) a download from the endpoint answering 503 succeeded")
+                except DaftIOError as e:
+                    raised.append((time.perf_counter() - t0, REMOTE_PROBE_URL in str(e),
+                                   type(e.__cause__).__name__))
+        finally:
+            s3.fail_all = None
+        opens = get_registry().snapshot().label_totals("daft_circuit_transitions_total",
+                                                       "to").get("open", 0.0) - opens0
+        check(breaker.state() == "open" and opens == 1 and all(named for _, named, _ in raised)
+              and max(s for s, _, _ in raised) <= bound,
+              f"(d) breaker {breaker.state()}, {opens:g} opens counted, after {raised} (bound "
+              f"{bound:.2f} s each)")
+        t0 = time.perf_counter()
+        while True:
+            try:
+                back = probe.select(dt.col("u").url.download()).to_pydict()["u"][0]
+                break
+            except DaftIOError:
+                check(time.perf_counter() - t0 < REMOTE_BREAKER_WAIT_S,
+                      "(d) the breaker did not close after its cooldown")
+                time.sleep(0.1)
+        reopen_s = time.perf_counter() - t0
+        with open(os.path.join(shared["photo_dir"], REMOTE_PROBE_URL.rsplit("/", 1)[1]),
+                  "rb") as fh:
+            check(back == fh.read(), "(d) the object read after the cooldown differs")
+        print(f"[remote] (d) the endpoint answering only 503: {len(raised)} queries raised "
+              f"DaftIOError naming {REMOTE_PROBE_URL} in {[round(s, 3) for s, _, _ in raised]} s "
+              f"(bound {bound:.2f} s: {policy.max_retries} retries, Retry-After 0), the causes "
+              f"{[c for _, _, c in raised]}; the breaker open ({opens:g} open counted by "
+              f"daft_circuit_transitions_total); the next query read the object "
+              f"{reopen_s:.3f} s after the endpoint recovered (the breaker's cooldown) [{card}]",
+              flush=True)
+
+        # -- (e) writes -----------------------------------------------------------
+        rows = [None if r is None else np.asarray(r, dtype=np.float32).tobytes()
+                for r in shared["photo_embs"]["in memory"][:REMOTE_UPLOAD_ROWS]]
+        for scheme in ("s3", "gs"):
+            t0 = time.perf_counter()
+            locs = dt.from_pydict({"b": rows}).select(
+                dt.col("b").url.upload(location=f"{scheme}://out/emb").alias("loc")
+            ).to_pydict()["loc"]
+            up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = dt.from_pydict({"loc": locs}).select(
+                dt.col("loc").url.download()).to_pydict()["loc"]
+            down_s = time.perf_counter() - t0
+            check(back == rows, f"(e) {scheme}: the embeddings read back differ")
+            nbytes = sum(len(r) for r in rows if r is not None)
+            print(f"[remote] (e) url.upload of {len(rows)} embedding rows' bytes to "
+                  f"{scheme}://out/emb ({nbytes / 1e6:.3f} MB) in {up_s:.3f} s, url.download back "
+                  f"in {down_s:.3f} s: bit-equal [{card}]", flush=True)
+        cols = shared["lineitem_cols"]
+        parts = [{k: cols[k][i * REMOTE_WRITE_ROWS:(i + 1) * REMOTE_WRITE_ROWS]
+                  for k in NUMERIC_COLS} for i in range(2)]
+        out_dir = "s3://out/q06/"
+
+        def q06_s3():
+            return lineitem.q06(dt, dt.read_parquet(out_dir), rate_dtype=f32).to_pydict()[
+                "revenue"][0]
+
+        names = ("daft_result_cache_hits_total", "daft_result_cache_misses_total")
+        before = {n: counter(n) for n in names}
+        dt.from_pydict(parts[0]).write_parquet(out_dir)
+        first, again = q06_s3(), q06_s3()
+        mid = {n: counter(n) for n in names}
+        dt.from_pydict(parts[1]).write_parquet(out_dir)
+        after = q06_s3()
+        end = {n: counter(n) for n in names}
+        both = lineitem.q06(dt, dt.from_pydict({k: np.concatenate([p[k] for p in parts])
+                                                for k in NUMERIC_COLS}),
+                            rate_dtype=f32).to_pydict()["revenue"][0]
+        hits = [mid[names[0]] - before[names[0]], end[names[0]] - mid[names[0]]]
+        misses = [mid[names[1]] - before[names[1]], end[names[1]] - mid[names[1]]]
+        print(f"[remote] (e) write_parquet to {out_dir} with the caches on: q06 {first!r}, again "
+              f"{again!r} (result cache hits {hits[0]:g}, misses {misses[0]:g}); after a second "
+              f"write {after!r} (hits {hits[1]:g}, misses {misses[1]:g}); over both parts in "
+              f"memory {both!r} [{card}]", flush=True)
+        check(first == again and hits[0] >= 1 and hits[1] == 0
+              and np.float32(after).tobytes() == np.float32(both).tobytes() and after != first,
+              f"(e) the result cache after the write: {first!r} {again!r} {after!r}, hits {hits}")
+        check(not s3.bad_auth and not gcs.bad_auth,
+              f"refused requests: s3 {s3.bad_auth[:1]}, gcs {gcs.bad_auth[:1]}")
+    finally:
+        for stub in (s3, gcs, http):
+            if stub is not None:
+                stub.close()
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        urllib.request.install_opener(None)
+        http_source.HF_RESOLVE_BASE = hf_base0
+        gcs_auth._PROVIDER_CACHE.clear()
+        circuit.reset_circuit_breakers()
+        dt.set_execution_config(cfg0)
+        dt.set_planning_config(pcfg0)
+        plancache.reset_caches()
+        if alone:
+            shutil.rmtree(shared["root"], ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"[remote] phase 24 took {time.perf_counter() - phase_start:.1f} s [{card}]",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -6850,6 +7352,7 @@ def main() -> int:
         by_path.update(timed(21, phase_multi_device, card))
         by_path.update(timed(22, phase_core, card, shared))
         by_path.update(timed(23, phase_front_door, card, shared))
+        by_path.update(timed(24, phase_remote_io, card, shared))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,9 +9,11 @@ CLIP image tower's attention in a hand-written CUDA kernel
 (``ops/flash_attention.py``, ``csrc/flash_attention.cu``), the text, zero-shot
 and generation paths, and the relational device layer (``where``,
 ``with_columns``, global ``agg`` through ``ops/device_eval.py`` and
-``ops/compiled_eval.py``), and local files through ``read_parquet`` /
+``ops/compiled_eval.py``), files through ``read_parquet`` /
 ``read_csv`` / ``read_json`` / ``read_text`` / ``read_warc`` /
-``from_glob_path`` and the ``DataFrame.write_*`` writers, and the expression
+``from_glob_path`` / ``read_huggingface`` and the ``DataFrame.write_*``
+writers, local or remote (``s3://``, ``gs://``, ``http(s)://``, ``hf://``,
+``az://`` through ``io/scan.py::resolve_filesystem``), and the expression
 library (``.str``, ``.dt``, ``.binary``, ``url.parse``, ``is_in``,
 ``fill_null`` and ``daft_tpu_torch.functions``) on the host, SQL (``sql``,
 ``sql_expr``) through the optimizer's full rule set, windows (``Window``,
@@ -57,6 +59,7 @@ from daft_tpu_torch.io.reads import (
     from_glob_path,
     read_csv,
     read_json,
+    read_huggingface,
     read_parquet,
     read_text,
     read_warc,
@@ -82,8 +85,8 @@ _MEDIA_SOURCES = ("read_mcap", "read_kafka", "read_paimon", "read_video_frames",
 
 #: Names of the JAX package's top level that the port lacks, by ROADMAP item.
 _NOT_PORTED = {
-    **dict.fromkeys(("read_iceberg", "read_deltalake", "read_lance", "read_hudi", "read_sql",
-                     "read_huggingface"), "A.8 (the table formats and connectors)"),
+    **dict.fromkeys(("read_iceberg", "read_deltalake", "read_lance", "read_hudi", "read_sql"),
+                    "A.8.3 (the table formats and connectors)"),
     **dict.fromkeys(("register_view", "read_view", "view_freshness", "get_view_registry"),
                     "A.8.6 (streaming views)"),
 }
@@ -186,6 +189,7 @@ __all__ = [
     "planning_config_ctx",
     "range",
     "read_csv",
+    "read_huggingface",
     "read_json",
     "read_parquet",
     "read_range",

@@ -6,8 +6,8 @@ model checkpointing; that is ``models/checkpoint.py``).
 ``df.with_checkpoint(cfg)`` anti-filters the keys already done, and a write
 with ``checkpoint=cfg`` seals the keys it wrote once the write is done (the
 reference's CheckpointTerminus). Keys are stored as parquet files under a
-directory: local paths and ``file://`` only, as everywhere in the port; any
-other scheme raises naming ROADMAP A.8 (``io/scan.py::resolve_filesystem``).
+directory: a local path or any URI that ``io/scan.py::resolve_filesystem``
+resolves (object stores included), as in the JAX package.
 """
 
 from __future__ import annotations

@@ -38,8 +38,8 @@ per-operator counters become ``get_context().last_query_stats``: every
 query runs through ``get_context().runner`` (``runners/native.py``), with
 its plan and result caches, and every write invalidates the caches under
 what it wrote. Not ported yet, each raising ``DaftNotImplementedError``
-naming its ROADMAP item (``_LEFT_OUT``): ``shard`` and the table-format,
-database and connector writers (A.8).
+naming its ROADMAP item (``_LEFT_OUT``): ``shard`` (A.8.5) and the
+table-format, database and connector writers (A.8.3).
 """
 
 from __future__ import annotations
@@ -497,6 +497,14 @@ class DataFrame:
         """Apply ``function(self, *args, **kwargs)`` (reference: pipe)."""
         return function(self, *args, **kwargs)
 
+    @staticmethod
+    def set_storage_option(key: str, value: str) -> None:
+        """Set a process-wide storage option consulted when building
+        filesystem connections (reference: dataframe.py set_storage_option)."""
+        from daft_tpu_torch.io.config import set_storage_option as _set
+
+        _set(key, value)
+
     def shuffle(self, seed: Optional[int] = None) -> "DataFrame":
         """Randomly reorder rows (reference: dataframe.py shuffle)."""
         from daft_tpu_torch.functions import random_int
@@ -762,7 +770,6 @@ _LEFT_OUT = {
     "write_lance": "A.8 (the connectors)",
     "write_paimon": "A.8 (the connectors)",
     "write_huggingface": "A.8 (the connectors)",
-    "set_storage_option": "A.8 (remote IO)",
 }
 
 

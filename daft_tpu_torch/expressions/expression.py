@@ -10,8 +10,8 @@ with the reference's flat aliases of the namespaced methods, and windows
 (``over``, ``lag`` / ``lead``, ``first_value`` / ``last_value``). Each lowers
 onto the port's Expr IR (``expressions/expr.py``) and the kernel registry
 (``kernels/registry.py``); ``apply`` is a row-wise UDF over the expression.
-The kernels the port leaves out raise ``DaftNotImplementedError`` with their
-ROADMAP item through ``registry.LEFT_OUT``. The flat media methods
+A kernel the port left out would raise ``DaftNotImplementedError`` with its
+ROADMAP item through ``registry.LEFT_OUT``, which is empty. The flat media methods
 (``hdf5_keys``, ``video_frames``, ...) raise ``DaftIOError`` as in the JAX
 package: the free functions of ``functions`` are what decode media.
 """

@@ -1253,7 +1253,10 @@ def download(e, **kwargs):
 
 
 def upload(e, location, **kwargs):
-    return _fn("url_upload", e, location, **kwargs)
+    # The kernel reads ``location`` as a keyword: the JAX package passes it as
+    # a second column, which the kernel ignores, writing under the working
+    # directory (ROADMAP C.53).
+    return _fn("url_upload", e, location=location, **kwargs)
 
 
 def parse_url(e):

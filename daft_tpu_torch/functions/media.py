@@ -3,8 +3,9 @@
 
 Reference: daft/functions/{file_.py,hdf5.py,video.py,image_file_.py,process.py}.
 The File constructors verify format by magic-byte sniffing
-(``kernels/file_ops.py``). They take no ``io_config``: ``File`` reads local
-paths and ``file://`` URLs only (remote schemes are ROADMAP A.8). The HDF5
+(``kernels/file_ops.py``). They take no ``io_config``: ``File`` resolves its
+URL through ``io/scan.py::resolve_filesystem`` with the context's default
+``IOConfig``, as in the JAX package. The HDF5
 functions use h5py, imported where the JAX package imports it (never at
 ``import daft_tpu_torch``); the video decode uses OpenCV, and MP4 / AVI
 keyframe indices come from container parsing (stss box / idx1

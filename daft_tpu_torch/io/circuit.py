@@ -9,12 +9,12 @@ probe is let through; a probe success **closes** the circuit, a failure
 re-opens it with a doubled delay.
 
 State machines are process-wide (module registry keyed by endpoint) so every
-task shares one view of a host's health. The port serves local files only,
-so every scan shares the one ``file://local`` endpoint. Transitions emit
+task shares one view of a host's health: one per S3 / GCS endpoint and HTTP
+origin, and one ``file://local`` endpoint for local files. Transitions emit
 ``CircuitOpened`` / ``CircuitClosed`` events through the engine context and
 move the registry's ``daft_circuit_state`` gauge and transition counter. Not
 ported yet: the fault-injection hook in ``allow`` (the distributed layer's
-``maybe_inject``, ROADMAP A.8).
+``maybe_inject``, ROADMAP A.8.5).
 """
 
 from __future__ import annotations

@@ -1,18 +1,15 @@
 """IO configuration (port of ``daft_tpu/io/config.py``).
 
 Reference: src/common/io-config (S3Config / AzureConfig / GCSConfig /
-HTTPConfig bundled into IOConfig, threaded through scans and writes). The
-config dataclasses are plain data here; the port serves local paths only, so
-``filesystem_for`` raises for every object-store scheme: the clients
-(``s3_client.py``, ``gcs_client.py``, ``http_source.py``) are ROADMAP A.8.
+HTTPConfig bundled into IOConfig, threaded through scans and writes), lowered
+by ``filesystem_for`` onto the native clients (``s3_client.py``,
+``gcs_client.py``) or pyarrow's Arrow C++ filesystems.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
-
-from daft_tpu_torch.errors import DaftValueError
 
 
 @dataclass(frozen=True)
@@ -135,20 +132,84 @@ class IOConfig:
     hf: HuggingFaceConfig = field(default_factory=HuggingFaceConfig)
 
 
-def remote_scheme_error(path: str) -> DaftValueError:
-    scheme = path.split("://", 1)[0]
-    return DaftValueError(
-        f"{path!r}: the {scheme}:// scheme is not ported; the port reads and "
-        "writes local paths and file:// URLs only (object stores and HTTP are "
-        "ROADMAP A.8)")
-
-
 def filesystem_for(scheme: str, io_config: Optional[IOConfig]):
-    """The filesystem for a URI scheme: the local one for ``file``; every
-    other scheme raises (the object-store clients are ROADMAP A.8)."""
-    if scheme == "file":
-        import pyarrow.fs as pafs
+    """Build a pyarrow filesystem honouring the IOConfig, or None to use
+    pyarrow's default URI resolution. ``s3`` takes the native sigv4 client
+    under ``use_native_client`` or ``DAFT_NATIVE_S3=1`` and Arrow's
+    ``S3FileSystem`` otherwise; ``gs`` / ``gcs`` take the native client by
+    default (``use_native_client=False`` or ``DAFT_NATIVE_GCS=0`` opt out to
+    Arrow's ``GcsFileSystem``); ``az`` / ``abfs`` / ``abfss`` take Arrow's
+    ``AzureFileSystem``."""
+    import pyarrow.fs as pafs
 
-        return pafs.LocalFileSystem()
-    raise remote_scheme_error(f"{scheme}://")
+    if io_config is None:
+        return None
+    if scheme == "s3":
+        from daft_tpu_torch.config import daft_env
 
+        cfg = io_config.s3
+        if cfg.use_native_client or daft_env("DAFT_NATIVE_S3") == "1":
+            from daft_tpu_torch.io.s3_client import S3Client, S3FileSystemHandler
+
+            return pafs.PyFileSystem(S3FileSystemHandler(S3Client(cfg)))
+        kwargs = {}
+        if cfg.region_name:
+            kwargs["region"] = cfg.region_name
+        if cfg.endpoint_url:
+            kwargs["endpoint_override"] = cfg.endpoint_url
+        if cfg.anonymous:
+            kwargs["anonymous"] = True
+        elif cfg.key_id:
+            kwargs["access_key"] = cfg.key_id
+            kwargs["secret_key"] = cfg.access_key
+            if cfg.session_token:
+                kwargs["session_token"] = cfg.session_token
+        kwargs["connect_timeout"] = cfg.connect_timeout_ms / 1000.0
+        return pafs.S3FileSystem(**kwargs)
+    if scheme in ("gs", "gcs"):
+        import os
+
+        from daft_tpu_torch.config import daft_env
+
+        cfg = io_config.gcs
+        if cfg.use_native_client and daft_env("DAFT_NATIVE_GCS") != "0":
+            from daft_tpu_torch.io.gcs_client import GCSClient, GcsFileSystemHandler
+
+            return pafs.PyFileSystem(GcsFileSystemHandler(GCSClient(cfg)))
+        kwargs = {}
+        if cfg.anonymous:
+            kwargs["anonymous"] = True
+        if cfg.project_id:
+            kwargs["project_id"] = cfg.project_id
+        if cfg.credentials_path:
+            # Arrow's GCS filesystem reads ADC from the environment: this
+            # writes the child SDK's convention, as the JAX package does.
+            os.environ.setdefault("GOOGLE_APPLICATION_CREDENTIALS", cfg.credentials_path)
+        return pafs.GcsFileSystem(**kwargs)
+    if scheme in ("az", "abfs", "abfss"):
+        cfg = io_config.azure
+        if not hasattr(pafs, "AzureFileSystem"):
+            from daft_tpu_torch.errors import DaftIOError
+
+            raise DaftIOError("This pyarrow build has no AzureFileSystem")
+        kwargs = {}
+        if cfg.storage_account:
+            kwargs["account_name"] = cfg.storage_account
+        if cfg.access_key:
+            kwargs["account_key"] = cfg.access_key
+        return pafs.AzureFileSystem(**kwargs)
+    return None
+
+
+# --------------------------------------------------------------------- #
+# Process-wide storage options (reference: DataFrame.set_storage_option) #
+# --------------------------------------------------------------------- #
+_STORAGE_OPTIONS: dict = {}
+
+
+def set_storage_option(key: str, value: str) -> None:
+    _STORAGE_OPTIONS[str(key)] = str(value)
+
+
+def get_storage_options() -> dict:
+    return dict(_STORAGE_OPTIONS)

@@ -2,32 +2,20 @@
 ``daft_tpu/io/file.py``).
 
 Reference: src/daft-file (~1.7k LoC) — a ``File`` value is either inline bytes
-or a URL/path opened lazily inside UDFs. The port opens local paths and
-``file://`` URLs with ``open()``; any other scheme raises
-``DaftNotImplementedError``, since the JAX package resolves them through
-``io/scan.py::resolve_filesystem`` (object stores, HTTP), which is ROADMAP A.8.
+or a URL/path opened lazily inside UDFs through
+``io/scan.py::resolve_filesystem`` (local paths, ``file://``, object stores,
+HTTP(S) and ``hf://``).
 """
 
 from __future__ import annotations
 
 import io
-import os
 from typing import Optional
 
 import pyarrow as pa
 
 from daft_tpu_torch.datatype import DataType
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
-
-
-def _local_path(url: str) -> str:
-    if url.startswith("file://"):
-        return url[len("file://"):]
-    if "://" in url:
-        raise DaftNotImplementedError(
-            f"File {url!r}: only local paths and file:// URLs are ported; remote "
-            "schemes come with the IO layer (ROADMAP A.8)")
-    return url
+from daft_tpu_torch.errors import DaftValueError
 
 
 class File:
@@ -56,7 +44,10 @@ class File:
     def open(self) -> io.BufferedIOBase:
         if self._data is not None:
             return io.BytesIO(self._data)
-        return open(_local_path(self._url), "rb")
+        from daft_tpu_torch.io.scan import resolve_filesystem
+
+        fs, p = resolve_filesystem(self._url)
+        return fs.open_input_stream(p)
 
     def read(self) -> bytes:
         if self._data is not None:
@@ -67,7 +58,10 @@ class File:
     def size(self) -> int:
         if self._data is not None:
             return len(self._data)
-        return os.path.getsize(_local_path(self._url))
+        from daft_tpu_torch.io.scan import resolve_filesystem
+
+        fs, p = resolve_filesystem(self._url)
+        return fs.get_file_info(p).size
 
     def to_row(self) -> dict:
         return {"discriminant": 0 if self._data is not None else 1,

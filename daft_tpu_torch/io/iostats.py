@@ -4,10 +4,10 @@
 Reference: src/daft-io/src/{stats.rs,range.rs,multipart.rs,retry.rs} — the
 reference's object-store layer counts gets/puts/bytes, serves range reads,
 and uploads large objects in retried parts. Arrow C++ filesystems carry the
-transport here (local files in the port); this layer adds the same
-accounting and chunk/retry semantics on top. Not ported yet: the
-fault-injection hook in ``read_range`` (``maybe_inject``, the distributed
-layer's, ROADMAP A.8).
+transport here, over local files and the native S3 / GCS / HTTP clients
+(``io/scan.py::resolve_filesystem``); this layer adds the same accounting and
+chunk/retry semantics on top. Not ported yet: the fault-injection hook in
+``read_range`` (``maybe_inject``, the distributed layer's, ROADMAP A.8.5).
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ daft/io/_files.py (from_files).
 The MCAP reader is a from-scratch parser of the MCAP container format
 (magic / opcode+length records / chunked+compressed record streams, zstd and
 lz4 through ``pa.Codec``), as in the JAX package. Each source goes over
-``io/source.py`` and ``io/scan.py``: local paths and ``file://`` only, other
-schemes raise naming ROADMAP A.8. Kafka and Paimon need live services / the
+``io/source.py`` and ``io/scan.py``, whose ``resolve_filesystem`` resolves
+every scheme of the JAX package. Kafka and Paimon need live services / the
 pypaimon library and raise ``DaftIOError`` as the JAX package does.
 """
 

@@ -1,9 +1,10 @@
 """Read entrypoints (port of ``daft_tpu/io/reads.py``; reference:
 daft/io/__init__.py:72-86 read_* functions).
 
-Local paths and ``file://`` URLs only. Not ported yet: the table formats
-(``read_iceberg``, ``read_deltalake``, ``read_hudi``), ``read_sql``,
-``read_huggingface`` and ``read_lance`` (ROADMAP A.8).
+Every path resolves through ``io/scan.py::resolve_filesystem`` (local,
+``file://``, ``s3://``, ``gs://``, ``http(s)://``, ``hf://``, ``az://``).
+Not ported yet: the table formats (``read_iceberg``, ``read_deltalake``,
+``read_hudi``), ``read_sql`` and ``read_lance`` (ROADMAP A.8.3).
 """
 
 from __future__ import annotations
@@ -96,3 +97,12 @@ def read_warc(path, io_config=None, **kwargs):
         Field("warc_content", DataType.binary()),
     ])
     return _read(path, "warc", schema, io_config=kwargs.get("io_config") or io_config)
+
+
+def read_huggingface(repo: str, io_config=None, **kwargs):
+    """HuggingFace datasets (reference: daft.read_huggingface /
+    daft/io/huggingface/__init__.py): repo-level paths list parquet files
+    through the dataset-viewer API; file-level hf:// paths resolve to ranged
+    HTTP reads (``io/http_source.py``)."""
+    path = repo if repo.startswith("hf://") else f"hf://datasets/{repo}"
+    return read_parquet(path, io_config=io_config, **kwargs)

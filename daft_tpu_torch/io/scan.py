@@ -6,9 +6,11 @@ schema + pushdowns; scan-task split/merge iterators size tasks between
 min/max byte targets (scan_task_iters/); ``Pushdowns`` carries
 projection/filter/limit/shard pruning into readers.
 
-The port lists and reads local paths and ``file://`` URLs through
-``pyarrow.fs.LocalFileSystem``; every other scheme raises, as the object-store
-and HTTP clients are ROADMAP A.8. ``ScanInfo.estimate_rows_bytes`` feeds the
+Filesystem access goes through pyarrow.fs: local paths, ``file://``, the
+native S3 / GCS / HTTP(S) / hf:// clients (``s3_client.py``,
+``gcs_client.py``, ``http_source.py``) and Arrow's S3 / GCS / Azure
+filesystems, resolved by :func:`resolve_filesystem` as in the JAX package.
+``ScanInfo.estimate_rows_bytes`` feeds the
 cardinality estimates that ``ReorderJoins`` reads; ``EnrichWithStats`` sets
 each parquet file's ``num_rows`` and the scan's per-column footer stats.
 """
@@ -69,30 +71,64 @@ class ScanTask:
 
 
 def resolve_filesystem(path: str, io_config=None) -> Tuple[pafs.FileSystem, str]:
-    """Resolve a path to (filesystem, fs-local path): local paths and
-    ``file://`` URLs; any other scheme raises ``DaftValueError`` (ROADMAP
-    A.8)."""
+    """Resolve a URI to (filesystem, fs-local path) via Arrow C++ filesystems,
+    honouring IOConfig credentials (reference: common/io-config). http(s) and
+    hf:// resolve to the native ranged-read HTTP source
+    (``io/http_source.py``)."""
     if "://" in path:
-        scheme, rest = path.split("://", 1)
-        if scheme != "file":
-            from daft_tpu_torch.io.config import remote_scheme_error
+        scheme = path.split("://", 1)[0]
+        if io_config is None:
+            from daft_tpu_torch.context import get_context
 
-            raise remote_scheme_error(path)
-        path = rest
+            io_config = get_context().planning_config.default_io_config
+        if io_config is None and scheme in ("gs", "gcs"):
+            # gs:// rides the native client by DEFAULT, io_config or not
+            # (an empty GCSConfig resolves auth through the ADC chain);
+            # DAFT_NATIVE_GCS=0 opts back out to Arrow's URI resolution.
+            from daft_tpu_torch.io.config import IOConfig
+
+            io_config = IOConfig()
+        if scheme in ("http", "https", "hf"):
+            from daft_tpu_torch.io.http_source import (
+                HttpFileSystemHandler,
+                resolve_hf_url,
+            )
+            from daft_tpu_torch.io.retry import policy_from_config
+
+            if scheme == "hf":
+                url = resolve_hf_url(path)
+                scheme = url.split("://", 1)[0]
+            else:
+                url = path
+            headers = {}
+            if io_config is not None and scheme != "http":
+                tok = getattr(getattr(io_config, "hf", None), "token", None)
+                if tok and "huggingface.co" in url:
+                    headers["Authorization"] = f"Bearer {tok}"
+            handler = HttpFileSystemHandler(
+                scheme, policy_from_config(io_config, "http"), headers)
+            return pafs.PyFileSystem(handler), url.split("://", 1)[1]
+        if io_config is not None:
+            from daft_tpu_torch.io.config import filesystem_for
+
+            fs = filesystem_for(scheme, io_config)
+            if fs is not None:
+                return fs, path.split("://", 1)[1]
+        fs, p = pafs.FileSystem.from_uri(path)
+        return fs, p
     return pafs.LocalFileSystem(), os.path.abspath(os.path.expanduser(path))
 
 
 def glob_paths(paths: Sequence[str], io_config=None) -> List[FileInfo]:
     """Expand glob patterns / directories into concrete files with sizes.
-    A directory lists recursively, sorted by path, skipping files whose name
-    starts with ``.`` or ``_``; a glob sorts its matches. Multiple patterns
-    fan out over a thread pool (reference:
+    Multiple patterns fan out over a thread pool (reference:
     src/daft-io/src/object_store_glob.rs's concurrent fanout)."""
     if len(paths) > 1:
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=min(len(paths), 16)) as pool:
-            chunks = list(pool.map(lambda one: _glob_one(one, io_config), paths))
+            chunks = list(pool.map(
+                lambda one: _glob_one(one, io_config), paths))
         out = [f for chunk in chunks for f in chunk]
         # Emptiness is judged on the AGGREGATE: one pattern matching nothing
         # is fine as long as some path matched.
@@ -101,22 +137,66 @@ def glob_paths(paths: Sequence[str], io_config=None) -> List[FileInfo]:
         return out
     out: List[FileInfo] = []
     for path in paths:
+        if path.startswith("hf://"):
+            from daft_tpu_torch.io.http_source import expand_hf_dataset
+
+            expanded = expand_hf_dataset(path, io_config)
+            if expanded is not None:  # repo-level listing -> concrete URLs
+                out.extend(glob_paths(expanded, io_config))
+                continue
         fs, p = resolve_filesystem(path, io_config)
-        if any(ch in p for ch in "*?["):
-            for m in sorted(_glob.glob(p, recursive=True)):
-                if os.path.isfile(m):
-                    out.append(FileInfo(m, os.path.getsize(m)))
-        elif os.path.isdir(p):
-            sel = pafs.FileSelector(p, recursive=True)
-            for info in fs.get_file_info(sel):
-                if info.type == pafs.FileType.File \
-                        and not os.path.basename(info.path).startswith((".", "_")):
-                    out.append(FileInfo(info.path, info.size))
-            out.sort(key=lambda f: f.path)
-        elif os.path.isfile(p):
-            out.append(FileInfo(p, os.path.getsize(p)))
+        if isinstance(fs, pafs.LocalFileSystem):
+            if any(ch in p for ch in "*?["):
+                matches = sorted(_glob.glob(p, recursive=True))
+                for m in matches:
+                    if os.path.isfile(m):
+                        out.append(FileInfo(m, os.path.getsize(m)))
+            elif os.path.isdir(p):
+                sel = pafs.FileSelector(p, recursive=True)
+                for info in fs.get_file_info(sel):
+                    if info.type == pafs.FileType.File and not os.path.basename(info.path).startswith((".", "_")):
+                        out.append(FileInfo(info.path, info.size))
+                out.sort(key=lambda f: f.path)
+            elif os.path.isfile(p):
+                out.append(FileInfo(p, os.path.getsize(p)))
+            else:
+                raise DaftIOError(f"Path not found: {path}")
         else:
-            raise DaftIOError(f"Path not found: {path}")
+            # Remote. FileInfo paths must stay full URIs (readers re-resolve
+            # them); reattach the RESOLVED scheme — e.g. hf:// paths resolve
+            # to https URLs, so the stored path is the https one.
+            scheme = path.split("://", 1)[0]
+            is_http = isinstance(fs, pafs.PyFileSystem)
+            if is_http:
+                scheme = getattr(fs.handler, "scheme", scheme)
+            full = lambda q: f"{scheme}://{q}"  # noqa: E731
+            # Support trailing glob on the basename and directories. HTTP
+            # sources are never glob-expanded: '?' there starts a query
+            # string (presigned URLs), not a wildcard, and listing is
+            # impossible anyway.
+            if not is_http and any(ch in p for ch in "*?["):
+                base = p.split("*")[0].rsplit("/", 1)[0]
+                sel = pafs.FileSelector(base, recursive=True)
+                import fnmatch
+
+                for info in fs.get_file_info(sel):
+                    if info.type == pafs.FileType.File and fnmatch.fnmatch(info.path, p):
+                        out.append(FileInfo(full(info.path), info.size))
+                out.sort(key=lambda f: f.path)
+            else:
+                info = fs.get_file_info(p)
+                if isinstance(info, list):
+                    info = info[0]
+                if info.type == pafs.FileType.Directory:
+                    sel = pafs.FileSelector(p, recursive=True)
+                    for i in fs.get_file_info(sel):
+                        if i.type == pafs.FileType.File:
+                            out.append(FileInfo(full(i.path), i.size))
+                    out.sort(key=lambda f: f.path)
+                elif info.type == pafs.FileType.File:
+                    out.append(FileInfo(full(p), info.size))
+                else:
+                    raise DaftIOError(f"Path not found: {path}")
     if not out:
         raise DaftIOError(f"No files found at {list(paths)!r}")
     return out

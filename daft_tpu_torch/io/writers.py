@@ -7,7 +7,11 @@ physical writer factory (physical.rs), target-file-size batching
 ``write_mode="overwrite"`` replaces what was under the root directory
 (``overwrite_files``), where the JAX package appends (ROADMAP C.32). Every
 writer's ``close`` invalidates the query caches under its root directory
-(``plancache.invalidate_path``), as in the JAX package.
+(``plancache.invalidate_path``), as in the JAX package. A root under an
+object store (``s3://``, ``gs://``, ...) writes through the filesystem that
+``io/scan.py::resolve_filesystem`` gives it under the context's default
+``IOConfig``; the JAX package hands such a root to pyarrow's URI resolution,
+which ignores the ``IOConfig`` (ROADMAP C.51).
 """
 
 from __future__ import annotations
@@ -72,6 +76,8 @@ class FileWriter:
         self._current_path = None
         self._current_bytes = 0
         self._current_rows = 0
+        self._stream = None
+        self._remote = _remote_root(info.root_dir)
 
     def _dir(self) -> str:
         d = os.path.join(self.info.root_dir, self.subdir) if self.subdir else self.info.root_dir
@@ -80,13 +86,22 @@ class FileWriter:
 
     def _open(self):
         ext = {"parquet": "parquet", "csv": "csv", "json": "jsonl", "ipc": "arrow"}[self.info.file_format]
-        path = os.path.join(self._dir(), f"{self.prefix}-{self._idx}.{ext}")
+        name = f"{self.prefix}-{self._idx}.{ext}"
+        if self._remote is not None:
+            fs, base, scheme = self._remote
+            fs_path = "/".join(x for x in (base, self.subdir, name) if x)
+            path = self._stream = fs.open_output_stream(fs_path)
+            self._current_path = f"{scheme}://{fs_path}"
+        else:
+            path = os.path.join(self._dir(), name)
+            self._current_path = path
         self._idx += 1
-        self._current_path = path
         self._current_bytes = 0
         self._current_rows = 0
         arrow_schema = self.schema.to_arrow()
-        if self.info.file_format == "parquet":
+        if self.info.file_format == "json" and self._stream is not None:
+            self._current = _TextStream(self._stream)
+        elif self.info.file_format == "parquet":
             self._current = pq.ParquetWriter(path, arrow_schema,
                                              compression=self.info.compression or "snappy")
         elif self.info.file_format == "csv":
@@ -124,14 +139,25 @@ class FileWriter:
 
     def _close_current(self):
         self._current.close()
-        self.results.append({"path": self._current_path, "num_rows": self._current_rows})
         from daft_tpu_torch.io.iostats import IO_STATS
 
-        try:
-            size = os.path.getsize(self._current_path)
-        except OSError:
-            size = 0
-        IO_STATS.count_put(size)
+        if self._stream is not None:
+            # The object store's client publishes the object when the stream
+            # closes. The port's native clients (``py::daft-s3``,
+            # ``py::daft-gcs``) count their own PUT; Arrow's filesystems
+            # count none, so the writer counts it for them.
+            size = self._stream.tell()
+            self._stream.close()
+            self._stream = None
+            if not self._remote[0].type_name.startswith("py::daft-"):
+                IO_STATS.count_put(size)
+        else:
+            try:
+                size = os.path.getsize(self._current_path)
+            except OSError:
+                size = 0
+            IO_STATS.count_put(size)
+        self.results.append({"path": self._current_path, "num_rows": self._current_rows})
         self._current = None
 
     def close(self) -> List[Dict[str, Any]]:
@@ -191,6 +217,35 @@ class PartitionedWriter:
         return out
 
 
+def _remote_root(root_dir: str):
+    """(filesystem, its path of the root, scheme) for a root under an object
+    store or another non-local filesystem; None for a local path or
+    ``file://``."""
+    if "://" not in root_dir:
+        return None
+    import pyarrow.fs as pafs
+
+    from daft_tpu_torch.io.scan import resolve_filesystem
+
+    fs, base = resolve_filesystem(root_dir)
+    if isinstance(fs, pafs.LocalFileSystem):
+        return None
+    return fs, base.rstrip("/"), root_dir.split("://", 1)[0]
+
+
+class _TextStream:
+    """The JSON writer's text lines onto a binary output stream."""
+
+    def __init__(self, stream):
+        self._stream = stream
+
+    def write(self, text: str) -> None:
+        self._stream.write(text.encode())
+
+    def close(self) -> None:
+        pass
+
+
 def _hive_escape(v) -> str:
     if v is None:
         # Hive's null-partition sentinel (read back as null by io/hive.py).
@@ -206,6 +261,9 @@ def overwrite_files(root_dir: str, written: List[str]) -> None:
     file under ``root_dir`` that it did not produce, as Daft's
     ``overwrite_files`` does. The JAX package stores the mode and appends
     (ROADMAP C.32)."""
+    if _remote_root(root_dir) is not None:
+        raise DaftValueError(f"write_mode='overwrite' under {root_dir!r}: the port replaces "
+                             "files under local roots only")
     keep = {os.path.abspath(p) for p in written}
     for dirpath, _, files in os.walk(root_dir):
         for name in files:

@@ -67,14 +67,10 @@ def register_kernel(name: str, resolver, torch_fn=None, torch_same_rules=False):
     return deco
 
 
-_REMOTE = "ROADMAP A.8 (remote IO)"
-
 #: Every kernel of the JAX package's registry that the port does not hold,
-#: with the ROADMAP item that brings it.
-LEFT_OUT: Dict[str, str] = {
-    "url_download": _REMOTE,
-    "url_upload": _REMOTE,
-}
+#: with the ROADMAP item that brings it: none since ``url_download`` /
+#: ``url_upload`` came with the remote IO clients (ROADMAP A.8.2).
+LEFT_OUT: Dict[str, str] = {}
 
 
 def get_kernel(name: str) -> Kernel:

@@ -259,7 +259,7 @@ def _node_text(node, roots: List[str], note) -> str:
         return (f"{name}({getattr(si, 'file_format', '?')};"
                 f"paths={sorted(paths)!r};"
                 f"opts={_attr_text(opts)};push={node.pushdowns!r};"
-                f"cols={node.schema.column_names()})")
+                f"cols={node.schema.column_names()}{_io_text(si, paths)})")
     parts = [name]
     for k in sorted(vars(node)):
         if k.startswith("_"):
@@ -291,6 +291,22 @@ class QueryKey:
     #: Bytes of in-memory source partitions the plan (and so a plan-cache
     #: entry holding it) references — the plan cache's eviction currency.
     pinned_bytes: int = 0
+
+
+def _io_text(si, paths) -> str:
+    """The digest of the IOConfig that a scan of remote paths resolves them
+    with (its own, else the context's default), or '' for local paths or
+    none set: the same URL through another endpoint or credentials is
+    another source, and the JAX package's key, which drops ``io_config``,
+    serves it the first store's plan and rows (ROADMAP C.54)."""
+    if all("://" not in p or p.startswith("file://") for p in paths):
+        return ""
+    io = getattr(si, "read_options", {}).get("io_config")
+    if io is None:
+        from daft_tpu_torch.context import get_context
+
+        io = get_context().planning_config.default_io_config
+    return "" if io is None else f";io={fingerprint(repr(io))}"
 
 
 def _normalize_path(p: str) -> str:

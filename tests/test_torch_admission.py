@@ -492,6 +492,39 @@ def test_permit_wait_p95_watermark_escalates():
     assert level >= 1 and p95 >= 2.0
 
 
+def test_permit_waits_a_file_leaves_unread_shed_the_next_file_until_reset():
+    """Permit waits that one test file's queries leave unread (its last
+    query's waits, after its last admit) are read by the next file's first
+    admit in the same process as overload: the shed ladder goes to level 3
+    and rejects the default tenant's query, in both packages. Resetting the
+    controllers at a file's end (``torch_isolation.admission_windows_reset``)
+    starts a new window, so the next file's query runs."""
+    from torch_isolation import reset_admission_windows
+
+    def query(p):
+        with p.pkg.execution_config_ctx(result_cache_enabled=False):
+            return p.pkg.from_pydict({"a": [1, 2, 3]}).where(p.pkg.col("a") > 1).to_pydict()
+
+    def leave_waits_unread(p):
+        ctl = p.adm.get_controller()
+        assert query(p) == {"a": [2, 3]}  # the file's last admit reads the window's base
+        for _ in range(16):  # then its last query's permit waits, past 1.5 s
+            p.metrics.PERMIT_WAIT.observe(5.0)
+        time.sleep(ctl._SIGNAL_REFRESH_S)
+
+    for p in BOTH:
+        leave_waits_unread(p)
+        assert _rejection(p, lambda: query(p))[0] == "overload"
+        assert p.adm.get_controller().shed_level() == 3
+    reset_admission_windows()
+    for p in BOTH:
+        leave_waits_unread(p)
+    reset_admission_windows()  # the first file's teardown
+    for p in BOTH:
+        assert query(p) == {"a": [2, 3]}
+        assert p.adm.get_controller().shed_level() == 0
+
+
 # --------------------------------------------------------------------- #
 # Metrics and events                                                     #
 # --------------------------------------------------------------------- #

@@ -43,8 +43,10 @@ from daft_tpu import metrics as jax_metrics
 from daft_tpu.execution.resource_manager import memory_limit as jax_limit
 from daft_tpu_torch import metrics
 from daft_tpu_torch.execution.resource_manager import memory_limit
+from torch_isolation import admission_windows_reset  # noqa: F401
 
-pytestmark = pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning")
+pytestmark = [pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning"),
+              pytest.mark.usefixtures("admission_windows_reset")]
 
 N = 20_000
 #: A sink budget (a quarter of the limit) of 64 KiB against ~1 MB of state.

@@ -47,13 +47,15 @@ from daft_tpu_torch.models import clip as tclip
 from daft_tpu_torch.models import lm as tlm
 from daft_tpu_torch.models import minilm as tminilm
 from daft_tpu_torch.utils.tokenizer import HashingTokenizer
+from torch_isolation import caches_reset  # noqa: F401
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
 PKGS = (daft_tpu, daft_tpu_torch)
 CKPT = {daft_tpu: jckpt, daft_tpu_torch: tckpt}
 
-pytestmark = pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning")
+pytestmark = [pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning"),
+              pytest.mark.usefixtures("caches_reset")]
 
 
 @pytest.fixture(autouse=True)
@@ -159,9 +161,39 @@ def test_a_store_under_file_url_is_the_local_directory(tmp_path):
 
 
 @pytest.mark.parametrize("url", ["s3://bucket/ckpt", "gs://bucket/ckpt"])
-def test_a_remote_store_raises_naming_a8(url):
-    with pytest.raises(DaftValueError, match=r"A\.8"):
-        tckpt.CheckpointStore(url).load_keys()
+def test_a_remote_store_raises_naming_a8(url, tmp_path, monkeypatch):
+    """A store under an object-store URL: remote IO came with ROADMAP A.8.2,
+    so it no longer raises; the keys round-trip through the stub, and the
+    JAX package's store reads what the port's wrote."""
+    from daft_tpu.io import gcs_auth as jgcs_auth
+    from daft_tpu_torch.io import gcs_auth as tgcs_auth
+    from daft_tpu_torch.tools.object_stores import GcsStub, S3Stub
+
+    for mod in (jgcs_auth, tgcs_auth):  # no ADC probe: the token is static
+        monkeypatch.setattr(mod, "_METADATA_PROBE", False)
+        mod._PROVIDER_CACHE.clear()
+    stub = S3Stub(root=str(tmp_path)) if url.startswith("s3") else GcsStub(root=str(tmp_path))
+    (tmp_path / "bucket").mkdir()  # an S3 bucket exists before its keys
+
+    def io_config(pkg):
+        if url.startswith("s3"):
+            return pkg.IOConfig(s3=pkg.S3Config(endpoint_url=stub.url, region_name=stub.region,
+                                                key_id=stub.key_id, access_key=stub.secret,
+                                                use_native_client=True))
+        return pkg.IOConfig(gcs=pkg.GCSConfig(endpoint_url=stub.url, token="t0"))
+
+    try:
+        with daft_tpu_torch.planning_config_ctx(default_io_config=io_config(daft_tpu_torch)):
+            store = tckpt.CheckpointStore(url)
+            assert store.load_keys() == set()
+            store.append_keys([3, 1])
+            store.append_keys([2])
+            port = store.load_keys()
+        with daft_tpu.planning_config_ctx(default_io_config=io_config(daft_tpu)):
+            jax = jckpt.CheckpointStore(url).load_keys()
+    finally:
+        stub.close()
+    assert port == jax == {1, 2, 3} and not stub.bad_auth
 
 
 # --------------------------------------------------------------------- #

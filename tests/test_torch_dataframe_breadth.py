@@ -10,8 +10,8 @@ value that the JAX test asserts; floats of the variance, product and skew
 bit for bit. A UDF is the port's ``Udf`` where the JAX test uses
 ``func.batch`` (the decorators are ROADMAP A.2). Left with the JAX package:
 the exporters (``to_arrow_iter``, ``to_torch_*``), the SQL, Iceberg and
-``skip_existing`` writers and readers, ``metrics`` and
-``set_storage_option`` (A.8).
+``skip_existing`` writers and readers and ``metrics`` (A.8);
+``set_storage_option`` is held in tests/test_torch_remote_io.py.
 """
 
 import math

@@ -198,6 +198,9 @@ def test_package_imports_no_jax_and_nothing_of_daft_tpu():
         "import daft_tpu_torch.execution.admission, daft_tpu_torch.querylog, daft_tpu_torch.slo\n"
         "import daft_tpu_torch.query_service, daft_tpu_torch.distributed.flight\n"
         "import daft_tpu_torch.subscribers.dashboard, daft_tpu_torch.runners.native\n"
+        "import daft_tpu_torch.io.sigv4, daft_tpu_torch.io.s3_client, daft_tpu_torch.io.gcs_auth\n"
+        "import daft_tpu_torch.io.gcs_client, daft_tpu_torch.io.http_source\n"
+        "import daft_tpu_torch.tools.object_stores, daft_tpu_torch.kernels.uri_ops\n"
         "daft_tpu_torch.kernels.registry.get_kernel('cosine_distance')\n"
         "daft_tpu_torch.kernels.registry.get_kernel('image_resize')\n"
         "new = set(sys.modules) - before\n"

@@ -509,8 +509,11 @@ def _call(pkg, name, *args, **kwargs):
 #: below, and the nodes that are no kernel: ``monotonically_increasing_id`` is
 #: a marker the optimizer rewrites (``test_left_out_kernels_raise_through_a_plan_with_their_item``
 #: and tests/test_torch_optimizer.py), ``dd_quantile`` reads the sketches of
-#: ``approx_percentile`` (tests/test_torch_nested.py).
-SPECIAL = {"uuid", "today", "now", "monotonically_increasing_id", "dd_quantile"}
+#: ``approx_percentile`` (tests/test_torch_nested.py); ``url_download`` /
+#: ``url_upload`` read and write files (``test_left_out_kernels_raise_through_a_plan_with_their_item``
+#: and tests/test_torch_remote_io.py).
+SPECIAL = {"uuid", "today", "now", "monotonically_increasing_id", "dd_quantile",
+           "url_download", "url_upload"}
 _PARAMS = [pytest.param(name, build, id=f"{name}-{cid}" if cid else name)
            for name, cases in CASES.items() for cid, build in cases]
 
@@ -672,24 +675,33 @@ _BROUGHT_KWARGS = {"udaf_apply": lambda pkg: {"udaf": _udaf(pkg)}}
 
 @pytest.mark.parametrize("name", ["url_download", "url_upload", "list_sum", "monotonically_increasing_id",
                                   "udaf_apply", "pow_3_2", "audio_metadata"])
-def test_left_out_kernels_raise_through_a_plan_with_their_item(name):
-    """A kernel the port leaves out raises through a plan naming its ROADMAP
-    item; those that ROADMAP A.3.5 and A.2 brought (``list_sum``, ``pow_3_2``,
-    the ``monotonically_increasing_id`` marker, which ``DetectMonotonicId``
-    rewrites, ``udaf_apply`` and ``audio_metadata``) run through the same plan
-    as in the JAX package."""
+def test_left_out_kernels_raise_through_a_plan_with_their_item(name, tmp_path):
+    """A kernel the port left out would raise through a plan naming its
+    ROADMAP item; ``registry.LEFT_OUT`` is empty since ROADMAP A.8.2 brought
+    ``url_download`` and ``url_upload``. Those, and the ones ROADMAP A.3.5 and
+    A.2 brought (``list_sum``, ``pow_3_2``, the
+    ``monotonically_increasing_id`` marker, which ``DetectMonotonicId``
+    rewrites, ``udaf_apply`` and ``audio_metadata``), run through the same
+    plan as in the JAX package: an upload's locations differ by their random
+    names, so its bytes read back are compared."""
     data = _BROUGHT.get(name, {"a": ["x"]})
+    if name == "url_download":
+        (tmp_path / "x.bin").write_bytes(b"payload")
+        data = {"a": [str(tmp_path / "x.bin"), None]}
+    elif name == "url_upload":
+        data = {"a": [b"abc", None]}
 
     def run(pkg):
         kwargs = _BROUGHT_KWARGS.get(name, lambda p: {})(pkg)
-        return pkg.from_pydict(data).select(
+        if name == "url_upload":
+            kwargs = {"location": str(tmp_path / pkg.__name__)}
+        out = pkg.from_pydict(data).select(
             _call(pkg, name, pkg.col("a"), **kwargs).alias("o")).to_pydict()
+        if name == "url_upload":
+            out["o"] = [None if p is None else open(p, "rb").read() for p in out["o"]]
+        return out
 
-    if name not in _BROUGHT:
-        assert name in preg.LEFT_OUT
-        with pytest.raises(DaftNotImplementedError, match=r"ROADMAP A\.8"):
-            run(daft_tpu_torch)
-        return
+    assert not preg.LEFT_OUT
     assert run(daft_tpu) == run(daft_tpu_torch) and name not in preg.LEFT_OUT
 
 

@@ -15,6 +15,7 @@ the port's.
 import datetime
 import inspect
 import math
+import os
 
 import numpy as np
 import pytest
@@ -343,20 +344,36 @@ _PLAN_DATA = {"l": [[1, 2], None, [3]], "s": ["a", "b", None],
     (lambda F, c: F.list_sum(c("l")), None),
     (lambda F, c: (c("st").struct.get("x") if F is JF else F.struct_get(c("st"), "x")), None),
     (lambda F, c: F.map_keys(c("m")), None),
-    (lambda F, c: F.download(c("s")), r"A\.8"),
-    (lambda F, c: F.upload(c("s"), "file:///tmp/never"), r"A\.8"),
+    (lambda F, c: F.download(c("f")), "files"),
+    (lambda F, c: F.upload(c("b"), "up"), "files"),
     (lambda F, c: F.audio_metadata(c("w")), None),
     (lambda F, c: F.monotonically_increasing_id(), None),
 ], ids=["list_sum", "struct_get", "map_keys", "download", "upload", "audio_metadata",
         "monotonically_increasing_id"])
-def test_left_out_functions_raise_when_a_plan_resolves_them(call, item):
+def test_left_out_functions_raise_when_a_plan_resolves_them(call, item, tmp_path, monkeypatch):
+    """Every function here runs through a plan as in the JAX package; none is
+    left out since ROADMAP A.8.2 brought ``download`` / ``upload``. Those
+    read and write files: ``upload``'s names are random, so the bytes read
+    back are compared. The JAX package's ``upload`` passes its location as a
+    column that the kernel ignores and writes under the working directory
+    (ROADMAP C.53), so both run in ``tmp_path``; the port's writes under its
+    location."""
     import pyarrow as pa
 
     maps = pa.array([[("k", 1), ("j", 2)], None, []], pa.map_(pa.string(), pa.int64()))
-    if item is not None:
-        df = daft_tpu_torch.from_pydict({"l": [[1, 2]], "s": ["a"]})
-        with pytest.raises(DaftNotImplementedError, match=item):
-            df.select(call(PF, daft_tpu_torch.col).alias("o")).to_pydict()
+    if item == "files":  # they read and write files: under tmp_path
+        monkeypatch.chdir(tmp_path)
+        (tmp_path / "a.bin").write_bytes(b"payload")
+        data = {"f": ["a.bin", None], "b": [b"xyz", None]}
+        outs = []
+        for pkg, F in PAIRS:
+            got = pkg.from_pydict(data).select(call(F, pkg.col).alias("o")).to_pydict()["o"]
+            if isinstance(got[0], str):  # upload's random names: the bytes read back
+                got = [None if p is None else open(p, "rb").read() for p in got]
+            outs.append(got)
+        assert outs[0] == outs[1] and outs[1] in ([b"payload", None], [b"xyz", None])
+        if outs[1][0] == b"xyz":  # the port's object lies under its location
+            assert len(os.listdir(tmp_path / "up")) == 1
         return
     outs = []
     for pkg, F in PAIRS:

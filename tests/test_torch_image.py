@@ -15,6 +15,7 @@ at rtol 1e-5 / atol 1e-3.
 
 import contextlib
 import io
+import os
 
 import numpy as np
 import pyarrow as pa
@@ -34,7 +35,7 @@ from daft_tpu.io.file import File as JaxFile
 from daft_tpu.io.file import file_series as jax_file_series
 from daft_tpu.kernels.image_ops import _batch_resize_jax
 from daft_tpu.kernels.registry import get_kernel as jax_get_kernel
-from daft_tpu_torch.errors import DaftNotImplementedError, DaftValueError
+from daft_tpu_torch.errors import DaftValueError
 from daft_tpu_torch.expressions.expression import ImageNamespace as TorchImageNamespace
 from daft_tpu_torch.io.file import File, file_series
 from daft_tpu_torch.kernels import image_ops
@@ -455,8 +456,18 @@ def test_file_handles(image_files):
     assert File.from_row(None) is None
     with pytest.raises(DaftValueError):
         File()
-    with pytest.raises(DaftNotImplementedError, match="A.8"):
-        File(url="s3://bucket/key.jpg").read()
+    # An object store's URL, through the context's IOConfig (ROADMAP A.8.2).
+    from daft_tpu_torch.tools.object_stores import S3Stub
+
+    with S3Stub() as stub:
+        stub.mount("bucket", os.path.dirname(paths[0]))
+        cfg = daft_tpu_torch.IOConfig(s3=daft_tpu_torch.S3Config(
+            endpoint_url=stub.url, region_name=stub.region, key_id=stub.key_id,
+            access_key=stub.secret, use_native_client=True))
+        with daft_tpu_torch.planning_config_ctx(default_io_config=cfg):
+            remote = File(url="s3://bucket/" + os.path.basename(paths[0]))
+            assert remote.read() == raw and remote.size() == len(raw)
+        assert not stub.bad_auth
     s = file_series([paths[1], raw, None, File.from_path(paths[2])])
     jax_s = jax_file_series([paths[1], raw, None, JaxFile.from_path(paths[2])])
     assert s.to_arrow().to_pylist() == jax_s.to_arrow().to_pylist()

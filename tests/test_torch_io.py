@@ -217,19 +217,32 @@ def test_listing_skips_hidden_files_and_sorts_by_path(tmp_path):
 
 
 def test_missing_path_and_remote_scheme_raise(tmp_path):
+    """A missing path raises ``Path not found`` in both packages; a scheme no
+    filesystem knows raises pyarrow's error in both (the JAX package's
+    ``pafs.FileSystem.from_uri``); ``filesystem_for`` gives the JAX package's
+    kind of filesystem for each scheme, or None where pyarrow resolves the
+    URI. The object stores and HTTP themselves are held in
+    tests/test_torch_remote_io.py, test_torch_s3.py and test_torch_gcs.py."""
+    import pyarrow as pa
+
     with pytest.raises(DaftIOError, match="Path not found"):
         daft_tpu_torch.read_parquet(str(tmp_path / "nope"))
     with pytest.raises(daft_tpu.errors.DaftIOError, match="Path not found"):
         daft_tpu.read_parquet(str(tmp_path / "nope"))
-    for url in ("s3://bucket/key.parquet", "gs://b/k", "https://example.com/x.parquet"):
-        with pytest.raises(DaftValueError, match="A.8"):
-            daft_tpu_torch.read_parquet(url)
-    from daft_tpu_torch.io.config import IOConfig, filesystem_for
+    for pkg in (daft_tpu, daft_tpu_torch):
+        with pytest.raises(pa.ArrowInvalid, match="Unrecognized filesystem type"):
+            pkg.read_parquet("nofs://bucket/key.parquet")
+    from daft_tpu.io.config import IOConfig as JIOConfig
+    from daft_tpu.io.config import S3Config as JS3Config
+    from daft_tpu.io.config import filesystem_for as jfs_for
+    from daft_tpu_torch.io.config import IOConfig, S3Config, filesystem_for
 
-    assert isinstance(filesystem_for("file", IOConfig()), pafs.LocalFileSystem)
-    for scheme in ("s3", "gs", "az", "http"):
-        with pytest.raises(DaftValueError, match="A.8"):
-            filesystem_for(scheme, IOConfig())
+    for scheme in ("file", "http", "https", "hf"):
+        assert filesystem_for(scheme, IOConfig()) is None is jfs_for(scheme, JIOConfig())
+    native = filesystem_for("s3", IOConfig(s3=S3Config(anonymous=True, use_native_client=True)))
+    jnative = jfs_for("s3", JIOConfig(s3=JS3Config(anonymous=True, use_native_client=True)))
+    assert isinstance(native, pafs.PyFileSystem) and native.type_name == "py::daft-s3"
+    assert jnative.type_name == native.type_name
 
 
 def test_file_url_reads_like_a_local_path(tmp_path):

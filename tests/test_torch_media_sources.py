@@ -18,6 +18,9 @@ import pytest
 
 import daft_tpu
 import daft_tpu_torch
+from torch_isolation import caches_reset  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("caches_reset")
 
 PKGS = (daft_tpu, daft_tpu_torch)
 MAGIC = b"\x89MCAP0\r\n"
@@ -163,8 +166,26 @@ def test_from_files(tmp_path):
     assert dtype == "file" and data == [b"data0", b"data1", b"data2"] and len(urls) == 3
     # empty glob -> empty frame, not an error (reference behavior)
     assert empty == 0
-    with pytest.raises(daft_tpu_torch.errors.DaftValueError, match=r"ROADMAP A\.8"):
-        daft_tpu_torch.from_files("s3://bucket/*.txt")
+    # An object store's prefix, through the context's IOConfig, as in the JAX
+    # package. A glob over the native client's handler matches nothing in
+    # either package (C.50: glob_paths takes every PyFileSystem for HTTP).
+    from daft_tpu_torch.tools.object_stores import S3Stub
+
+    with S3Stub() as stub:
+        stub.mount("bucket", str(tmp_path))
+
+        def remote(pkg):
+            cfg = pkg.IOConfig(s3=pkg.S3Config(endpoint_url=stub.url, region_name=stub.region,
+                                               key_id=stub.key_id, access_key=stub.secret,
+                                               use_native_client=True))
+            with pkg.planning_config_ctx(default_io_config=cfg):
+                out = pkg.from_files("s3://bucket/").to_pydict()["file"]
+                return ([f.url for f in out], [f.read() for f in out], [f.size() for f in out],
+                        pkg.from_files("s3://bucket/*.txt").count_rows())
+
+        urls, data, sizes, globbed = _both(remote)
+        assert urls == [f"s3://bucket/f{i}.txt" for i in range(3)] and not stub.bad_auth
+        assert data == [b"data0", b"data1", b"data2"] and sizes == [5, 5, 5] and globbed == 0
 
 
 def test_gated_sources_raise_clearly():

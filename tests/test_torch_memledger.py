@@ -34,6 +34,9 @@ from daft_tpu_torch.execution.memledger import MemoryLedger, RssSampler, get_led
 from daft_tpu_torch.execution.resource_manager import memory_limit
 from daft_tpu_torch.physical.translate import translate
 from daft_tpu_torch.udf import Udf
+from torch_isolation import admission_windows_reset  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("admission_windows_reset")
 
 
 @pytest.fixture(autouse=True)

@@ -27,6 +27,9 @@ from daft_tpu_torch.execution.executor import Executor
 from daft_tpu_torch.execution.memledger import get_ledger
 from daft_tpu_torch.physical.translate import translate
 from daft_tpu_torch.udf import Udf
+from torch_isolation import admission_windows_reset  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("admission_windows_reset")
 
 PACKAGES = {"jax": (jrm, JCancelToken), "port": (trm, CancelToken)}
 

@@ -24,6 +24,9 @@ import daft_tpu_torch
 from daft_tpu.execution.resource_manager import memory_limit as jax_memory_limit
 from daft_tpu_torch.execution import spill
 from daft_tpu_torch.execution.resource_manager import memory_limit as port_memory_limit
+from torch_isolation import admission_windows_reset  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("admission_windows_reset")
 
 PKGS = (daft_tpu, daft_tpu_torch)
 LIMITS = {daft_tpu: jax_memory_limit, daft_tpu_torch: port_memory_limit}

@@ -38,6 +38,9 @@ from daft_tpu import plancache as jpc
 from daft_tpu_torch import col, metrics, plancache
 from daft_tpu_torch.context import execution_config_ctx, get_context
 from daft_tpu_torch.execution.admission import get_controller, set_tenant
+from torch_isolation import admission_windows_reset  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("admission_windows_reset")
 
 
 @pytest.fixture(autouse=True)

@@ -35,8 +35,10 @@ from daft_tpu_torch.execution.spill import (
 )
 from daft_tpu_torch.micropartition import MicroPartition
 from daft_tpu_torch.ops import device_eval as tde
+from torch_isolation import admission_windows_reset  # noqa: F401
 
-pytestmark = pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning")
+pytestmark = [pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning"),
+              pytest.mark.usefixtures("admission_windows_reset")]
 
 N = 50_000
 LIMIT = 256 * 1024  # sink budget = LIMIT / 4 = 64 KiB, far below the data (~1 MB)

@@ -25,8 +25,10 @@ from daft_tpu.execution.spill import spill_metrics as jspill
 from daft_tpu_torch.execution.memledger import get_ledger
 from daft_tpu_torch.execution.resource_manager import memory_limit
 from daft_tpu_torch.execution.spill import spill_metrics
+from torch_isolation import admission_windows_reset  # noqa: F401
 
-pytestmark = pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning")
+pytestmark = [pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning"),
+              pytest.mark.usefixtures("admission_windows_reset")]
 
 N = 50_000
 LIMIT = 256 * 1024

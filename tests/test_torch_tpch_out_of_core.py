@@ -37,8 +37,10 @@ from daft_tpu_torch.execution.resource_manager import get_memory_manager
 from daft_tpu_torch.tools import out_of_core, tpch_sql
 
 from benchmarks.tpch_dbgen import generate_tpch_dbgen
+from torch_isolation import admission_windows_reset  # noqa: F401
 
-pytestmark = pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning")
+pytestmark = [pytest.mark.filterwarnings("ignore:Specifying null_placement:FutureWarning"),
+              pytest.mark.usefixtures("admission_windows_reset")]
 
 SF = 0.05
 RTOL = 1e-6
